@@ -1,0 +1,55 @@
+"""datafusion_tpu_torch — the PyTorch / CUDA port of datafusion_tpu.
+
+The same SQL engine (SQL parsing and planning, projection, selection,
+CAST, MIN/MAX/SUM/COUNT/AVG with GROUP BY, ORDER BY, LIMIT, CREATE
+EXTERNAL TABLE over CSV) running eagerly in PyTorch on an NVIDIA GPU,
+with hand-written Hopper (sm_90a) CUDA kernels where the JAX package had
+Pallas kernels: the fused scan/filter/project stage and the segmented
+reduce. The JAX package `datafusion_tpu` is the reference this package
+is tested against; this package imports nothing from it, and never
+imports jax.
+
+Entry points run on the card: `ExecutionContext()` means
+`device="cuda"` and raises on a machine without one unless the caller
+passes `device="cpu"`.
+"""
+
+from datafusion_tpu_torch.columnar.csv import CsvDataSource, read_csv
+from datafusion_tpu_torch.columnar.table import Column, Table
+from datafusion_tpu_torch.errors import (
+    ExecutionError,
+    InvalidColumnError,
+    NotImplementedError_,
+    ParserError,
+    PlanError,
+)
+from datafusion_tpu_torch.exec.context import ExecutionContext
+from datafusion_tpu_torch.ops.functions import HostFunction
+from datafusion_tpu_torch.plan.logical import Expr, LogicalPlan
+from datafusion_tpu_torch.plan.planner import FunctionMeta, FunctionType
+from datafusion_tpu_torch.schema import Field, Schema
+from datafusion_tpu_torch.types import DataType, ScalarValue, can_coerce_from, get_supertype
+
+__all__ = [
+    "Column",
+    "CsvDataSource",
+    "DataType",
+    "ExecutionContext",
+    "ExecutionError",
+    "Expr",
+    "Field",
+    "FunctionMeta",
+    "FunctionType",
+    "HostFunction",
+    "InvalidColumnError",
+    "LogicalPlan",
+    "NotImplementedError_",
+    "ParserError",
+    "PlanError",
+    "ScalarValue",
+    "Schema",
+    "Table",
+    "can_coerce_from",
+    "get_supertype",
+    "read_csv",
+]

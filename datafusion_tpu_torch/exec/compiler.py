@@ -1,0 +1,785 @@
+"""Physical compiler: LogicalPlan -> an eager torch pipeline.
+
+Port of datafusion_tpu/exec/compiler.py for the main path: TableScan,
+Selection, Projection (with the fused scan/filter/project stage, kernel
+K1), Aggregate (dense and packed/sorted GROUP BY over kernel K2, and
+ungrouped), Sort, Limit and ORDER BY ... LIMIT as a top-k selection.
+
+Each plan node lowers once, at plan time, to a function over the scanned
+tables' columns; torch runs it eagerly on the tables' device. Selection
+stays a mask, as in the JAX package; compaction happens where a shape
+depends on the data (sort, GROUP BY, top-k, materialization), which in
+eager torch is simply computed — the JAX package's whole-plan `jit` and
+its fixed-capacity overflow retry (CompiledQuery.run) have no
+counterpart. Routing is decided at plan time and recorded in `notes`:
+the `_elementwise_safe` whitelist and K1's opcode set for the fused
+stage, the DENSE_MAX_GROUPS gate for K2's dense mode.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from datafusion_tpu_torch.columnar.table import Table
+from datafusion_tpu_torch.errors import ExecutionError, NotImplementedError_
+from datafusion_tpu_torch.ops import aggregate as agg_ops
+from datafusion_tpu_torch.ops import sort as sort_ops
+from datafusion_tpu_torch.ops.expr_eval import SCALAR_FUNCTIONS, ColVal, broadcast_col, compile_expr
+from datafusion_tpu_torch.ops.pallas import fused_stage as fs
+from datafusion_tpu_torch.plan import logical as L
+from datafusion_tpu_torch.schema import Schema
+from datafusion_tpu_torch.types import DataType
+
+
+@dataclass
+class Batch:
+    """Intermediate: columns + selection mask."""
+
+    cols: list[ColVal]
+    sel: torch.Tensor
+
+    @property
+    def capacity(self) -> int:
+        return int(self.sel.shape[0])
+
+
+@dataclass
+class Lowered:
+    """A lowered plan node: static metadata + stage function.
+    `sources[j]` is (scan_slot, column_index) when output column j is a
+    pass-through of a scanned column (only row masks applied), which the
+    GROUP BY domain probe reads; None for computed columns."""
+
+    schema: Schema
+    dicts: list[Optional[tuple[str, ...]]]
+    fn: Callable[[list], Batch]
+    sources: Optional[list[Optional[tuple[int, int]]]] = None
+
+    def src(self) -> list[Optional[tuple[int, int]]]:
+        return self.sources if self.sources is not None else [None] * len(self.schema)
+
+
+@dataclass
+class HostCall:
+    """A host-stage function call in the output projection: `fn` runs on
+    the materialized result columns (ops/functions.py). Args are nested
+    HostCalls or indices of device columns in the inner projection."""
+
+    fn: Callable
+    args: list  # HostCall | int
+
+
+_WIDENED = (DataType.UInt16, DataType.UInt32, DataType.UInt64)
+
+
+@dataclass
+class CompiledQuery:
+    schema: Schema
+    dicts: list[Optional[tuple[str, ...]]]
+    _fn: Callable[[list], Batch]
+    _scan_tables: list[Table]
+    _host_post: Optional[tuple] = None
+    notes: tuple[str, ...] = ()
+
+    def run(self):
+        """Execute and materialize the selected rows on the host."""
+        from datafusion_tpu_torch.exec.result import ResultTable
+
+        env = [[(c.data, c.validity) for c in t.columns] for t in self._scan_tables]
+        b = self._fn(env)
+        n = b.capacity
+        host_cols = []
+        for (d, v), f in zip(b.cols, self.schema.fields):
+            d, v = broadcast_col((d, v), n)
+            dd = d[b.sel].cpu().numpy()
+            if f.dtype in _WIDENED:
+                dd = dd.astype(f.dtype.to_np())  # back to the logical unsigned dtype
+            vv = None if v is None else v[b.sel].cpu().numpy()
+            host_cols.append((dd, vv))
+        inner = ResultTable(self.schema, host_cols, self.dicts)
+        if self._host_post is None:
+            return inner
+        return apply_host_post(inner, self._host_post)
+
+
+# ---------------------------------------------------------------------------
+# Host-stage projection split (ops/functions.py HostFunction)
+# ---------------------------------------------------------------------------
+
+
+def _expr_children(e: L.Expr) -> tuple:
+    if isinstance(e, (L.Alias, L.Cast, L.IsNull, L.IsNotNull, L.SortExpr)):
+        return (e.expr,)
+    if isinstance(e, L.BinaryExpr):
+        return (e.left, e.right)
+    if isinstance(e, (L.ScalarFunction, L.AggregateFunction)):
+        return tuple(e.args)
+    if isinstance(e, L.Case):
+        kids = [x for b in e.branches for x in b]
+        if e.else_expr is not None:
+            kids.append(e.else_expr)
+        return tuple(kids)
+    return ()
+
+
+def split_host_projection(plan: L.LogicalPlan, fn_registry: dict):
+    """If the top-level projection calls host-stage functions, split it:
+    the returned plan computes their device arguments as ordinary
+    projection columns and the host_post descriptor re-assembles the
+    final columns on the host at materialization (apply_host_post).
+    Returns (plan, None) when nothing to split."""
+    from datafusion_tpu_torch.ops.functions import HostFunction
+
+    def is_host_call(e) -> bool:
+        return isinstance(e, L.ScalarFunction) and isinstance(
+            fn_registry.get(e.name.lower()), HostFunction
+        )
+
+    def is_host_cast(e, schema) -> bool:
+        # CAST(<non-string> AS VARCHAR): the device computes the argument,
+        # the host renders the text (ops/functions.py CastRenderHost)
+        if not (isinstance(e, L.Cast) and e.data_type is DataType.Utf8):
+            return False
+        try:
+            st = e.expr.get_type(schema)
+        except Exception:
+            return False
+        return st not in (DataType.Utf8, DataType.Null)
+
+    def contains_host(e, schema=None) -> bool:
+        if is_host_call(e):
+            return True
+        if schema is not None and is_host_cast(e, schema):
+            return True
+        return any(contains_host(c, schema) for c in _expr_children(e))
+
+    # push the split through Limit/Sort wrappers: the host stage runs
+    # after materialization, which preserves their row set and order
+    if isinstance(plan, L.Limit):
+        inner, post = split_host_projection(plan.input, fn_registry)
+        if post is None:
+            return plan, None
+        return L.Limit(plan.limit, inner, inner.schema, plan.offset), post
+    if isinstance(plan, L.Sort):
+        inner, post = split_host_projection(plan.input, fn_registry)
+        if post is None:
+            return plan, None
+        _, outmap = post
+
+        def remap(e: L.Expr) -> L.Expr:
+            if isinstance(e, L.Column):
+                entry = outmap[e.index]
+                if entry[0] != "dev":
+                    raise NotImplementedError_("cannot ORDER BY a host function result")
+                return L.Column(entry[1])
+            if isinstance(e, L.SortExpr):
+                return L.SortExpr(remap(e.expr), e.asc, e.nulls_first)
+            if isinstance(e, L.Alias):
+                return L.Alias(remap(e.expr), e.name)
+            if isinstance(e, L.Cast):
+                return L.Cast(remap(e.expr), e.data_type)
+            if isinstance(e, L.IsNull):
+                return L.IsNull(remap(e.expr))
+            if isinstance(e, L.IsNotNull):
+                return L.IsNotNull(remap(e.expr))
+            if isinstance(e, L.BinaryExpr):
+                return L.BinaryExpr(remap(e.left), e.op, remap(e.right))
+            if isinstance(e, L.ScalarFunction):
+                return L.ScalarFunction(e.name, tuple(remap(a) for a in e.args), e.return_type)
+            if isinstance(e, L.Case):
+                return L.Case(
+                    tuple((remap(c), remap(r)) for c, r in e.branches),
+                    None if e.else_expr is None else remap(e.else_expr),
+                )
+            return e
+
+        keys = tuple(remap(se) for se in plan.exprs)
+        return L.Sort(keys, inner, inner.schema), post
+
+    if not isinstance(plan, L.Projection):
+        return plan, None
+    from datafusion_tpu_torch.plan.optimizer import out_schema
+
+    ischema = out_schema(plan.input)
+    if not any(contains_host(e, ischema) for e in plan.exprs):
+        return plan, None
+
+    device_exprs: list[L.Expr] = []
+
+    def decompose(e) -> HostCall:
+        if isinstance(e, L.Cast):
+            from datafusion_tpu_torch.ops.functions import CastRenderHost
+
+            a_ = e.expr.expr if isinstance(e.expr, L.Alias) else e.expr
+            if contains_host(a_, ischema):
+                raise NotImplementedError_("CAST AS VARCHAR of a host function result is not supported")
+            idx = len(device_exprs)
+            device_exprs.append(a_)
+            return HostCall(CastRenderHost(a_.get_type(ischema)), [idx])
+        fn = fn_registry[e.name.lower()]
+        args = []
+        for a in e.args:
+            a_ = a.expr if isinstance(a, L.Alias) else a
+            if contains_host(a_, ischema):
+                if not is_host_call(a_):
+                    raise NotImplementedError_(
+                        "a host function result can only feed another host "
+                        "function, not a device expression"
+                    )
+                args.append(decompose(a_))
+            else:
+                args.append(len(device_exprs))
+                device_exprs.append(a_)
+        return HostCall(fn, args)
+
+    outmap: list[tuple] = []
+    for e in plan.exprs:
+        if contains_host(e, ischema):
+            stripped = e.expr if isinstance(e, L.Alias) else e
+            if not (is_host_call(stripped) or is_host_cast(stripped, ischema)):
+                raise NotImplementedError_("host functions must be the outermost call of a SELECT item")
+            outmap.append(("host", decompose(stripped)))
+        else:
+            outmap.append(("dev", len(device_exprs)))
+            device_exprs.append(e)
+    # typed against the pushed-down input schema (plan.input.schema can be
+    # the pre-push-down one)
+    inner_schema = Schema(L.exprlist_to_fields(device_exprs, ischema))
+    inner = L.Projection(tuple(device_exprs), plan.input, inner_schema)
+    return inner, (plan.schema, outmap)
+
+
+def apply_host_post(inner, host_post):
+    """Evaluate the host-stage calls over the materialized inner result
+    and assemble the final ResultTable."""
+    from datafusion_tpu_torch.exec.result import ResultTable
+
+    final_schema, outmap = host_post
+
+    def decoded(j):
+        data, valid = inner.cols[j]
+        dt = inner.schema.field(j).dtype
+        if dt is DataType.Utf8 and inner.dicts[j] is not None:
+            vocab = np.asarray(inner.dicts[j], dtype=object)
+            data = vocab[np.clip(data, 0, max(len(vocab) - 1, 0))]
+        return data, valid
+
+    def eval_call(call):
+        arrs, valid = [], None
+        for a in call.args:
+            d, v = eval_call(a) if isinstance(a, HostCall) else decoded(a)
+            arrs.append(d)
+            if v is not None:
+                valid = v if valid is None else np.logical_and(valid, v)
+        return call.fn(*arrs), valid
+
+    cols, dicts = [], []
+    for entry, fld in zip(outmap, final_schema.fields):
+        if entry[0] == "dev":
+            j = entry[1]
+            cols.append(inner.cols[j])
+            dicts.append(inner.dicts[j])
+        else:
+            data, valid = eval_call(entry[1])
+            if fld.dtype.is_numeric or fld.dtype is DataType.Boolean:
+                data = np.asarray(data, dtype=fld.dtype.to_np())
+            cols.append((data, valid))
+            dicts.append(None)  # host Utf8 stays a raw object column
+    return ResultTable(final_schema, cols, dicts)
+
+
+# ---------------------------------------------------------------------------
+# top-k ranks
+# ---------------------------------------------------------------------------
+
+
+def topk_rank(kd: torch.Tensor, kv, sel: torch.Tensor, asc: bool) -> torch.Tensor:
+    """int64 rank where the top-k LARGEST ranks are the LIMIT result.
+    Tiers (ties break by lowest index = original row order): real keys
+    >= min+2 > NULL keys (min+1) > unselected rows (min). The low clamp
+    can merge the two most-extreme key values — only observable when both
+    land in the result's very tail (as in the JAX package)."""
+    from datafusion_tpu_torch.ops.pallas.segreduce import to_sortable_int
+
+    key = kd.to(torch.int8) if kd.dtype == torch.bool else kd
+    rank = to_sortable_int(key).to(torch.int64)
+    lo = torch.iinfo(torch.int64).min
+    # top-k returns the LARGEST first; ascending wants the smallest first —
+    # bitwise-not reverses signed-int order exactly
+    rank = torch.bitwise_not(rank) if asc else rank
+    rank = rank.clamp(min=lo + 2)
+    if kv is not None:
+        rank = torch.where(kv, rank, lo + 1)  # NULLs last
+    return torch.where(sel, rank, lo)
+
+
+class PlanCompiler:
+    def __init__(self, tables: dict[str, Table], fn_registry=None, device=None):
+        self.tables = tables
+        self.fn_registry = fn_registry or {}
+        self.device = torch.device(device or "cpu")
+        self.scan_tables: list[Table] = []
+        self.notes: list[str] = []  # physical choices, for EXPLAIN VERBOSE
+        # decline diagnostics survive speculative rollbacks
+        self.sticky_notes: list[str] = []
+
+    def note_decline(self, msg: str) -> None:
+        if msg not in self.sticky_notes:
+            self.sticky_notes.append(msg)
+
+    def compile(self, e: L.Expr, child: Lowered):
+        return compile_expr(e, child.schema, child.dicts, self.fn_registry, self.device)
+
+    def _speculative(self, attempt):
+        """Run a lowering attempt that may return None; on None, roll back
+        its notes and scan slots so the fallback starts clean."""
+        marks = (len(self.notes), len(self.scan_tables))
+        res = attempt()
+        if res is None:
+            del self.notes[marks[0]:]
+            del self.scan_tables[marks[1]:]
+        return res
+
+    # ------------------------------------------------------------------
+    def lower(self, plan: L.LogicalPlan) -> Lowered:
+        if isinstance(plan, L.TableScan):
+            return self._lower_scan(plan)
+        if isinstance(plan, L.Selection):
+            return self._lower_selection(plan)
+        if isinstance(plan, L.Projection):
+            return self._lower_projection(plan)
+        if isinstance(plan, L.Aggregate):
+            return self._aggregate_over(plan, self.lower(plan.input))
+        if isinstance(plan, L.Sort):
+            return self._lower_sort(plan)
+        if isinstance(plan, L.Limit):
+            return self._lower_limit(plan)
+        if isinstance(plan, L.EmptyRelation):
+            return self._lower_empty(plan)
+        raise NotImplementedError_(
+            f"plan node {type(plan).__name__} is not part of the torch port yet"
+        )
+
+    def _lower_empty(self, plan: L.EmptyRelation) -> Lowered:
+        # one synthetic row so literal-only projections emit one row
+        dev = self.device
+        return Lowered(plan.schema, [], lambda env: Batch([], torch.ones(1, dtype=torch.bool, device=dev)))
+
+    def _lower_scan(self, plan: L.TableScan) -> Lowered:
+        table = self.tables.get(plan.table_name)
+        if table is None:
+            raise ExecutionError(f"no table registered as '{plan.table_name}'")
+        slot = len(self.scan_tables)
+        self.scan_tables.append(table)
+        indices = list(range(len(table.schema))) if plan.projection is None else list(plan.projection)
+        n, dev = table.num_rows, self.device
+
+        def fn(env) -> Batch:
+            return Batch([env[slot][i] for i in indices], torch.ones(n, dtype=torch.bool, device=dev))
+
+        return Lowered(
+            table.schema.project(indices),
+            [table.columns[i].dictionary for i in indices],
+            fn,
+            sources=[(slot, i) for i in indices],
+        )
+
+    def _lower_selection(self, plan: L.Selection) -> Lowered:
+        child = self.lower(plan.input)
+        pred = self.compile(plan.expr, child)
+        if pred.dtype is not DataType.Boolean:
+            raise ExecutionError("selection predicate must be boolean")
+
+        def fn(env) -> Batch:
+            b = child.fn(env)
+            pd, pv = broadcast_col(pred.fn(b.cols), b.capacity)
+            keep = pd if pv is None else torch.logical_and(pd, pv)  # NULL -> drop
+            return Batch(b.cols, torch.logical_and(b.sel, keep))
+
+        return Lowered(child.schema, child.dicts, fn, child.sources)
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _elementwise_safe(e: L.Expr) -> bool:
+        """Is this expression a pure per-row map? Dictionary transforms
+        (LIKE LUTs, string functions) and UDFs are excluded; K1's opcode
+        set (fused_stage.compile_program) is checked after this."""
+        if isinstance(e, L.Alias):
+            return PlanCompiler._elementwise_safe(e.expr)
+        if isinstance(e, L.Column):
+            return True
+        if isinstance(e, L.Literal):
+            return e.value.dtype is not DataType.Utf8
+        if isinstance(e, L.BinaryExpr):
+            if e.op in (L.Operator.Like, L.Operator.NotLike):
+                return False  # a dictionary LUT gather
+            cmp_ops = (
+                L.Operator.Eq, L.Operator.NotEq, L.Operator.Lt,
+                L.Operator.LtEq, L.Operator.Gt, L.Operator.GtEq,
+            )
+
+            def side_ok(x: L.Expr) -> bool:
+                # a Utf8 literal inside a comparison is a code compare
+                if isinstance(x, L.Literal) and x.value.dtype is DataType.Utf8:
+                    return e.op in cmp_ops
+                return PlanCompiler._elementwise_safe(x)
+
+            return side_ok(e.left) and side_ok(e.right)
+        if isinstance(e, (L.Cast, L.IsNull, L.IsNotNull)):
+            return PlanCompiler._elementwise_safe(e.expr)
+        if isinstance(e, L.Case):
+            ok = all(
+                PlanCompiler._elementwise_safe(c) and PlanCompiler._elementwise_safe(r)
+                for c, r in e.branches
+            )
+            if e.else_expr is not None:
+                ok = ok and PlanCompiler._elementwise_safe(e.else_expr)
+            return ok
+        if isinstance(e, L.ScalarFunction):
+            if e.name.lower() not in SCALAR_FUNCTIONS:
+                return False  # date functions are not in K1's opcode set yet
+            return all(PlanCompiler._elementwise_safe(a) for a in e.args)
+        return False
+
+    def _try_fused_stage(self, plan: L.Projection) -> Optional[Lowered]:
+        """Projection[+Selection] directly over a TableScan with only
+        elementwise expressions -> ONE kernel pass over the referenced
+        input columns (K1, ops/pallas/fused_stage.py). None when the
+        pattern, the whitelist or K1's opcode set does not hold."""
+        inner = plan.input
+        pred_expr: Optional[L.Expr] = None
+        if isinstance(inner, L.Selection) and isinstance(inner.input, L.TableScan):
+            scan, pred_expr = inner.input, inner.expr
+        elif isinstance(inner, L.TableScan):
+            scan = inner
+        else:
+            return None
+        exprs = list(plan.exprs)
+        computed = [(j, e) for j, e in enumerate(exprs) if not isinstance(e, L.Column)]
+        if pred_expr is None and not computed:
+            return None  # pure pass-through: nothing to fuse
+        checks = [e for _, e in computed] + ([pred_expr] if pred_expr is not None else [])
+        if not all(self._elementwise_safe(e) for e in checks):
+            return None
+        table = self.tables.get(scan.table_name)
+        if table is None:
+            return None
+        child = self._lower_scan(scan)
+        schema, dicts = child.schema, child.dicts
+        if any(e.get_type(schema) is DataType.Utf8 for _, e in computed):
+            return None  # computed Utf8 outputs would need dictionary plumbing
+        scanned = [table.columns[i] for i in (
+            range(len(table.schema)) if scan.projection is None else scan.projection
+        )]
+        try:
+            program = fs.compile_program(
+                schema, dicts, [c.validity is not None for c in scanned],
+                pred_expr, [e for _, e in computed], self.fn_registry,
+            )
+        except fs.Unsupported as why:
+            self.note_decline(f"scan+filter+project: fused stage declined ({why})")
+            return None
+        n, dev = table.num_rows, self.device
+        self.notes.append(
+            f"scan+filter+project: fused CUDA stage ({len(computed)} computed expr(s)"
+            + (", predicate" if pred_expr is not None else "")
+            + f", {len(program.inputs)} input col(s) read once, "
+            f"{len(program.code)} instructions)"
+        )
+
+        def fn(env) -> Batch:
+            b = child.fn(env)
+            ins = [b.cols[i] for i in program.inputs]
+            sel, outs = fs.run_fused(program, [d for d, _ in ins], [v for _, v in ins], n, dev)
+            it = iter(outs)
+            cols = [b.cols[e.index] if isinstance(e, L.Column) else next(it) for e in exprs]
+            return Batch(cols, b.sel if sel is None else sel)
+
+        child_src = child.src()
+        sources = [child_src[e.index] if isinstance(e, L.Column) else None for e in exprs]
+        out_dicts = [dicts[e.index] if isinstance(e, L.Column) else None for e in exprs]
+        return Lowered(plan.schema, out_dicts, fn, sources)
+
+    def _lower_projection(self, plan: L.Projection) -> Lowered:
+        fused = self._speculative(lambda: self._try_fused_stage(plan))
+        if fused is not None:
+            return fused
+        child = self.lower(plan.input)
+        compiled = [self.compile(e, child) for e in plan.exprs]
+
+        def fn(env) -> Batch:
+            b = child.fn(env)
+            return Batch([c.fn(b.cols) for c in compiled], b.sel)
+
+        child_src = child.src()
+        sources = [child_src[e.index] if isinstance(e, L.Column) else None for e in plan.exprs]
+        return Lowered(plan.schema, [c.dictionary for c in compiled], fn, sources)
+
+    # ------------------------------------------------------------------
+    def _aggregate_over(self, plan: L.Aggregate, child: Lowered) -> Lowered:
+        group_c = [self.compile(e, child) for e in plan.group_exprs]
+        agg_meta = []
+        for e in plan.aggr_exprs:
+            if not isinstance(e, L.AggregateFunction):
+                raise ExecutionError(f"expected aggregate function, got {e!r}")
+            if len(e.args) != 1:
+                raise ExecutionError("aggregate functions take exactly one argument")
+            fname = e.name.lower()
+            if e.distinct or fname not in agg_ops.GROUPED_FUNCS:
+                raise NotImplementedError_(
+                    f"aggregate {e.name}{'(DISTINCT)' if e.distinct else ''} "
+                    "is not part of the torch port yet"
+                )
+            agg_meta.append((fname, self.compile(e.args[0], child), e.return_type))
+        out_dicts = [c.dictionary for c in group_c] + [
+            (arg.dictionary if rt is DataType.Utf8 else None) for (_, arg, rt) in agg_meta
+        ]
+        dev = self.device
+
+        def specs_of(b: Batch):
+            return [
+                agg_ops.AggSpec(name, broadcast_col(arg.fn(b.cols), b.capacity), rt)
+                for (name, arg, rt) in agg_meta
+            ]
+
+        if not group_c:
+            def fn0(env) -> Batch:
+                b = child.fn(env)
+                outs = agg_ops.ungrouped_aggregate(specs_of(b), b.sel)
+                cols = [(d.reshape(1), None if v is None else v.reshape(1)) for d, v in outs]
+                return Batch(cols, torch.ones(1, dtype=torch.bool, device=dev))
+
+            return Lowered(plan.schema, out_dicts, fn0)
+
+        probe = self._probe_key_domains(group_c, plan.group_exprs, child)
+        doms, offs, notes = probe if probe is not None else ([], [], [])
+        prod = 0
+        if doms:
+            prod = 1
+            for d in doms:
+                prod *= d + 1  # +1 radix per key covers a NULL slot
+        if 1 <= prod <= agg_ops.DENSE_MAX_GROUPS:
+            self.notes.append(f"aggregate: dense sort-free group-by ({' x '.join(notes)})")
+
+            def fn_dense(env) -> Batch:
+                b = child.fn(env)
+                keys = [broadcast_col(c.fn(b.cols), b.capacity) for c in group_c]
+                okeys, oaggs, ng = agg_ops.grouped_aggregate_dense(keys, specs_of(b), b.sel, doms, offs)
+                return Batch(list(okeys) + list(oaggs), torch.ones(ng, dtype=torch.bool, device=dev))
+
+            return Lowered(plan.schema, out_dicts, fn_dense)
+
+        packed = 1 <= prod <= agg_ops.PACKED_MAX_GROUPS
+        if packed:
+            self.notes.append(f"aggregate: packed-gid co-sort ({' x '.join(notes)}) + segmented reduce")
+        else:
+            if prod > agg_ops.PACKED_MAX_GROUPS:
+                self.note_decline(
+                    f"aggregate: packed-gid declined (domain product {prod} > {agg_ops.PACKED_MAX_GROUPS})"
+                )
+            self.notes.append("aggregate: co-sort + segmented reduce")
+
+        def fn(env) -> Batch:
+            b = child.fn(env)
+            keys = [broadcast_col(c.fn(b.cols), b.capacity) for c in group_c]
+            okeys, oaggs, ng = agg_ops.grouped_aggregate(
+                keys, specs_of(b), b.sel,
+                dense_domain=doms if packed else None, dense_offset=offs if packed else None,
+            )
+            return Batch(list(okeys) + list(oaggs), torch.ones(ng, dtype=torch.bool, device=dev))
+
+        return Lowered(plan.schema, out_dicts, fn)
+
+    def _probe_key_domains(self, group_c, group_exprs, child: Lowered):
+        """Per-key (domains, offsets, notes) for the dense/packed GROUP BY
+        paths: dictionary vocab sizes, or min/max probes of scanned int
+        columns. None when any key fails (the reason is noted)."""
+        doms, offs, notes = [], [], []
+        for gi, gc in enumerate(group_c):
+            if gc.dictionary is not None:
+                if len(gc.dictionary) < 1:
+                    self.note_decline(f"aggregate: dense/packed declined (key #{gi} has an empty dictionary)")
+                    return None
+                doms.append(len(gc.dictionary))
+                offs.append(0)
+                notes.append(f"dict={len(gc.dictionary)}")
+                continue
+            rng = self._int_key_range(group_exprs[gi], child)
+            if rng is None:
+                self.note_decline(
+                    f"aggregate: dense/packed declined (key #{gi} {gc.dtype.value}: "
+                    "no static domain — not a scanned int column)"
+                )
+                return None
+            kmin, kmax = rng
+            doms.append(kmax - kmin + 1)
+            offs.append(kmin)
+            notes.append(f"int[{kmin},{kmax}]")
+        return doms, offs, notes
+
+    def _int_key_range(self, gexpr, child: Lowered):
+        """min/max of a GROUP BY key that is a pure pass-through of a
+        scanned integer column, read at plan time from the table. A
+        filtered-out extreme only widens the range."""
+        e = gexpr.expr if isinstance(gexpr, L.Alias) else gexpr
+        if not isinstance(e, L.Column):
+            return None
+        if not child.schema.fields[e.index].dtype.is_integer:
+            return None
+        src = child.src()[e.index]
+        if src is None:
+            return None
+        tbl = self.scan_tables[src[0]]
+        if tbl.num_rows <= 0:
+            return None
+        data = tbl.columns[src[1]].data
+        return int(data.min()), int(data.max())
+
+    # ------------------------------------------------------------------
+    def _lower_sort(self, plan: L.Sort) -> Lowered:
+        child = self.lower(plan.input)
+        keys = [(self.compile(se.expr, child), se.asc, se.nulls_first is True) for se in plan.exprs]
+        dev = self.device
+
+        def fn(env) -> Batch:
+            b = child.fn(env)
+            key_vals = [(c.fn(b.cols), asc, nf) for c, asc, nf in keys]
+            cols = sort_ops.sort_batch(key_vals, b.cols, b.sel)
+            return Batch(cols, torch.ones(int(b.sel.sum()), dtype=torch.bool, device=dev))
+
+        return Lowered(child.schema, child.dicts, fn)
+
+    def _lower_limit(self, plan: L.Limit) -> Lowered:
+        # ORDER BY ... LIMIT k fuses into a top-k selection: a k-row gather
+        # instead of the full sort; ties break by lowest index, the order
+        # the full sort's stability gives
+        off = plan.offset
+        if (
+            isinstance(plan.input, L.Sort)
+            and all(se.nulls_first is not True for se in plan.input.exprs)
+            and plan.limit is not None
+            and 0 < plan.limit + off <= 4096
+        ):
+            lowered = self._speculative(lambda: self._lower_topk(plan.input, plan.limit + off))
+            if lowered is not None:
+                nk = len(plan.input.exprs)
+                self.notes.append(
+                    f"sort+limit: top-k selection (k={plan.limit + off}, "
+                    f"{nk} key{'s' if nk > 1 else ''}, no full sort)"
+                )
+                return self._skip_rows(lowered, off)
+        child = self.lower(plan.input)
+        k = plan.limit
+
+        def fn(env) -> Batch:
+            b = child.fn(env)
+            return Batch(b.cols, sort_ops.limit_mask(b.sel, k, off))
+
+        return Lowered(child.schema, child.dicts, fn)
+
+    @staticmethod
+    def _skip_rows(lowered: Lowered, offset: int) -> Lowered:
+        """Mask out the first `offset` rows of a compacted (top-k) batch."""
+        if not offset:
+            return lowered
+
+        def fn(env) -> Batch:
+            b = lowered.fn(env)
+            iota = torch.arange(b.capacity, device=b.sel.device)
+            return Batch(b.cols, torch.logical_and(b.sel, iota >= offset))
+
+        return Lowered(lowered.schema, lowered.dicts, fn)
+
+    def _lower_topk(self, plan: L.Sort, k: int) -> Optional[Lowered]:
+        child = self.lower(plan.input)
+        if len(plan.exprs) == 1:
+            se = plan.exprs[0]
+            keyc = self.compile(se.expr, child)
+
+            def rank_fn(b: Batch) -> torch.Tensor:
+                kd, kv = broadcast_col(keyc.fn(b.cols), b.capacity)
+                return topk_rank(kd, kv, b.sel, se.asc)
+        else:
+            rank_fn = self._packed_rank(plan, child)
+            if rank_fn is None:
+                return None
+        dev = self.device
+
+        def fn(env) -> Batch:
+            b = child.fn(env)
+            kk = min(k, int(b.sel.sum()))
+            idx = sort_ops.topk_indices(rank_fn(b), kk)
+            cols = [
+                (d[idx], None if v is None else v[idx])
+                for d, v in (broadcast_col(c, b.capacity) for c in b.cols)
+            ]
+            return Batch(cols, torch.ones(kk, dtype=torch.bool, device=dev))
+
+        return Lowered(child.schema, child.dicts, fn)
+
+    def _packed_rank(self, plan: L.Sort, child: Lowered):
+        """Multi-key ORDER BY ... LIMIT k via one packed lexicographic
+        int64 rank, when every key has a small static domain: dictionary
+        codes, probed scanned ints, or narrow fixed-width integers. Each
+        key takes ceil(log2(domain+1)) bits holding a code in [1, domain]
+        oriented so LARGER = earlier; NULLs take code 0 (NULLS LAST);
+        unselected rows rank -1. 62 payload bits."""
+        fields = []
+        total = 0
+        narrow = {
+            DataType.Boolean: (2, 0), DataType.Int8: (256, -128), DataType.UInt8: (256, 0),
+            DataType.Int16: (65536, -32768), DataType.UInt16: (65536, 0),
+        }
+        for se in plan.exprs:
+            keyc = self.compile(se.expr, child)
+            dom_off = None
+            if keyc.dictionary is not None:
+                if len(keyc.dictionary) >= 1:
+                    dom_off = (len(keyc.dictionary), 0)
+            else:
+                rng = self._int_key_range(se.expr, child)
+                if rng is not None and rng[1] >= rng[0]:
+                    dom_off = (rng[1] - rng[0] + 1, rng[0])
+                else:
+                    dom_off = narrow.get(keyc.dtype)
+            if dom_off is None:
+                return None
+            domain, off = dom_off
+            w = domain.bit_length()
+            total += w
+            if total > 62:
+                return None
+            fields.append((keyc, se.asc, domain, off, w))
+
+        def rank_fn(b: Batch) -> torch.Tensor:
+            packed = torch.zeros(b.capacity, dtype=torch.int64, device=b.sel.device)
+            shift = total
+            for keyc, asc, domain, off, w in fields:
+                kd, kv = broadcast_col(keyc.fn(b.cols), b.capacity)
+                v = kd.to(torch.int64) - off
+                code = ((domain - v) if asc else (v + 1)).clamp(0, domain)
+                if kv is not None:
+                    code = torch.where(kv, code, 0)  # NULLS LAST
+                shift -= w
+                packed = packed + (code << shift)
+            return torch.where(b.sel, packed, -1)
+
+        return rank_fn
+
+
+def compile_plan(plan: L.LogicalPlan, tables: dict[str, Table], fn_registry=None, device=None) -> CompiledQuery:
+    device_plan, host_post = split_host_projection(plan, fn_registry or {})
+    pc = PlanCompiler(tables, fn_registry, device)
+    top = pc.lower(device_plan)
+    return CompiledQuery(
+        schema=top.schema,
+        dicts=top.dicts,
+        _fn=top.fn,
+        _scan_tables=pc.scan_tables,
+        _host_post=host_post,
+        notes=tuple(pc.notes + pc.sticky_notes),
+    )
