@@ -12,10 +12,21 @@ Phases, each printed on its own line:
   3. K2 (segmented reduce) against its plain version on the card: sorted
      mode with 65,536 groups and dense mode with 1,000 groups at 2^25
      rows, with masks and NaN / +-inf values
-  4. the main path at 2^25 rows: scan -> filter/project (K1), GROUP BY over
-     a wide key (packed co-sort + K2 sorted), GROUP BY over a small key
-     (K2 dense) + ORDER BY + LIMIT, each checked against a numpy oracle;
-     every kernel's launch count must go up during this phase
+  3b. K3 (slab partition) and K4 (windowed reduce) against their plain
+     versions on the card at 2^25 and 2^25 - 1000 rows: 10,001 slots
+     uniform, and 16,001 slots (8 buckets) with 80% of the rows on one
+     gid; masks packed into the gid, NaN / +-inf payloads. K3's slabs must
+     be equal element for element; K4's counts and MIN/MAX exact, its
+     sums within rtol 1e-9 (atomic order)
+  4. the main path at 2^25 rows, in a context made with bigdense on:
+     scan -> filter/project (K1), GROUP BY over a wide key (packed co-sort
+     + K2 sorted), GROUP BY over a small key (K2 dense) + ORDER BY + LIMIT,
+     and the bigdense GROUP BY (K3 + K4) over a key of TPC-H l_suppkey's
+     SF1 domain, [1, 10000], for SUM/AVG/COUNT (q4) and MIN/MAX (q5); each
+     checked against a numpy oracle; every kernel's launch count must go
+     up during this run. Then q4 and q5 once more on the packed co-sort +
+     K2 (a second context, bigdense off, over the same tables), with both
+     routes' warm walls and profiles
   5. the uk_cities / aggregate_test / numerics CSV queries through
      register_csv, compared byte for byte with the checked-in goldens
 Then one JSON line per kernel set (times, bounds, launches) and, last,
@@ -142,6 +153,50 @@ def k2_bytes(gid, vals, masks, outs_groups, ops):
     return b + outs_groups * 8 * len(ops)
 
 
+def slab_bytes(n, slab_rows, cols):
+    """Bytes K3 must move: the gid and payloads read once, the slab written once."""
+    width = 4 + sum(c.element_size() for c in cols)
+    return (n + slab_rows) * width
+
+
+def compare_k3k4(gid, cols, id_mod, n_buckets, num_groups, mask_bits, ops, value_of):
+    """K3 against its plain version (every slab equal, bit for bit), then
+    K4 over the kernel's slab against its plain version. `value_of[a]` is
+    the payload index of op a (None for COUNT); op a's mask is gid bit
+    `mask_bits[a]` (None: no mask). Returns (K3's max_abs_err over every
+    slab, with NaN against NaN as 0; K4's sum max_abs_err)."""
+    from datafusion_tpu_torch.ops.pallas import partition as pt
+
+    ks = pt.slab_partition(gid, cols, n_buckets=n_buckets, id_mod=id_mod)
+    ps = pt.slab_partition_plain(gid, cols, n_buckets=n_buckets, id_mod=id_mod)
+    torch.cuda.synchronize()
+    k3_err = 0.0
+    for a, b in zip(ks, ps):
+        bits = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+        check(a.shape == b.shape and torch.equal(a.view(bits), b.view(bits)), "K3 slab differs from the plain version")
+        ad, bd = a.double(), b.double()
+        same = (ad == bd) | (ad.isnan() & bd.isnan())
+        k3_err = max(k3_err, float(torch.where(same, 0.0, (ad - bd).abs()).max()))
+        del ad, bd, same
+    pg = ks[0]
+    gid_k = torch.where(pg >= pt.SENTINEL, pg, pg & (id_mod - 1))
+    vals = [None if i is None else ks[1 + i] for i in value_of]
+    masks = [None if b is None else ((pg >> b) & 1).bool() for b in mask_bits]
+    k = pt.windowed_reduce(gid_k, vals, masks, ops=ops, num_groups=num_groups)
+    p = pt.windowed_reduce_plain(gid_k, vals, masks, ops=ops, num_groups=num_groups)
+    torch.cuda.synchronize()
+    err = 0.0
+    for op, a, b in zip(ops, k, p):
+        if op == "sum" and a.dtype.is_floating_point:
+            torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-6, equal_nan=True)
+            check(torch.equal(torch.isnan(a), torch.isnan(b)), "K4 NaN sums differ")
+            fin = torch.isfinite(a) & torch.isfinite(b)
+            err = max(err, float((a[fin] - b[fin]).abs().max()))
+        else:
+            check(torch.equal(a.nan_to_num(0.5), b.nan_to_num(0.5)), f"K4 {op} differs from the plain version")
+    return k3_err, err
+
+
 def phase_build():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -218,9 +273,43 @@ def phase_k2(dev):
     return out
 
 
+def phase_k3k4(dev):
+    rng = np.random.default_rng(SEED + 3)
+    k3_err, k4_err = 0.0, 0.0
+    for n in (N, N - 1000):
+        for nslots, skew in ((10_001, False), (16_001, True)):
+            # ids in [0, nslots]; nslots is the unselected rows' slot
+            ids = rng.integers(0, nslots + 1, n)
+            if skew:
+                ids[rng.random(n) < 0.8] = 12_345
+            id_mod = 1 << nslots.bit_length()
+            b0 = nslots.bit_length()
+            m1 = torch.from_numpy(rng.random(n) < 0.9).to(dev)
+            m2 = torch.from_numpy(rng.random(n) < 0.5).to(dev)
+            gid = torch.from_numpy(ids.astype(np.int32)).to(dev)
+            gid = gid | (m1.int() << b0) | (m2.int() << (b0 + 1))
+            f = torch.from_numpy(rng.standard_normal(n) * 100).to(dev)
+            f[::1_000_003] = float("nan")
+            f[7::2_000_003] = float("inf")
+            f[11::3_000_017] = float("-inf")
+            i = torch.from_numpy(rng.integers(-10**6, 10**6, n).astype(np.int32)).to(dev)
+            f32 = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
+            flag = torch.from_numpy(rng.random(n) < 0.3).to(dev)
+            ops = ("count", "sum", "min", "max", "max", "min", "sum", "count")
+            value_of = (None, 0, 0, 0, 1, 2, 1, None)
+            mask_bits = (None, b0, b0 + 1, b0, None, b0 + 1, b0, b0 + 1)
+            nb = -(-(nslots + 1) // 2048)
+            e3, e4 = compare_k3k4(gid, [f, i, f32, flag], id_mod, nb, nslots, mask_bits, ops, value_of)
+            k3_err, k4_err = max(k3_err, e3), max(k4_err, e4)
+            log(f"phase 3b K3/K4: {n} rows, {nslots} slots ({nb} buckets{', 80% on one gid' if skew else ''}): "
+                f"K3 slab == plain (max_abs_err {e3}), K4 == plain (sum max_abs_err {e4})")
+    return k3_err, k4_err
+
+
 def phase_main_path(dev, kernel_stats):
     import datafusion_tpu_torch as port
     from datafusion_tpu_torch.ops.pallas import fused_stage as fs
+    from datafusion_tpu_torch.ops.pallas import partition as pt
     from datafusion_tpu_torch.ops.pallas import segreduce as sr
 
     rng = np.random.default_rng(SEED + 2)
@@ -228,33 +317,43 @@ def phase_main_path(dev, kernel_stats):
     d = rng.integers(0, 1000, N).astype(np.int32)
     lat = rng.random(N) * 10 + 48
     lng = rng.random(N) * 12 - 9
+    g = rng.integers(1, 10_001, N).astype(np.int32)  # TPC-H l_suppkey's domain at SF1
     P = port.DataType
     schema = port.Schema([port.Field("k", P.Int32, False), port.Field("d", P.Int32, False),
-                          port.Field("lat", P.Float64, False), port.Field("lng", P.Float64, False)])
-    ctx = port.ExecutionContext()  # the card, by default
+                          port.Field("lat", P.Float64, False), port.Field("lng", P.Float64, False),
+                          port.Field("g", P.Int32, False)])
+    ctx = port.ExecutionContext(bigdense=True)  # the card, by default
     check(ctx.device.type == "cuda", "ExecutionContext() is not on the card")
     t0 = time.perf_counter()
-    ctx.register_table("big", port.Table.from_arrays(schema, [k, d, lat, lng]))
+    ctx.register_table("big", port.Table.from_arrays(schema, [k, d, lat, lng, g]))
     torch.cuda.synchronize()
     log(f"phase 4 table: {N} rows, {sum(c.data.nbytes for c in ctx.table('big').columns) / 1e9:.2f} GB "
         f"resident, loaded in {time.perf_counter() - t0:.2f} s")
     q1 = "SELECT k, lat, lng, lat + lng FROM big WHERE lat > 51.0 AND lat < 53"
     q2 = "SELECT k, MIN(lat), MAX(lat), SUM(lng), COUNT(lat) FROM big GROUP BY k"
     q3 = "SELECT d, SUM(lng), AVG(lat), MIN(lat), COUNT(*) FROM big GROUP BY d ORDER BY d LIMIT 10"
-    for q, note in ((q1, "fused CUDA stage"), (q2, "packed-gid co-sort"), (q3, "dense sort-free")):
+    q4 = "SELECT g, SUM(lng), AVG(lat), COUNT(*) FROM big GROUP BY g"
+    q5 = "SELECT g, MIN(lat), MAX(lng), COUNT(lat) FROM big WHERE lat > 51.0 GROUP BY g"
+    queries = (("q1", q1, "fused CUDA stage"), ("q2", q2, "packed-gid co-sort"),
+               ("q3", q3, "dense sort-free"), ("q4", q4, "bigdense radix-partition"),
+               ("q5", q5, "bigdense radix-partition"))
+    for _, q, note in queries:
         check(note in ctx.sql(f"EXPLAIN VERBOSE {q}").result_str(), f"{q} does not route to {note}")
 
     fs.run_fused.launches = 0
     sr.segmented_reduce.sorted_launches = 0
     sr.segmented_reduce.dense_launches = 0
+    pt.slab_partition.launches = 0
+    pt.windowed_reduce.launches = 0
     results, walls = {}, {}
-    for name, q in (("q1", q1), ("q2", q2), ("q3", q3)):
+    for name, q, _ in queries:
         t = time.perf_counter()
         results[name] = ctx.sql(q)
         torch.cuda.synchronize()
         walls[name] = (time.perf_counter() - t) * 1e3
     launches = {"fused_stage": fs.run_fused.launches, "segreduce_sorted": sr.segmented_reduce.sorted_launches,
-                "segreduce_dense": sr.segmented_reduce.dense_launches}
+                "segreduce_dense": sr.segmented_reduce.dense_launches,
+                "slab_partition": pt.slab_partition.launches, "windowed_reduce": pt.windowed_reduce.launches}
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the main path")
 
@@ -281,17 +380,52 @@ def phase_main_path(dev, kernel_stats):
     np.minimum.at(dmin, d[d < 10], lat[d < 10])
     check(np.array_equal(c[3], dmin[:10]), "q3 MIN")
     check(np.array_equal(c[4], cnt), "q3 COUNT")
+    gcnt = np.bincount(g, minlength=10_001)[1:]
+    gsel = lat > 51.0
+    sel_g = g[gsel]
+    order = np.argsort(sel_g, kind="stable")
+    sg = sel_g[order]
+    gstarts = np.flatnonzero(np.r_[True, sg[1:] != sg[:-1]])
+    oracle = {
+        "q4": (np.arange(1, 10_001), np.bincount(g, weights=lng, minlength=10_001)[1:],
+               np.bincount(g, weights=lat, minlength=10_001)[1:] / gcnt, gcnt),
+        "q5": (sg[gstarts], np.minimum.reduceat(lat[gsel][order], gstarts),
+               np.maximum.reduceat(lng[gsel][order], gstarts), np.diff(np.r_[gstarts, len(sg)])),
+    }
 
+    def check_bigdense_shape(name, res):
+        c = [col for col, _ in res.cols]
+        want = oracle[name]
+        check(np.array_equal(c[0], want[0]), f"{name} keys")
+        exact = (3,) if name == "q4" else (1, 2, 3)  # q4's SUM and AVG are float sums
+        for j in (1, 2, 3):
+            ok = np.array_equal(c[j], want[j]) if j in exact else np.allclose(c[j], want[j], rtol=1e-9, atol=0)
+            check(ok, f"{name} column {j} differs from the numpy oracle")
+
+    for name in ("q4", "q5"):
+        check_bigdense_shape(name, results[name])
+
+    # the same two queries on the packed co-sort + K2: a second context,
+    # bigdense off, over the same Table objects (no copy)
+    ctx0 = port.ExecutionContext(device=dev, bigdense=False)
+    ctx0.register_table("big", ctx.table("big"))
+    for name, q in (("q4", q4), ("q5", q5)):
+        check("packed-gid co-sort" in ctx0.sql(f"EXPLAIN VERBOSE {q}").result_str(), f"{name} packed route")
+        check_bigdense_shape(name, ctx0.sql(q))
+
+    runs = [(name, ctx, q) for name, q, _ in queries] + [("q4 packed", ctx0, q4), ("q5 packed", ctx0, q5)]
     warm = {}
-    for name, q in (("q1", q1), ("q2", q2), ("q3", q3)):
+    for name, c_, q in runs:
+        c_.sql(q)  # q4/q5 on ctx0 ran only once above
+        torch.cuda.synchronize()
         t = time.perf_counter()
-        ctx.sql(q)
+        c_.sql(q)
         torch.cuda.synchronize()
         warm[name] = (time.perf_counter() - t) * 1e3
-    log("phase 4 main path: q1/q2/q3 match the numpy oracle; wall ms first "
-        + json.dumps({n: round(v, 3) for n, v in walls.items()}) + " warm "
+    log("phase 4 main path: q1-q5 match the numpy oracle (q4/q5 on the bigdense and the packed route); "
+        "wall ms first " + json.dumps({n: round(v, 3) for n, v in walls.items()}) + " warm "
         + json.dumps({n: round(v, 3) for n, v in warm.items()}) + f"; launches {json.dumps(launches)}")
-    profile_queries(ctx, {"q1": q1, "q2": q2, "q3": q3})
+    profile_queries(runs)
 
     # each kernel timed at the shape the main path gives it
     prog, ins = fused_program(ctx, "big", q1)
@@ -328,17 +462,48 @@ def phase_main_path(dev, kernel_stats):
             ops_bound_ms=len(ops) * N / F32_OPS_PER_S * 1e3,
             library_ms=time_ms(lambda: torch.zeros(g, dtype=torch.float64, device=dev).index_add_(0, idx, lng_t if dense else slng)),
         )
+    # K3 and K4 at q4's shape: the packed gid of g (slots 0..9999), lng and lat
+    nslots = 10_000
+    gid4 = (big.columns[4].data - 1).contiguous()
+    id_mod, nb = 1 << nslots.bit_length(), -(-(nslots + 1) // pt.WINDOW)
+    cols = [lng_t, lat_t]
+    slab = pt.slab_partition(gid4, cols, n_buckets=nb, id_mod=id_mod)
+    rows = slab[0].numel()
+    kernel_stats["slab_partition"].update(
+        launches=launches["slab_partition"],
+        ms=time_ms(lambda: pt.slab_partition(gid4, cols, n_buckets=nb, id_mod=id_mod)),
+        plain_ms=time_ms(lambda: pt.slab_partition_plain(gid4, cols, n_buckets=nb, id_mod=id_mod), reps=3),
+        bound_ms=slab_bytes(N, rows, cols) / HBM_BYTES_PER_S * 1e3,
+        # per row: the bucket (and, shift), the histogram add, the rank add
+        ops_bound_ms=4 * N / F32_OPS_PER_S * 1e3,
+        library_ms=None,  # no one PyTorch call makes a gap-aligned per-block partition
+    )
+    pg = slab[0]
+    gid_k = torch.where(pg >= pt.SENTINEL, pg, pg & (id_mod - 1))
+    ops4, vals4, masks4 = ("count", "sum", "sum"), [None, slab[1], slab[2]], [None] * 3
+    idx4 = gid4.long()
+    # K4 must read every slab row's gid, but a payload only where the row
+    # is live: a SENTINEL gap is never reduced
+    live = int((pg < pt.SENTINEL).sum())
+    kernel_stats["windowed_reduce"].update(
+        launches=launches["windowed_reduce"],
+        ms=time_ms(lambda: pt.windowed_reduce(gid_k, vals4, masks4, ops=ops4, num_groups=nslots)),
+        plain_ms=time_ms(lambda: pt.windowed_reduce_plain(gid_k, vals4, masks4, ops=ops4, num_groups=nslots), reps=3),
+        bound_ms=(rows * 4 + live * (8 + 8) + nslots * 8 * len(ops4)) / HBM_BYTES_PER_S * 1e3,
+        ops_bound_ms=len(ops4) * live / F32_OPS_PER_S * 1e3,
+        library_ms=time_ms(lambda: torch.zeros(nslots, dtype=torch.float64, device=dev).index_add_(0, idx4, lng_t)),
+    )
 
 
-def profile_queries(ctx, queries):
+def profile_queries(runs):
     """Where a warm query's time goes: torch.profiler over one run of
-    each query; prints the device-busy share of the wall time and the
-    device time of the top operations (full tables in
+    each (name, context, query); prints the device-busy share of the wall
+    time and the device time of the top operations (full tables in
     chiprun_out/profile.txt)."""
     from torch.profiler import ProfilerActivity, profile
 
     tables = []
-    for name, q in queries.items():
+    for name, ctx, q in runs:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
             t = time.perf_counter()
             ctx.sql(q)
@@ -458,6 +623,7 @@ def main():
     smi = phase_build()
     k1_err = phase_k1(dev)
     k2_err = phase_k2(dev)
+    k3_err, k4_err = phase_k3k4(dev)
     src = "datafusion_tpu_torch/csrc"
     kernel_stats = {
         "fused_stage": {"route": "cuda", "source": f"{src}/fused_stage.cu",
@@ -469,6 +635,10 @@ def main():
         "segreduce_dense": {"route": "cuda", "source": f"{src}/segreduce.cu",
                             "replaces": "datafusion_tpu/ops/pallas/segreduce.py:524",
                             "max_abs_err": k2_err["dense"]},
+        "slab_partition": {"route": "cuda", "source": f"{src}/partition.cu",
+                           "replaces": "datafusion_tpu/ops/pallas/partition.py:219", "max_abs_err": k3_err},
+        "windowed_reduce": {"route": "cuda", "source": f"{src}/partition.cu",
+                            "replaces": "datafusion_tpu/ops/pallas/partition.py:368", "max_abs_err": k4_err},
     }
     phase_main_path(dev, kernel_stats)
     phase_csv(dev)

@@ -33,94 +33,14 @@
 //   atomicMin/atomicMax on the signed sortable image.
 //
 // The host entry launches one kernel per op; ops read their own value and
-// mask streams (the Python wrapper passes each distinct stream once).
+// mask streams (the Python wrapper passes each distinct stream once). The
+// op kinds and traits live in reduce_common.cuh, shared with K4.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "reduce_common.cuh"
 
 #define TPB 256
 #define IT 8
 #define DENSE_MAX_SLOTS 2048
-
-// op kinds; mirrored in segreduce.py
-enum {
-  K_SUM_F32 = 0, K_SUM_F64, K_SUM_I32, K_SUM_I64, K_COUNT,
-  K_MIN_F32, K_MAX_F32, K_MIN_F64, K_MAX_F64,
-  K_MIN_I32, K_MAX_I32, K_MIN_I64, K_MAX_I64
-};
-
-__device__ __forceinline__ int img32(float x) {
-  int b = __float_as_int(x);
-  return b < 0 ? (int)(0x80000000u - (unsigned int)b) : b;
-}
-__device__ __forceinline__ long long img64(double x) {
-  long long b = __double_as_longlong(x);
-  return b < 0 ? (long long)(0x8000000000000000ULL - (unsigned long long)b) : b;
-}
-
-// --- op traits: value type In, accumulator Acc, contribution, combine ---
-template <typename InT, typename AccT>
-struct SumOp {
-  typedef InT In;
-  typedef AccT Acc;
-  static __device__ __forceinline__ Acc identity() { return (Acc)0; }
-  static __device__ __forceinline__ Acc contrib(const In* v, long long r) { return (Acc)v[r]; }
-  static __device__ __forceinline__ Acc combine(Acc x, Acc y) { return x + y; }
-};
-struct SumF64Op : SumOp<double, double> {
-  static __device__ __forceinline__ double combine(double x, double y) { return __dadd_rn(x, y); }
-  static __device__ __forceinline__ void atomic(double* p, double v) { atomicAdd(p, v); }
-};
-struct SumF32Op : SumOp<float, double> {
-  static __device__ __forceinline__ double combine(double x, double y) { return __dadd_rn(x, y); }
-  static __device__ __forceinline__ void atomic(double* p, double v) { atomicAdd(p, v); }
-};
-template <typename InT>
-struct SumIntOp : SumOp<InT, long long> {
-  static __device__ __forceinline__ long long combine(long long x, long long y) {
-    return (long long)((unsigned long long)x + (unsigned long long)y);  // wraps
-  }
-  static __device__ __forceinline__ void atomic(long long* p, long long v) {
-    atomicAdd((unsigned long long*)p, (unsigned long long)v);
-  }
-};
-struct CountOp {
-  typedef uint8_t In;  // no value stream
-  typedef long long Acc;
-  static __device__ __forceinline__ Acc identity() { return 0; }
-  static __device__ __forceinline__ Acc contrib(const In*, long long) { return 1; }
-  static __device__ __forceinline__ Acc combine(Acc x, Acc y) { return x + y; }
-  static __device__ __forceinline__ void atomic(long long* p, long long v) {
-    atomicAdd((unsigned long long*)p, (unsigned long long)v);
-  }
-};
-template <typename InT, typename AccT, bool IS_MIN>
-struct MinMaxOp {
-  typedef InT In;
-  typedef AccT Acc;
-  static __device__ __forceinline__ Acc identity();
-  static __device__ __forceinline__ Acc contrib(const In* v, long long r);
-  static __device__ __forceinline__ Acc combine(Acc x, Acc y) {
-    return IS_MIN ? (y < x ? y : x) : (y > x ? y : x);
-  }
-  static __device__ __forceinline__ void atomic(Acc* p, Acc v) {
-    if (IS_MIN) atomicMin(p, v); else atomicMax(p, v);
-  }
-};
-#define MINMAX_IDENTITY(InT, AccT, LO, HI)                                             \
-  template <> __device__ __forceinline__ AccT MinMaxOp<InT, AccT, true>::identity() { return HI; }  \
-  template <> __device__ __forceinline__ AccT MinMaxOp<InT, AccT, false>::identity() { return LO; }
-MINMAX_IDENTITY(float, int, (int)0x80000000, 0x7FFFFFFF)
-MINMAX_IDENTITY(double, long long, (long long)0x8000000000000000LL, 0x7FFFFFFFFFFFFFFFLL)
-MINMAX_IDENTITY(int, int, (int)0x80000000, 0x7FFFFFFF)
-MINMAX_IDENTITY(long long, long long, (long long)0x8000000000000000LL, 0x7FFFFFFFFFFFFFFFLL)
-#define MINMAX_CONTRIB(InT, AccT, EXPR)                                                          \
-  template <> __device__ __forceinline__ AccT MinMaxOp<InT, AccT, true>::contrib(const InT* v, long long r) { return EXPR; }  \
-  template <> __device__ __forceinline__ AccT MinMaxOp<InT, AccT, false>::contrib(const InT* v, long long r) { return EXPR; }
-MINMAX_CONTRIB(float, int, img32(v[r]))
-MINMAX_CONTRIB(double, long long, img64(v[r]))
-MINMAX_CONTRIB(int, int, v[r])
-MINMAX_CONTRIB(long long, long long, v[r])
 
 // --- sorted mode ---------------------------------------------------------
 template <class Op>
@@ -235,22 +155,8 @@ extern "C" int dft_segreduce(const int* gid, long long n, int num_groups, int de
     const void* v = vals[a];
     const uint8_t* m = masks[a];
     void* o = outs[a];
-    switch (kinds[a]) {
-      case K_SUM_F32: launch<SumF32Op>(d, gid, v, m, o, n, num_groups, dense_blocks, s); break;
-      case K_SUM_F64: launch<SumF64Op>(d, gid, v, m, o, n, num_groups, dense_blocks, s); break;
-      case K_SUM_I32: launch<SumIntOp<int> >(d, gid, v, m, o, n, num_groups, dense_blocks, s); break;
-      case K_SUM_I64: launch<SumIntOp<long long> >(d, gid, v, m, o, n, num_groups, dense_blocks, s); break;
-      case K_COUNT: launch<CountOp>(d, gid, v, m, o, n, num_groups, dense_blocks, s); break;
-      case K_MIN_F32: launch<MinMaxOp<float, int, true> >(d, gid, v, m, o, n, num_groups, dense_blocks, s); break;
-      case K_MAX_F32: launch<MinMaxOp<float, int, false> >(d, gid, v, m, o, n, num_groups, dense_blocks, s); break;
-      case K_MIN_F64: launch<MinMaxOp<double, long long, true> >(d, gid, v, m, o, n, num_groups, dense_blocks, s); break;
-      case K_MAX_F64: launch<MinMaxOp<double, long long, false> >(d, gid, v, m, o, n, num_groups, dense_blocks, s); break;
-      case K_MIN_I32: launch<MinMaxOp<int, int, true> >(d, gid, v, m, o, n, num_groups, dense_blocks, s); break;
-      case K_MAX_I32: launch<MinMaxOp<int, int, false> >(d, gid, v, m, o, n, num_groups, dense_blocks, s); break;
-      case K_MIN_I64: launch<MinMaxOp<long long, long long, true> >(d, gid, v, m, o, n, num_groups, dense_blocks, s); break;
-      case K_MAX_I64: launch<MinMaxOp<long long, long long, false> >(d, gid, v, m, o, n, num_groups, dense_blocks, s); break;
-      default: return (int)cudaErrorInvalidValue;
-    }
+    if (!dft_valid_kind(kinds[a])) return (int)cudaErrorInvalidValue;
+    DFT_DISPATCH_KIND(kinds[a], launch, d, gid, v, m, o, n, num_groups, dense_blocks, s)
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }

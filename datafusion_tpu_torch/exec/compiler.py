@@ -2,8 +2,9 @@
 
 Port of datafusion_tpu/exec/compiler.py for the main path: TableScan,
 Selection, Projection (with the fused scan/filter/project stage, kernel
-K1), Aggregate (dense and packed/sorted GROUP BY over kernel K2, and
-ungrouped), Sort, Limit and ORDER BY ... LIMIT as a top-k selection.
+K1), Aggregate (dense and packed/sorted GROUP BY over kernel K2, the
+opt-in bigdense GROUP BY over kernels K3 and K4, and ungrouped), Sort,
+Limit and ORDER BY ... LIMIT as a top-k selection.
 
 Each plan node lowers once, at plan time, to a function over the scanned
 tables' columns; torch runs it eagerly on the tables' device. Selection
@@ -13,7 +14,8 @@ eager torch is simply computed — the JAX package's whole-plan `jit` and
 its fixed-capacity overflow retry (CompiledQuery.run) have no
 counterpart. Routing is decided at plan time and recorded in `notes`:
 the `_elementwise_safe` whitelist and K1's opcode set for the fused
-stage, the DENSE_MAX_GROUPS gate for K2's dense mode.
+stage, the DENSE_MAX_GROUPS gate for K2's dense mode, and the bigdense
+gate (`_bigdense_ok`).
 """
 
 from __future__ import annotations
@@ -24,12 +26,13 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from datafusion_tpu_torch.columnar.table import Table
+from datafusion_tpu_torch.columnar.table import Table, resolve_device
 from datafusion_tpu_torch.errors import ExecutionError, NotImplementedError_
 from datafusion_tpu_torch.ops import aggregate as agg_ops
 from datafusion_tpu_torch.ops import sort as sort_ops
 from datafusion_tpu_torch.ops.expr_eval import SCALAR_FUNCTIONS, ColVal, broadcast_col, compile_expr
 from datafusion_tpu_torch.ops.pallas import fused_stage as fs
+from datafusion_tpu_torch.ops.pallas import partition as part
 from datafusion_tpu_torch.plan import logical as L
 from datafusion_tpu_torch.schema import Schema
 from datafusion_tpu_torch.types import DataType
@@ -318,10 +321,13 @@ def topk_rank(kd: torch.Tensor, kv, sel: torch.Tensor, asc: bool) -> torch.Tenso
 
 
 class PlanCompiler:
-    def __init__(self, tables: dict[str, Table], fn_registry=None, device=None):
+    def __init__(self, tables: dict[str, Table], fn_registry=None, device=None, bigdense: bool = False):
+        """`bigdense`: route GROUP BYs of 2,048 to 16,383 slots to the
+        radix-partition path (K3 + K4) rather than the packed co-sort."""
         self.tables = tables
         self.fn_registry = fn_registry or {}
-        self.device = torch.device(device or "cpu")
+        self.device = resolve_device(device)
+        self.bigdense = bigdense
         self.scan_tables: list[Table] = []
         self.notes: list[str] = []  # physical choices, for EXPLAIN VERBOSE
         # decline diagnostics survive speculative rollbacks
@@ -562,16 +568,24 @@ class PlanCompiler:
             prod = 1
             for d in doms:
                 prod *= d + 1  # +1 radix per key covers a NULL slot
-        if 1 <= prod <= agg_ops.DENSE_MAX_GROUPS:
-            self.notes.append(f"aggregate: dense sort-free group-by ({' x '.join(notes)})")
+        dense = 1 <= prod <= agg_ops.DENSE_MAX_GROUPS
+        if dense or self._bigdense_ok(plan, prod):
+            if dense:
+                self.notes.append(f"aggregate: dense sort-free group-by ({' x '.join(notes)})")
+                slots_fn = agg_ops.grouped_aggregate_dense
+            else:
+                self.notes.append(
+                    f"aggregate: bigdense radix-partition sort-free group-by ({' x '.join(notes)}, {prod + 1} slots)"
+                )
+                slots_fn = agg_ops.grouped_aggregate_bigdense
 
-            def fn_dense(env) -> Batch:
+            def fn_slots(env) -> Batch:
                 b = child.fn(env)
                 keys = [broadcast_col(c.fn(b.cols), b.capacity) for c in group_c]
-                okeys, oaggs, ng = agg_ops.grouped_aggregate_dense(keys, specs_of(b), b.sel, doms, offs)
+                okeys, oaggs, ng = slots_fn(keys, specs_of(b), b.sel, doms, offs)
                 return Batch(list(okeys) + list(oaggs), torch.ones(ng, dtype=torch.bool, device=dev))
 
-            return Lowered(plan.schema, out_dicts, fn_dense)
+            return Lowered(plan.schema, out_dicts, fn_slots)
 
         packed = 1 <= prod <= agg_ops.PACKED_MAX_GROUPS
         if packed:
@@ -593,6 +607,34 @@ class PlanCompiler:
             return Batch(list(okeys) + list(oaggs), torch.ones(ng, dtype=torch.bool, device=dev))
 
         return Lowered(plan.schema, out_dicts, fn)
+
+    def _bigdense_ok(self, plan: L.Aggregate, prod: int) -> bool:
+        """The opt-in bigdense gate (`self.bigdense`, fixed when the
+        compiler is made). Every key must be probed (`prod` > 0), with
+        DENSE_MAX_GROUPS < prod <= BIGDENSE_MAX_GROUPS, and the functions
+        are SUM, AVG, COUNT, MIN and MAX. The runtime needs its mask bits
+        below SENTINEL and its ops within K4's shared memory; both are
+        bounded here, so nothing falls back after this. A decline is
+        noted."""
+        if not self.bigdense or not agg_ops.DENSE_MAX_GROUPS < prod <= agg_ops.BIGDENSE_MAX_GROUPS:
+            return False
+        funcs = [e.name.lower() for e in plan.aggr_exprs]
+        # a column argument is one tensor however often it is used; any
+        # other argument is a new tensor (and validity) per aggregate
+        args = [e.args[0] if isinstance(e.args[0], L.Column) else i for i, e in enumerate(plan.aggr_exprs)]
+        n_masks = len(set(args))
+        # exists-count + one COUNT per mask + one op per (function, argument)
+        n_ops = 1 + n_masks + len({("sum" if f == "avg" else f, a) for f, a in zip(funcs, args) if f != "count"})
+        id_mod = 1 << prod.bit_length()
+        why = None
+        if n_ops > part.MAX_OPS:
+            why = f"up to {n_ops} reduce ops, K4's shared memory holds {part.MAX_OPS} windows"
+        elif id_mod << n_masks > part.SENTINEL:
+            why = f"{n_masks} mask bits above id_mod {id_mod} reach SENTINEL"
+        if why is not None:
+            self.note_decline(f"aggregate: bigdense declined ({why})")
+            return False
+        return True
 
     def _probe_key_domains(self, group_c, group_exprs, child: Lowered):
         """Per-key (domains, offsets, notes) for the dense/packed GROUP BY
@@ -771,9 +813,11 @@ class PlanCompiler:
         return rank_fn
 
 
-def compile_plan(plan: L.LogicalPlan, tables: dict[str, Table], fn_registry=None, device=None) -> CompiledQuery:
+def compile_plan(
+    plan: L.LogicalPlan, tables: dict[str, Table], fn_registry=None, device=None, bigdense: bool = False
+) -> CompiledQuery:
     device_plan, host_post = split_host_projection(plan, fn_registry or {})
-    pc = PlanCompiler(tables, fn_registry, device)
+    pc = PlanCompiler(tables, fn_registry, device, bigdense)
     top = pc.lower(device_plan)
     return CompiledQuery(
         schema=top.schema,

@@ -11,6 +11,7 @@ runs on the card unless the caller asks for the CPU.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Callable, Optional, Union
 
@@ -59,11 +60,17 @@ class _Catalog:
 class ExecutionContext:
     """Session object: table registry + SQL entry point, on one device."""
 
-    def __init__(self, device=None):
+    def __init__(self, device=None, bigdense: Optional[bool] = None):
         """`device`: where tables live and queries run. None means the
         card ("cuda"), and raises on a machine without one; pass "cpu"
-        to run on the CPU."""
+        to run on the CPU. `bigdense`: route GROUP BYs of 2,048 to 16,383
+        slots to the radix-partition path (K3 + K4). None reads
+        DFTPU_BIGDENSE once, here: unset or "0" is off, any other value
+        on. Every plan of this context, executed or EXPLAINed, uses it."""
         self.device = resolve_device(device)
+        if bigdense is None:
+            bigdense = os.environ.get("DFTPU_BIGDENSE", "0") not in ("", "0")
+        self.bigdense = bigdense
         self._tables: dict[str, Table] = {}
         self._functions: dict[str, tuple[FunctionMeta, Optional[Callable]]] = {}
         self._compile_cache: dict = {}
@@ -132,7 +139,7 @@ class ExecutionContext:
                 # lower (no execution) to record the physical choices
                 fn_reg = self._fn_registry()
                 plan, _ = split_host_projection(plan, fn_reg)
-                pc = PlanCompiler(self._tables, fn_reg, self.device)
+                pc = PlanCompiler(self._tables, fn_reg, self.device, self.bigdense)
                 pc.lower(plan)
                 for note in pc.notes + pc.sticky_notes:
                     text += f"physical: {note}\n"
@@ -152,7 +159,7 @@ class ExecutionContext:
         key = (repr(plan), tuple(sorted((n, id(t)) for n, t in self._tables.items())))
         compiled = self._compile_cache.get(key)
         if compiled is None:
-            compiled = compile_plan(plan, self._tables, self._fn_registry(), self.device)
+            compiled = compile_plan(plan, self._tables, self._fn_registry(), self.device, self.bigdense)
             self._compile_cache[key] = compiled
         return compiled.run()
 

@@ -1,12 +1,16 @@
 """Grouped and ungrouped aggregation.
 
 Port of the main-path parts of datafusion_tpu/ops/aggregate.py. Per-group
-SUM / COUNT / MIN / MAX run on kernel K2 (ops/pallas/segreduce.py); AVG
-is SUM / COUNT. Two grouped paths, chosen at plan time by the compiler:
+SUM / COUNT / MIN / MAX run on kernel K2 (ops/pallas/segreduce.py) or K4
+(ops/pallas/partition.py); AVG is SUM / COUNT. Three grouped paths,
+chosen at plan time by the compiler:
 
   * dense (`grouped_aggregate_dense`): small probed key domains; the
     mixed-radix packed key IS the group id, so K2's dense mode reduces
     the unsorted rows with no sort at all
+  * bigdense (`grouped_aggregate_bigdense`, opt-in): probed domains past
+    K2's dense window, up to BIGDENSE_MAX_GROUPS slots; K3 partitions the
+    rows bucket-major into slabs and K4 reduces them, with no sort
   * sorted (`grouped_aggregate`): a stable co-sort — by the packed id
     when the key domains are probed (packed-gid path), else by every key
     part (not-null flag + value, floats on their sortable image) — then
@@ -25,13 +29,15 @@ workarounds: K2 sums in f64/i64 and follows IEEE for NaN and +-inf.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Sequence
 
 import torch
 
-from datafusion_tpu_torch.errors import NotImplementedError_
+from datafusion_tpu_torch.errors import ExecutionError, NotImplementedError_
 from datafusion_tpu_torch.ops.expr_eval import ColVal, full
+from datafusion_tpu_torch.ops.pallas.partition import SENTINEL, WINDOW, slab_partition, windowed_reduce
 from datafusion_tpu_torch.ops.pallas.segreduce import (
     from_sortable_int,
     segmented_reduce,
@@ -41,6 +47,7 @@ from datafusion_tpu_torch.ops.sort import lexsort
 from datafusion_tpu_torch.types import DataType, torch_dtype
 
 DENSE_MAX_GROUPS = 2047  # domain + NULL slot within K2's 2048-slot dense mode
+BIGDENSE_MAX_GROUPS = 8 * 2048 - 1  # eight K3 buckets of one K4 window each
 PACKED_MAX_GROUPS = 1 << 26
 GROUPED_FUNCS = ("sum", "avg", "min", "max", "count")
 
@@ -146,14 +153,15 @@ def _k2_value(data: torch.Tensor) -> torch.Tensor:
     return data.to(torch.int32)
 
 
-def _reduce_specs(specs, gid, n_rows, num_groups, dense, row_of, exists_count):
-    """Shared decode for both grouped paths: build the deduped K2 op list
+def _reduce_specs(specs, gid, n_rows, num_groups, reduce, row_of, exists_count):
+    """Shared decode for the grouped paths: build the deduped op list
     (one COUNT per distinct mask, one value stream per distinct argument),
-    run K2 once, and assemble each spec's (data, validity).
+    run `reduce` (K2's or K4's contract: `segmented_reduce`) once, and
+    assemble each spec's (data, validity).
 
     `row_of(t)` maps a per-row tensor into the order `gid` is in (a gather
-    for the sorted path, identity for the dense one). `exists_count`
-    True adds a group-existence COUNT (dense mode: which slots exist)."""
+    for the sorted path, identity for the dense ones). `exists_count`
+    True adds a group-existence COUNT (dense slots: which slots exist)."""
     ops, vals, masks, index = [], [], [], {}
     values: dict = {}
     valids: dict = {}
@@ -189,7 +197,7 @@ def _reduce_specs(specs, gid, n_rows, num_groups, dense, row_of, exists_count):
         cnt = slot("count", None, valid) if (spec.func in ("count", "avg") or valid is not None) else None
         val = None if spec.func == "count" else slot("sum" if spec.func == "avg" else spec.func, data, valid)
         plan.append((cnt, val))
-    outs = segmented_reduce(gid, vals, masks, ops=ops, num_groups=num_groups, dense=dense)
+    outs = reduce(gid, vals, masks, ops=ops, num_groups=num_groups)
 
     res = []
     for spec, (cnt, val) in zip(specs, plan):
@@ -209,6 +217,24 @@ def _reduce_specs(specs, gid, n_rows, num_groups, dense, row_of, exists_count):
     return outs, res
 
 
+def _dense_window_aggregate(key_cols, specs, sel, domain_size, key_offset, reduce):
+    """Sort-free GROUP BY over probed key domains (the port of
+    dense_window_aggregate): the packed key is the group id, `reduce`
+    reduces the unsorted rows into one slot per packed key, and the
+    existing slots decode back into keys. Returns (out_keys, out_aggs,
+    n_groups) over the existing groups only."""
+    n = sel.shape[0]
+    key_cols = [(full(d, n), None if v is None else full(v, n)) for d, v in key_cols]
+    gid, doms, offs, radices, strides, nslots = dense_pack_gid(key_cols, domain_size, key_offset)
+    # unselected rows route past the table and are dropped by the reduce
+    gid = torch.where(sel, gid, torch.full((), nslots, dtype=torch.int32, device=gid.device)).contiguous()
+    outs, aggs = _reduce_specs(specs, gid, n, nslots, reduce, lambda t: t, exists_count=True)
+    exists = torch.nonzero(outs[0] > 0).squeeze(1)
+    keys = _decode_keys(key_cols, exists, doms, offs, radices, strides)
+    aggs = [(d[exists], None if v is None else v[exists]) for d, v in aggs]
+    return keys, aggs, int(exists.shape[0])
+
+
 def grouped_aggregate_dense(
     key_cols: Sequence[ColVal],
     specs: Sequence[AggSpec],
@@ -216,20 +242,59 @@ def grouped_aggregate_dense(
     domain_size,
     key_offset,
 ):
-    """Sort-free GROUP BY for small probed key domains (the port of
-    dense_window_aggregate + grouped_aggregate_dense): the packed key is
-    the group id and K2's dense mode reduces the unsorted rows. Returns
-    (out_keys, out_aggs, n_groups) over the existing groups only."""
-    n = sel.shape[0]
-    key_cols = [(full(d, n), None if v is None else full(v, n)) for d, v in key_cols]
-    gid, doms, offs, radices, strides, nslots = dense_pack_gid(key_cols, domain_size, key_offset)
-    # unselected rows route past the table and are dropped by K2
-    gid = torch.where(sel, gid, torch.full((), nslots, dtype=torch.int32, device=gid.device)).contiguous()
-    outs, aggs = _reduce_specs(specs, gid, n, nslots, True, lambda t: t, exists_count=True)
-    exists = torch.nonzero(outs[0] > 0).squeeze(1)
-    keys = _decode_keys(key_cols, exists, doms, offs, radices, strides)
-    aggs = [(d[exists], None if v is None else v[exists]) for d, v in aggs]
-    return keys, aggs, int(exists.shape[0])
+    """Sort-free GROUP BY for small probed key domains
+    (`DENSE_MAX_GROUPS`): K2's dense mode reduces the unsorted rows."""
+    return _dense_window_aggregate(
+        key_cols, specs, sel, domain_size, key_offset, functools.partial(segmented_reduce, dense=True)
+    )
+
+
+def slab_reduce(gid, vals, masks, *, ops, num_groups):
+    """K2's reduce contract on K3 + K4: the rows' ids lie in
+    [0, num_groups] (num_groups = unselected rows, dropped). Each distinct
+    mask packs as one bit of the gid above `id_mod` (the next power of two
+    past num_groups), each distinct value is one K3 payload; the slab's
+    gid and mask bits unpack, and K4 reduces the slab."""
+    gcap = num_groups + 1
+    id_mod = 1 << num_groups.bit_length()
+    packed = gid
+    bits: dict = {}  # id(mask) -> bit
+    for m in masks:
+        if m is not None and id(m) not in bits:
+            bits[id(m)] = num_groups.bit_length() + len(bits)
+            packed = packed | (m.to(torch.int32) << bits[id(m)])
+    if id_mod << len(bits) > SENTINEL:
+        # the compiler's gate bounds the masks; reaching this is a bug
+        raise ExecutionError(f"bigdense: {len(bits)} mask bits above {id_mod} reach SENTINEL")
+    payloads = list({id(v): v for v in vals if v is not None}.values())
+    slab = slab_partition(packed.contiguous(), payloads, n_buckets=-(-gcap // WINDOW), id_mod=id_mod)
+    pg = slab[0]
+    moved = {id(v): s for v, s in zip(payloads, slab[1:])}
+    # gaps keep SENTINEL (dropped by K4); its bits below 23 are all 0
+    gid_k = torch.where(pg >= SENTINEL, pg, pg & (id_mod - 1))
+    unpacked = {b: ((pg >> b) & 1).bool() for b in bits.values()}
+    return windowed_reduce(
+        gid_k,
+        [None if v is None else moved[id(v)] for v in vals],
+        [None if m is None else unpacked[bits[id(m)]] for m in masks],
+        ops=ops,
+        num_groups=num_groups,
+    )
+
+
+def grouped_aggregate_bigdense(
+    key_cols: Sequence[ColVal],
+    specs: Sequence[AggSpec],
+    sel: torch.Tensor,
+    domain_size,
+    key_offset,
+):
+    """Sort-free GROUP BY for probed key domains past K2's dense window
+    (DENSE_MAX_GROUPS < slots <= BIGDENSE_MAX_GROUPS): K3 partitions the
+    rows into slabs, one 2048-slot window per 256-row chunk, and K4
+    reduces the slab (`slab_reduce`). The compiler's gate keeps the mask
+    bits below SENTINEL and the op list within K4's shared memory."""
+    return _dense_window_aggregate(key_cols, specs, sel, domain_size, key_offset, slab_reduce)
 
 
 def grouped_aggregate(
@@ -270,7 +335,7 @@ def grouped_aggregate(
     gid = (torch.cumsum(boundary.to(torch.int32), 0, dtype=torch.int32) - 1).contiguous()
     starts = torch.nonzero(boundary).squeeze(1)
     n_groups = int(starts.shape[0])
-    _, aggs = _reduce_specs(specs, gid, n, n_groups, False, lambda t: t[perm], exists_count=False)
+    _, aggs = _reduce_specs(specs, gid, n, n_groups, segmented_reduce, lambda t: t[perm], exists_count=False)
     if dense_domain is not None:
         keys = _decode_keys(key_cols, sorted_keys[0][starts].to(torch.int64), doms, offs, radices, strides)
     else:

@@ -29,7 +29,8 @@ from datafusion_tpu_torch.errors import ExecutionError
 PKG_DIR = Path(__file__).resolve().parents[2]
 SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-SOURCES = ("fused_stage.cu", "segreduce.cu")
+SOURCES = ("fused_stage.cu", "segreduce.cu", "partition.cu")
+HEADERS = ("reduce_common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -47,7 +48,7 @@ def find_nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update((SRC_DIR / name).read_bytes())
     return BUILD_DIR / f"libdftorch_kernels_{h.hexdigest()[:16]}.so"
 
@@ -102,6 +103,10 @@ def load_library() -> ctypes.CDLL:
     lib.dft_fused_stage_program_size.restype = i32
     lib.dft_segreduce.argtypes = [vp, i64, i32, i32, i32, vp, vp, vp, vp, vp]
     lib.dft_segreduce.restype = i32
+    lib.dft_slab_partition.argtypes = [vp, vp, i64, i32, i32, i32, i32, i32, vp, vp, vp, vp]
+    lib.dft_slab_partition.restype = i32
+    lib.dft_windowed_reduce.argtypes = [vp, i64, i32, i32, vp, vp, vp, vp, vp]
+    lib.dft_windowed_reduce.restype = i32
     return lib
 
 

@@ -183,13 +183,14 @@ def segmented_reduce(
             rc = lib.dft_segreduce(gid.data_ptr(), n, num_groups, int(dense), k,
                                    kinds, vptr, mptr, optr, stream)
         check(rc, "segreduce kernel")
+        # the C entry launches one CUDA kernel per op
         if dense:
-            segmented_reduce.dense_launches += 1
+            segmented_reduce.dense_launches += k
         else:
-            segmented_reduce.sorted_launches += 1
+            segmented_reduce.sorted_launches += k
     return _finish(ops, values, tables)
 
 
-# launch counts per mode (one per call that reached the card)
+# CUDA kernel launches per mode
 segmented_reduce.sorted_launches = 0
 segmented_reduce.dense_launches = 0

@@ -100,3 +100,39 @@ def test_fused_stage_kernel_matches_plain(cuda):
         valid = torch.ones_like(ks) if kv is None else kv
         assert kv is None or torch.equal(kv, pv)
         assert torch.equal(kd[valid], pd[valid])
+
+
+@pytest.mark.parametrize("n", [1 << 20, (1 << 20) - 777])
+def test_partition_kernels_match_plain(cuda, n):
+    """K3's slabs equal the plain ones bit for bit (a ragged last block,
+    80% of the rows on one gid, a mask bit in the gid); K4 over the
+    kernel's slab: exact counts and MIN/MAX, f64 sums at rtol=1e-12."""
+    from datafusion_tpu_torch.ops.pallas import partition as pt
+
+    rng = np.random.default_rng(12)
+    nslots = 16_001
+    ids = rng.integers(0, nslots + 1, n)
+    ids[rng.random(n) < 0.8] = 777
+    b0 = nslots.bit_length()
+    m = torch.from_numpy(rng.random(n) < 0.7).to(cuda)
+    gid = torch.from_numpy(ids.astype(np.int32)).to(cuda) | (m.int() << b0)
+    f = torch.from_numpy(rng.standard_normal(n)).to(cuda)
+    f[::991] = float("nan")
+    i = torch.from_numpy(rng.integers(-1000, 1000, n).astype(np.int32)).to(cuda)
+    ks = pt.slab_partition(gid, [f, i], n_buckets=8, id_mod=1 << b0)
+    ps = pt.slab_partition_plain(gid, [f, i], n_buckets=8, id_mod=1 << b0)
+    torch.cuda.synchronize()
+    for a, b in zip(ks, ps):
+        bits = torch.int64 if a.element_size() == 8 else torch.int32
+        assert torch.equal(a.view(bits), b.view(bits))
+    pg = ks[0]
+    gk = torch.where(pg >= pt.SENTINEL, pg, pg & ((1 << b0) - 1))
+    mk = ((pg >> b0) & 1).bool()
+    ops = ("count", "sum", "min", "max", "sum", "count")
+    vals, masks = [None, ks[1], ks[1], ks[2], ks[2], None], [None, mk, mk, None, mk, mk]
+    k = pt.windowed_reduce(gk, vals, masks, ops=ops, num_groups=nslots)
+    p = pt.windowed_reduce_plain(gk, vals, masks, ops=ops, num_groups=nslots)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(k[1], p[1], rtol=1e-12, atol=1e-9, equal_nan=True)
+    for a, b in zip(k[2:] + k[:1], p[2:] + p[:1]):
+        assert torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0))

@@ -14,7 +14,9 @@ import torch
 import datafusion_tpu_torch as port
 from datafusion_tpu_torch.errors import ExecutionError
 from datafusion_tpu_torch.ops.pallas import cuda_lib
+from datafusion_tpu_torch.exec.compiler import PlanCompiler, compile_plan
 from datafusion_tpu_torch.ops.pallas import fused_stage as fs
+from datafusion_tpu_torch.ops.pallas import partition as pt
 from datafusion_tpu_torch.ops.pallas import segreduce as sr
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -72,6 +74,12 @@ def test_context_defaults_to_the_card(monkeypatch):
     with pytest.raises(ExecutionError):
         port.Table.from_pydict({"a": [1, 2]})
     assert port.ExecutionContext(device="cpu").device.type == "cpu"
+    with pytest.raises(ExecutionError, match="device='cpu'"):
+        PlanCompiler({})
+    plan = port.ExecutionContext(device="cpu").plan("SELECT 1")
+    with pytest.raises(ExecutionError, match="device='cpu'"):
+        compile_plan(plan, {})
+    assert PlanCompiler({}, device="cpu").device.type == "cpu"
 
 
 def test_kernel_wrappers_never_fall_back(monkeypatch):
@@ -88,6 +96,10 @@ def test_kernel_wrappers_never_fall_back(monkeypatch):
         sr.segmented_reduce(meta, [None], [None], ops=("count",), num_groups=2)
     with pytest.raises(ValueError, match="unsupported device"):
         fs.run_fused(fs.Program(), [], [], 4, "meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        pt.slab_partition(meta, [meta], n_buckets=1, id_mod=2048)
+    with pytest.raises(ValueError, match="unsupported device"):
+        pt.windowed_reduce(meta, [None], [None], ops=("count",), num_groups=2)
     cuda_lib.load_library.cache_clear()
 
 
@@ -110,11 +122,22 @@ def test_cuda_sources_match_the_python_tables():
                          ("MAX_OUT", fs.MAX_OUT), ("MAX_CONST", fs.MAX_CONST)):
         assert re.search(rf"#define DFT_{macro} {value}\b", k1), macro
     k2 = (PKG / "csrc" / "segreduce.cu").read_text()
-    kinds = _enum(k2, "K_SUM_F32")
+    common = (PKG / "csrc" / "reduce_common.cuh").read_text()
+    assert '#include "reduce_common.cuh"' in k2
+    kinds = _enum(common, "K_SUM_F32")
     for (op, dt), code in sr._KIND.items():
         suffix = {None: "", torch.float32: "_F32", torch.float64: "_F64",
                   torch.int32: "_I32", torch.int64: "_I64"}[dt]
         assert kinds[code] == f"K_{op.upper()}{suffix}"
     assert f"DENSE_MAX_SLOTS {sr.DENSE_MAX_SLOTS}" in k2
-    for entry in ("dft_fused_stage(", "dft_fused_stage_program_size(", "dft_segreduce("):
-        assert f'extern "C" int {entry}' in (k1 + k2)
+    k34 = (PKG / "csrc" / "partition.cu").read_text()
+    assert '#include "reduce_common.cuh"' in k34
+    for macro, value in (("WINDOW", pt.WINDOW), ("SLAB_CHUNK", pt.SLAB_CHUNK), ("SENTINEL", f"(1 << {23})"),
+                         ("MAX_BUCKETS", pt.MAX_BUCKETS), ("MAX_COLS", pt.MAX_COLS), ("MAX_OPS", pt.MAX_OPS)):
+        assert re.search(rf"#define DFT_{macro} {re.escape(str(value))}", k34), macro
+    assert pt.SENTINEL == 1 << 23 and pt.MAX_OPS * pt.WINDOW * 8 <= pt.WINDOW_SMEM_BYTES
+    assert set(cuda_lib.SOURCES) == {p.name for p in (PKG / "csrc").glob("*.cu")}
+    assert set(cuda_lib.HEADERS) == {p.name for p in (PKG / "csrc").glob("*.cuh")}
+    for entry in ("dft_fused_stage(", "dft_fused_stage_program_size(", "dft_segreduce(", "dft_slab_partition(",
+                  "dft_windowed_reduce("):
+        assert f'extern "C" int {entry}' in (k1 + k2 + k34)
