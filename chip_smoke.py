@@ -18,6 +18,14 @@ Phases, each printed on its own line:
      gid; masks packed into the gid, NaN / +-inf payloads. K3's slabs must
      be equal element for element; K4's counts and MIN/MAX exact, its
      sums within rtol 1e-9 (atomic order)
+  3c. K5 (ragged exchange) and K6 (ragged exchange + fold) against their
+     plain versions on the card, 2^25 rows over 8 shards laid out by the
+     shuffle (parallel/shuffle.py): K5 moving i32, f64 and u8 arrays with
+     uniform destinations, 80% of every shard's rows to one shard, and
+     one shard sending nothing (valid prefixes bit-equal); K6 over 10,001
+     slots (1,251 per shard) with SUM f64, COUNT, MIN f64, MAX i32, two
+     masks and NaN / +-inf, for uniform gids and 80% of the rows on one
+     gid (counts and MIN/MAX exact, f64 sums within rtol 1e-9)
   4. the main path at 2^25 rows, in a context made with bigdense on:
      scan -> filter/project (K1), GROUP BY over a wide key (packed co-sort
      + K2 sorted), GROUP BY over a small key (K2 dense) + ORDER BY + LIMIT,
@@ -29,6 +37,15 @@ Phases, each printed on its own line:
      routes' warm walls and profiles
   5. the uk_cities / aggregate_test / numerics CSV queries through
      register_csv, compared byte for byte with the checked-in goldens
+  6. the distributed main path: ExecutionContext(mesh=make_mesh(8)), 8
+     logical shards on the card, over the phase-4 table plus a Utf8 column
+     `mode` of TPC-H l_shipmode's seven values; m1 filter/project (K1 per
+     shard), m2 dense GROUP BY + merge (K2 dense), m3 / m4 the fold GROUP
+     BY (K6), m5 partials + all_gather merge (K2 sorted), m6 / m7 the
+     multi- and single-key sample sorts (K5) with the global-rank LIMIT,
+     m8 the per-shard top-k; each against a numpy oracle and the same
+     query in a single-card context, with its EXPLAIN route, the K5 / K6
+     launches it made, its warm wall and profile
 Then one JSON line per kernel set (times, bounds, launches) and, last,
 {"ok": true, "device": {...}}. Any failed check raises and exits non-zero.
 There is no CPU path: without CUDA the script exits with an error.
@@ -49,6 +66,7 @@ SEED = 20260
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_OPS_PER_S = 67e12  # H100 SXM non-tensor f32 peak (no f64 rate in the guide's table)
 ROOT = os.path.dirname(os.path.abspath(__file__))
+SHIPMODES = ("AIR", "FOB", "MAIL", "RAIL", "REG AIR", "SHIP", "TRUCK")  # TPC-H l_shipmode
 
 
 def log(*args):
@@ -197,6 +215,79 @@ def compare_k3k4(gid, cols, id_mod, n_buckets, num_groups, mask_bits, ops, value
     return k3_err, err
 
 
+def shard_regions(arrays, dst, sel, n_dev=8):
+    """Each shard's arrays laid out by destination, as the shuffle does
+    (parallel/shuffle.py): (send arrays per shard, sizes, split_cap, chunk)."""
+    from datafusion_tpu_torch.parallel import collectives as C
+    from datafusion_tpu_torch.parallel import shuffle as sh
+
+    routes = [sh.route(d, s, n_dev) for d, s in zip(dst, sel)]
+    sizes = C.size_matrix([c for _, c in routes])
+    split_cap, chunk = sh.region_capacity(sizes)
+    sends = [sh.build_regions(a, rows, counts, n_dev, split_cap) for a, (rows, counts) in zip(arrays, routes)]
+    return sends, sizes, split_cap, chunk
+
+
+def k5_bytes(sends, sizes, chunk):
+    """Bytes K5 must move: every live chunk read once and written once."""
+    chunks = int(((sizes.long() + chunk - 1) // chunk).sum())
+    return 2 * chunks * chunk * sum(t.element_size() for t in sends[0])
+
+
+def k6_bytes(gids, vals, masks, sizes, num_groups, n_ops):
+    """Bytes K6 must move: each routed row's window id, distinct values and
+    masks read once, and every receiver's tables written once."""
+    width = 4 + sum(t.element_size() for t in {id(t): t for t in vals[0] if t is not None}.values())
+    width += len(masks[0])
+    return int(sizes.sum()) * width + len(gids) * num_groups * 8 * n_ops
+
+
+def compare_k5(sends, sizes, split_cap, chunk):
+    """K5 against its plain version: every valid prefix bit-equal. Returns
+    the max_abs_err over the float prefixes (NaN against NaN as 0)."""
+    from datafusion_tpu_torch.ops.pallas import ragged_shuffle as rs
+
+    n_dev = len(sends)
+    k = rs.ragged_exchange(sends, sizes, n_dev=n_dev, split_cap=split_cap, chunk=chunk)
+    p = rs.ragged_exchange_plain(sends, sizes, n_dev=n_dev, split_cap=split_cap, chunk=chunk)
+    torch.cuda.synchronize()
+    sz = sizes.tolist()
+    err = 0.0
+    for i in range(n_dev):
+        for a, b in zip(k[i], p[i]):
+            bits = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+            for j in range(n_dev):
+                span = slice(j * split_cap, j * split_cap + sz[j][i])
+                check(torch.equal(a[span].view(bits), b[span].view(bits)), "K5 differs from the plain version")
+            if a.dtype.is_floating_point:
+                same = (a == b) | (a.isnan() & b.isnan())
+                live = torch.cat([torch.arange(j * split_cap, j * split_cap + sz[j][i], device=a.device)
+                                  for j in range(n_dev)])
+                err = max(err, float(torch.where(same, 0.0, (a - b).abs())[live].max()) if live.numel() else 0.0)
+    return err
+
+
+def compare_k6(args, kw):
+    """K6 against its plain version: counts and MIN/MAX exact, f64 sums
+    within rtol 1e-9 (atomic order). Returns the sums' max_abs_err."""
+    from datafusion_tpu_torch.ops.pallas import ragged_shuffle as rs
+
+    k = rs.ragged_exchange_fold(*args, **kw)
+    p = rs.ragged_exchange_fold_plain(*args, **kw)
+    torch.cuda.synchronize()
+    err = 0.0
+    for ki, pi in zip(k, p):
+        for op, a, b in zip(kw["ops"], ki, pi):
+            if op == "sum" and a.dtype.is_floating_point:
+                torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-6, equal_nan=True)
+                check(torch.equal(torch.isnan(a), torch.isnan(b)), "K6 NaN sums differ")
+                fin = torch.isfinite(a) & torch.isfinite(b)
+                err = max(err, float((a[fin] - b[fin]).abs().max()))
+            else:
+                check(torch.equal(a.nan_to_num(0.5), b.nan_to_num(0.5)), f"K6 {op} differs from the plain version")
+    return err
+
+
 def phase_build():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -306,18 +397,81 @@ def phase_k3k4(dev):
     return k3_err, k4_err
 
 
-def phase_main_path(dev, kernel_stats):
-    import datafusion_tpu_torch as port
-    from datafusion_tpu_torch.ops.pallas import fused_stage as fs
-    from datafusion_tpu_torch.ops.pallas import partition as pt
-    from datafusion_tpu_torch.ops.pallas import segreduce as sr
+def phase_k5k6(dev):
+    n_dev, n = 8, N // 8
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    k5_err = 0.0
+    for layout in ("uniform", "skew", "empty"):
+        dst, sel, arrays = [], [], []
+        for j in range(n_dev):
+            d = torch.randint(0, n_dev, (n,), generator=gen, device=dev)
+            if layout == "skew":
+                d = torch.where(torch.rand(n, generator=gen, device=dev) < 0.8, 3, d)
+            dst.append(d)
+            sel.append(torch.full((n,), not (layout == "empty" and j == 5), dtype=torch.bool, device=dev))
+            arrays.append([
+                torch.randint(-2**31, 2**31 - 1, (n,), generator=gen, device=dev, dtype=torch.int32),
+                torch.randn(n, generator=gen, device=dev, dtype=torch.float64),
+                torch.randint(0, 256, (n,), generator=gen, device=dev, dtype=torch.uint8),
+            ])
+        sends, sizes, split_cap, chunk = shard_regions(arrays, dst, sel)
+        e = compare_k5(sends, sizes, split_cap, chunk)
+        k5_err = max(k5_err, e)
+        log(f"phase 3c K5 {layout}: {N} rows over {n_dev} shards, split_cap {split_cap}, chunk {chunk}: "
+            f"kernel == plain on every valid prefix (max_abs_err {e})")
+        del sends, arrays
+    slots = 10_001
+    k6_err = 0.0
+    for skew in (False, True):
+        dst, sel, arrays = [], [], []
+        for j in range(n_dev):
+            g = torch.randint(0, slots, (n,), generator=gen, device=dev)
+            if skew:
+                g = torch.where(torch.rand(n, generator=gen, device=dev) < 0.8, 4321, g)
+            f = torch.randn(n, generator=gen, device=dev, dtype=torch.float64) * 100
+            f[::1_000_003] = float("nan")
+            f[7::2_000_003] = float("inf")
+            f[11::3_000_017] = float("-inf")
+            dst.append(g % n_dev)
+            sel.append(torch.ones(n, dtype=torch.bool, device=dev))
+            arrays.append([(g // n_dev).int(), f,
+                           torch.randint(-10**6, 10**6, (n,), generator=gen, device=dev, dtype=torch.int32),
+                           torch.rand(n, generator=gen, device=dev) < 0.9,
+                           torch.rand(n, generator=gen, device=dev) < 0.5])
+        sends, sizes, split_cap, _ = shard_regions(arrays, dst, sel)
+        args = ([s[0] for s in sends], [[s[1], None, s[1], s[2], None] for s in sends], [[s[3], s[4]] for s in sends],
+                sizes)
+        kw = dict(ops=("sum", "count", "min", "max", "count"), mask_map=(1, 1, 2, 0, 0), n_dev=n_dev,
+                  split_cap=split_cap, num_groups=-(-slots // n_dev))
+        e = compare_k6(args, kw)
+        k6_err = max(k6_err, e)
+        log(f"phase 3c K6: {N} rows over {n_dev} shards, {slots} slots ({kw['num_groups']}/shard"
+            f"{', 80% on one gid' if skew else ''}), split_cap {split_cap}: counts and MIN/MAX == plain, "
+            f"f64 sum max_abs_err {e}")
+        del sends, arrays, args
+    return k5_err, k6_err
 
+
+def main_arrays():
+    """The main path's table as numpy columns, from the seed: k, d, lat,
+    lng, g (phase 4), then the codes of `mode` (phase 6)."""
     rng = np.random.default_rng(SEED + 2)
     k = rng.integers(0, 65536, N).astype(np.int32)
     d = rng.integers(0, 1000, N).astype(np.int32)
     lat = rng.random(N) * 10 + 48
     lng = rng.random(N) * 12 - 9
     g = rng.integers(1, 10_001, N).astype(np.int32)  # TPC-H l_suppkey's domain at SF1
+    mode = rng.integers(0, len(SHIPMODES), N).astype(np.int32)
+    return k, d, lat, lng, g, mode
+
+
+def phase_main_path(dev, kernel_stats, arrays):
+    import datafusion_tpu_torch as port
+    from datafusion_tpu_torch.ops.pallas import fused_stage as fs
+    from datafusion_tpu_torch.ops.pallas import partition as pt
+    from datafusion_tpu_torch.ops.pallas import segreduce as sr
+
+    k, d, lat, lng, g, _mode = arrays
     P = port.DataType
     schema = port.Schema([port.Field("k", P.Int32, False), port.Field("d", P.Int32, False),
                           port.Field("lat", P.Float64, False), port.Field("lng", P.Float64, False),
@@ -493,13 +647,14 @@ def phase_main_path(dev, kernel_stats):
         ops_bound_ms=len(ops4) * live / F32_OPS_PER_S * 1e3,
         library_ms=time_ms(lambda: torch.zeros(nslots, dtype=torch.float64, device=dev).index_add_(0, idx4, lng_t)),
     )
+    return big
 
 
-def profile_queries(runs):
+def profile_queries(runs, phase="phase 4", out="profile.txt"):
     """Where a warm query's time goes: torch.profiler over one run of
     each (name, context, query); prints the device-busy share of the wall
     time and the device time of the top operations (full tables in
-    chiprun_out/profile.txt)."""
+    chiprun_out/`out`)."""
     from torch.profiler import ProfilerActivity, profile
 
     tables = []
@@ -515,12 +670,190 @@ def profile_queries(runs):
         dev_events = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
         busy = sum(e.self_device_time_total for e in dev_events) / 1e3
         top = sorted(dev_events, key=lambda e: e.self_device_time_total, reverse=True)[:5]
-        log(f"phase 4 profile {name}: wall {wall:.3f} ms, device busy {busy:.3f} ms "
+        log(f"{phase} profile {name}: wall {wall:.3f} ms, device busy {busy:.3f} ms "
             f"({100 * busy / wall:.1f}%); top device ops (ms): "
             + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f}" for e in top))
         tables.append(f"== {name}: {q}\n" + events.table(sort_by="self_device_time_total", row_limit=25))
-    with open(os.path.join(ROOT, "chiprun_out", "profile.txt"), "w") as f:
+    with open(os.path.join(ROOT, "chiprun_out", out), "w") as f:
         f.write("\n".join(tables))
+
+
+def capture(module, name, run):
+    """The arguments of the last call `run()` makes to `module.name`."""
+    real, box = getattr(module, name), []
+
+    def spy(*a, **kw):
+        box.append((a, kw))
+        return real(*a, **kw)
+
+    setattr(module, name, spy)
+    try:
+        run()
+    finally:
+        setattr(module, name, real)
+    return box[-1]
+
+
+def phase_mesh(dev, big, arrays, kernel_stats):
+    import datafusion_tpu_torch as port
+    from datafusion_tpu_torch.ops.pallas import fused_stage as fs
+    from datafusion_tpu_torch.ops.pallas import ragged_shuffle as rs
+    from datafusion_tpu_torch.ops.pallas import segreduce as sr
+    from datafusion_tpu_torch.parallel import shuffle as sh
+
+    k, d, lat, lng, g, mode = arrays
+    P = port.DataType
+    mode_col = port.Column(P.Utf8, torch.from_numpy(mode).to(dev), None, SHIPMODES)
+    table = port.Table(port.Schema(list(big.schema.fields) + [port.Field("mode", P.Utf8, False)]),
+                       big.columns + (mode_col,), N)  # the phase-4 columns, no copy
+    mesh = port.make_mesh(8)
+    check(mesh.device.type == "cuda", "make_mesh() is not on the card")
+    ctx = port.ExecutionContext(mesh=mesh)
+    single = port.ExecutionContext()
+    ctx.register_table("big", table)
+    single.register_table("big", table)
+    queries = (
+        ("m1", "SELECT k, lat, lng, lat + lng FROM big WHERE lat > 57.9", "fused CUDA stage"),
+        ("m2", "SELECT mode, SUM(lng), AVG(lat), MIN(lat), COUNT(*) FROM big GROUP BY mode",
+         "dense sort-free group-by per shard"),
+        ("m3", "SELECT g, SUM(lng), AVG(lat), MIN(lat), MAX(lng), COUNT(*) FROM big GROUP BY g",
+         "fused ragged-exchange fold"),
+        ("m4", "SELECT g, MIN(lat), COUNT(lat) FROM big WHERE lat > 51.0 GROUP BY g", "fused ragged-exchange fold"),
+        ("m5", "SELECT k, SUM(lng), COUNT(*) FROM big GROUP BY k", "all_gather merge"),
+        ("m6", "SELECT k, d, lat FROM big ORDER BY k, d, lat LIMIT 10000", "multi-key sample sort"),
+        ("m7", "SELECT lat, g FROM big ORDER BY lat LIMIT 5000", "distributed sample sort"),
+        ("m8", "SELECT k, lat FROM big ORDER BY lat DESC LIMIT 10", "per-shard top-k"),
+    )
+    for name, q, note in queries:
+        check(note in ctx.sql(f"EXPLAIN VERBOSE {q}").result_str(), f"{name} does not route to {note}")
+
+    counters = {"fused_stage": (fs.run_fused, "launches"), "segreduce_sorted": (sr.segmented_reduce, "sorted_launches"),
+                "segreduce_dense": (sr.segmented_reduce, "dense_launches"),
+                "ragged_exchange": (rs.ragged_exchange, "launches"),
+                "ragged_exchange_fold": (rs.ragged_exchange_fold, "launches")}
+    for f, attr in counters.values():
+        setattr(f, attr, 0)
+    results, walls, per_query = {}, {}, {}
+    for name, q, _ in queries:
+        before = {c: getattr(f, a) for c, (f, a) in counters.items()}
+        t = time.perf_counter()
+        results[name] = ctx.sql(q)
+        torch.cuda.synchronize()
+        walls[name] = (time.perf_counter() - t) * 1e3
+        per_query[name] = {c: getattr(f, a) - before[c] for c, (f, a) in counters.items()}
+    launches = {c: getattr(f, a) for c, (f, a) in counters.items()}
+    for name in ("m6", "m7"):
+        check(per_query[name]["ragged_exchange"] > 0, f"{name} did not launch K5")
+    for name in ("m3", "m4"):
+        check(per_query[name]["ragged_exchange_fold"] > 0, f"{name} did not launch K6")
+    check(per_query["m1"]["fused_stage"] > 0 and per_query["m2"]["segreduce_dense"] > 0
+          and per_query["m5"]["segreduce_sorted"] > 0, "m1 / m2 / m5 did not launch K1 / K2 dense / K2 sorted")
+
+    def cols(res):
+        return [c for c, _ in res.cols]
+
+    def same(got, want, name, floats=()):
+        """Column for column; the float SUM / AVG columns at rtol 1e-9."""
+        check(len(got) == len(want), f"{name}: column count")
+        for j, (a, b) in enumerate(zip(got, want)):
+            ok = (np.allclose(a, b, rtol=1e-9, atol=0) if j in floats
+                  else a.shape == b.shape and np.array_equal(a, b))
+            check(ok, f"{name}: column {j} differs")
+
+    def by_key(res):
+        c = cols(res)
+        order = np.argsort(c[0], kind="stable")
+        return [x[order] for x in c]
+
+    # the numpy oracle
+    m1 = lat > 57.9
+    same(cols(results["m1"]), [k[m1], lat[m1], lng[m1], lat[m1] + lng[m1]], "m1")
+    cnt7 = np.bincount(mode, minlength=7)
+    mmin = np.full(7, np.inf)
+    np.minimum.at(mmin, mode, lat)
+    same(cols(results["m2"]), [np.arange(7), np.bincount(mode, weights=lng, minlength=7),
+                               np.bincount(mode, weights=lat, minlength=7) / cnt7, mmin, cnt7], "m2", (1, 2))
+    gkeys = np.arange(1, 10_001)
+    gcnt = np.bincount(g, minlength=10_001)[1:]
+    gmin, gmax = np.full(10_001, np.inf), np.full(10_001, -np.inf)
+    np.minimum.at(gmin, g, lat)
+    np.maximum.at(gmax, g, lng)
+    same(by_key(results["m3"]), [gkeys, np.bincount(g, weights=lng, minlength=10_001)[1:],
+                                 np.bincount(g, weights=lat, minlength=10_001)[1:] / gcnt, gmin[1:], gmax[1:], gcnt],
+         "m3", (1, 2))
+    m4 = lat > 51.0
+    g4min = np.full(10_001, np.inf)
+    np.minimum.at(g4min, g[m4], lat[m4])
+    c4 = np.bincount(g[m4], minlength=10_001)
+    present = np.flatnonzero(c4)
+    same(by_key(results["m4"]), [present, g4min[present], c4[present]], "m4")
+    kcnt = np.bincount(k, minlength=65536)
+    kp = np.flatnonzero(kcnt)
+    same(by_key(results["m5"]), [kp, np.bincount(k, weights=lng, minlength=65536)[kp], kcnt[kp]], "m5", (1,))
+    o6 = np.lexsort((lat, d, k))[:10_000]
+    same(cols(results["m6"]), [k[o6], d[o6], lat[o6]], "m6")
+    o7 = np.argsort(lat, kind="stable")[:5000]
+    same(cols(results["m7"]), [lat[o7], g[o7]], "m7")
+    o8 = np.argsort(-lat, kind="stable")[:10]
+    same(cols(results["m8"]), [k[o8], lat[o8]], "m8")
+    # the single-card context, the same queries
+    floats = {"m2": (1, 2), "m3": (1, 2), "m5": (1,)}
+    for name, q, _ in queries:
+        want = single.sql(q)
+        if name in ("m3", "m4", "m5"):
+            same(by_key(results[name]), by_key(want), f"{name} vs one card", floats.get(name, ()))
+        else:
+            same(cols(results[name]), cols(want), f"{name} vs one card", floats.get(name, ()))
+
+    runs = [(name, ctx, q) for name, q, _ in queries]
+    warm = {}
+    for name, c_, q in runs:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        c_.sql(q)
+        torch.cuda.synchronize()
+        warm[name] = (time.perf_counter() - t) * 1e3
+    log("phase 6 mesh: m1-m8 over 8 logical shards match the numpy oracle and the single-card context; "
+        "wall ms first " + json.dumps({n: round(v, 3) for n, v in walls.items()}) + " warm "
+        + json.dumps({n: round(v, 3) for n, v in warm.items()}) + f"; launches per query {json.dumps(per_query)}")
+    profile_queries(runs, "phase 6", "profile_mesh.txt")
+
+    # K5 and K6 timed on the inputs the main path gave them (m6, m3)
+    (a5, kw5) = capture(sh, "ragged_exchange", lambda: ctx.sql(queries[5][1]))
+    sends, sizes = a5
+    n_dev, split_cap, chunk = kw5["n_dev"], kw5["split_cap"], kw5["chunk"]
+    stacked = [torch.stack([s_[a] for s_ in sends]) for a in range(len(sends[0]))]
+    kernel_stats["ragged_exchange"].update(
+        launches=launches["ragged_exchange"],
+        ms=time_ms(lambda: rs.ragged_exchange(sends, sizes, **kw5)),
+        plain_ms=time_ms(lambda: rs.ragged_exchange_plain(sends, sizes, **kw5), reps=3),
+        bound_ms=k5_bytes(sends, sizes, chunk) / HBM_BYTES_PER_S * 1e3,
+        ops_bound_ms=0.0,
+        # the fixed-slab all-to-all of the padded send buffers
+        library_ms=time_ms(lambda: [x.view(n_dev, n_dev, split_cap).transpose(0, 1).contiguous() for x in stacked]),
+    )
+    del stacked
+    (a6, kw6) = capture(sh, "ragged_exchange_fold", lambda: ctx.sql(queries[2][1]))
+    gids, vals, masks, sizes6 = a6
+    L_, S_ = kw6["num_groups"], kw6["split_cap"]
+    # the SUM(lng) yardstick: one index_add_ over the routed rows, by global slot
+    sz6 = sizes6.tolist()
+    sums = [a for a, op in enumerate(kw6["ops"]) if op == "sum"]
+    idx, val = [], []
+    for j in range(n_dev):
+        for i in range(n_dev):
+            span = slice(i * S_, i * S_ + sz6[j][i])
+            idx.append(gids[j][span].long() + i * L_)
+            val.append(vals[j][sums[0]][span].double())
+    idx, val = torch.cat(idx), torch.cat(val)
+    kernel_stats["ragged_exchange_fold"].update(
+        launches=launches["ragged_exchange_fold"],
+        ms=time_ms(lambda: rs.ragged_exchange_fold(gids, vals, masks, sizes6, **kw6)),
+        plain_ms=time_ms(lambda: rs.ragged_exchange_fold_plain(gids, vals, masks, sizes6, **kw6), reps=3),
+        bound_ms=k6_bytes(gids, vals, masks, sizes6, L_, len(kw6["ops"])) / HBM_BYTES_PER_S * 1e3,
+        ops_bound_ms=len(kw6["ops"]) * int(sizes6.sum()) / F32_OPS_PER_S * 1e3,
+        library_ms=time_ms(lambda: torch.zeros(n_dev * L_, dtype=torch.float64, device=dev).index_add_(0, idx, val)),
+    )
 
 
 def phase_csv(dev):
@@ -624,6 +957,7 @@ def main():
     k1_err = phase_k1(dev)
     k2_err = phase_k2(dev)
     k3_err, k4_err = phase_k3k4(dev)
+    k5_err, k6_err = phase_k5k6(dev)
     src = "datafusion_tpu_torch/csrc"
     kernel_stats = {
         "fused_stage": {"route": "cuda", "source": f"{src}/fused_stage.cu",
@@ -639,9 +973,15 @@ def main():
                            "replaces": "datafusion_tpu/ops/pallas/partition.py:219", "max_abs_err": k3_err},
         "windowed_reduce": {"route": "cuda", "source": f"{src}/partition.cu",
                             "replaces": "datafusion_tpu/ops/pallas/partition.py:368", "max_abs_err": k4_err},
+        "ragged_exchange": {"route": "cuda", "source": f"{src}/ragged_shuffle.cu",
+                            "replaces": "datafusion_tpu/ops/pallas/ragged_shuffle.py:544", "max_abs_err": k5_err},
+        "ragged_exchange_fold": {"route": "cuda", "source": f"{src}/ragged_shuffle.cu",
+                                 "replaces": "datafusion_tpu/ops/pallas/ragged_shuffle.py:456", "max_abs_err": k6_err},
     }
-    phase_main_path(dev, kernel_stats)
+    arrays = main_arrays()
+    big = phase_main_path(dev, kernel_stats, arrays)
     phase_csv(dev)
+    phase_mesh(dev, big, arrays, kernel_stats)
     kernels = []
     for name, s in kernel_stats.items():
         ops_bound = s.pop("ops_bound_ms")

@@ -11,7 +11,9 @@ imports jax.
 
 Entry points run on the card: `ExecutionContext()` means
 `device="cuda"` and raises on a machine without one unless the caller
-passes `device="cpu"`.
+passes `device="cpu"`. `ExecutionContext(mesh=make_mesh(8))` runs every
+query over 8 logical shards of its tables on one device, with the
+distributed engine's shuffle kernels (ragged exchange, exchange + fold).
 """
 
 from datafusion_tpu_torch.columnar.csv import CsvDataSource, read_csv
@@ -25,6 +27,7 @@ from datafusion_tpu_torch.errors import (
 )
 from datafusion_tpu_torch.exec.context import ExecutionContext
 from datafusion_tpu_torch.ops.functions import HostFunction
+from datafusion_tpu_torch.parallel.mesh import Mesh, make_mesh
 from datafusion_tpu_torch.plan.logical import Expr, LogicalPlan
 from datafusion_tpu_torch.plan.planner import FunctionMeta, FunctionType
 from datafusion_tpu_torch.schema import Field, Schema
@@ -43,6 +46,7 @@ __all__ = [
     "HostFunction",
     "InvalidColumnError",
     "LogicalPlan",
+    "Mesh",
     "NotImplementedError_",
     "ParserError",
     "PlanError",
@@ -51,5 +55,6 @@ __all__ = [
     "Table",
     "can_coerce_from",
     "get_supertype",
+    "make_mesh",
     "read_csv",
 ]

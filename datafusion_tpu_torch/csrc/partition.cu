@@ -44,17 +44,14 @@
 
 #include <limits.h>
 
-#define DFT_WINDOW 2048
 #define DFT_SLAB_CHUNK 256
 #define DFT_SENTINEL (1 << 23)
 #define DFT_MAX_BUCKETS 64
 #define DFT_MAX_COLS 16
-#define DFT_MAX_OPS 14  // 14 windows of 16 KB fit the 227 KB a block may hold
 #define K3_THREADS 1024
 #define K3_WARPS (K3_THREADS / 32)
 #define K4_THREADS DFT_SLAB_CHUNK
 #define K4_RUN 8192
-#define WIN_BYTES (DFT_WINDOW * 8)
 
 // --- K3 slab partition -----------------------------------------------------
 struct SlabCols {
@@ -175,35 +172,6 @@ struct WinOps {
   const uint8_t* masks[DFT_MAX_OPS];
   void* outs[DFT_MAX_OPS];
 };
-
-template <class Op>
-__device__ __forceinline__ void win_init(unsigned char* win) {
-  typedef typename Op::Acc Acc;
-  for (int i = threadIdx.x; i < DFT_WINDOW; i += blockDim.x) ((Acc*)win)[i] = Op::identity();
-}
-
-// every touched slot of the window into the device table, and back to identity
-template <class Op>
-__device__ __forceinline__ void win_flush(unsigned char* win, void* out, int base) {
-  typedef typename Op::Acc Acc;
-  for (int i = threadIdx.x; i < DFT_WINDOW; i += blockDim.x) {
-    const Acc v = ((Acc*)win)[i];
-    if (v != Op::identity()) {
-      Op::atomic((Acc*)out + base + i, v);
-      ((Acc*)win)[i] = Op::identity();
-    }
-  }
-}
-
-template <class Op>
-__device__ __forceinline__ void win_add(unsigned char* win, void* out, const void* vals, const uint8_t* mask,
-                                        long long r, int g, int local) {
-  typedef typename Op::Acc Acc;
-  if (mask != nullptr && !mask[r]) return;
-  const Acc c = Op::contrib((const typename Op::In*)vals, r);
-  if (local < DFT_WINDOW) Op::atomic((Acc*)win + local, c);
-  else Op::atomic((Acc*)out + g, c);  // outside the chunk's window
-}
 
 __global__ void __launch_bounds__(K4_THREADS)
 windowed_reduce_kernel(const int* __restrict__ gid, long long n, int num_groups, WinOps ops) {

@@ -1,6 +1,7 @@
-// Reduction op traits shared by K2 (segreduce.cu) and K4 (partition.cu):
-// the op kinds, the order-preserving integer image of floats, and the
-// per-op identity / contribution / combine / atomic used by both kernels.
+// Reduction op traits shared by K2 (segreduce.cu), K4 (partition.cu) and
+// K6 (ragged_shuffle.cu): the op kinds, the order-preserving integer image
+// of floats, the per-op identity / contribution / combine / atomic, and
+// the shared-memory windows of K4 and K6.
 //
 // SUM accumulates in f64 for float values and in i64 for integers, COUNT
 // is i64, and MIN/MAX keep the value type: f32/f64 reduce on their
@@ -123,3 +124,42 @@ typedef MinMaxOp<long long, long long, false> MaxI64Op;
   }
 
 static inline bool dft_valid_kind(int kind) { return kind >= K_SUM_F32 && kind <= K_MAX_I64; }
+
+// --- shared-memory windows (K4, K6) -------------------------------------
+// One DFT_WINDOW-slot window per op, WIN_BYTES each (8-byte slots), in a
+// block's dynamic shared memory: at most DFT_MAX_OPS of them fit the
+// 227 KB a Hopper block may hold.
+#define DFT_WINDOW 2048
+#define WIN_BYTES (DFT_WINDOW * 8)
+#define DFT_MAX_OPS 14
+
+template <class Op>
+__device__ __forceinline__ void win_init(unsigned char* win) {
+  typedef typename Op::Acc Acc;
+  for (int i = threadIdx.x; i < DFT_WINDOW; i += blockDim.x) ((Acc*)win)[i] = Op::identity();
+}
+
+// every touched slot of the window into the device table, and back to identity
+template <class Op>
+__device__ __forceinline__ void win_flush(unsigned char* win, void* out, int base) {
+  typedef typename Op::Acc Acc;
+  for (int i = threadIdx.x; i < DFT_WINDOW; i += blockDim.x) {
+    const Acc v = ((Acc*)win)[i];
+    if (v != Op::identity()) {
+      Op::atomic((Acc*)out + base + i, v);
+      ((Acc*)win)[i] = Op::identity();
+    }
+  }
+}
+
+// row r (slot g of the table, `local` of the window) into the window, or
+// straight into the table when it lies outside the window
+template <class Op>
+__device__ __forceinline__ void win_add(unsigned char* win, void* out, const void* vals, const uint8_t* mask,
+                                        long long r, int g, int local) {
+  typedef typename Op::Acc Acc;
+  if (mask != nullptr && !mask[r]) return;
+  const Acc c = Op::contrib((const typename Op::In*)vals, r);
+  if (local < DFT_WINDOW) Op::atomic((Acc*)win + local, c);
+  else Op::atomic((Acc*)out + g, c);
+}

@@ -51,16 +51,47 @@ class Batch:
 
 
 @dataclass
+class ShardedBatch:
+    """A batch over a mesh's logical shards (parallel/): one Batch per
+    shard. "partitioned": the shards' rows together, in shard order, are
+    the result; "replicated": every shard holds the whole result."""
+
+    shards: list[Batch]
+    layout: str
+
+    def merged(self) -> Batch:
+        """The result as one Batch: the shards concatenated in shard order
+        (partitioned), or shard 0 (replicated)."""
+        if self.layout == "replicated":
+            return self.shards[0]
+        caps = [b.capacity for b in self.shards]
+        cols = []
+        for j in range(len(self.shards[0].cols)):
+            parts = [broadcast_col(b.cols[j], n) for b, n in zip(self.shards, caps)]
+            data = torch.cat([d for d, _ in parts])
+            if all(v is None for _, v in parts):
+                cols.append((data, None))
+            else:
+                cols.append((data, torch.cat([torch.ones_like(d, dtype=torch.bool) if v is None else v
+                                              for d, v in parts])))
+        return Batch(cols, torch.cat([b.sel for b in self.shards]))
+
+
+@dataclass
 class Lowered:
     """A lowered plan node: static metadata + stage function.
     `sources[j]` is (scan_slot, column_index) when output column j is a
     pass-through of a scanned column (only row masks applied), which the
-    GROUP BY domain probe reads; None for computed columns."""
+    GROUP BY domain probe reads; None for computed columns. `layout` is
+    None for a stage that maps one env (or one shard's env) to a Batch,
+    and "partitioned" / "replicated" for a distributed stage, which maps
+    the shards' envs to a ShardedBatch (parallel/dist.py)."""
 
     schema: Schema
     dicts: list[Optional[tuple[str, ...]]]
     fn: Callable[[list], Batch]
     sources: Optional[list[Optional[tuple[int, int]]]] = None
+    layout: Optional[str] = None
 
     def src(self) -> list[Optional[tuple[int, int]]]:
         return self.sources if self.sources is not None else [None] * len(self.schema)
@@ -87,13 +118,24 @@ class CompiledQuery:
     _scan_tables: list[Table]
     _host_post: Optional[tuple] = None
     notes: tuple[str, ...] = ()
+    _mesh: Optional[object] = None  # parallel.mesh.Mesh of a distributed plan
 
     def run(self):
-        """Execute and materialize the selected rows on the host."""
+        """Execute and materialize the selected rows on the host. A
+        distributed plan runs over the scanned tables' row-block shards
+        and materializes its ShardedBatch merged."""
         from datafusion_tpu_torch.exec.result import ResultTable
 
-        env = [[(c.data, c.validity) for c in t.columns] for t in self._scan_tables]
-        b = self._fn(env)
+        if self._mesh is None:
+            env = [[(c.data, c.validity) for c in t.columns] for t in self._scan_tables]
+            b = self._fn(env)
+        else:
+            from datafusion_tpu_torch.parallel.mesh import partition_table
+
+            per_table = [partition_table(t, self._mesh) for t in self._scan_tables]
+            envs = [[[(c.data, c.validity) for c in shards[i].columns] for shards in per_table]
+                    for i in range(self._mesh.n_dev)]
+            b = self._fn(envs).merged()
         n = b.capacity
         host_cols = []
         for (d, v), f in zip(b.cols, self.schema.fields):
@@ -385,7 +427,9 @@ class PlanCompiler:
         n, dev = table.num_rows, self.device
 
         def fn(env) -> Batch:
-            return Batch([env[slot][i] for i in indices], torch.ones(n, dtype=torch.bool, device=dev))
+            # a shard's env holds its row block only
+            rows = env[slot][0][0].shape[0] if env[slot] else n
+            return Batch([env[slot][i] for i in indices], torch.ones(rows, dtype=torch.bool, device=dev))
 
         return Lowered(
             table.schema.project(indices),
@@ -395,7 +439,9 @@ class PlanCompiler:
         )
 
     def _lower_selection(self, plan: L.Selection) -> Lowered:
-        child = self.lower(plan.input)
+        return self._selection_over(plan, self.lower(plan.input))
+
+    def _selection_over(self, plan: L.Selection, child: Lowered) -> Lowered:
         pred = self.compile(plan.expr, child)
         if pred.dtype is not DataType.Boolean:
             raise ExecutionError("selection predicate must be boolean")
@@ -489,7 +535,7 @@ class PlanCompiler:
         except fs.Unsupported as why:
             self.note_decline(f"scan+filter+project: fused stage declined ({why})")
             return None
-        n, dev = table.num_rows, self.device
+        dev = self.device
         self.notes.append(
             f"scan+filter+project: fused CUDA stage ({len(computed)} computed expr(s)"
             + (", predicate" if pred_expr is not None else "")
@@ -500,7 +546,7 @@ class PlanCompiler:
         def fn(env) -> Batch:
             b = child.fn(env)
             ins = [b.cols[i] for i in program.inputs]
-            sel, outs = fs.run_fused(program, [d for d, _ in ins], [v for _, v in ins], n, dev)
+            sel, outs = fs.run_fused(program, [d for d, _ in ins], [v for _, v in ins], b.capacity, dev)
             it = iter(outs)
             cols = [b.cols[e.index] if isinstance(e, L.Column) else next(it) for e in exprs]
             return Batch(cols, b.sel if sel is None else sel)
@@ -514,7 +560,9 @@ class PlanCompiler:
         fused = self._speculative(lambda: self._try_fused_stage(plan))
         if fused is not None:
             return fused
-        child = self.lower(plan.input)
+        return self._projection_over(plan, self.lower(plan.input))
+
+    def _projection_over(self, plan: L.Projection, child: Lowered) -> Lowered:
         compiled = [self.compile(e, child) for e in plan.exprs]
 
         def fn(env) -> Batch:
@@ -526,7 +574,10 @@ class PlanCompiler:
         return Lowered(plan.schema, [c.dictionary for c in compiled], fn, sources)
 
     # ------------------------------------------------------------------
-    def _aggregate_over(self, plan: L.Aggregate, child: Lowered) -> Lowered:
+    def _aggregate_meta(self, plan: L.Aggregate, child: Lowered):
+        """The compiled group keys, (function, compiled argument, return
+        type) per aggregate, and the output dictionaries; raises for what
+        the port does not aggregate."""
         group_c = [self.compile(e, child) for e in plan.group_exprs]
         agg_meta = []
         for e in plan.aggr_exprs:
@@ -544,6 +595,10 @@ class PlanCompiler:
         out_dicts = [c.dictionary for c in group_c] + [
             (arg.dictionary if rt is DataType.Utf8 else None) for (_, arg, rt) in agg_meta
         ]
+        return group_c, agg_meta, out_dicts
+
+    def _aggregate_over(self, plan: L.Aggregate, child: Lowered) -> Lowered:
+        group_c, agg_meta, out_dicts = self._aggregate_meta(plan, child)
         dev = self.device
 
         def specs_of(b: Batch):
@@ -618,13 +673,7 @@ class PlanCompiler:
         noted."""
         if not self.bigdense or not agg_ops.DENSE_MAX_GROUPS < prod <= agg_ops.BIGDENSE_MAX_GROUPS:
             return False
-        funcs = [e.name.lower() for e in plan.aggr_exprs]
-        # a column argument is one tensor however often it is used; any
-        # other argument is a new tensor (and validity) per aggregate
-        args = [e.args[0] if isinstance(e.args[0], L.Column) else i for i, e in enumerate(plan.aggr_exprs)]
-        n_masks = len(set(args))
-        # exists-count + one COUNT per mask + one op per (function, argument)
-        n_ops = 1 + n_masks + len({("sum" if f == "avg" else f, a) for f, a in zip(funcs, args) if f != "count"})
+        n_ops, n_masks = self._reduce_op_bound(plan)
         id_mod = 1 << prod.bit_length()
         why = None
         if n_ops > part.MAX_OPS:
@@ -635,6 +684,19 @@ class PlanCompiler:
             self.note_decline(f"aggregate: bigdense declined ({why})")
             return False
         return True
+
+    @staticmethod
+    def _reduce_op_bound(plan: L.Aggregate) -> tuple[int, int]:
+        """Upper bounds, from the plan alone, on the reduce ops and the
+        distinct masks of a dense-window GROUP BY (`agg_ops._op_list`)."""
+        funcs = [e.name.lower() for e in plan.aggr_exprs]
+        # a column argument is one tensor however often it is used; any
+        # other argument is a new tensor (and validity) per aggregate
+        args = [e.args[0] if isinstance(e.args[0], L.Column) else i for i, e in enumerate(plan.aggr_exprs)]
+        n_masks = len(set(args))
+        # exists-count + one COUNT per mask + one op per (function, argument)
+        n_ops = 1 + n_masks + len({("sum" if f == "avg" else f, a) for f, a in zip(funcs, args) if f != "count"})
+        return n_ops, n_masks
 
     def _probe_key_domains(self, group_c, group_exprs, child: Lowered):
         """Per-key (domains, offsets, notes) for the dense/packed GROUP BY
@@ -683,7 +745,9 @@ class PlanCompiler:
 
     # ------------------------------------------------------------------
     def _lower_sort(self, plan: L.Sort) -> Lowered:
-        child = self.lower(plan.input)
+        return self._sort_over(plan, self.lower(plan.input))
+
+    def _sort_over(self, plan: L.Sort, child: Lowered) -> Lowered:
         keys = [(self.compile(se.expr, child), se.asc, se.nulls_first is True) for se in plan.exprs]
         dev = self.device
 
@@ -714,9 +778,10 @@ class PlanCompiler:
                     f"{nk} key{'s' if nk > 1 else ''}, no full sort)"
                 )
                 return self._skip_rows(lowered, off)
-        child = self.lower(plan.input)
-        k = plan.limit
+        return self._limit_over(self.lower(plan.input), plan.limit, off)
 
+    @staticmethod
+    def _limit_over(child: Lowered, k, off: int) -> Lowered:
         def fn(env) -> Batch:
             b = child.fn(env)
             return Batch(b.cols, sort_ops.limit_mask(b.sel, k, off))
@@ -737,7 +802,9 @@ class PlanCompiler:
         return Lowered(lowered.schema, lowered.dicts, fn)
 
     def _lower_topk(self, plan: L.Sort, k: int) -> Optional[Lowered]:
-        child = self.lower(plan.input)
+        return self._topk_over(plan, self.lower(plan.input), k)
+
+    def _topk_over(self, plan: L.Sort, child: Lowered, k: int) -> Optional[Lowered]:
         if len(plan.exprs) == 1:
             se = plan.exprs[0]
             keyc = self.compile(se.expr, child)

@@ -6,7 +6,9 @@ src/execution/context.rs: register_datasource :100, sql :44, execute
 port's copies of the JAX package's host layers, plans compiled to eager
 torch pipelines (exec/compiler.py) with a per-(plan, tables) compile
 cache. `CREATE EXTERNAL TABLE ... STORED AS CSV` executes. The context
-runs on the card unless the caller asks for the CPU.
+runs on the card unless the caller asks for the CPU. With a mesh
+(parallel/mesh.py) every query runs over the tables' row blocks, one per
+logical shard, through the distributed compiler (parallel/dist.py).
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ from datafusion_tpu_torch.columnar.table import Table, resolve_device
 from datafusion_tpu_torch.errors import ExecutionError, NotImplementedError_, PlanError
 from datafusion_tpu_torch.exec.compiler import PlanCompiler, compile_plan, split_host_projection
 from datafusion_tpu_torch.exec.result import ResultTable
+from datafusion_tpu_torch.parallel.dist import DistCompiler, compile_plan_distributed
+from datafusion_tpu_torch.parallel.mesh import Mesh
 from datafusion_tpu_torch.plan.logical import LogicalPlan
 from datafusion_tpu_torch.plan.optimizer import push_down_filters, push_down_projection
 from datafusion_tpu_torch.plan.planner import FunctionMeta, FunctionType, SqlToRel, convert_data_type
@@ -60,14 +64,26 @@ class _Catalog:
 class ExecutionContext:
     """Session object: table registry + SQL entry point, on one device."""
 
-    def __init__(self, device=None, bigdense: Optional[bool] = None):
+    def __init__(self, device=None, bigdense: Optional[bool] = None, mesh: Optional[Mesh] = None):
         """`device`: where tables live and queries run. None means the
         card ("cuda"), and raises on a machine without one; pass "cpu"
         to run on the CPU. `bigdense`: route GROUP BYs of 2,048 to 16,383
         slots to the radix-partition path (K3 + K4). None reads
         DFTPU_BIGDENSE once, here: unset or "0" is off, any other value
-        on. Every plan of this context, executed or EXPLAINed, uses it."""
-        self.device = resolve_device(device)
+        on. Every plan of this context, executed or EXPLAINed, uses it.
+        `mesh`: run every query over the mesh's logical shards
+        (`make_mesh`); its device is the context's, and a `device` that
+        names another raises. The mesh does not route to bigdense."""
+        self.mesh = mesh
+        if mesh is not None:
+            if device is not None and resolve_device(device) != mesh.device:
+                raise ExecutionError(f"device {device} differs from the mesh's device {mesh.device}")
+            self.device = mesh.device
+            if bigdense:
+                raise ExecutionError("a mesh context has no bigdense route")
+            bigdense = False
+        else:
+            self.device = resolve_device(device)
         if bigdense is None:
             bigdense = os.environ.get("DFTPU_BIGDENSE", "0") not in ("", "0")
         self.bigdense = bigdense
@@ -95,7 +111,9 @@ class ExecutionContext:
             raise ExecutionError(f"unsupported datasource {type(ds).__name__}")
 
     def register_table(self, name: str, table: Table) -> None:
-        """Register a table, moving it to this context's device."""
+        """Register a table, moving it to this context's device. With a
+        mesh, each query partitions it into row-block views, one per
+        shard (`partition_table`)."""
         if table.columns and table.device != self.device:
             table = table.to(self.device)
         self._tables[name] = table
@@ -139,7 +157,10 @@ class ExecutionContext:
                 # lower (no execution) to record the physical choices
                 fn_reg = self._fn_registry()
                 plan, _ = split_host_projection(plan, fn_reg)
-                pc = PlanCompiler(self._tables, fn_reg, self.device, self.bigdense)
+                if self.mesh is not None:
+                    pc = DistCompiler(self._tables, self.mesh, fn_reg)
+                else:
+                    pc = PlanCompiler(self._tables, fn_reg, self.device, self.bigdense)
                 pc.lower(plan)
                 for note in pc.notes + pc.sticky_notes:
                     text += f"physical: {note}\n"
@@ -159,7 +180,10 @@ class ExecutionContext:
         key = (repr(plan), tuple(sorted((n, id(t)) for n, t in self._tables.items())))
         compiled = self._compile_cache.get(key)
         if compiled is None:
-            compiled = compile_plan(plan, self._tables, self._fn_registry(), self.device, self.bigdense)
+            if self.mesh is not None:
+                compiled = compile_plan_distributed(plan, self._tables, self.mesh, self._fn_registry())
+            else:
+                compiled = compile_plan(plan, self._tables, self._fn_registry(), self.device, self.bigdense)
             self._compile_cache[key] = compiled
         return compiled.run()
 

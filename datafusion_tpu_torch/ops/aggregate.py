@@ -153,15 +153,15 @@ def _k2_value(data: torch.Tensor) -> torch.Tensor:
     return data.to(torch.int32)
 
 
-def _reduce_specs(specs, gid, n_rows, num_groups, reduce, row_of, exists_count):
-    """Shared decode for the grouped paths: build the deduped op list
-    (one COUNT per distinct mask, one value stream per distinct argument),
-    run `reduce` (K2's or K4's contract: `segmented_reduce`) once, and
-    assemble each spec's (data, validity).
+def _op_list(specs, n_rows, row_of, exists_count):
+    """The deduped op list of the grouped paths: one COUNT per distinct
+    mask, one value stream per distinct argument. Returns (ops, values,
+    masks, plan), `plan[s]` being spec s's (count slot, value slot).
 
-    `row_of(t)` maps a per-row tensor into the order `gid` is in (a gather
-    for the sorted path, identity for the dense ones). `exists_count`
-    True adds a group-existence COUNT (dense slots: which slots exist)."""
+    `row_of(t)` maps a per-row tensor into the order the group ids are in
+    (a gather for the sorted path, identity for the dense ones).
+    `exists_count` True adds a group-existence COUNT (dense slots: which
+    slots exist)."""
     ops, vals, masks, index = [], [], [], {}
     values: dict = {}
     valids: dict = {}
@@ -197,8 +197,11 @@ def _reduce_specs(specs, gid, n_rows, num_groups, reduce, row_of, exists_count):
         cnt = slot("count", None, valid) if (spec.func in ("count", "avg") or valid is not None) else None
         val = None if spec.func == "count" else slot("sum" if spec.func == "avg" else spec.func, data, valid)
         plan.append((cnt, val))
-    outs = reduce(gid, vals, masks, ops=ops, num_groups=num_groups)
+    return ops, vals, masks, plan
 
+
+def _assemble(specs, plan, outs) -> list[ColVal]:
+    """Each spec's (data, validity) from the reduced op tables."""
     res = []
     for spec, (cnt, val) in zip(specs, plan):
         out_t = torch_dtype(spec.out_dtype)
@@ -214,25 +217,58 @@ def _reduce_specs(specs, gid, n_rows, num_groups, reduce, row_of, exists_count):
         elif spec.func in ("min", "max") and data.dtype == torch.bool:
             r = r != 0
         res.append((r.to(out_t), None if cnt is None else outs[cnt] > 0))
-    return outs, res
+    return res
 
 
-def _dense_window_aggregate(key_cols, specs, sel, domain_size, key_offset, reduce):
+def _reduce_specs(specs, gid, n_rows, num_groups, reduce, row_of, exists_count):
+    """The op list (`_op_list`) reduced by `reduce` (K2's or K4's contract:
+    `segmented_reduce`) once, and each spec's (data, validity)."""
+    ops, vals, masks, plan = _op_list(specs, n_rows, row_of, exists_count)
+    outs = reduce(gid, vals, masks, ops=ops, num_groups=num_groups)
+    return outs, _assemble(specs, plan, outs)
+
+
+def on_one_shard(reduce):
+    """A per-device `reduce` as a mesh-wide one over a single shard."""
+    return lambda gids, vals, masks, **kw: [reduce(gids[0], vals[0], masks[0], **kw)]
+
+
+def _dense_window_aggregate(shards, domain_size, key_offset, reduce, slot_gid=None):
     """Sort-free GROUP BY over probed key domains (the port of
     dense_window_aggregate): the packed key is the group id, `reduce`
     reduces the unsorted rows into one slot per packed key, and the
-    existing slots decode back into keys. Returns (out_keys, out_aggs,
-    n_groups) over the existing groups only."""
-    n = sel.shape[0]
-    key_cols = [(full(d, n), None if v is None else full(v, n)) for d, v in key_cols]
-    gid, doms, offs, radices, strides, nslots = dense_pack_gid(key_cols, domain_size, key_offset)
-    # unselected rows route past the table and are dropped by the reduce
-    gid = torch.where(sel, gid, torch.full((), nslots, dtype=torch.int32, device=gid.device)).contiguous()
-    outs, aggs = _reduce_specs(specs, gid, n, nslots, reduce, lambda t: t, exists_count=True)
-    exists = torch.nonzero(outs[0] > 0).squeeze(1)
-    keys = _decode_keys(key_cols, exists, doms, offs, radices, strides)
-    aggs = [(d[exists], None if v is None else v[exists]) for d, v in aggs]
-    return keys, aggs, int(exists.shape[0])
+    existing slots decode back into keys.
+
+    `shards` lists each shard's (key_cols, specs, sel). `reduce(gids,
+    vals, masks, ops=, num_groups=)` is mesh-wide: it takes each shard's
+    op streams (ids in [0, nslots], nslots = unselected) and returns the
+    tables of each output shard. `slot_gid(d, size)` maps output shard
+    d's `size` slots to packed ids (default: slot s is id s); the
+    distributed fold's shard d holds ids {w * n_dev + d}. Returns, per output shard,
+    (out_keys, out_aggs, n_groups) over its existing groups."""
+    streams = []
+    for key_cols, specs, sel in shards:
+        n = sel.shape[0]
+        key_cols = [(full(d, n), None if v is None else full(v, n)) for d, v in key_cols]
+        gid, doms, offs, radices, strides, nslots = dense_pack_gid(key_cols, domain_size, key_offset)
+        # unselected rows route past the table and are dropped by the reduce
+        gid = torch.where(sel, gid, torch.full((), nslots, dtype=torch.int32, device=gid.device)).contiguous()
+        streams.append((key_cols, gid, _op_list(specs, n, lambda t: t, exists_count=True)))
+    ops, plan = streams[0][2][0], streams[0][2][3]
+    if any(st[2][0] != ops for st in streams):
+        raise ExecutionError("shards built different op lists")
+    tables = reduce([st[1] for st in streams], [st[2][1] for st in streams], [st[2][2] for st in streams],
+                    ops=ops, num_groups=nslots)
+    key_cols, specs = streams[0][0], shards[0][1]
+    out = []
+    for d, outs in enumerate(tables):
+        size = outs[0].shape[0]
+        sg = torch.arange(size, device=outs[0].device) if slot_gid is None else slot_gid(d, size)
+        exists = torch.nonzero((outs[0] > 0) & (sg < nslots)).squeeze(1)
+        keys = _decode_keys(key_cols, sg[exists], doms, offs, radices, strides)
+        aggs = [(a[exists], None if v is None else v[exists]) for a, v in _assemble(specs, plan, outs)]
+        out.append((keys, aggs, int(exists.shape[0])))
+    return out
 
 
 def grouped_aggregate_dense(
@@ -244,9 +280,8 @@ def grouped_aggregate_dense(
 ):
     """Sort-free GROUP BY for small probed key domains
     (`DENSE_MAX_GROUPS`): K2's dense mode reduces the unsorted rows."""
-    return _dense_window_aggregate(
-        key_cols, specs, sel, domain_size, key_offset, functools.partial(segmented_reduce, dense=True)
-    )
+    reduce = on_one_shard(functools.partial(segmented_reduce, dense=True))
+    return _dense_window_aggregate([(key_cols, specs, sel)], domain_size, key_offset, reduce)[0]
 
 
 def slab_reduce(gid, vals, masks, *, ops, num_groups):
@@ -294,7 +329,7 @@ def grouped_aggregate_bigdense(
     rows into slabs, one 2048-slot window per 256-row chunk, and K4
     reduces the slab (`slab_reduce`). The compiler's gate keeps the mask
     bits below SENTINEL and the op list within K4's shared memory."""
-    return _dense_window_aggregate(key_cols, specs, sel, domain_size, key_offset, slab_reduce)
+    return _dense_window_aggregate([(key_cols, specs, sel)], domain_size, key_offset, on_one_shard(slab_reduce))[0]
 
 
 def grouped_aggregate(

@@ -27,6 +27,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from datafusion_tpu_torch.columnar.table import resolve_device
 from datafusion_tpu_torch.errors import ExecutionError, NotImplementedError_
 from datafusion_tpu_torch.plan.logical import (
     AggregateFunction,
@@ -265,11 +266,12 @@ def compile_expr(
 ) -> CompiledExpr:
     """Compile `expr` against `schema`; `dicts[i]` is the dictionary of
     input column i (None for non-Utf8). Literals and lookup tables are
-    placed on `device`."""
+    placed on `device`: the card unless the caller names another
+    (`resolve_device`)."""
     registry = dict(SCALAR_FUNCTIONS)
     if fn_registry:
         registry.update(fn_registry)
-    return _Compiler(schema, list(dicts), registry, torch.device(device or "cpu")).compile(expr)
+    return _Compiler(schema, list(dicts), registry, resolve_device(device)).compile(expr)
 
 
 def strip_utf8_cast(e: Expr) -> Expr:

@@ -29,7 +29,7 @@ from datafusion_tpu_torch.errors import ExecutionError
 PKG_DIR = Path(__file__).resolve().parents[2]
 SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-SOURCES = ("fused_stage.cu", "segreduce.cu", "partition.cu")
+SOURCES = ("fused_stage.cu", "segreduce.cu", "partition.cu", "ragged_shuffle.cu")
 HEADERS = ("reduce_common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -107,6 +107,10 @@ def load_library() -> ctypes.CDLL:
     lib.dft_slab_partition.restype = i32
     lib.dft_windowed_reduce.argtypes = [vp, i64, i32, i32, vp, vp, vp, vp, vp]
     lib.dft_windowed_reduce.restype = i32
+    lib.dft_ragged_exchange.argtypes = [vp, vp, vp, vp, i32, i32, i64, i32, vp]
+    lib.dft_ragged_exchange.restype = i32
+    lib.dft_ragged_exchange_fold.argtypes = [vp, vp, vp, vp, vp, i32, i64, i32, i32, vp, vp]
+    lib.dft_ragged_exchange_fold.restype = i32
     return lib
 
 

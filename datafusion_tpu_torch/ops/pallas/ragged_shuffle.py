@@ -1,0 +1,266 @@
+"""K5 ragged exchange and K6 ragged exchange + fold: the shuffle between
+the logical shards of a mesh (parallel/).
+
+Port of datafusion_tpu/ops/pallas/ragged_shuffle.py. Layout contract,
+as there: every array is 1-D `[n_dev * split_cap]`; a sender's region `i`
+holds the rows for shard `i`, and a receiver's region `j` the rows shard
+`j` sent it. `sizes[j, i]` is the number of rows shard j sends shard i
+(an int32 `[n_dev, n_dev]` matrix, parallel/collectives.size_matrix), so
+region j of receiver i is valid in its first `sizes[j, i]` rows and no
+validity rides the exchange. Each count must be at most `split_cap`: the
+caller sizes `split_cap` from the counts (parallel/shuffle.py), so no row
+is ever dropped and the JAX package's overflow retry has no counterpart.
+
+  * K5 `ragged_exchange(sends, sizes)`: `sends[j]` is shard j's list of
+    region-layout arrays (any dtype of 1, 2, 4 or 8 bytes); returns each
+    receiver's list. Only `ceil(sizes[j, i] / chunk)` chunks move per
+    pair; tails stay unwritten.
+  * K6 `ragged_exchange_fold`: routed rows carry a receiver-local window
+    id (< num_groups <= 2048), per-op values and deduplicated masks; each
+    receiver gets K2's per-op tables over its windows
+    (ops/pallas/segreduce.py: f64 / i64 sums with IEEE NaN and +-inf, i64
+    counts, value-dtype MIN/MAX, +-inf for an empty float MIN/MAX slot),
+    with no post-exchange batch. The TPU kernel's f32-only values and its
+    zero-sanitized sums are gone.
+
+The senders' buffers are all on one device. CPU tensors take the plain
+versions; CUDA tensors launch csrc/ragged_shuffle.cu (or raise).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Sequence
+
+import torch
+
+from datafusion_tpu_torch.ops.pallas.partition import MAX_OPS, WINDOW
+from datafusion_tpu_torch.ops.pallas.segreduce import (
+    _KIND,
+    _finish,
+    _identity_tables,
+    _validate,
+    segmented_reduce_plain,
+)
+
+CHUNKS = (1024, 512, 256, 128)  # K5 chunk sizes, in rows
+MAX_DEV = 255  # csrc/ragged_shuffle.cu DFT_MAX_DEV
+
+
+def pick_chunk(split_cap: int) -> Optional[int]:
+    """Largest chunk of CHUNKS dividing the region capacity (the JAX
+    package's rule), or None."""
+    for c in CHUNKS:
+        if split_cap % c == 0:
+            return c
+    return None
+
+
+def _check_sizes(sizes: torch.Tensor, n_dev: int, split_cap: int, device) -> None:
+    if not 1 <= n_dev <= MAX_DEV:
+        raise ValueError(f"n_dev must be in [1, {MAX_DEV}]")
+    if split_cap < 0:
+        raise ValueError("split_cap must not be negative")
+    if sizes.dtype != torch.int32 or tuple(sizes.shape) != (n_dev, n_dev) or not sizes.is_contiguous():
+        raise ValueError("sizes must be a contiguous [n_dev, n_dev] int32 tensor")
+    if sizes.device != device:
+        raise ValueError("sizes must lie on the arrays' device")
+
+
+def _check_region(t: torch.Tensor, n_dev: int, split_cap: int, device) -> None:
+    if t.device != device or t.dim() != 1 or t.shape[0] != n_dev * split_cap or not t.is_contiguous():
+        raise ValueError("region-layout arrays must be contiguous 1-D [n_dev * split_cap] tensors on one device")
+
+
+def _pointer_table(ts, device) -> torch.Tensor:
+    return torch.tensor([0 if t is None else t.data_ptr() for t in ts], dtype=torch.int64, device=device)
+
+
+# --- K5 ---------------------------------------------------------------------
+
+
+def _check_exchange(sends, sizes, n_dev, split_cap, chunk):
+    if len(sends) != n_dev:
+        raise ValueError("one list of arrays per sender")
+    if chunk not in CHUNKS or split_cap % chunk:
+        raise ValueError(f"chunk must be one of {CHUNKS} and divide split_cap")
+    dev = sends[0][0].device if sends and sends[0] else sizes.device
+    _check_sizes(sizes, n_dev, split_cap, dev)
+    for arrs in sends:
+        if len(arrs) != len(sends[0]):
+            raise ValueError("every sender sends the same arrays")
+        for a, t in enumerate(arrs):
+            _check_region(t, n_dev, split_cap, dev)
+            if t.dtype != sends[0][a].dtype:
+                raise ValueError("an array has one dtype on every sender")
+            if t.element_size() not in (1, 2, 4, 8):
+                raise ValueError(f"dtype {t.dtype} is not 1, 2, 4 or 8 bytes wide")
+
+
+def ragged_exchange_plain(
+    sends: Sequence[Sequence[torch.Tensor]],
+    sizes: torch.Tensor,
+    *,
+    n_dev: int,
+    split_cap: int,
+    chunk: int,
+) -> list[list[torch.Tensor]]:
+    """The kernel's function in plain PyTorch: each pair's valid prefix
+    copied region to region."""
+    sz = sizes.tolist()
+    if max(max(r) for r in sz) > split_cap:
+        raise ValueError("a count exceeds split_cap")
+    recvs = [[torch.empty_like(t) for t in sends[0]] for _ in range(n_dev)]
+    for j in range(n_dev):
+        for i in range(n_dev):
+            c = sz[j][i]
+            for a, t in enumerate(sends[j]):
+                recvs[i][a][j * split_cap: j * split_cap + c] = t[i * split_cap: i * split_cap + c]
+    return recvs
+
+
+def ragged_exchange(
+    sends: Sequence[Sequence[torch.Tensor]],
+    sizes: torch.Tensor,
+    *,
+    n_dev: int,
+    split_cap: int,
+    chunk: int,
+) -> list[list[torch.Tensor]]:
+    """All-to-all of region-layout arrays (K5, module doc): returns each
+    receiver's arrays, valid in region j's first `sizes[j, i]` rows."""
+    sends = [list(s) for s in sends]
+    _check_exchange(sends, sizes, n_dev, split_cap, chunk)
+    dev = sizes.device
+    if dev.type == "cpu":
+        return ragged_exchange_plain(sends, sizes, n_dev=n_dev, split_cap=split_cap, chunk=chunk)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    from datafusion_tpu_torch.ops.pallas.cuda_lib import check, load_library
+
+    lib = load_library()
+    recvs = [[torch.empty_like(t) for t in sends[0]] for _ in range(n_dev)]
+    n_arrs = len(sends[0])
+    if n_arrs and split_cap:
+        send_p = _pointer_table([sends[j][a] for a in range(n_arrs) for j in range(n_dev)], dev)
+        recv_p = _pointer_table([recvs[i][a] for a in range(n_arrs) for i in range(n_dev)], dev)
+        esize = torch.tensor([t.element_size() for t in sends[0]], dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.dft_ragged_exchange(send_p.data_ptr(), recv_p.data_ptr(), esize.data_ptr(), sizes.data_ptr(),
+                                         n_dev, n_arrs, split_cap, chunk, stream)
+        check(rc, "ragged_exchange kernel")
+        ragged_exchange.launches += 1
+    return recvs
+
+
+# --- K6 ---------------------------------------------------------------------
+
+
+def _check_fold(gids, vals, masks, sizes, ops, mask_map, n_dev, split_cap, num_groups):
+    if not (len(gids) == len(vals) == len(masks) == n_dev):
+        raise ValueError("one gid, one value list and one mask list per sender")
+    if not 0 <= num_groups <= WINDOW:
+        raise ValueError(f"num_groups must be in [0, {WINDOW}]: one shared-memory window per op")
+    if len(ops) > MAX_OPS:
+        raise ValueError(f"at most {MAX_OPS} ops: one {WINDOW}-slot window each must fit shared memory")
+    if len(mask_map) != len(ops):
+        raise ValueError("one mask_map entry per op")
+    dev = gids[0].device
+    _check_sizes(sizes, n_dev, split_cap, dev)
+    for j in range(n_dev):
+        if len(vals[j]) != len(ops) or len(masks[j]) != len(masks[0]):
+            raise ValueError("every sender sends one value per op and the same masks")
+        for m in masks[j]:
+            _check_region(m, n_dev, split_cap, dev)
+            if m.dtype != torch.bool:
+                raise ValueError("masks must be bool")
+        for a in range(len(ops)):
+            if not 0 <= mask_map[a] <= len(masks[j]):
+                raise ValueError("mask_map entries index the masks from 1 (0 = every routed row)")
+        _validate(gids[j], vals[j], [None] * len(ops), ops, num_groups, dense=False)
+        _check_region(gids[j], n_dev, split_cap, dev)
+
+
+def _op_masks(masks, mask_map):
+    return [None if u == 0 else masks[u - 1] for u in mask_map]
+
+
+def ragged_exchange_fold_plain(
+    gids: Sequence[torch.Tensor],
+    vals: Sequence[Sequence[Optional[torch.Tensor]]],
+    masks: Sequence[Sequence[torch.Tensor]],
+    sizes: torch.Tensor,
+    *,
+    ops: Sequence[str],
+    mask_map: Sequence[int],
+    n_dev: int,
+    split_cap: int,
+    num_groups: int,
+) -> list[tuple[torch.Tensor, ...]]:
+    """The kernel's function in plain PyTorch: each receiver's routed rows
+    gathered sender by sender, then K2's plain reduce."""
+    sz = sizes.tolist()
+    out = []
+    for i in range(n_dev):
+        spans = [(j, i * split_cap, i * split_cap + sz[j][i]) for j in range(n_dev)]
+
+        def cat(ts):
+            return torch.cat([ts[j][lo:hi] for j, lo, hi in spans])
+
+        gid = cat(gids)
+        v = [None if vals[0][a] is None else cat([vals[j][a] for j in range(n_dev)]) for a in range(len(ops))]
+        m = [None if u == 0 else cat([masks[j][u - 1] for j in range(n_dev)]) for u in mask_map]
+        out.append(segmented_reduce_plain(gid, v, m, ops=ops, num_groups=num_groups))
+    return out
+
+
+def ragged_exchange_fold(
+    gids: Sequence[torch.Tensor],
+    vals: Sequence[Sequence[Optional[torch.Tensor]]],
+    masks: Sequence[Sequence[torch.Tensor]],
+    sizes: torch.Tensor,
+    *,
+    ops: Sequence[str],
+    mask_map: Sequence[int],
+    n_dev: int,
+    split_cap: int,
+    num_groups: int,
+) -> list[tuple[torch.Tensor, ...]]:
+    """Exchange fused with a dense fold (K6, module doc). `gids[j]`,
+    `vals[j][a]` (None for a COUNT) and `masks[j][u]` are sender j's
+    region-layout window ids, per-op values and deduplicated bool masks;
+    `mask_map[a]` is 0 (every routed row) or 1 + the index of op a's
+    mask. Returns, per receiver, one `[num_groups]` table per op."""
+    ops, mask_map = tuple(ops), tuple(mask_map)
+    _check_fold(gids, vals, masks, sizes, ops, mask_map, n_dev, split_cap, num_groups)
+    dev = gids[0].device
+    if dev.type == "cpu":
+        return ragged_exchange_fold_plain(gids, vals, masks, sizes, ops=ops, mask_map=mask_map, n_dev=n_dev,
+                                          split_cap=split_cap, num_groups=num_groups)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    from datafusion_tpu_torch.ops.pallas.cuda_lib import check, load_library
+
+    lib = load_library()
+    tables = [_identity_tables(ops, vals[0], num_groups, dev) for _ in range(n_dev)]
+    k = len(ops)
+    if k and split_cap and num_groups:
+        per_op = [_op_masks(masks[j], mask_map) for j in range(n_dev)]
+        gid_p = _pointer_table(gids, dev)
+        val_p = _pointer_table([vals[j][a] for a in range(k) for j in range(n_dev)], dev)
+        mask_p = _pointer_table([per_op[j][a] for a in range(k) for j in range(n_dev)], dev)
+        out_p = _pointer_table([tables[i][a] for a in range(k) for i in range(n_dev)], dev)
+        kinds = (ctypes.c_int * k)(*[_KIND[(op, None if v is None else v.dtype)] for op, v in zip(ops, vals[0])])
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.dft_ragged_exchange_fold(gid_p.data_ptr(), val_p.data_ptr(), mask_p.data_ptr(), out_p.data_ptr(),
+                                              sizes.data_ptr(), n_dev, split_cap, num_groups, k, kinds, stream)
+        check(rc, "ragged_exchange_fold kernel")
+        ragged_exchange_fold.launches += 1
+    return [_finish(ops, vals[0], t) for t in tables]
+
+
+# CUDA kernel launches (one per call that reached the card)
+ragged_exchange.launches = 0
+ragged_exchange_fold.launches = 0

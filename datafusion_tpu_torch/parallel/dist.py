@@ -1,0 +1,471 @@
+"""Distributed plan compiler: a query over the logical shards of a mesh.
+
+Port of datafusion_tpu/parallel/dist.py for the main path. The JAX
+package traces the whole query into one `shard_map` over a mesh of chips;
+here one controller runs each stage over the list of shards
+(parallel/mesh.py), and a distributed stage maps the shards' envs to a
+ShardedBatch (exec/compiler.py):
+
+  * scan / filter / project run once per shard over its row block, with
+    the single-card lowering (K1 per shard)
+  * GROUP BY, in the JAX package's order: dense per shard (K2 dense) and
+    a psum / pmin / pmax merge; the fused exchange + fold (K6); or partial
+    aggregates per shard and a merge of their all_gather; ungrouped
+    aggregates merge their per-shard scalars
+  * ORDER BY: a sample sort whose range exchange is K5
+    (parallel/shuffle.py); ORDER BY one key LIMIT k <= 4096: per-shard
+    top-k and a top-k of the gathered candidates
+  * LIMIT: global row ranks from the per-shard counts
+
+Routing is decided by the plan alone; the JAX package's DFTPU_* routing
+options are not read. Its exchange:fold cost estimate was a TPU v5e
+ICI-to-HBM proxy, and one card has no ICI, so the fold's gate is what K6
+takes: probed key domains of at most 2048 slots per shard and an op list
+within K6's shared memory, decided at plan time.
+
+A stage over a local child (a lowering of the base compiler, one env to
+one Batch) stays local until a distributed stage needs its shards; a
+stage over a distributed child runs once per shard, and once in all for
+a replicated child.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from datafusion_tpu_torch.exec.compiler import (
+    Batch,
+    CompiledQuery,
+    Lowered,
+    PlanCompiler,
+    ShardedBatch,
+    split_host_projection,
+)
+from datafusion_tpu_torch.ops import aggregate as agg_ops
+from datafusion_tpu_torch.ops import sort as sort_ops
+from datafusion_tpu_torch.ops.expr_eval import broadcast_col
+from datafusion_tpu_torch.ops.pallas.partition import MAX_OPS, WINDOW
+from datafusion_tpu_torch.ops.pallas.segreduce import from_sortable_int, segmented_reduce, to_sortable_int
+from datafusion_tpu_torch.parallel import collectives as C
+from datafusion_tpu_torch.parallel.mesh import Mesh
+from datafusion_tpu_torch.parallel.shuffle import exchange_fold, repartition
+from datafusion_tpu_torch.plan import logical as L
+from datafusion_tpu_torch.types import DataType, torch_dtype
+
+OVERSAMPLE = 16  # sample-sort samples per shard
+TOPK_MAX = 4096  # ORDER BY one key LIMIT k: per-shard top-k up to this k
+
+
+def _sort_operands(kd: torch.Tensor, kv, asc: bool, nf: bool) -> list[torch.Tensor]:
+    """One ORDER BY key as ascending integer operands (ops/sort.py
+    `_directed_key`). Floats compare on their order-preserving image,
+    with every NaN made the canonical one after +inf, where torch.sort
+    puts NaNs; -0.0 and 0.0 share one image."""
+    out = []
+    for o in sort_ops._directed_key(kd, kv, asc, nf):
+        if o.dtype.is_floating_point:
+            o = to_sortable_int(torch.where(o.isnan(), torch.full((), float("nan"), dtype=o.dtype, device=o.device), o))
+        out.append(o)
+    return out
+
+
+def _merge_dense(op: str, tables: list[torch.Tensor]) -> torch.Tensor:
+    """Per-shard K2 dense tables into the mesh's: sums and counts add;
+    MIN / MAX combine on the order-preserving image, as K2 reduces."""
+    if op in ("sum", "count"):
+        return C.psum(tables)
+    img = [to_sortable_int(t) for t in tables]
+    return from_sortable_int(C.pmin(img) if op == "min" else C.pmax(img), tables[0].dtype)
+
+
+def _float_partial(rt: DataType) -> DataType:
+    """Partial-sum type for AVG: accumulate in the argument's float width."""
+    return rt if rt.is_float else DataType.Float64
+
+
+class DistCompiler(PlanCompiler):
+    """Lowers plans to stages over the shards of `mesh`."""
+
+    def __init__(self, tables, mesh: Mesh, fn_registry=None):
+        super().__init__(tables, fn_registry, mesh.device)
+        self.mesh = mesh
+        self.n_dev = mesh.n_dev
+
+    # -- helpers --------------------------------------------------------
+    def _as_dist(self, low: Lowered) -> Lowered:
+        """A local lowering run once per shard, over its row block."""
+        if low.layout is not None:
+            return low
+
+        def fn(envs) -> ShardedBatch:
+            return ShardedBatch([low.fn(env) for env in envs], "partitioned")
+
+        return Lowered(low.schema, low.dicts, fn, low.sources, "partitioned")
+
+    def _map(self, child: Lowered, local: Lowered) -> Lowered:
+        """`local` (lowered over a stand-in for `child`'s shards) run on
+        each shard of `child`; on a replicated child, once."""
+        layout, n = child.layout, self.n_dev
+
+        def fn(envs) -> ShardedBatch:
+            sb = child.fn(envs)
+            if layout == "replicated":
+                return ShardedBatch([local.fn(sb.shards[0])] * n, layout)
+            return ShardedBatch([local.fn(b) for b in sb.shards], layout)
+
+        return Lowered(local.schema, local.dicts, fn, local.sources, layout)
+
+    def _per_shard(self, child: Lowered, build) -> Optional[Lowered]:
+        """`build(c)` lowers a single-card stage over `c`: over a local
+        child it stays local, over a distributed one it runs per shard."""
+        if child.layout is None:
+            return build(child)
+        local = build(Lowered(child.schema, child.dicts, lambda b: b, child.sources))
+        return None if local is None else self._map(child, local)
+
+    def _gather_batch(self, child: Lowered) -> Lowered:
+        """Partitioned -> replicated: every shard holds the concatenation
+        of all shards' rows (all_gather)."""
+        if child.layout == "replicated":
+            return child
+        child = self._as_dist(child)
+        n = self.n_dev
+
+        def fn(envs) -> ShardedBatch:
+            return ShardedBatch([child.fn(envs).merged()] * n, "replicated")
+
+        return Lowered(child.schema, child.dicts, fn, None, "replicated")
+
+    # -- local stages ----------------------------------------------------
+    def _lower_empty(self, plan: L.EmptyRelation) -> Lowered:
+        local, n = super()._lower_empty(plan), self.n_dev
+        return Lowered(local.schema, local.dicts, lambda envs: ShardedBatch([local.fn(None)] * n, "replicated"),
+                       None, "replicated")
+
+    def _lower_selection(self, plan: L.Selection) -> Lowered:
+        return self._per_shard(self.lower(plan.input), lambda c: self._selection_over(plan, c))
+
+    def _lower_projection(self, plan: L.Projection) -> Lowered:
+        fused = self._speculative(lambda: self._try_fused_stage(plan))  # K1, once per shard
+        if fused is not None:
+            return fused
+        return self._per_shard(self.lower(plan.input), lambda c: self._projection_over(plan, c))
+
+    # -- sort --------------------------------------------------------------
+    def _lower_sort(self, plan: L.Sort) -> Lowered:
+        child = self.lower(plan.input)
+        if child.layout == "replicated":
+            return self._per_shard(child, lambda c: self._sort_over(plan, c))
+        return self._sort_sample(plan, self._as_dist(child))
+
+    def _sort_sample(self, plan: L.Sort, child: Lowered) -> Lowered:
+        """Sample sort: each shard sorts its rows; OVERSAMPLE key tuples per
+        shard are gathered and sorted, and n_dev - 1 of them split the key
+        range; K5 moves every row to its range's shard (equal keys to one
+        shard), which sorts what it received. The shards in order are
+        then the sorted result. Rows arrive sender by sender and every sort
+        is stable, so ties keep the global row order, as on one card."""
+        n = self.n_dev
+        if len(plan.exprs) == 1:
+            self.notes.append("sort: distributed sample sort (splitter all_gather + range exchange over K5 + local sorts)")
+        else:
+            self.notes.append(
+                "sort: distributed multi-key sample sort (tuple splitters, lexicographic range routing, "
+                "range exchange over K5)"
+            )
+        keys = [(self.compile(se.expr, child), se.asc, se.nulls_first is True) for se in plan.exprs]
+        n_cols = len(child.schema)
+
+        def fn(envs) -> ShardedBatch:
+            local = []
+            for b in child.fn(envs).shards:
+                ops = []
+                for kc, asc, nf in keys:
+                    kd, kv = broadcast_col(kc.fn(b.cols), b.capacity)
+                    ops.extend(_sort_operands(kd, kv, asc, nf))
+                cols = sort_ops.sort_batch([((o, None), True) for o in ops], list(b.cols) + [(o, None) for o in ops],
+                                           b.sel)
+                local.append(cols)
+            m = len(local[0]) - n_cols
+            samples = [[] for _ in range(m)]
+            for cols in local:
+                n_sel = cols[0][0].shape[0]
+                pos = (torch.arange(OVERSAMPLE, device=self.device) + 1) * max(n_sel, 1) // (OVERSAMPLE + 1)
+                for t in range(m):
+                    o = cols[n_cols + t][0]
+                    # an empty shard samples the largest tuple
+                    samples[t].append(o[pos] if n_sel else torch.full((OVERSAMPLE,), torch.iinfo(o.dtype).max,
+                                                                      dtype=o.dtype, device=o.device))
+            gathered = [C.all_gather(s) for s in samples]
+            order = sort_ops.lexsort(gathered)
+            ranks = (torch.arange(1, n, device=self.device) * (n * OVERSAMPLE)) // n
+            splitters = [g[order][ranks] for g in gathered]
+            dsts = []
+            for cols in local:
+                ops = [c[0] for c in cols[n_cols:]]
+                dst = torch.zeros(ops[0].shape[0], dtype=torch.int64, device=self.device)
+                for j in range(n - 1):
+                    # splitter tuple j <= the row's tuple (lexicographic):
+                    # equal tuples go right, so equal keys share a shard
+                    less = torch.zeros_like(dst, dtype=torch.bool)
+                    eq = torch.ones_like(dst, dtype=torch.bool)
+                    for t in range(m):
+                        less |= eq & (splitters[t][j] < ops[t])
+                        eq &= splitters[t][j] == ops[t]
+                    dst += less | eq
+                dsts.append(dst)
+            sels = [torch.ones(c[0][0].shape[0], dtype=torch.bool, device=self.device) for c in local]
+            recv, recv_sel = repartition(local, dsts, sels, n)
+            out = []
+            for cols, sel in zip(recv, recv_sel):
+                res = sort_ops.sort_batch([(cv, True) for cv in cols[n_cols:]], cols[:n_cols], sel)
+                out.append(Batch(res, torch.ones(res[0][0].shape[0], dtype=torch.bool, device=self.device)))
+            return ShardedBatch(out, "partitioned")
+
+        return Lowered(child.schema, child.dicts, fn, None, "partitioned")
+
+    # -- limit ---------------------------------------------------------------
+    def _lower_limit(self, plan: L.Limit) -> Lowered:
+        off = plan.offset
+        if (
+            isinstance(plan.input, L.Sort)
+            and len(plan.input.exprs) == 1
+            and plan.input.exprs[0].nulls_first is not True
+            and plan.limit is not None
+            and 0 < plan.limit + off <= TOPK_MAX
+        ):
+            low = self._speculative(lambda: self._topk_dist(plan.input, plan.limit + off))
+            if low is not None:
+                self.notes.append(f"sort+limit: per-shard top-k + candidate all_gather (k={plan.limit + off})")
+                return self._per_shard(low, lambda c: self._skip_rows(c, off))
+        child = self.lower(plan.input)
+        if child.layout == "replicated":
+            return self._per_shard(child, lambda c: self._limit_over(c, plan.limit, off))
+        return self._limit_global(self._as_dist(child), plan.limit, off)
+
+    def _topk_dist(self, plan: L.Sort, k: int) -> Optional[Lowered]:
+        """ORDER BY key LIMIT k: a top-k per shard, the candidates'
+        all_gather (k per shard, in shard order), and one top-k over them.
+        Ties keep the global row order: lowest candidate index first."""
+        child = self.lower(plan.input)
+        if child.layout == "replicated":
+            return None  # the single-card top-k runs on the replicated rows
+        child = self._as_dist(child)
+        cands = self._per_shard(child, lambda c: self._topk_over(plan, c, k))
+        return self._per_shard(self._gather_batch(cands), lambda c: self._topk_over(plan, c, k))
+
+    def _limit_global(self, child: Lowered, k, off: int) -> Lowered:
+        """LIMIT / OFFSET over partitioned rows by global row rank: a
+        shard's ranks start after the selected rows of the shards before
+        it."""
+
+        def fn(envs) -> ShardedBatch:
+            sb = child.fn(envs)
+            counts = C.all_gather([b.sel.sum().reshape(1) for b in sb.shards])
+            bases = torch.cumsum(counts, 0) - counts
+            out = []
+            for d, b in enumerate(sb.shards):
+                rank = bases[d] + torch.cumsum(b.sel.to(torch.int64), 0)
+                keep = b.sel
+                if k is not None:
+                    keep = keep & (rank <= off + k)
+                if off:
+                    keep = keep & (rank > off)
+                out.append(Batch(b.cols, keep))
+            return ShardedBatch(out, "partitioned")
+
+        return Lowered(child.schema, child.dicts, fn, None, "partitioned")
+
+    # -- aggregate -----------------------------------------------------------
+    def _aggregate_over(self, plan: L.Aggregate, child: Lowered) -> Lowered:
+        if child.layout == "replicated":
+            return self._per_shard(child, lambda c: PlanCompiler._aggregate_over(self, plan, c))
+        group_c, agg_meta, out_dicts = self._aggregate_meta(plan, child)
+        child_d = self._as_dist(child)
+        if not group_c:
+            return self._ungrouped_dist(plan, child_d, agg_meta, out_dicts)
+        probe = self._probe_key_domains(group_c, plan.group_exprs, child)
+        doms, offs, notes = probe if probe is not None else ([], [], [])
+        prod = 0
+        if doms:
+            prod = 1
+            for d in doms:
+                prod *= d + 1  # +1 radix per key covers a NULL slot
+        n = self.n_dev
+        dev = self.device
+
+        def shards_of(sb: ShardedBatch):
+            return [
+                (
+                    [broadcast_col(c.fn(b.cols), b.capacity) for c in group_c],
+                    [agg_ops.AggSpec(name, broadcast_col(arg.fn(b.cols), b.capacity), rt)
+                     for (name, arg, rt) in agg_meta],
+                    b.sel,
+                )
+                for b in sb.shards
+            ]
+
+        def batch(keys, aggs, ng) -> Batch:
+            return Batch(list(keys) + list(aggs), torch.ones(ng, dtype=torch.bool, device=dev))
+
+        if 1 <= prod <= agg_ops.DENSE_MAX_GROUPS:
+            self.notes.append(
+                f"aggregate: dense sort-free group-by per shard ({' x '.join(notes)}) + psum/pmin/pmax merge"
+            )
+
+            def dense_reduce(gids, vals, masks, *, ops, num_groups):
+                per = [segmented_reduce(g, v, m, ops=ops, num_groups=num_groups, dense=True)
+                       for g, v, m in zip(gids, vals, masks)]
+                return [tuple(_merge_dense(op, [p[a] for p in per]) for a, op in enumerate(ops))]
+
+            def fn_dense(envs) -> ShardedBatch:
+                (res,) = agg_ops._dense_window_aggregate(shards_of(child_d.fn(envs)), doms, offs, dense_reduce)
+                return ShardedBatch([batch(*res)] * n, "replicated")
+
+            return Lowered(plan.schema, out_dicts, fn_dense, None, "replicated")
+
+        if self._fold_ok(plan, prod):
+            self.notes.append(
+                f"aggregate: fused ragged-exchange fold, K6 ({' x '.join(notes)}, global slots={prod}, "
+                f"{-(-prod // n)}/shard)"
+            )
+
+            def fold_reduce(gids, vals, masks, *, ops, num_groups):
+                return exchange_fold(gids, vals, masks, ops=ops, num_groups=num_groups, n_dev=n)
+
+            def slot_gid(d, size):
+                return torch.arange(size, device=dev) * n + d
+
+            def fn_fold(envs) -> ShardedBatch:
+                res = agg_ops._dense_window_aggregate(shards_of(child_d.fn(envs)), doms, offs, fold_reduce, slot_gid)
+                return ShardedBatch([batch(*r) for r in res], "partitioned")
+
+            return Lowered(plan.schema, out_dicts, fn_fold, None, "partitioned")
+
+        return self._merge_aggregate(plan, child_d, agg_meta, out_dicts, shards_of, batch,
+                                     doms if 1 <= prod <= agg_ops.PACKED_MAX_GROUPS else None, offs, notes)
+
+    def _fold_ok(self, plan: L.Aggregate, prod: int) -> bool:
+        """The fold's gate: every key probed (`prod` > 0), at most WINDOW
+        slots per shard, and the op list within K6's shared memory; both
+        are bounded here, so nothing declines at run time. A decline is
+        noted."""
+        if prod <= 0:
+            return False
+        n_ops, _ = self._reduce_op_bound(plan)
+        per_shard = -(-prod // self.n_dev)
+        why = None
+        if per_shard > WINDOW:
+            why = f"domain {prod} needs {per_shard} slots/shard > {WINDOW}"
+        elif n_ops > MAX_OPS:
+            why = f"up to {n_ops} reduce ops, K6's shared memory holds {MAX_OPS} windows"
+        if why is not None:
+            self.note_decline(f"aggregate: exchange-fold declined ({why})")
+            return False
+        return True
+
+    def _merge_aggregate(self, plan, child, agg_meta, out_dicts, shards_of, batch, doms, offs, notes):
+        """Partial aggregates per shard (the co-sort + K2 sorted), their
+        all_gather, and one merge by key with each function's combine:
+        MIN of MINs, MAX of MAXs, SUM of SUMs and of COUNTs; AVG from its
+        (SUM, COUNT) partials. The result is replicated."""
+        how = f"packed-gid co-sort ({' x '.join(notes)})" if doms is not None else "co-sort"
+        self.notes.append(f"aggregate: per-shard partial aggregate ({how}) + all_gather merge")
+        layout = []  # per aggregate: (kind, its partial specs' functions and types)
+        for name, _arg, rt in agg_meta:
+            if name in ("min", "max", "sum"):
+                layout.append((name, [(name, rt), ("count", DataType.Int64)]))
+            elif name == "count":
+                layout.append((name, [("count", DataType.Int64)]))
+            else:  # avg
+                layout.append((name, [("sum", _float_partial(rt)), ("count", DataType.Int64)]))
+        n_keys = len(plan.group_exprs)
+        dev = self.device
+
+        def fn(envs) -> ShardedBatch:
+            partials = []
+            for keys, specs, sel in shards_of(child.fn(envs)):
+                specs1 = [agg_ops.AggSpec(f, spec.arg, t) for spec, (_, parts) in zip(specs, layout) for f, t in parts]
+                pk, pa, ng = agg_ops.grouped_aggregate(keys, specs1, sel, dense_domain=doms, dense_offset=offs)
+                partials.append(batch(pk, pa, ng))
+            g = ShardedBatch(partials, "partitioned").merged()  # all_gather
+            gkeys, gaggs = g.cols[:n_keys], g.cols[n_keys:]
+            specs2, i = [], 0
+            for name, parts in layout:
+                for f, t in parts:
+                    specs2.append(agg_ops.AggSpec("sum" if f in ("sum", "count") else f, gaggs[i], t))
+                    i += 1
+            mk, ma, ng = agg_ops.grouped_aggregate(gkeys, specs2, g.sel, dense_domain=doms, dense_offset=offs)
+            out, i = [], 0
+            for (name, parts), (_, _, rt) in zip(layout, agg_meta):
+                out_t = torch_dtype(rt)
+                if name == "count":
+                    out.append((ma[i][0].to(out_t), None))
+                else:
+                    val, cnt = ma[i][0], ma[i + 1][0]
+                    if name == "avg":
+                        val = val / cnt.clamp(min=1).to(val.dtype)
+                    out.append((val.to(out_t), cnt > 0))
+                i += len(parts)
+            return ShardedBatch([Batch(list(mk) + out, torch.ones(ng, dtype=torch.bool, device=dev))] * self.n_dev,
+                                "replicated")
+
+        return Lowered(plan.schema, out_dicts, fn, None, "replicated")
+
+    def _ungrouped_dist(self, plan, child, agg_meta, out_dicts) -> Lowered:
+        """Whole-table aggregates: per-shard scalars merged by psum / pmin /
+        pmax. A shard with no counted row joins a MIN / MAX as the
+        identity."""
+        dev, n = self.device, self.n_dev
+
+        def fn(envs) -> ShardedBatch:
+            sb = child.fn(envs)
+            cols = []
+            for name, arg, rt in agg_meta:
+                part_t = _float_partial(rt) if name == "avg" else rt
+                per = []
+                for b in sb.shards:
+                    argv = broadcast_col(arg.fn(b.cols), b.capacity)
+                    specs = [agg_ops.AggSpec("count", argv, DataType.Int64)]
+                    if name != "count":
+                        specs.append(agg_ops.AggSpec("sum" if name == "avg" else name, argv, part_t))
+                    per.append(agg_ops.ungrouped_aggregate(specs, b.sel))
+                cnt = C.psum([p[0][0] for p in per])
+                out_t = torch_dtype(rt)
+                if name == "count":
+                    cols.append((cnt.to(out_t).reshape(1), None))
+                    continue
+                vals = [p[1][0] for p in per]
+                if name in ("min", "max"):
+                    ident = agg_ops._sentinel(vals[0].dtype, name == "max")
+                    vals = [torch.where(p[0][0] > 0, v, ident) for p, v in zip(per, vals)]
+                    r = C.pmin(vals) if name == "min" else C.pmax(vals)
+                else:
+                    r = C.psum(vals)
+                    if name == "avg":
+                        r = r / cnt.clamp(min=1).to(r.dtype)
+                cols.append((r.to(out_t).reshape(1), (cnt > 0).reshape(1)))
+            return ShardedBatch([Batch(cols, torch.ones(1, dtype=torch.bool, device=dev))] * n, "replicated")
+
+        return Lowered(plan.schema, out_dicts, fn, None, "replicated")
+
+
+def compile_plan_distributed(plan: L.LogicalPlan, tables, mesh: Mesh, fn_registry=None) -> CompiledQuery:
+    """Compile `plan` to run over the shards of `mesh`: each scanned
+    table's row blocks (parallel/mesh.py partition_table) are its shards.
+    The result is the shards' rows in shard order (partitioned) or shard
+    0's (replicated)."""
+    device_plan, host_post = split_host_projection(plan, fn_registry or {})
+    pc = DistCompiler(tables, mesh, fn_registry)
+    top = pc._as_dist(pc.lower(device_plan))
+    return CompiledQuery(
+        schema=top.schema,
+        dicts=top.dicts,
+        _fn=top.fn,
+        _scan_tables=pc.scan_tables,
+        _host_post=host_post,
+        notes=tuple(pc.notes + pc.sticky_notes),
+        _mesh=mesh,
+    )

@@ -1,0 +1,143 @@
+"""Repartitioning (shuffle) between the logical shards of a mesh.
+
+Port of datafusion_tpu/parallel/shuffle.py. Rows move to shard
+`dst[row]`:
+
+  1. each shard orders its selected rows by destination (a stable sort)
+     and counts them per destination (`route`)
+  2. the `[n_dev, n_dev]` count matrix is read on the host once, and the
+     region capacity `split_cap` is the largest count rounded up to
+     K5's largest chunk (`region_capacity`); so no row is ever dropped, and the JAX
+     package's static capacity and overflow retry have no counterpart
+  3. each shard lays its ordered rows into the `[n_dev * split_cap]`
+     region layout by an ascending gather (`build_regions`)
+  4. K5 moves the live chunks (ops/pallas/ragged_shuffle.py), and each
+     receiver's selection is its regions' valid prefixes
+
+The JAX package's default exchange, a `lax.all_to_all` of the padded
+slabs, would be a transpose copy on one card that moves more bytes for
+the same rows, so K5 is the only exchange and DFTPU_SHUFFLE is not read.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from datafusion_tpu_torch.ops.expr_eval import ColVal, broadcast_col
+from datafusion_tpu_torch.ops.pallas.ragged_shuffle import CHUNKS, pick_chunk, ragged_exchange, ragged_exchange_fold
+from datafusion_tpu_torch.parallel.collectives import size_matrix
+
+REGION_ALIGN = CHUNKS[0]  # split_cap is a multiple of the largest chunk, so K5 copies 1024-row chunks
+
+
+def route(dst: torch.Tensor, sel: torch.Tensor, n_dev: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """One shard's selected rows, stably ordered by destination, and
+    their count per destination."""
+    rows = torch.nonzero(sel).squeeze(1)
+    d = dst[rows]
+    rows = rows[torch.sort(d, stable=True).indices]
+    return rows, torch.bincount(d, minlength=n_dev)
+
+
+def region_capacity(sizes: torch.Tensor) -> tuple[int, int]:
+    """(split_cap, chunk): the largest count rounded up to REGION_ALIGN
+    (one host read), and the K5 chunk dividing it."""
+    top = int(sizes.max()) if sizes.numel() else 0
+    split_cap = max(REGION_ALIGN, -(-top // REGION_ALIGN) * REGION_ALIGN)
+    return split_cap, pick_chunk(split_cap)
+
+
+def build_regions(
+    arrays: Sequence[torch.Tensor],
+    rows: torch.Tensor,
+    counts: torch.Tensor,
+    n_dev: int,
+    split_cap: int,
+) -> list[torch.Tensor]:
+    """Lay `rows` (ordered by destination, `counts` per destination) of
+    each array into the `[n_dev * split_cap]` region layout by an
+    ascending gather; the padding rows repeat a live row (or are zero on
+    a shard with none)."""
+    dev = counts.device
+    if rows.shape[0] == 0:
+        return [torch.zeros(n_dev * split_cap, dtype=a.dtype, device=dev) for a in arrays]
+    starts = torch.cumsum(counts, 0) - counts
+    slot = torch.arange(n_dev * split_cap, device=dev)
+    dest = torch.div(slot, split_cap, rounding_mode="floor")
+    src = (starts[dest] + slot - dest * split_cap).clamp(max=rows.shape[0] - 1)
+    perm = rows[src]
+    return [a[perm] for a in arrays]
+
+
+def receive_selection(sizes: torch.Tensor, i: int, split_cap: int) -> torch.Tensor:
+    """Receiver i's selection: region j is valid in its first sizes[j, i] rows."""
+    slot = torch.arange(sizes.shape[0] * split_cap, device=sizes.device)
+    dest = torch.div(slot, split_cap, rounding_mode="floor")
+    return slot - dest * split_cap < sizes[:, i].to(torch.int64)[dest]
+
+
+def repartition(
+    cols: Sequence[Sequence[ColVal]],
+    dsts: Sequence[torch.Tensor],
+    sels: Sequence[torch.Tensor],
+    n_dev: int,
+) -> tuple[list[list[ColVal]], list[torch.Tensor]]:
+    """Move every selected row of shard j to shard `dsts[j][row]`.
+    `cols[j]` are shard j's columns; returns each receiver's columns and
+    selection over its `n_dev * split_cap` received slots. Rows arrive
+    sender by sender, in each sender's order."""
+    routes = [route(d, s, n_dev) for d, s in zip(dsts, sels)]
+    sizes = size_matrix([c for _, c in routes])
+    split_cap, chunk = region_capacity(sizes)
+    sends, spec = [], None
+    for shard_cols, sel, (rows, counts) in zip(cols, sels, routes):
+        flat, spec = [], []
+        for cv in shard_cols:
+            d, v = broadcast_col(cv, sel.shape[0])
+            # bool rides as bytes, and comes back through `!= 0`
+            spec.append((d.dtype == torch.bool, v is not None))
+            flat.append(d.view(torch.uint8) if d.dtype == torch.bool else d)
+            if v is not None:
+                flat.append(v.view(torch.uint8))
+        sends.append(build_regions(flat, rows, counts, n_dev, split_cap))
+    recvs = ragged_exchange(sends, sizes, n_dev=n_dev, split_cap=split_cap, chunk=chunk)
+    out_cols = []
+    for arrs in recvs:
+        it = iter(arrs)
+        shard = []
+        for is_bool, has_valid in spec:
+            d = next(it)
+            shard.append((d != 0 if is_bool else d, next(it) != 0 if has_valid else None))
+        out_cols.append(shard)
+    return out_cols, [receive_selection(sizes, i, split_cap) for i in range(n_dev)]
+
+
+def exchange_fold(gids, vals, masks, *, ops, num_groups, n_dev):
+    """The distributed fold as a mesh-wide reduce
+    (ops/aggregate.py `_dense_window_aggregate`): shard j's rows with a
+    packed id below `num_groups` go to shard `id % n_dev` as window
+    `id // n_dev`, each distinct value and mask once, and K6 folds them
+    into each receiver's `ceil(num_groups / n_dev)` slots. `vals[j][a]` /
+    `masks[j][a]` are op a's value (None for COUNT) and mask (None: every
+    routed row). Returns each receiver's per-op tables."""
+    routes, arrays = [], []
+    for gid, v, m in zip(gids, vals, masks):
+        g = gid.to(torch.int64)
+        routes.append(route(g % n_dev, gid < num_groups, n_dev))
+        distinct = list({id(t): t for t in list(v) + list(m) if t is not None}.values())
+        arrays.append([(g // n_dev).to(torch.int32)] + distinct)
+    sizes = size_matrix([c for _, c in routes])
+    split_cap, _ = region_capacity(sizes)
+    r_gids, r_vals, r_masks, mask_map = [], [], [], None
+    for v, m, arrs, (rows, counts) in zip(vals, masks, arrays, routes):
+        regions = build_regions(arrs, rows, counts, n_dev, split_cap)
+        at = {id(t): r for t, r in zip(arrs[1:], regions[1:])}
+        uniq = list({id(t): at[id(t)] for t in m if t is not None}.items())
+        mask_map = [0 if t is None else 1 + [k for k, _ in uniq].index(id(t)) for t in m]
+        r_gids.append(regions[0])
+        r_vals.append([None if t is None else at[id(t)] for t in v])
+        r_masks.append([r for _, r in uniq])
+    return ragged_exchange_fold(r_gids, r_vals, r_masks, sizes, ops=ops, mask_map=mask_map, n_dev=n_dev,
+                                split_cap=split_cap, num_groups=-(-num_groups // n_dev))

@@ -140,11 +140,11 @@ def test_evaluate_plain_matches_expr_eval():
         program, [cols[i][0] for i in program.inputs], [cols[i][1] for i in program.inputs],
         table.num_rows, "cpu",
     )
-    pred = compile_expr(sel_node.expr, scan_schema, [None] * len(cols))
+    pred = compile_expr(sel_node.expr, scan_schema, [None] * len(cols), device="cpu")
     pd, pv = pred.fn(cols)
     assert torch.equal(sel, pd & pv)
     for (d, v), e in zip(outs, proj.exprs):
-        ed, ev = compile_expr(e, scan_schema, [None] * len(cols)).fn(cols)
+        ed, ev = compile_expr(e, scan_schema, [None] * len(cols), device="cpu").fn(cols)
         ev = torch.ones_like(d, dtype=torch.bool) if ev is None else ev.expand(d.shape)
         vv = torch.ones_like(d, dtype=torch.bool) if v is None else v
         assert torch.equal(vv, ev)

@@ -17,6 +17,7 @@ from datafusion_tpu_torch.ops.pallas import cuda_lib
 from datafusion_tpu_torch.exec.compiler import PlanCompiler, compile_plan
 from datafusion_tpu_torch.ops.pallas import fused_stage as fs
 from datafusion_tpu_torch.ops.pallas import partition as pt
+from datafusion_tpu_torch.ops.pallas import ragged_shuffle as rs
 from datafusion_tpu_torch.ops.pallas import segreduce as sr
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -100,6 +101,13 @@ def test_kernel_wrappers_never_fall_back(monkeypatch):
         pt.slab_partition(meta, [meta], n_buckets=1, id_mod=2048)
     with pytest.raises(ValueError, match="unsupported device"):
         pt.windowed_reduce(meta, [None], [None], ops=("count",), num_groups=2)
+    sizes = torch.zeros((2, 2), dtype=torch.int32, device="meta")
+    region = torch.zeros(256, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        rs.ragged_exchange([[region], [region]], sizes, n_dev=2, split_cap=128, chunk=128)
+    with pytest.raises(ValueError, match="unsupported device"):
+        rs.ragged_exchange_fold([region, region], [[None], [None]], [[], []], sizes, ops=("count",), mask_map=(0,),
+                                n_dev=2, split_cap=128, num_groups=2)
     cuda_lib.load_library.cache_clear()
 
 
@@ -132,12 +140,18 @@ def test_cuda_sources_match_the_python_tables():
     assert f"DENSE_MAX_SLOTS {sr.DENSE_MAX_SLOTS}" in k2
     k34 = (PKG / "csrc" / "partition.cu").read_text()
     assert '#include "reduce_common.cuh"' in k34
-    for macro, value in (("WINDOW", pt.WINDOW), ("SLAB_CHUNK", pt.SLAB_CHUNK), ("SENTINEL", f"(1 << {23})"),
-                         ("MAX_BUCKETS", pt.MAX_BUCKETS), ("MAX_COLS", pt.MAX_COLS), ("MAX_OPS", pt.MAX_OPS)):
+    for macro, value in (("SLAB_CHUNK", pt.SLAB_CHUNK), ("SENTINEL", f"(1 << {23})"),
+                         ("MAX_BUCKETS", pt.MAX_BUCKETS), ("MAX_COLS", pt.MAX_COLS)):
         assert re.search(rf"#define DFT_{macro} {re.escape(str(value))}", k34), macro
+    # the shared-memory windows of K4 and K6
+    for macro, value in (("WINDOW", pt.WINDOW), ("MAX_OPS", pt.MAX_OPS)):
+        assert re.search(rf"#define DFT_{macro} {value}\b", common), macro
+    k56 = (PKG / "csrc" / "ragged_shuffle.cu").read_text()
+    assert '#include "reduce_common.cuh"' in k56
+    assert re.search(rf"#define DFT_MAX_DEV {rs.MAX_DEV}\b", k56)
     assert pt.SENTINEL == 1 << 23 and pt.MAX_OPS * pt.WINDOW * 8 <= pt.WINDOW_SMEM_BYTES
     assert set(cuda_lib.SOURCES) == {p.name for p in (PKG / "csrc").glob("*.cu")}
     assert set(cuda_lib.HEADERS) == {p.name for p in (PKG / "csrc").glob("*.cuh")}
     for entry in ("dft_fused_stage(", "dft_fused_stage_program_size(", "dft_segreduce(", "dft_slab_partition(",
-                  "dft_windowed_reduce("):
-        assert f'extern "C" int {entry}' in (k1 + k2 + k34)
+                  "dft_windowed_reduce(", "dft_ragged_exchange(", "dft_ragged_exchange_fold("):
+        assert f'extern "C" int {entry}' in (k1 + k2 + k34 + k56)
