@@ -5,13 +5,16 @@ plain PyTorch versions.
 
 Phases, each printed on its own line:
   1. the card (nvidia-smi name and power limit), then the nvcc build of
-     the kernels from datafusion_tpu_torch/csrc/ and its time
+     the kernels from datafusion_tpu_torch/csrc/ and its time, and the
+     shared and global atomics the fold kernels compile to (cuobjdump)
   2. K1 (fused scan/filter/project) against its plain version on the card:
      random f64/i32 columns with NULLs at 2^25 rows, for the c1 program
      and a CASE / CAST / integer-divide-by-zero program
-  3. K2 (segmented reduce) against its plain version on the card: sorted
-     mode with 65,536 groups and dense mode with 1,000 groups at 2^25
-     rows, with masks and NaN / +-inf values
+  3. K2 (segmented reduce) against its plain version on the card at 2^25
+     rows, with masks and NaN / +-inf values: sorted mode with 65,536
+     groups; dense mode with 1,000 groups, 8 groups with 80% of the rows
+     on one, 2,048 groups, and 15 ops over 2,048 groups (two launches;
+     every other dense call one)
   3b. K3 (slab partition) and K4 (windowed reduce) against their plain
      versions on the card at 2^25 and 2^25 - 1000 rows: 10,001 slots
      uniform, and 16,001 slots (8 buckets) with 80% of the rows on one
@@ -25,7 +28,8 @@ Phases, each printed on its own line:
      one shard sending nothing (valid prefixes bit-equal); K6 over 10,001
      slots (1,251 per shard) with SUM f64, COUNT, MIN f64, MAX i32, two
      masks and NaN / +-inf, for uniform gids and 80% of the rows on one
-     gid (counts and MIN/MAX exact, f64 sums within rtol 1e-9)
+     gid, then 2,048 slots per shard with 14 ops, and a mesh of one shard
+     (one launch each; counts and MIN/MAX exact, f64 sums within rtol 1e-9)
   4. the main path at 2^25 rows, in a context made with bigdense on:
      scan -> filter/project (K1), GROUP BY over a wide key (packed co-sort
      + K2 sorted), GROUP BY over a small key (K2 dense) + ORDER BY + LIMIT,
@@ -45,8 +49,10 @@ Phases, each printed on its own line:
      multi- and single-key sample sorts (K5) with the global-rank LIMIT,
      m8 the per-shard top-k; each against a numpy oracle and the same
      query in a single-card context, with its EXPLAIN route, the K5 / K6
-     launches it made, its warm wall and profile
-Then one JSON line per kernel set (times, bounds, launches) and, last,
+     launches it made, its warm wall and profile; then K6 at m3's shape
+     (event and kernel-only time) and K2 dense at m2's per-shard shape
+The reduce kernels' `library_ms` is one PyTorch call per op of the
+kernel's op list, summed (LIBRARY). Then one JSON line per kernel set (times, bounds, launches) and, last,
 {"ok": true, "device": {...}}. Any failed check raises and exits non-zero.
 There is no CPU path: without CUDA the script exits with an error.
 """
@@ -157,7 +163,8 @@ def compare_k2(gid, vals, masks, ops, g, dense):
         if op == "sum" and a.dtype.is_floating_point:
             torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-6, equal_nan=True)
             fin = torch.isfinite(a) & torch.isfinite(b)
-            err = max(err, float((a[fin] - b[fin]).abs().max()))
+            if fin.any():
+                err = max(err, float((a[fin] - b[fin]).abs().max()))
             check(torch.equal(torch.isnan(a), torch.isnan(b)), "K2 NaN sums differ")
         else:
             check(torch.equal(a.nan_to_num(0.5), b.nan_to_num(0.5)), f"K2 {op} differs from the plain version")
@@ -169,6 +176,63 @@ def k2_bytes(gid, vals, masks, outs_groups, ops):
     b += sum(v.numel() * v.element_size() for v in {id(v): v for v in vals if v is not None}.values())
     b += sum(m.numel() for m in {id(m): m for m in masks if m is not None}.values())
     return b + outs_groups * 8 * len(ops)
+
+
+def fold_rows(gid, vals, masks, num_groups, offset=0):
+    """Per op, the (int64 slot, value) rows a library call reduces: the
+    ids in [0, num_groups) plus `offset`, and the values in the table's
+    dtype (None for COUNT), each op's mask applied beforehand."""
+    rows = []
+    for v, m in zip(vals, masks):
+        keep = (gid >= 0) & (gid < num_groups)
+        if m is not None:
+            keep &= m
+        idx = gid[keep].long() + offset
+        if v is not None:
+            v = v[keep]
+            v = v.double() if v.dtype.is_floating_point else v.long()
+        rows.append((idx, v))
+    return rows
+
+
+LIBRARY = "one PyTorch call per op, summed: bincount (COUNT), index_add_ (SUM), scatter_reduce_ amin/amax (MIN/MAX)"
+
+
+def library_ms(rows, ops, num_groups, dev):
+    """The yardstick of a fold over `ops` (LIBRARY): one PyTorch call per
+    op on `fold_rows`' rows, timed together."""
+    def run():
+        for op, (idx, v) in zip(ops, rows):
+            if op == "count":
+                torch.bincount(idx, minlength=num_groups)
+            elif op == "sum":
+                torch.zeros(num_groups, dtype=v.dtype, device=dev).index_add_(0, idx, v)
+            else:
+                fill = float("inf") if op == "min" else float("-inf")
+                if not v.dtype.is_floating_point:
+                    fill = torch.iinfo(v.dtype).max if op == "min" else torch.iinfo(v.dtype).min
+                torch.full((num_groups,), fill, dtype=v.dtype, device=dev).scatter_reduce_(
+                    0, idx, v, "amin" if op == "min" else "amax")
+    return time_ms(run)
+
+
+def kernel_only_ms(fn, name, per_call=1, reps=5):
+    """Device time of one call of `fn`, which launches `per_call` kernels
+    named `name`: their mean time in torch.profiler over `reps` calls after
+    a warm-up, times `per_call` (the mean stands even if the trace misses
+    a launch)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if name in e.key and e.device_type == torch.autograd.DeviceType.CUDA]
+    launches = sum(e.count for e in events)
+    check(launches > 0, f"torch.profiler recorded no {name} kernel")
+    return sum(e.self_device_time_total for e in events) / max(launches, 1) * per_call / 1e3
 
 
 def slab_bytes(n, slab_rows, cols):
@@ -209,7 +273,8 @@ def compare_k3k4(gid, cols, id_mod, n_buckets, num_groups, mask_bits, ops, value
             torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-6, equal_nan=True)
             check(torch.equal(torch.isnan(a), torch.isnan(b)), "K4 NaN sums differ")
             fin = torch.isfinite(a) & torch.isfinite(b)
-            err = max(err, float((a[fin] - b[fin]).abs().max()))
+            if fin.any():
+                err = max(err, float((a[fin] - b[fin]).abs().max()))
         else:
             check(torch.equal(a.nan_to_num(0.5), b.nan_to_num(0.5)), f"K4 {op} differs from the plain version")
     return k3_err, err
@@ -282,7 +347,8 @@ def compare_k6(args, kw):
                 torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-6, equal_nan=True)
                 check(torch.equal(torch.isnan(a), torch.isnan(b)), "K6 NaN sums differ")
                 fin = torch.isfinite(a) & torch.isfinite(b)
-                err = max(err, float((a[fin] - b[fin]).abs().max()))
+                if fin.any():
+                    err = max(err, float((a[fin] - b[fin]).abs().max()))
             else:
                 check(torch.equal(a.nan_to_num(0.5), b.nan_to_num(0.5)), f"K6 {op} differs from the plain version")
     return err
@@ -304,7 +370,32 @@ def phase_build():
     log(f"phase 1 build: nvcc sm_90a, {len(cuda_lib.SOURCES)} sources in parallel, {secs:.2f} s; "
         f"{len(regs)} kernel register reports (chiprun_out/ptxas.txt)")
     cuda_lib.load_library()
+    log_shared_atomics(cuda_lib)
     return smi
+
+
+def log_shared_atomics(cuda_lib):
+    """Which shared-memory atomics (ATOMS) the fold kernels compile to, from
+    `cuobjdump -sass` of the built library: a native op shows as
+    ATOMS.<op>, a CAS loop as ATOMS.CAS / ATOMS.CAST. Full list per kernel
+    in chiprun_out/sass_atoms.txt."""
+    import re
+
+    cuobjdump = os.path.join(os.path.dirname(cuda_lib.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(cuda_lib.library_path())], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    found, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+        for op in re.findall(r"\b(ATOMS(?:\.[A-Z0-9_]+)*|ATOMG?(?:\.[A-Z0-9_]+)+|RED(?:\.[A-Z0-9_]+)+)", line):
+            found.setdefault(fn, set()).add(op)
+    with open(os.path.join(ROOT, "chiprun_out", "sass_atoms.txt"), "w") as f:
+        f.writelines(f"{k}: {' '.join(sorted(v))}\n" for k, v in sorted(found.items()))
+    for kernel in ("seg_dense_kernel", "ragged_exchange_fold_kernel", "windowed_reduce_kernel"):
+        ops = set().union(*[v for k, v in found.items() if kernel in k])
+        log(f"phase 1 SASS {kernel}: shared atomics {sorted(o for o in ops if o.startswith('ATOMS'))}; "
+            f"global {sorted(o for o in ops if not o.startswith('ATOMS'))}")
 
 
 def phase_k1(dev):
@@ -341,13 +432,31 @@ def phase_k1(dev):
     return res
 
 
+# K2 dense mode's and K6's edge op list: 15 ops, more than one launch's
+# shared memory holds at 2048 slots
+EDGE_OPS = ("sum", "count", "min", "max", "max", "min", "sum", "count", "sum", "max", "min", "count", "sum", "min",
+            "max")
+
+
+def edge_streams(ops, f, i, m1, m2):
+    """Op a's value (None for COUNT; the i32 stream where a % 3 == 2,
+    else the f64 one) and mask (m1, none, m2 by a % 3)."""
+    vals = [None if op == "count" else (i if a % 3 == 2 else f) for a, op in enumerate(ops)]
+    return vals, [(m1, None, m2)[a % 3] for a in range(len(ops))]
+
+
 def phase_k2(dev):
     from datafusion_tpu_torch.ops.pallas import segreduce as sr
 
     rng = np.random.default_rng(SEED + 1)
-    out = {}
-    for mode, g in (("sorted", 65536), ("dense", 1000)):
+    out = {"sorted": 0.0, "dense": 0.0}
+    # (mode, slots, ops, share of rows on one slot)
+    cases = (("sorted", 65536, None, 0.0), ("dense", 1000, None, 0.0), ("dense", 8, None, 0.8),
+             ("dense", 2048, None, 0.0), ("dense", 2048, EDGE_OPS, 0.0))
+    for mode, g, edge_ops, skew in cases:
         ids = rng.integers(0, g, N)
+        if skew:
+            ids[rng.random(N) < skew] = 3
         gid = torch.from_numpy((np.sort(ids) if mode == "sorted" else ids).astype(np.int32)).to(dev)
         f = torch.from_numpy(rng.standard_normal(N) * 100).to(dev)
         f[::1_000_003] = float("nan")
@@ -355,12 +464,22 @@ def phase_k2(dev):
         f[11::3_000_017] = float("-inf")
         i = torch.from_numpy(rng.integers(-10**6, 10**6, N).astype(np.int32)).to(dev)
         m = torch.from_numpy(rng.random(N) < 0.9).to(dev)
-        vals, masks = [f, None, f, f, i, f.float()], [m, m, None, m, m, None]
-        ops = ("sum", "count", "min", "max", "max", "min")
+        if edge_ops is None:
+            vals, masks = [f, None, f, f, i, f.float()], [m, m, None, m, m, None]
+            ops = ("sum", "count", "min", "max", "max", "min")
+        else:
+            ops = edge_ops
+            vals, masks = edge_streams(ops, f, i, m, torch.from_numpy(rng.random(N) < 0.4).to(dev))
+        before = sr.segmented_reduce.dense_launches
         err = compare_k2(gid, vals, masks, ops, g, mode == "dense")
-        log(f"phase 3 K2 {mode}: kernel == plain at {N} rows, {g} groups, masks + NaN/inf "
-            f"(sum max_abs_err {err})")
-        out[mode] = err
+        launches = sr.segmented_reduce.dense_launches - before
+        if mode == "dense":
+            check(launches == len(sr.fold_launches(len(ops), g)) and launches == (2 if len(ops) > 14 else 1),
+                  f"K2 dense made {launches} launches for {len(ops)} ops over {g} slots")
+        log(f"phase 3 K2 {mode}: kernel == plain at {N} rows, {g} groups, {len(ops)} ops"
+            f"{f', {skew:.0%} of rows on one slot' if skew else ''}, masks + NaN/inf"
+            f"{f', {launches} launch(es)' if mode == 'dense' else ''} (sum max_abs_err {err})")
+        out[mode] = max(out[mode], err)
     return out
 
 
@@ -398,6 +517,8 @@ def phase_k3k4(dev):
 
 
 def phase_k5k6(dev):
+    from datafusion_tpu_torch.ops.pallas import ragged_shuffle as rs
+
     n_dev, n = 8, N // 8
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     k5_err = 0.0
@@ -420,9 +541,12 @@ def phase_k5k6(dev):
         log(f"phase 3c K5 {layout}: {N} rows over {n_dev} shards, split_cap {split_cap}, chunk {chunk}: "
             f"kernel == plain on every valid prefix (max_abs_err {e})")
         del sends, arrays
-    slots = 10_001
     k6_err = 0.0
-    for skew in (False, True):
+    # (shards, slots over all shards, 80% of rows on one gid, ops): m3's
+    # shape uniform and skewed, 2048 slots per shard with 14 ops, one shard
+    for n_dev, slots, skew, n_ops in ((8, 10_001, False, 5), (8, 10_001, True, 5), (8, 8 * 2048, False, 14),
+                                      (1, 1251, False, 5)):
+        n = N // 8
         dst, sel, arrays = [], [], []
         for j in range(n_dev):
             g = torch.randint(0, slots, (n,), generator=gen, device=dev)
@@ -438,17 +562,23 @@ def phase_k5k6(dev):
                            torch.randint(-10**6, 10**6, (n,), generator=gen, device=dev, dtype=torch.int32),
                            torch.rand(n, generator=gen, device=dev) < 0.9,
                            torch.rand(n, generator=gen, device=dev) < 0.5])
-        sends, sizes, split_cap, _ = shard_regions(arrays, dst, sel)
-        args = ([s[0] for s in sends], [[s[1], None, s[1], s[2], None] for s in sends], [[s[3], s[4]] for s in sends],
-                sizes)
-        kw = dict(ops=("sum", "count", "min", "max", "count"), mask_map=(1, 1, 2, 0, 0), n_dev=n_dev,
-                  split_cap=split_cap, num_groups=-(-slots // n_dev))
+        sends, sizes, split_cap, _ = shard_regions(arrays, dst, sel, n_dev)
+        if n_ops == 5:
+            ops, mask_map = ("sum", "count", "min", "max", "count"), (1, 1, 2, 0, 0)
+            vals = [[s[1], None, s[1], s[2], None] for s in sends]
+        else:
+            ops, mask_map = EDGE_OPS[:n_ops], tuple((1, 0, 2)[a % 3] for a in range(n_ops))
+            vals = [edge_streams(ops, s[1], s[2], None, None)[0] for s in sends]
+        args = ([s[0] for s in sends], vals, [[s[3], s[4]] for s in sends], sizes)
+        kw = dict(ops=ops, mask_map=mask_map, n_dev=n_dev, split_cap=split_cap, num_groups=-(-slots // n_dev))
+        before = rs.ragged_exchange_fold.launches
         e = compare_k6(args, kw)
+        check(rs.ragged_exchange_fold.launches - before == 1, "K6 did not make exactly one launch")
         k6_err = max(k6_err, e)
-        log(f"phase 3c K6: {N} rows over {n_dev} shards, {slots} slots ({kw['num_groups']}/shard"
-            f"{', 80% on one gid' if skew else ''}), split_cap {split_cap}: counts and MIN/MAX == plain, "
-            f"f64 sum max_abs_err {e}")
-        del sends, arrays, args
+        log(f"phase 3c K6: {n * n_dev} rows over {n_dev} shard(s), {slots} slots ({kw['num_groups']}/shard"
+            f"{', 80% on one gid' if skew else ''}), {n_ops} ops, split_cap {split_cap}: counts and MIN/MAX == "
+            f"plain, f64 sum max_abs_err {e}")
+        del sends, arrays, args, vals
     return k5_err, k6_err
 
 
@@ -465,6 +595,47 @@ def main_arrays():
     return k, d, lat, lng, g, mode
 
 
+# the main paths' queries: (name, SQL, what EXPLAIN VERBOSE must show)
+MAIN_QUERIES = (
+    ("q1", "SELECT k, lat, lng, lat + lng FROM big WHERE lat > 51.0 AND lat < 53", "fused CUDA stage"),
+    ("q2", "SELECT k, MIN(lat), MAX(lat), SUM(lng), COUNT(lat) FROM big GROUP BY k", "packed-gid co-sort"),
+    ("q3", "SELECT d, SUM(lng), AVG(lat), MIN(lat), COUNT(*) FROM big GROUP BY d ORDER BY d LIMIT 10",
+     "dense sort-free"),
+    ("q4", "SELECT g, SUM(lng), AVG(lat), COUNT(*) FROM big GROUP BY g", "bigdense radix-partition"),
+    ("q5", "SELECT g, MIN(lat), MAX(lng), COUNT(lat) FROM big WHERE lat > 51.0 GROUP BY g", "bigdense radix-partition"),
+)
+MESH_QUERIES = (
+    ("m1", "SELECT k, lat, lng, lat + lng FROM big WHERE lat > 57.9", "fused CUDA stage"),
+    ("m2", "SELECT mode, SUM(lng), AVG(lat), MIN(lat), COUNT(*) FROM big GROUP BY mode",
+     "dense sort-free group-by per shard"),
+    ("m3", "SELECT g, SUM(lng), AVG(lat), MIN(lat), MAX(lng), COUNT(*) FROM big GROUP BY g",
+     "fused ragged-exchange fold"),
+    ("m4", "SELECT g, MIN(lat), COUNT(lat) FROM big WHERE lat > 51.0 GROUP BY g", "fused ragged-exchange fold"),
+    ("m5", "SELECT k, SUM(lng), COUNT(*) FROM big GROUP BY k", "all_gather merge"),
+    ("m6", "SELECT k, d, lat FROM big ORDER BY k, d, lat LIMIT 10000", "multi-key sample sort"),
+    ("m7", "SELECT lat, g FROM big ORDER BY lat LIMIT 5000", "distributed sample sort"),
+    ("m8", "SELECT k, lat FROM big ORDER BY lat DESC LIMIT 10", "per-shard top-k"),
+)
+
+
+def main_table(port, arrays):
+    """Phase 4's table on the card: k, d, lat, lng, g of `main_arrays`."""
+    P = port.DataType
+    schema = port.Schema([port.Field("k", P.Int32, False), port.Field("d", P.Int32, False),
+                          port.Field("lat", P.Float64, False), port.Field("lng", P.Float64, False),
+                          port.Field("g", P.Int32, False)])
+    return port.Table.from_arrays(schema, list(arrays[:5]))
+
+
+def mesh_table(port, big, mode):
+    """Phase 6's table: phase 4's columns (no copy) and `mode`, a Utf8
+    column of TPC-H l_shipmode's values from their codes."""
+    P = port.DataType
+    mode_col = port.Column(P.Utf8, torch.from_numpy(mode).to(big.columns[0].data.device), None, SHIPMODES)
+    return port.Table(port.Schema(list(big.schema.fields) + [port.Field("mode", P.Utf8, False)]),
+                      big.columns + (mode_col,), big.num_rows)
+
+
 def phase_main_path(dev, kernel_stats, arrays):
     import datafusion_tpu_torch as port
     from datafusion_tpu_torch.ops.pallas import fused_stage as fs
@@ -472,25 +643,15 @@ def phase_main_path(dev, kernel_stats, arrays):
     from datafusion_tpu_torch.ops.pallas import segreduce as sr
 
     k, d, lat, lng, g, _mode = arrays
-    P = port.DataType
-    schema = port.Schema([port.Field("k", P.Int32, False), port.Field("d", P.Int32, False),
-                          port.Field("lat", P.Float64, False), port.Field("lng", P.Float64, False),
-                          port.Field("g", P.Int32, False)])
     ctx = port.ExecutionContext(bigdense=True)  # the card, by default
     check(ctx.device.type == "cuda", "ExecutionContext() is not on the card")
     t0 = time.perf_counter()
-    ctx.register_table("big", port.Table.from_arrays(schema, [k, d, lat, lng, g]))
+    ctx.register_table("big", main_table(port, arrays))
     torch.cuda.synchronize()
     log(f"phase 4 table: {N} rows, {sum(c.data.nbytes for c in ctx.table('big').columns) / 1e9:.2f} GB "
         f"resident, loaded in {time.perf_counter() - t0:.2f} s")
-    q1 = "SELECT k, lat, lng, lat + lng FROM big WHERE lat > 51.0 AND lat < 53"
-    q2 = "SELECT k, MIN(lat), MAX(lat), SUM(lng), COUNT(lat) FROM big GROUP BY k"
-    q3 = "SELECT d, SUM(lng), AVG(lat), MIN(lat), COUNT(*) FROM big GROUP BY d ORDER BY d LIMIT 10"
-    q4 = "SELECT g, SUM(lng), AVG(lat), COUNT(*) FROM big GROUP BY g"
-    q5 = "SELECT g, MIN(lat), MAX(lng), COUNT(lat) FROM big WHERE lat > 51.0 GROUP BY g"
-    queries = (("q1", q1, "fused CUDA stage"), ("q2", q2, "packed-gid co-sort"),
-               ("q3", q3, "dense sort-free"), ("q4", q4, "bigdense radix-partition"),
-               ("q5", q5, "bigdense radix-partition"))
+    queries = MAIN_QUERIES
+    q1, q4, q5 = (next(q for n, q, _ in queries if n == name) for name in ("q1", "q4", "q5"))
     for _, q, note in queries:
         check(note in ctx.sql(f"EXPLAIN VERBOSE {q}").result_str(), f"{q} does not route to {note}")
 
@@ -568,16 +729,9 @@ def phase_main_path(dev, kernel_stats, arrays):
         check_bigdense_shape(name, ctx0.sql(q))
 
     runs = [(name, ctx, q) for name, q, _ in queries] + [("q4 packed", ctx0, q4), ("q5 packed", ctx0, q5)]
-    warm = {}
-    for name, c_, q in runs:
-        c_.sql(q)  # q4/q5 on ctx0 ran only once above
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        c_.sql(q)
-        torch.cuda.synchronize()
-        warm[name] = (time.perf_counter() - t) * 1e3
+    warm = {name: warm_wall_ms(c_, q) for name, c_, q in runs}
     log("phase 4 main path: q1-q5 match the numpy oracle (q4/q5 on the bigdense and the packed route); "
-        "wall ms first " + json.dumps({n: round(v, 3) for n, v in walls.items()}) + " warm "
+        "wall ms first " + json.dumps({n: round(v, 3) for n, v in walls.items()}) + " warm (median of 5) "
         + json.dumps({n: round(v, 3) for n, v in warm.items()}) + f"; launches {json.dumps(launches)}")
     profile_queries(runs)
 
@@ -607,14 +761,16 @@ def phase_main_path(dev, kernel_stats, arrays):
         ("segreduce_dense", dd, [None, lng_t, lat_t, lat_t], ("count", "sum", "sum", "min"), 1001, True),
     ):
         masks = [None] * len(ops)
-        idx = gid.long()
+        call = lambda: sr.segmented_reduce(gid, vals, masks, ops=ops, num_groups=g, dense=dense)  # noqa: E731
         kernel_stats[name].update(
             launches=launches[name],
-            ms=time_ms(lambda: sr.segmented_reduce(gid, vals, masks, ops=ops, num_groups=g, dense=dense)),
+            ms=time_ms(call),
+            kernel_ms=kernel_only_ms(call, "seg_dense" if dense else "seg_sorted", 1 if dense else len(ops)),
             plain_ms=time_ms(lambda: sr.segmented_reduce_plain(gid, vals, masks, ops=ops, num_groups=g), reps=3),
             bound_ms=k2_bytes(gid, vals, masks, g, ops) / HBM_BYTES_PER_S * 1e3,
             ops_bound_ms=len(ops) * N / F32_OPS_PER_S * 1e3,
-            library_ms=time_ms(lambda: torch.zeros(g, dtype=torch.float64, device=dev).index_add_(0, idx, lng_t if dense else slng)),
+            library_ms=library_ms(fold_rows(gid, vals, masks, g), ops, g, dev),
+            library=LIBRARY,
         )
     # K3 and K4 at q4's shape: the packed gid of g (slots 0..9999), lng and lat
     nslots = 10_000
@@ -635,7 +791,6 @@ def phase_main_path(dev, kernel_stats, arrays):
     pg = slab[0]
     gid_k = torch.where(pg >= pt.SENTINEL, pg, pg & (id_mod - 1))
     ops4, vals4, masks4 = ("count", "sum", "sum"), [None, slab[1], slab[2]], [None] * 3
-    idx4 = gid4.long()
     # K4 must read every slab row's gid, but a payload only where the row
     # is live: a SENTINEL gap is never reduced
     live = int((pg < pt.SENTINEL).sum())
@@ -645,9 +800,25 @@ def phase_main_path(dev, kernel_stats, arrays):
         plain_ms=time_ms(lambda: pt.windowed_reduce_plain(gid_k, vals4, masks4, ops=ops4, num_groups=nslots), reps=3),
         bound_ms=(rows * 4 + live * (8 + 8) + nslots * 8 * len(ops4)) / HBM_BYTES_PER_S * 1e3,
         ops_bound_ms=len(ops4) * live / F32_OPS_PER_S * 1e3,
-        library_ms=time_ms(lambda: torch.zeros(nslots, dtype=torch.float64, device=dev).index_add_(0, idx4, lng_t)),
+        library_ms=library_ms(fold_rows(gid4, [None, lng_t, lat_t], masks4, nslots), ops4, nslots, dev),
+        library=LIBRARY,
     )
     return big
+
+
+def warm_wall_ms(ctx, q, reps=5):
+    """Median host-clock wall of `ctx.sql(q)` plus a synchronize over `reps`
+    runs after a warm-up run: the host's share of a wall varies from run to
+    run by more than a kernel's time."""
+    ctx.sql(q)
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ctx.sql(q)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(walls)
 
 
 def profile_queries(runs, phase="phase 4", out="profile.txt"):
@@ -702,28 +873,14 @@ def phase_mesh(dev, big, arrays, kernel_stats):
     from datafusion_tpu_torch.parallel import shuffle as sh
 
     k, d, lat, lng, g, mode = arrays
-    P = port.DataType
-    mode_col = port.Column(P.Utf8, torch.from_numpy(mode).to(dev), None, SHIPMODES)
-    table = port.Table(port.Schema(list(big.schema.fields) + [port.Field("mode", P.Utf8, False)]),
-                       big.columns + (mode_col,), N)  # the phase-4 columns, no copy
+    table = mesh_table(port, big, mode)
     mesh = port.make_mesh(8)
     check(mesh.device.type == "cuda", "make_mesh() is not on the card")
     ctx = port.ExecutionContext(mesh=mesh)
     single = port.ExecutionContext()
     ctx.register_table("big", table)
     single.register_table("big", table)
-    queries = (
-        ("m1", "SELECT k, lat, lng, lat + lng FROM big WHERE lat > 57.9", "fused CUDA stage"),
-        ("m2", "SELECT mode, SUM(lng), AVG(lat), MIN(lat), COUNT(*) FROM big GROUP BY mode",
-         "dense sort-free group-by per shard"),
-        ("m3", "SELECT g, SUM(lng), AVG(lat), MIN(lat), MAX(lng), COUNT(*) FROM big GROUP BY g",
-         "fused ragged-exchange fold"),
-        ("m4", "SELECT g, MIN(lat), COUNT(lat) FROM big WHERE lat > 51.0 GROUP BY g", "fused ragged-exchange fold"),
-        ("m5", "SELECT k, SUM(lng), COUNT(*) FROM big GROUP BY k", "all_gather merge"),
-        ("m6", "SELECT k, d, lat FROM big ORDER BY k, d, lat LIMIT 10000", "multi-key sample sort"),
-        ("m7", "SELECT lat, g FROM big ORDER BY lat LIMIT 5000", "distributed sample sort"),
-        ("m8", "SELECT k, lat FROM big ORDER BY lat DESC LIMIT 10", "per-shard top-k"),
-    )
+    queries = MESH_QUERIES
     for name, q, note in queries:
         check(note in ctx.sql(f"EXPLAIN VERBOSE {q}").result_str(), f"{name} does not route to {note}")
 
@@ -806,15 +963,9 @@ def phase_mesh(dev, big, arrays, kernel_stats):
             same(cols(results[name]), cols(want), f"{name} vs one card", floats.get(name, ()))
 
     runs = [(name, ctx, q) for name, q, _ in queries]
-    warm = {}
-    for name, c_, q in runs:
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        c_.sql(q)
-        torch.cuda.synchronize()
-        warm[name] = (time.perf_counter() - t) * 1e3
+    warm = {name: warm_wall_ms(c_, q) for name, c_, q in runs}
     log("phase 6 mesh: m1-m8 over 8 logical shards match the numpy oracle and the single-card context; "
-        "wall ms first " + json.dumps({n: round(v, 3) for n, v in walls.items()}) + " warm "
+        "wall ms first " + json.dumps({n: round(v, 3) for n, v in walls.items()}) + " warm (median of 5) "
         + json.dumps({n: round(v, 3) for n, v in warm.items()}) + f"; launches per query {json.dumps(per_query)}")
     profile_queries(runs, "phase 6", "profile_mesh.txt")
 
@@ -836,24 +987,48 @@ def phase_mesh(dev, big, arrays, kernel_stats):
     (a6, kw6) = capture(sh, "ragged_exchange_fold", lambda: ctx.sql(queries[2][1]))
     gids, vals, masks, sizes6 = a6
     L_, S_ = kw6["num_groups"], kw6["split_cap"]
-    # the SUM(lng) yardstick: one index_add_ over the routed rows, by global slot
+    ops6 = kw6["ops"]
+    # the yardstick's rows: every routed row, by global slot i * L_ + window
     sz6 = sizes6.tolist()
-    sums = [a for a, op in enumerate(kw6["ops"]) if op == "sum"]
-    idx, val = [], []
+    per_op = [[None if u == 0 else masks[j][u - 1] for u in kw6["mask_map"]] for j in range(n_dev)]
+    parts = []
     for j in range(n_dev):
         for i in range(n_dev):
             span = slice(i * S_, i * S_ + sz6[j][i])
-            idx.append(gids[j][span].long() + i * L_)
-            val.append(vals[j][sums[0]][span].double())
-    idx, val = torch.cat(idx), torch.cat(val)
+            parts.append(fold_rows(gids[j][span], [None if v is None else v[span] for v in vals[j]],
+                                   [None if m is None else m[span] for m in per_op[j]], L_, offset=i * L_))
+    rows6 = [(torch.cat([p[a][0] for p in parts]), None if vals[0][a] is None else torch.cat([p[a][1] for p in parts]))
+             for a in range(len(ops6))]
+    del parts
+    call6 = lambda: rs.ragged_exchange_fold(gids, vals, masks, sizes6, **kw6)  # noqa: E731
     kernel_stats["ragged_exchange_fold"].update(
         launches=launches["ragged_exchange_fold"],
-        ms=time_ms(lambda: rs.ragged_exchange_fold(gids, vals, masks, sizes6, **kw6)),
+        ms=time_ms(call6),
+        kernel_ms=kernel_only_ms(call6, "ragged_exchange_fold_kernel"),
         plain_ms=time_ms(lambda: rs.ragged_exchange_fold_plain(gids, vals, masks, sizes6, **kw6), reps=3),
-        bound_ms=k6_bytes(gids, vals, masks, sizes6, L_, len(kw6["ops"])) / HBM_BYTES_PER_S * 1e3,
-        ops_bound_ms=len(kw6["ops"]) * int(sizes6.sum()) / F32_OPS_PER_S * 1e3,
-        library_ms=time_ms(lambda: torch.zeros(n_dev * L_, dtype=torch.float64, device=dev).index_add_(0, idx, val)),
+        bound_ms=k6_bytes(gids, vals, masks, sizes6, L_, len(ops6)) / HBM_BYTES_PER_S * 1e3,
+        ops_bound_ms=len(ops6) * int(sizes6.sum()) / F32_OPS_PER_S * 1e3,
+        library_ms=library_ms(rows6, ops6, n_dev * L_, dev),
+        library=LIBRARY + ", over the routed rows by global slot",
     )
+    del rows6
+    s6 = kernel_stats["ragged_exchange_fold"]
+    log(f"phase 6 K6 at m3's shape: {int(sizes6.sum())} routed rows, {L_} slots x {n_dev} receivers, ops {ops6}: "
+        f"event {s6['ms']:.3f} ms, kernel only {s6['kernel_ms']:.3f} ms (torch.profiler)")
+
+    # K2 dense at m2's per-shard shape: the last shard's call
+    from datafusion_tpu_torch.parallel import dist
+
+    a2, kw2 = capture(dist, "segmented_reduce", lambda: ctx.sql(queries[1][1]))
+    gid2, vals2, masks2 = a2
+    call2 = lambda: sr.segmented_reduce(gid2, vals2, masks2, **kw2)  # noqa: E731
+    ms2, kms2 = time_ms(call2), kernel_only_ms(call2, "seg_dense")
+    lib2 = library_ms(fold_rows(gid2, vals2, masks2, kw2["num_groups"]), kw2["ops"], kw2["num_groups"], dev)
+    bound2 = k2_bytes(gid2, vals2, masks2, kw2["num_groups"], kw2["ops"]) / HBM_BYTES_PER_S * 1e3
+    log(f"phase 6 K2 dense at m2's shard shape: {gid2.numel()} rows, {kw2['num_groups']} slots, ops {kw2['ops']}, "
+        f"{len(sr.fold_launches(len(kw2['ops']), kw2['num_groups']))} launch(es): event {ms2:.3f} ms, kernel only "
+        f"{kms2:.3f} ms, bound {bound2:.3f} ms, library {lib2:.3f} ms ({LIBRARY}); m2 launched it "
+        f"{per_query['m2']['segreduce_dense']} times")
 
 
 def phase_csv(dev):

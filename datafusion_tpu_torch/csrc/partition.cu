@@ -179,7 +179,7 @@ windowed_reduce_kernel(const int* __restrict__ gid, long long n, int num_groups,
   __shared__ int s_min[K4_THREADS / 32];
   __shared__ int s_base;
   for (int a = 0; a < ops.n; ++a) {
-    DFT_DISPATCH_KIND(ops.kinds[a], win_init, smem + a * WIN_BYTES)
+    DFT_DISPATCH_KIND(ops.kinds[a], win_init, smem + a * WIN_BYTES, DFT_WINDOW)
   }
   const long long r0 = (long long)blockIdx.x * K4_RUN;
   const long long r1 = r0 + K4_RUN < n ? r0 + K4_RUN : n;
@@ -203,7 +203,7 @@ windowed_reduce_kernel(const int* __restrict__ gid, long long n, int num_groups,
     if (base != cur) {
       if (cur >= 0) {
         for (int a = 0; a < ops.n; ++a) {
-          DFT_DISPATCH_KIND(ops.kinds[a], win_flush, smem + a * WIN_BYTES, ops.outs[a], cur)
+          DFT_DISPATCH_KIND(ops.kinds[a], win_flush, smem + a * WIN_BYTES, ops.outs[a], cur, DFT_WINDOW)
         }
         __syncthreads();
       }
@@ -219,7 +219,7 @@ windowed_reduce_kernel(const int* __restrict__ gid, long long n, int num_groups,
   __syncthreads();
   if (cur >= 0) {
     for (int a = 0; a < ops.n; ++a) {
-      DFT_DISPATCH_KIND(ops.kinds[a], win_flush, smem + a * WIN_BYTES, ops.outs[a], cur)
+      DFT_DISPATCH_KIND(ops.kinds[a], win_flush, smem + a * WIN_BYTES, ops.outs[a], cur, DFT_WINDOW)
     }
   }
 }
@@ -267,12 +267,12 @@ extern "C" int dft_windowed_reduce(const int* gid, long long n, int num_groups, 
     o.masks[a] = masks[a];
     o.outs[a] = outs[a];
   }
+  // always: the block's static arrays count against the same limit, so 48 KB
+  // of windows alone already passes the default
   const int smem = n_ops * WIN_BYTES;
-  if (smem > 48 * 1024) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(windowed_reduce_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  const cudaError_t err =
+      cudaFuncSetAttribute(windowed_reduce_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
   const long long blocks = (n + K4_RUN - 1) / K4_RUN;
   windowed_reduce_kernel<<<(unsigned int)blocks, K4_THREADS, smem, (cudaStream_t)stream>>>(gid, n, num_groups, o);
   return (int)cudaGetLastError();

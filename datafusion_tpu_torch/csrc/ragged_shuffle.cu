@@ -17,8 +17,8 @@
 // Layout (both kernels): every array is a sender's [n_dev * split_cap]
 // region layout; region i holds the rows for receiver i, valid prefix
 // sizes[j, i] (sizes is the [n_dev, n_dev] int32 count matrix, row j =
-// sender j). Pointer tables are int64 device arrays, array-major:
-// ptr[a * n_dev + shard].
+// sender j). K5's pointer tables are int64 device arrays, array-major:
+// ptr[a * n_dev + shard]; K6 takes one packed table (below).
 //
 // What bounds both on this card: bytes. K5 reads and writes each live
 // chunk once (a region's last chunk copies up to chunk - 1 rows of its
@@ -32,14 +32,20 @@
 //   i, in 16-byte words when both addresses allow it. Tails past
 //   sizes[j, i] are not written: the receive validity is
 //   slot % split_cap < sizes[j, i], so no validity rides the exchange.
-// * K6: one block of 256 threads per K6_ROWS routed rows of one (sender,
-//   receiver) pair (65,536 rows: the fewer the blocks, the fewer global
-//   atomics their flushes take). The receiver's table has at most
-//   DFT_WINDOW slots, so each op's whole table is one shared-memory window (K4's, in
-//   reduce_common.cuh): the block folds its rows into the windows with
-//   shared atomics and flushes the touched slots into the receiver's
-//   device tables with one global atomic each. Op traits are K2's: f64 /
-//   i64 sums (IEEE NaN and +-inf), i64 counts, MIN/MAX on the
+// * K6: a grid of (B, n_dev receivers) blocks of DFT_FOLD_TPB threads;
+//   B x n_dev blocks fill the SMs at the occupancy the tables' shared
+//   memory allows. Block b of receiver i walks every sender's region i,
+//   sender by sender, taking the DFT_TILE_ROWS-row tiles b, b + B, ... of
+//   their concatenation, so the blocks of a receiver share its rows evenly
+//   whatever the skew between senders. The receiver's table has at most
+//   DFT_WINDOW slots, so each op's whole table sits in the block's shared
+//   memory, each slot held `reps` times; the rows fold in with K2 dense
+//   mode's fold tile (reduce_common.cuh: 4 rows a thread, vector loads, one
+//   kind switch per tile and op, equal neighbours combined in registers),
+//   and each block inits its tables once and flushes each touched slot
+//   into the receiver's row of the device tables by one global atomic at
+//   the end; the last block decodes MIN/MAX in place. Op traits are K2's:
+//   f64 / i64 sums (IEEE NaN and +-inf), i64 counts, MIN/MAX on the
 //   order-preserving image. Rows with a window id outside [0, num_groups)
 //   are dropped; an op's mask pointer may be null (every routed row).
 
@@ -48,8 +54,6 @@
 #include <stdint.h>
 
 #define K5_THREADS 256
-#define K6_THREADS 256
-#define K6_ROWS 65536
 #define DFT_MAX_DEV 255  // n_dev * n_dev pairs must fit gridDim.y
 
 // --- K5 ragged exchange --------------------------------------------------------
@@ -76,49 +80,44 @@ ragged_exchange_kernel(const long long* __restrict__ send, const long long* __re
 }
 
 // --- K6 ragged exchange + fold -------------------------------------------------
-struct FoldKinds {
+struct FoldOps {
   int n;
   int kinds[DFT_MAX_OPS];
+  void* outs[DFT_MAX_OPS];
 };
 
-__global__ void __launch_bounds__(K6_THREADS)
-ragged_exchange_fold_kernel(const long long* __restrict__ gid_ptr, const long long* __restrict__ val_ptr,
-                            const long long* __restrict__ mask_ptr, const long long* __restrict__ out_ptr,
-                            const int* __restrict__ sizes, int n_dev, long long split_cap, int num_groups,
-                            FoldKinds ops) {
+__global__ void __launch_bounds__(DFT_FOLD_TPB)
+ragged_exchange_fold_kernel(const long long* __restrict__ ptrs, const int* __restrict__ sizes, int n_dev,
+                            long long split_cap, int num_groups, int reps, FoldOps ops, unsigned int* done) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ const void* s_val[DFT_MAX_OPS];
-  __shared__ const uint8_t* s_mask[DFT_MAX_OPS];
-  __shared__ void* s_out[DFT_MAX_OPS];
-  const int pair = blockIdx.y;  // j * n_dev + i
-  const int j = pair / n_dev, i = pair % n_dev;
-  const long long cnt = sizes[pair];
-  const long long r0 = (long long)blockIdx.x * K6_ROWS;
-  if (r0 >= cnt) return;  // block-uniform, before any barrier
-  const long long r1 = r0 + K6_ROWS < cnt ? r0 + K6_ROWS : cnt;
-  for (int a = 0; a < ops.n; ++a) {
-    DFT_DISPATCH_KIND(ops.kinds[a], win_init, smem + a * WIN_BYTES)
+  __shared__ FoldShared s;
+  const int i = blockIdx.y;  // the receiver
+  const int k = ops.n;
+  if (threadIdx.x < k) {
+    s.kind[threadIdx.x] = ops.kinds[threadIdx.x];
+    s.out[threadIdx.x] = ops.outs[threadIdx.x];
   }
-  if (threadIdx.x < ops.n) {  // this pair's pointers, read once per block
-    const long long at = (long long)threadIdx.x * n_dev;
-    s_val[threadIdx.x] = (const void*)val_ptr[at + j];
-    s_mask[threadIdx.x] = (const uint8_t*)mask_ptr[at + j];
-    s_out[threadIdx.x] = (void*)out_ptr[at + i];
-  }
-  __syncthreads();
-  const long long base = (long long)i * split_cap;  // receiver i's region in sender j's arrays
-  const int* gid = (const int*)gid_ptr[j];
-  for (long long r = base + r0 + threadIdx.x; r < base + r1; r += K6_THREADS) {
-    const int w = gid[r];
-    if (w < 0 || w >= num_groups) continue;
-    for (int a = 0; a < ops.n; ++a) {
-      DFT_DISPATCH_KIND(ops.kinds[a], win_add, smem + a * WIN_BYTES, s_out[a], s_val[a], s_mask[a], r, w, w)
+  const int tbl_bytes = num_groups * reps * 8;
+  fold_init(smem, k * tbl_bytes);
+  const long long B = gridDim.x, b = blockIdx.x;
+  long long toff = 0;  // tiles of the senders before j
+  for (int j = 0; j < n_dev; ++j) {
+    const long long cnt = sizes[(long long)j * n_dev + i];
+    if (cnt == 0) continue;  // block-uniform
+    __syncthreads();  // the previous sender's pointers are no longer read
+    if (threadIdx.x < k) {  // sender j's values and masks, from the packed table
+      s.val[threadIdx.x] = (const void*)ptrs[n_dev + (long long)threadIdx.x * n_dev + j];
+      s.mask[threadIdx.x] = (const uint8_t*)ptrs[(long long)(1 + k + threadIdx.x) * n_dev + j];
     }
+    __syncthreads();
+    const long long first = ((b - toff) % B + B) % B;  // this block's first tile of sender j
+    fold_range(smem, tbl_bytes, k, s, (const int*)ptrs[j], (long long)i * split_cap, cnt, first, B, num_groups,
+               reps);
+    toff += (cnt + DFT_TILE_ROWS - 1) / DFT_TILE_ROWS;
   }
   __syncthreads();
-  for (int a = 0; a < ops.n; ++a) {
-    DFT_DISPATCH_KIND(ops.kinds[a], win_flush, smem + a * WIN_BYTES, s_out[a], 0)
-  }
+  fold_flush(smem, tbl_bytes, k, s, (long long)i * num_groups, num_groups, reps, (long long)n_dev * num_groups,
+             done);
 }
 
 // --- C entries -------------------------------------------------------------------
@@ -139,33 +138,41 @@ extern "C" int dft_ragged_exchange(const long long* send, const long long* recv,
   return (int)cudaGetLastError();
 }
 
-// K6. gid_ptr: [n_dev] device pointers to the senders' int32 window ids;
-// val_ptr / mask_ptr / out_ptr: [n_ops * n_dev] device pointer tables
-// (values and masks by sender, may be 0; outputs by receiver, [num_groups]
-// tables initialised to each op's identity). kinds: host array of op kinds
-// (reduce_common.cuh). sizes as for K5.
-extern "C" int dft_ragged_exchange_fold(const long long* gid_ptr, const long long* val_ptr, const long long* mask_ptr,
-                                        const long long* out_ptr, const int* sizes, int n_dev, long long split_cap,
-                                        int num_groups, int n_ops, const int* kinds, void* stream) {
+// K6. ptrs: one packed device table of (1 + 2 * n_ops) * n_dev pointers:
+// the senders' int32 window ids, then op a's values by sender (at
+// (1 + a) * n_dev), then op a's masks by sender (at (1 + n_ops + a) *
+// n_dev); values and masks may be 0. kinds: host array of op kinds
+// (reduce_common.cuh); outs: host array of op a's [n_dev, num_groups]
+// device table (receiver i's row at i * num_groups) and `done` a device
+// counter, all zeroed (reduce_common.cuh, the fold tile): op a's table
+// ends as the op's output, as for K2 dense mode. Each slot is held `reps`
+// times in shared memory. sizes as for K5.
+extern "C" int dft_ragged_exchange_fold(const long long* ptrs, const int* sizes, int n_dev, long long split_cap,
+                                        int num_groups, int reps, int n_ops, const int* kinds, void* const* outs,
+                                        unsigned int* done, void* stream) {
   if (n_ops == 0 || split_cap == 0 || num_groups == 0) return 0;
   if (n_dev < 1 || n_dev > DFT_MAX_DEV || n_ops < 0 || n_ops > DFT_MAX_OPS || num_groups < 0 ||
-      num_groups > DFT_WINDOW || split_cap < 0)
+      num_groups > DFT_WINDOW || split_cap < 0 || !dft_valid_reps(reps))
     return (int)cudaErrorInvalidValue;
-  FoldKinds o;
+  FoldOps o;
   o.n = n_ops;
   for (int a = 0; a < n_ops; ++a) {
     if (!dft_valid_kind(kinds[a])) return (int)cudaErrorInvalidValue;
     o.kinds[a] = kinds[a];
+    o.outs[a] = outs[a];
   }
-  const int smem = n_ops * WIN_BYTES;
-  if (smem > 48 * 1024) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(ragged_exchange_fold_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const long long blocks = (split_cap + K6_ROWS - 1) / K6_ROWS;
-  const dim3 grid((unsigned int)blocks, (unsigned int)(n_dev * n_dev));
-  ragged_exchange_fold_kernel<<<grid, K6_THREADS, smem, (cudaStream_t)stream>>>(
-      gid_ptr, val_ptr, mask_ptr, out_ptr, sizes, n_dev, split_cap, num_groups, o);
+  const int smem = n_ops * num_groups * reps * 8;
+  cudaError_t err;
+  const long long fill = fold_blocks(ragged_exchange_fold_kernel, smem, &err);
+  if (err != cudaSuccess) return (int)err;
+  // blocks per receiver: the card's share, and no more than its rows' tiles
+  long long per = fill / n_dev;
+  const long long most = ((long long)n_dev * split_cap + DFT_TILE_ROWS - 1) / DFT_TILE_ROWS;
+  if (per > most) per = most;
+  const long long rows = (long long)n_dev * split_cap;  // the most one receiver gets
+  if (per < rows / DFT_BLOCK_MAX_ROWS + 1) per = rows / DFT_BLOCK_MAX_ROWS + 1;
+  const dim3 grid((unsigned int)per, (unsigned int)n_dev);
+  ragged_exchange_fold_kernel<<<grid, DFT_FOLD_TPB, smem, (cudaStream_t)stream>>>(ptrs, sizes, n_dev, split_cap,
+                                                                                   num_groups, reps, o, done);
   return (int)cudaGetLastError();
 }

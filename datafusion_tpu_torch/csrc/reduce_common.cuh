@@ -1,7 +1,7 @@
 // Reduction op traits shared by K2 (segreduce.cu), K4 (partition.cu) and
 // K6 (ragged_shuffle.cu): the op kinds, the order-preserving integer image
-// of floats, the per-op identity / contribution / combine / atomic, and
-// the shared-memory windows of K4 and K6.
+// of floats, the per-op identity / contribution / combine / atomic, the
+// shared-memory windows of K4, and the fold tile of K2 dense mode and K6.
 //
 // SUM accumulates in f64 for float values and in i64 for integers, COUNT
 // is i64, and MIN/MAX keep the value type: f32/f64 reduce on their
@@ -12,7 +12,11 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <type_traits>
 
 // op kinds; mirrored in ops/pallas/segreduce.py `_KIND`
 enum {
@@ -31,12 +35,15 @@ __device__ __forceinline__ long long img64(double x) {
 }
 
 // --- op traits: value type In, accumulator Acc, contribution, combine ---
+// `of(x)` is value x's contribution; `contrib(v, r)` is row r's.
 template <typename InT, typename AccT>
 struct SumOp {
   typedef InT In;
   typedef AccT Acc;
+  static constexpr int MM = 0;  // neither MIN (1) nor MAX (2)
   static __device__ __forceinline__ Acc identity() { return (Acc)0; }
-  static __device__ __forceinline__ Acc contrib(const In* v, long long r) { return (Acc)v[r]; }
+  static __device__ __forceinline__ Acc of(In x) { return (Acc)x; }
+  static __device__ __forceinline__ Acc contrib(const In* v, long long r) { return of(v[r]); }
   static __device__ __forceinline__ Acc combine(Acc x, Acc y) { return x + y; }
 };
 struct SumF64Op : SumOp<double, double> {
@@ -59,7 +66,9 @@ struct SumIntOp : SumOp<InT, long long> {
 struct CountOp {
   typedef uint8_t In;  // no value stream
   typedef long long Acc;
+  static constexpr int MM = 0;
   static __device__ __forceinline__ Acc identity() { return 0; }
+  static __device__ __forceinline__ Acc of(In) { return 1; }
   static __device__ __forceinline__ Acc contrib(const In*, long long) { return 1; }
   static __device__ __forceinline__ Acc combine(Acc x, Acc y) { return x + y; }
   static __device__ __forceinline__ void atomic(long long* p, long long v) {
@@ -70,8 +79,10 @@ template <typename InT, typename AccT, bool IS_MIN>
 struct MinMaxOp {
   typedef InT In;
   typedef AccT Acc;
+  static constexpr int MM = IS_MIN ? 1 : 2;
   static __device__ __forceinline__ Acc identity();
-  static __device__ __forceinline__ Acc contrib(const In* v, long long r);
+  static __device__ __forceinline__ Acc of(In x);
+  static __device__ __forceinline__ Acc contrib(const In* v, long long r) { return of(v[r]); }
   static __device__ __forceinline__ Acc combine(Acc x, Acc y) {
     return IS_MIN ? (y < x ? y : x) : (y > x ? y : x);
   }
@@ -86,13 +97,13 @@ MINMAX_IDENTITY(float, int, (int)0x80000000, 0x7FFFFFFF)
 MINMAX_IDENTITY(double, long long, (long long)0x8000000000000000LL, 0x7FFFFFFFFFFFFFFFLL)
 MINMAX_IDENTITY(int, int, (int)0x80000000, 0x7FFFFFFF)
 MINMAX_IDENTITY(long long, long long, (long long)0x8000000000000000LL, 0x7FFFFFFFFFFFFFFFLL)
-#define MINMAX_CONTRIB(InT, AccT, EXPR)                                                          \
-  template <> __device__ __forceinline__ AccT MinMaxOp<InT, AccT, true>::contrib(const InT* v, long long r) { return EXPR; }  \
-  template <> __device__ __forceinline__ AccT MinMaxOp<InT, AccT, false>::contrib(const InT* v, long long r) { return EXPR; }
-MINMAX_CONTRIB(float, int, img32(v[r]))
-MINMAX_CONTRIB(double, long long, img64(v[r]))
-MINMAX_CONTRIB(int, int, v[r])
-MINMAX_CONTRIB(long long, long long, v[r])
+#define MINMAX_OF(InT, AccT, EXPR)                                                  \
+  template <> __device__ __forceinline__ AccT MinMaxOp<InT, AccT, true>::of(InT x) { return EXPR; }  \
+  template <> __device__ __forceinline__ AccT MinMaxOp<InT, AccT, false>::of(InT x) { return EXPR; }
+MINMAX_OF(float, int, img32(x))
+MINMAX_OF(double, long long, img64(x))
+MINMAX_OF(int, int, x)
+MINMAX_OF(long long, long long, x)
 
 typedef MinMaxOp<float, int, true> MinF32Op;
 typedef MinMaxOp<float, int, false> MaxF32Op;
@@ -125,7 +136,7 @@ typedef MinMaxOp<long long, long long, false> MaxI64Op;
 
 static inline bool dft_valid_kind(int kind) { return kind >= K_SUM_F32 && kind <= K_MAX_I64; }
 
-// --- shared-memory windows (K4, K6) -------------------------------------
+// --- shared-memory windows (K4) ------------------------------------------
 // One DFT_WINDOW-slot window per op, WIN_BYTES each (8-byte slots), in a
 // block's dynamic shared memory: at most DFT_MAX_OPS of them fit the
 // 227 KB a Hopper block may hold.
@@ -133,17 +144,19 @@ static inline bool dft_valid_kind(int kind) { return kind >= K_SUM_F32 && kind <
 #define WIN_BYTES (DFT_WINDOW * 8)
 #define DFT_MAX_OPS 14
 
+// the first `slots` slots of a window to identity
 template <class Op>
-__device__ __forceinline__ void win_init(unsigned char* win) {
+__device__ __forceinline__ void win_init(unsigned char* win, int slots) {
   typedef typename Op::Acc Acc;
-  for (int i = threadIdx.x; i < DFT_WINDOW; i += blockDim.x) ((Acc*)win)[i] = Op::identity();
+  for (int i = threadIdx.x; i < slots; i += blockDim.x) ((Acc*)win)[i] = Op::identity();
 }
 
-// every touched slot of the window into the device table, and back to identity
+// every touched slot of the window's first `slots` into the device table,
+// and back to identity
 template <class Op>
-__device__ __forceinline__ void win_flush(unsigned char* win, void* out, int base) {
+__device__ __forceinline__ void win_flush(unsigned char* win, void* out, int base, int slots) {
   typedef typename Op::Acc Acc;
-  for (int i = threadIdx.x; i < DFT_WINDOW; i += blockDim.x) {
+  for (int i = threadIdx.x; i < slots; i += blockDim.x) {
     const Acc v = ((Acc*)win)[i];
     if (v != Op::identity()) {
       Op::atomic((Acc*)out + base + i, v);
@@ -162,4 +175,246 @@ __device__ __forceinline__ void win_add(unsigned char* win, void* out, const voi
   const Acc c = Op::contrib((const typename Op::In*)vals, r);
   if (local < DFT_WINDOW) Op::atomic((Acc*)win + local, c);
   else Op::atomic((Acc*)out + g, c);
+}
+
+// --- the fold tile (K2 dense mode, K6) -------------------------------------
+// A block folds rows into one shared-memory table per op, `slots` live
+// slots of 8-byte entries, each slot held `reps` times (a power of two up
+// to 32): lane l of a warp updates replica l % reps, so the lanes of a
+// warp on one slot do not contend; the flush combines the replicas. A
+// thread takes DFT_TILE consecutive rows: their ids, then each op's values
+// and mask bytes, load as one or two 16-byte vectors (4 bytes for masks)
+// where the stream is aligned, and the op kind's switch is taken once per
+// tile, not per row. Equal neighbouring ids combine in registers before
+// the shared atomic.
+//
+// Every table, in shared and in device memory, holds each op's identity
+// as 0 bits (Zero<Op>), so one memset clears them all: SUM and COUNT as
+// they are; MIN and MAX on the unsigned order-preserving image u (the
+// signed image with its sign bit flipped), MAX as u and MIN as ~u, both
+// reduced by unsigned max. The last block to finish turns each MIN/MAX
+// slot into the op's value in place (`fold_finish`): the value type, and
+// +-inf for an empty float slot, as K2's wrapper decodes them.
+#define DFT_TILE 4
+#define DFT_FOLD_TPB 512
+#define DFT_TILE_ROWS (DFT_FOLD_TPB * DFT_TILE)
+#define DFT_FOLD_MAX_OPS 32
+#define DFT_MAX_REPS 32
+#define DFT_BLOCK_MAX_ROWS 0x7fffffffLL  // rows one block may fold: COUNT's shared counters are 32-bit
+
+// the ops of a fold, in shared memory (indexed per op without a stack frame)
+struct FoldShared {
+  int kind[DFT_FOLD_MAX_OPS];
+  const void* val[DFT_FOLD_MAX_OPS];
+  const uint8_t* mask[DFT_FOLD_MAX_OPS];
+  void* out[DFT_FOLD_MAX_OPS];
+};
+
+static inline bool dft_valid_reps(int reps) { return reps >= 1 && reps <= DFT_MAX_REPS && (reps & (reps - 1)) == 0; }
+
+// Shared is what a block's shared table holds, Acc the device table;
+// a shared value goes to the device table through widen().
+template <class Op, int MM = Op::MM>
+struct Zero {  // SUM: the op itself, whose identity is 0
+  typedef typename Op::In In;
+  typedef typename Op::Acc Acc;
+  typedef Acc Shared;
+  static __device__ __forceinline__ Shared of(In x) { return Op::of(x); }
+  static __device__ __forceinline__ Shared combine(Shared x, Shared y) { return Op::combine(x, y); }
+  static __device__ __forceinline__ void atomic(Acc* p, Acc v) { Op::atomic(p, v); }
+  static __device__ __forceinline__ Acc widen(Shared v) { return v; }
+};
+
+// COUNT counts in 32 bits in shared memory, where a 32-bit add is a native
+// atomic and a 64-bit one a CAS loop; a block folds fewer than 2^32 rows
+// (the C entries size the grid so).
+template <>
+struct Zero<CountOp, 0> {
+  typedef CountOp::In In;
+  typedef CountOp::Acc Acc;
+  typedef unsigned int Shared;
+  static __device__ __forceinline__ Shared of(In) { return 1u; }
+  static __device__ __forceinline__ Shared combine(Shared x, Shared y) { return x + y; }
+  static __device__ __forceinline__ void atomic(Shared* p, Shared v) { atomicAdd(p, v); }
+  static __device__ __forceinline__ void atomic(Acc* p, Acc v) { CountOp::atomic(p, v); }
+  static __device__ __forceinline__ Acc widen(Shared v) { return (Acc)v; }
+};
+
+template <class Op, int MM>
+struct ZeroMinMax {  // MIN (MM 1) and MAX (MM 2)
+  typedef typename Op::In In;
+  typedef typename Op::Acc Img;                        // the signed image
+  typedef typename std::make_unsigned<Img>::type Acc;  // what the tables hold
+  typedef Acc Shared;
+  static constexpr Acc SIGN = (Acc)1 << (sizeof(Acc) * 8 - 1);
+  static __device__ __forceinline__ Acc of(In x) {
+    const Acc u = (Acc)Op::of(x) ^ SIGN;
+    return MM == 1 ? (Acc)~u : u;
+  }
+  static __device__ __forceinline__ Acc combine(Acc x, Acc y) { return y > x ? y : x; }
+  static __device__ __forceinline__ void atomic(Acc* p, Acc v) { atomicMax(p, v); }
+  static __device__ __forceinline__ Acc widen(Acc v) { return v; }
+  // a finished slot into the value: the image back, floats from their image
+  static __device__ __forceinline__ void decode(Acc* p) {
+    const Acc t = __ldcg(p);
+    const Img img = (Img)((MM == 1 ? (Acc)~t : t) ^ SIGN);
+    Img out = img;
+    if constexpr (std::is_floating_point<In>::value) {
+      if (t == 0) {  // no row reached the slot
+        const In inf = MM == 1 ? (In)INFINITY : (In)-INFINITY;
+        memcpy(&out, &inf, sizeof(In));
+      } else if (img < 0) {
+        out = (Img)(SIGN - (Acc)img);  // the image is its own inverse
+      }
+    }
+    *p = (Acc)out;
+  }
+};
+template <class Op>
+struct Zero<Op, 1> : ZeroMinMax<Op, 1> {};
+template <class Op>
+struct Zero<Op, 2> : ZeroMinMax<Op, 2> {};
+
+// rows r .. r + cnt - 1 of p (cnt <= DFT_TILE); the rest read T()
+template <typename T>
+__device__ __forceinline__ void load_tile(const T* __restrict__ p, long long r, int cnt, T (&x)[DFT_TILE]) {
+  constexpr int bytes = (int)sizeof(T) * DFT_TILE;
+  constexpr int align = bytes < 16 ? bytes : 16;
+  static_assert(bytes == 4 || bytes % 16 == 0, "tile of 4-byte or 16-byte words");
+  if (cnt == DFT_TILE && ((uintptr_t)(p + r) & (align - 1)) == 0) {
+    if constexpr (bytes == 4) {
+      const unsigned int u = __ldg((const unsigned int*)(p + r));
+      memcpy(x, &u, 4);
+    } else {
+      uint4 u[bytes / 16];
+#pragma unroll
+      for (int i = 0; i < bytes / 16; ++i) u[i] = __ldg((const uint4*)(p + r) + i);
+      memcpy(x, u, bytes);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < DFT_TILE; ++k) x[k] = k < cnt ? p[r + k] : T();
+  }
+}
+
+// one op over one thread's tile: w[k] is row r + k's slot, or -1 (dropped)
+template <class Op>
+__device__ __forceinline__ void tile_fold(unsigned char* tbl, int reps, int rep, const void* vals,
+                                          const uint8_t* mask, long long r, int cnt, const int (&w)[DFT_TILE]) {
+  typedef Zero<Op> Z;
+  typedef typename Op::In In;
+  typedef typename Z::Shared Acc;
+  In x[DFT_TILE] = {};
+  if constexpr (!std::is_same<Op, CountOp>::value) load_tile((const In*)vals, r, cnt, x);
+  bool keep[DFT_TILE];
+  if (mask != nullptr) {
+    uint8_t m[DFT_TILE];
+    load_tile(mask, r, cnt, m);
+#pragma unroll
+    for (int k = 0; k < DFT_TILE; ++k) keep[k] = w[k] >= 0 && m[k];
+  } else {
+#pragma unroll
+    for (int k = 0; k < DFT_TILE; ++k) keep[k] = w[k] >= 0;
+  }
+  Acc* t = (Acc*)tbl + rep;
+  int cur = -1;
+  Acc acc = 0;
+#pragma unroll
+  for (int k = 0; k < DFT_TILE; ++k) {
+    if (!keep[k]) continue;
+    const Acc c = Z::of(x[k]);
+    if (w[k] == cur) {
+      acc = Z::combine(acc, c);
+    } else {
+      if (cur >= 0) Z::atomic(t + cur * reps, acc);
+      cur = w[k];
+      acc = c;
+    }
+  }
+  if (cur >= 0) Z::atomic(t + cur * reps, acc);
+}
+
+// `bytes` (a multiple of 8) of shared tables to 0: every op's identity
+__device__ __forceinline__ void fold_init(unsigned char* smem, int bytes) {
+  for (int i = threadIdx.x; i < bytes / 8; i += blockDim.x) ((unsigned long long*)smem)[i] = 0;
+}
+
+// Tiles t_first, t_first + t_step, ... of the `cnt` rows from row `base`
+// (DFT_TILE_ROWS rows a tile) into the block's tables (op a's at
+// smem + a * tbl_bytes); ids outside [0, slots) are dropped.
+__device__ __forceinline__ void fold_range(unsigned char* smem, int tbl_bytes, int n_ops, const FoldShared& s,
+                                           const int* __restrict__ gid, long long base, long long cnt,
+                                           long long t_first, long long t_step, int slots, int reps) {
+  const int rep = threadIdx.x & (reps - 1);  // the lane's replica: reps divides the warp
+  const long long tiles = (cnt + DFT_TILE_ROWS - 1) / DFT_TILE_ROWS;
+  for (long long t = t_first; t < tiles; t += t_step) {
+    const long long rel = t * DFT_TILE_ROWS + (long long)threadIdx.x * DFT_TILE;
+    if (rel >= cnt) continue;
+    const int c = cnt - rel < DFT_TILE ? (int)(cnt - rel) : DFT_TILE;
+    const long long r = base + rel;
+    int w[DFT_TILE];
+    load_tile(gid, r, c, w);
+#pragma unroll
+    for (int k = 0; k < DFT_TILE; ++k)
+      if (k >= c || w[k] < 0 || w[k] >= slots) w[k] = -1;
+    for (int a = 0; a < n_ops; ++a) {
+      DFT_DISPATCH_KIND(s.kind[a], tile_fold, smem + a * tbl_bytes, reps, rep, s.val[a], s.mask[a], r, c, w)
+    }
+  }
+}
+
+// one op's touched slots, replicas combined, into its device table from slot `base`
+template <class Op>
+__device__ __forceinline__ void tile_flush(unsigned char* tbl, void* out, long long base, int slots, int reps) {
+  typedef Zero<Op> Z;
+  typedef typename Z::Shared Shared;
+  const Shared* t = (const Shared*)tbl;
+  for (int s = threadIdx.x; s < slots; s += blockDim.x) {
+    Shared v = t[s * reps];
+    for (int r = 1; r < reps; ++r) v = Z::combine(v, t[s * reps + r]);
+    if (v != (Shared)0) Z::atomic((typename Z::Acc*)out + base + s, Z::widen(v));
+  }
+}
+
+template <class Op>
+__device__ __forceinline__ void tile_decode(void* out, long long n) {
+  typedef Zero<Op> Z;
+  if constexpr (Op::MM != 0)
+    for (long long i = threadIdx.x; i < n; i += blockDim.x) Z::decode((typename Z::Acc*)out + i);
+}
+
+// Every op's table into its device table from slot `base`; then the last
+// block of the grid to get here (a ticket on `done`, 0 before the launch)
+// decodes the ops' `n_out`-slot device tables in place.
+__device__ __forceinline__ void fold_flush(unsigned char* smem, int tbl_bytes, int n_ops, const FoldShared& s,
+                                           long long base, int slots, int reps, long long n_out,
+                                           unsigned int* done) {
+  __shared__ bool last;
+  for (int a = 0; a < n_ops; ++a) {
+    DFT_DISPATCH_KIND(s.kind[a], tile_flush, smem + a * tbl_bytes, s.out[a], base, slots, reps)
+  }
+  __threadfence();  // this block's flush reaches every block before its ticket
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(done, 1u) == gridDim.x * gridDim.y - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int a = 0; a < n_ops; ++a) {
+    DFT_DISPATCH_KIND(s.kind[a], tile_decode, s.out[a], n_out)
+  }
+}
+
+// The grid that fills the card: blocks of DFT_FOLD_TPB threads with
+// `smem` dynamic bytes each that fit an SM at once, times the SMs.
+// Returns 0 and sets *err when the kernel cannot take `smem`.
+template <typename K>
+static inline long long fold_blocks(K kernel, int smem, cudaError_t* err) {
+  *err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (*err != cudaSuccess) return 0;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, DFT_FOLD_TPB, smem);
+  if (*err == cudaSuccess && per_sm < 1) *err = cudaErrorInvalidConfiguration;
+  return *err == cudaSuccess ? (long long)per_sm * sms : 0;
 }

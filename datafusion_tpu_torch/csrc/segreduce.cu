@@ -12,9 +12,11 @@
 // datafusion_tpu/ops/aggregate.py:1165-1172 does). Float sums follow IEEE
 // for NaN and +-inf natively, so no sanitize / exact-restore pass exists.
 //
-// What bounds it on this card: bytes. Each op reads the group ids and its
-// value (and optional mask) stream once and does one combine per row; the
-// accumulator tables are small next to the row streams.
+// What bounds it on this card: bytes. Sorted mode reads the group ids
+// once per op, dense mode once per launch, and each value (and optional
+// mask) stream once, with one combine per row and op; the accumulator
+// tables are small next to the row streams. In dense mode the shared
+// atomics come next: a small table takes many lanes to one slot.
 //
 // * Sorted mode (group ids ascending; ids >= num_groups only in the
 //   tail): each block takes a contiguous tile of TPB x IT rows, each
@@ -26,15 +28,27 @@
 //   and last runs reach device memory through atomics. The accumulator
 //   table lives in device memory, so the TPU's VMEM budget gate
 //   (`accum_fits_vmem`) has no counterpart.
-// * Dense mode (ids in any order, num_groups <= 2048): each block builds a
-//   shared-memory table with shared-memory atomics over a grid-stride
-//   range of rows, then merges it into the device table with one global
-//   atomic per touched slot. f64 atomicAdd is native; 64-bit MIN/MAX use
-//   atomicMin/atomicMax on the signed sortable image.
+// * Dense mode (ids in any order, num_groups <= 2048): one launch folds
+//   every op (up to DFT_FOLD_MAX_OPS, passed by value as K4's ops are), so
+//   the ids and each value and mask stream are read once per row. The
+//   grid fills the card at the occupancy the tables' shared memory allows
+//   (fold_blocks); each 512-thread block folds a grid-stride range of
+//   DFT_TILE_ROWS-row tiles into per-op shared tables with the fold tile of
+//   reduce_common.cuh (4 rows a thread, vector loads, one kind switch per
+//   tile and op), each slot held `reps` times so the lanes of a warp on a
+//   small table do not contend, then flushes each touched slot into the
+//   device table by one global atomic; the last block decodes MIN/MAX in
+//   place, so the wrapper's one zeroed buffer comes back as the outputs.
+//   f64 / i64 sums, i64 counts, MIN/MAX on the order-preserving image.
+//   The caller (ops/pallas/
+//   segreduce.py `fold_launches`) picks `reps` and splits an op list
+//   whose tables do not fit one block's shared memory into the fewest
+//   launches that fit.
 //
-// The host entry launches one kernel per op; ops read their own value and
-// mask streams (the Python wrapper passes each distinct stream once). The
-// op kinds and traits live in reduce_common.cuh, shared with K4.
+// The sorted-mode entry launches one kernel per op; ops read their own
+// value and mask streams (the Python wrapper passes each distinct stream
+// once). The op kinds and traits live in reduce_common.cuh, shared with
+// K4 and K6.
 
 #include "reduce_common.cuh"
 
@@ -97,68 +111,92 @@ __global__ void seg_sorted_kernel(const int* __restrict__ gid, const typename Op
 }
 
 // --- dense mode ----------------------------------------------------------
-template <class Op>
-__global__ void seg_dense_kernel(const int* __restrict__ gid, const typename Op::In* __restrict__ vals,
-                                 const uint8_t* __restrict__ mask, typename Op::Acc* __restrict__ out,
-                                 long long n, int num_groups) {
-  typedef typename Op::Acc Acc;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Acc* table = reinterpret_cast<Acc*>(smem_raw);
-  for (int i = threadIdx.x; i < num_groups; i += blockDim.x) table[i] = Op::identity();
-  __syncthreads();
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x; r < n; r += stride) {
-    const int g = gid[r];
-    if (g < 0 || g >= num_groups) continue;
-    if (mask != nullptr && !mask[r]) continue;
-    Op::atomic(&table[g], Op::contrib(vals, r));
+struct DenseOps {
+  int n;
+  int kinds[DFT_FOLD_MAX_OPS];
+  const void* vals[DFT_FOLD_MAX_OPS];
+  const uint8_t* masks[DFT_FOLD_MAX_OPS];
+  void* outs[DFT_FOLD_MAX_OPS];
+};
+
+__global__ void __launch_bounds__(DFT_FOLD_TPB)
+seg_dense_kernel(const int* __restrict__ gid, long long n, int num_groups, int reps, DenseOps ops,
+                 unsigned int* done) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ FoldShared s;
+  if (threadIdx.x < ops.n) {
+    s.kind[threadIdx.x] = ops.kinds[threadIdx.x];
+    s.val[threadIdx.x] = ops.vals[threadIdx.x];
+    s.mask[threadIdx.x] = ops.masks[threadIdx.x];
+    s.out[threadIdx.x] = ops.outs[threadIdx.x];
   }
+  const int tbl_bytes = num_groups * reps * 8;
+  fold_init(smem, ops.n * tbl_bytes);
   __syncthreads();
-  for (int i = threadIdx.x; i < num_groups; i += blockDim.x) {
-    const Acc v = table[i];
-    if (v != Op::identity()) Op::atomic(&out[i], v);
-  }
+  fold_range(smem, tbl_bytes, ops.n, s, gid, 0, n, blockIdx.x, gridDim.x, num_groups, reps);
+  __syncthreads();
+  fold_flush(smem, tbl_bytes, ops.n, s, 0, num_groups, reps, num_groups, done);
 }
 
+// --- C entries ---------------------------------------------------------------
+
 template <class Op>
-static void launch(bool dense, const int* gid, const void* vals, const uint8_t* mask, void* out,
-                   long long n, int num_groups, int dense_blocks, cudaStream_t stream) {
+static void launch_sorted(const int* gid, const void* vals, const uint8_t* mask, void* out, long long n,
+                          int num_groups, cudaStream_t stream) {
   typedef typename Op::In In;
   typedef typename Op::Acc Acc;
-  if (dense) {
-    long long blocks = (n + TPB - 1) / TPB;
-    if (blocks > dense_blocks) blocks = dense_blocks;
-    seg_dense_kernel<Op><<<(unsigned int)blocks, TPB, num_groups * sizeof(Acc), stream>>>(
-        gid, (const In*)vals, mask, (Acc*)out, n, num_groups);
-  } else {
-    const long long blocks = (n + TPB * IT - 1) / (TPB * IT);
-    seg_sorted_kernel<Op><<<(unsigned int)blocks, TPB, 0, stream>>>(
-        gid, (const In*)vals, mask, (Acc*)out, n, num_groups);
-  }
+  const long long blocks = (n + TPB * IT - 1) / (TPB * IT);
+  seg_sorted_kernel<Op><<<(unsigned int)blocks, TPB, 0, stream>>>(gid, (const In*)vals, mask, (Acc*)out, n,
+                                                                   num_groups);
 }
 
-// One call reduces every op. kinds[a] selects the op kind, vals[a] /
+// Sorted mode, one launch per op. kinds[a] selects the op kind, vals[a] /
 // masks[a] / outs[a] are device pointers (vals/masks may be null). The
 // output tables arrive initialised to each op's identity.
-extern "C" int dft_segreduce(const int* gid, long long n, int num_groups, int dense, int n_ops,
-                             const int* kinds, const void* const* vals,
-                             const uint8_t* const* masks, void* const* outs, void* stream) {
+extern "C" int dft_segreduce(const int* gid, long long n, int num_groups, int n_ops, const int* kinds,
+                             const void* const* vals, const uint8_t* const* masks, void* const* outs,
+                             void* stream) {
   if (n <= 0 || num_groups <= 0) return 0;
-  if (dense && num_groups > DENSE_MAX_SLOTS) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  int dev = 0, sms = 132;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int dense_blocks = 2 * sms;
-  const bool d = dense != 0;
   for (int a = 0; a < n_ops; ++a) {
-    const void* v = vals[a];
-    const uint8_t* m = masks[a];
-    void* o = outs[a];
     if (!dft_valid_kind(kinds[a])) return (int)cudaErrorInvalidValue;
-    DFT_DISPATCH_KIND(kinds[a], launch, d, gid, v, m, o, n, num_groups, dense_blocks, s)
+    DFT_DISPATCH_KIND(kinds[a], launch_sorted, gid, vals[a], masks[a], outs[a], n, num_groups, s)
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   return 0;
+}
+
+// Dense mode, one launch for every op given, each slot held `reps` times
+// in shared memory. kinds, vals and masks as for dft_segreduce; outs[a]
+// is op a's [num_groups] device table and `done` a device counter, all
+// zeroed (reduce_common.cuh, the fold tile): op a's table ends as the
+// op's output (f64/i64 SUM, i64 COUNT, MIN/MAX in the value type with
+// +-inf for an empty float slot).
+extern "C" int dft_segreduce_dense(const int* gid, long long n, int num_groups, int reps, int n_ops,
+                                   const int* kinds, const void* const* vals, const uint8_t* const* masks,
+                                   void* const* outs, unsigned int* done, void* stream) {
+  if (n <= 0 || num_groups <= 0 || n_ops == 0) return 0;
+  if (num_groups > DENSE_MAX_SLOTS || n_ops < 0 || n_ops > DFT_FOLD_MAX_OPS || !dft_valid_reps(reps))
+    return (int)cudaErrorInvalidValue;
+  DenseOps o;
+  o.n = n_ops;
+  for (int a = 0; a < n_ops; ++a) {
+    if (!dft_valid_kind(kinds[a])) return (int)cudaErrorInvalidValue;
+    o.kinds[a] = kinds[a];
+    o.vals[a] = vals[a];
+    o.masks[a] = masks[a];
+    o.outs[a] = outs[a];
+  }
+  const long long smem = (long long)n_ops * num_groups * reps * 8;
+  if (smem > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  long long blocks = fold_blocks(seg_dense_kernel, (int)smem, &err);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = (n + DFT_TILE_ROWS - 1) / DFT_TILE_ROWS;
+  if (blocks > tiles) blocks = tiles;
+  if (blocks < n / DFT_BLOCK_MAX_ROWS + 1) blocks = n / DFT_BLOCK_MAX_ROWS + 1;
+  seg_dense_kernel<<<(unsigned int)blocks, DFT_FOLD_TPB, (size_t)smem, (cudaStream_t)stream>>>(
+      gid, n, num_groups, reps, o, done);
+  return (int)cudaGetLastError();
 }

@@ -21,7 +21,10 @@ is ever dropped and the JAX package's overflow retry has no counterpart.
     (ops/pallas/segreduce.py: f64 / i64 sums with IEEE NaN and +-inf, i64
     counts, value-dtype MIN/MAX, +-inf for an empty float MIN/MAX slot),
     with no post-exchange batch. The TPU kernel's f32-only values and its
-    zero-sanitized sums are gone.
+    zero-sanitized sums are gone. One launch per call: the wrapper zeroes
+    one buffer of `[n_dev, num_groups]` tables (segreduce.fold_tables),
+    copies one packed pointer table (`fold_pointer_table`) from pinned
+    host memory, and the kernel leaves the results in the tables.
 
 The senders' buffers are all on one device. CPU tensors take the plain
 versions; CUDA tensors launch csrc/ragged_shuffle.cu (or raise).
@@ -40,6 +43,8 @@ from datafusion_tpu_torch.ops.pallas.segreduce import (
     _finish,
     _identity_tables,
     _validate,
+    fold_launches,
+    fold_tables,
     segmented_reduce_plain,
 )
 
@@ -166,24 +171,42 @@ def _check_fold(gids, vals, masks, sizes, ops, mask_map, n_dev, split_cap, num_g
         raise ValueError(f"at most {MAX_OPS} ops: one {WINDOW}-slot window each must fit shared memory")
     if len(mask_map) != len(ops):
         raise ValueError("one mask_map entry per op")
+    if any(not 0 <= u <= len(masks[0]) for u in mask_map):
+        raise ValueError("mask_map entries index the masks from 1 (0 = every routed row)")
     dev = gids[0].device
     _check_sizes(sizes, n_dev, split_cap, dev)
+    # the ops and value dtypes once; the kernel takes each op's kind from sender 0
+    _validate(gids[0], vals[0], [None] * len(ops), ops, num_groups, dense=False)
+    dtypes = [None if v is None else v.dtype for v in vals[0]]
+    seen = set()
     for j in range(n_dev):
         if len(vals[j]) != len(ops) or len(masks[j]) != len(masks[0]):
             raise ValueError("every sender sends one value per op and the same masks")
-        for m in masks[j]:
-            _check_region(m, n_dev, split_cap, dev)
-            if m.dtype != torch.bool:
-                raise ValueError("masks must be bool")
-        for a in range(len(ops)):
-            if not 0 <= mask_map[a] <= len(masks[j]):
-                raise ValueError("mask_map entries index the masks from 1 (0 = every routed row)")
-        _validate(gids[j], vals[j], [None] * len(ops), ops, num_groups, dense=False)
-        _check_region(gids[j], n_dev, split_cap, dev)
+        if gids[j].dtype != torch.int32 or [None if v is None else v.dtype for v in vals[j]] != dtypes:
+            raise ValueError("every sender's window ids are int32 and its values have sender 0's dtypes")
+        if any(m.dtype != torch.bool for m in masks[j]):
+            raise ValueError("masks must be bool")
+        for t in (gids[j], *vals[j], *masks[j]):  # each distinct array once
+            if t is not None and id(t) not in seen:
+                seen.add(id(t))
+                _check_region(t, n_dev, split_cap, dev)
 
 
 def _op_masks(masks, mask_map):
     return [None if u == 0 else masks[u - 1] for u in mask_map]
+
+
+def fold_pointer_table(gids, vals, op_masks) -> list[int]:
+    """K6's packed pointer table (csrc/ragged_shuffle.cu): the senders'
+    window ids, then op a's values by sender, then op a's masks by sender
+    (`op_masks[j][a]`); 0 where there is none."""
+    n_dev, k = len(gids), len(vals[0])
+
+    def ptr(t):
+        return 0 if t is None else t.data_ptr()
+
+    return ([ptr(g) for g in gids] + [ptr(vals[j][a]) for a in range(k) for j in range(n_dev)]
+            + [ptr(op_masks[j][a]) for a in range(k) for j in range(n_dev)])
 
 
 def ragged_exchange_fold_plain(
@@ -243,22 +266,24 @@ def ragged_exchange_fold(
     from datafusion_tpu_torch.ops.pallas.cuda_lib import check, load_library
 
     lib = load_library()
-    tables = [_identity_tables(ops, vals[0], num_groups, dev) for _ in range(n_dev)]
     k = len(ops)
-    if k and split_cap and num_groups:
-        per_op = [_op_masks(masks[j], mask_map) for j in range(n_dev)]
-        gid_p = _pointer_table(gids, dev)
-        val_p = _pointer_table([vals[j][a] for a in range(k) for j in range(n_dev)], dev)
-        mask_p = _pointer_table([per_op[j][a] for a in range(k) for j in range(n_dev)], dev)
-        out_p = _pointer_table([tables[i][a] for a in range(k) for i in range(n_dev)], dev)
-        kinds = (ctypes.c_int * k)(*[_KIND[(op, None if v is None else v.dtype)] for op, v in zip(ops, vals[0])])
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = lib.dft_ragged_exchange_fold(gid_p.data_ptr(), val_p.data_ptr(), mask_p.data_ptr(), out_p.data_ptr(),
-                                              sizes.data_ptr(), n_dev, split_cap, num_groups, k, kinds, stream)
-        check(rc, "ragged_exchange_fold kernel")
-        ragged_exchange_fold.launches += 1
-    return [_finish(ops, vals[0], t) for t in tables]
+    if not (k and split_cap and num_groups):  # nothing to launch
+        tables = _finish(ops, vals[0], _identity_tables(ops, vals[0], num_groups, dev, lead=(n_dev,)))
+        return [tuple(t[i] for t in tables) for i in range(n_dev)]
+    [(_, _, reps)] = fold_launches(k, num_groups)  # MAX_OPS tables of WINDOW slots fit one launch
+    tables, [done] = fold_tables(ops, vals[0], num_groups, dev, lead=(n_dev,))
+    per_op = [_op_masks(masks[j], mask_map) for j in range(n_dev)]
+    ptrs = torch.tensor(fold_pointer_table(gids, vals, per_op), dtype=torch.int64).pin_memory()
+    kinds = (ctypes.c_int * k)(*[_KIND[(op, None if v is None else v.dtype)] for op, v in zip(ops, vals[0])])
+    outs = (ctypes.c_void_p * k)(*[t.data_ptr() for t in tables])
+    with torch.cuda.device(dev):
+        ptrs = ptrs.to(dev, non_blocking=True)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.dft_ragged_exchange_fold(ptrs.data_ptr(), sizes.data_ptr(), n_dev, split_cap, num_groups, reps, k,
+                                          kinds, outs, done, stream)
+    check(rc, "ragged_exchange_fold kernel")
+    ragged_exchange_fold.launches += 1
+    return list(zip(*[t.unbind(0) for t in tables]))
 
 
 # CUDA kernel launches (one per call that reached the card)

@@ -18,7 +18,9 @@ None means every (kept) row contributes; a value of None is a COUNT.
 Sorted mode (`dense=False`) requires ascending ids with the dropped rows
 in the tail — what the grouped aggregate's co-sort produces. Dense mode
 takes ids in any order with num_groups <= DENSE_MAX_SLOTS (the sort-free
-GROUP BY for small key domains).
+GROUP BY for small key domains). Dense mode folds all its ops in one
+launch, or in the fewest launches whose tables fit a block's shared
+memory (`fold_launches`, shared with K6).
 
 CPU tensors take `segmented_reduce_plain`; CUDA tensors launch
 csrc/segreduce.cu (or raise).
@@ -27,12 +29,18 @@ csrc/segreduce.cu (or raise).
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional, Sequence
 
 import torch
 
 DENSE_MAX_SLOTS = 2048
 OPS = ("sum", "count", "min", "max")
+# the fold tile's shared tables (csrc/reduce_common.cuh): 8-byte entries
+FOLD_SMEM_BYTES = 230400  # dynamic shared memory of one launch: Hopper's 232,448 a block, less the static arrays
+FOLD_MAX_OPS = 32  # DFT_FOLD_MAX_OPS
+MAX_REPLICAS = 32  # DFT_MAX_REPS: one replica per lane of a warp
+REPLICA_BUDGET = 57344  # replicas grow while a block's tables stay within this: four 512-thread blocks an SM
 VALUE_DTYPES = (torch.float32, torch.float64, torch.int32, torch.int64)
 
 # kernel op kinds (csrc/segreduce.cu)
@@ -74,7 +82,8 @@ def _table_dtype(op: str, v: Optional[torch.Tensor]) -> torch.dtype:
     return _IMAGE.get(v.dtype, v.dtype)
 
 
-def _identity_tables(ops, values, num_groups, device) -> list[torch.Tensor]:
+def _identity_tables(ops, values, num_groups, device, lead=()) -> list[torch.Tensor]:
+    """One `[*lead, num_groups]` table per op, at the op's identity."""
     outs = []
     for op, v in zip(ops, values):
         dt = _table_dtype(op, v)
@@ -83,8 +92,30 @@ def _identity_tables(ops, values, num_groups, device) -> list[torch.Tensor]:
         else:
             info = torch.iinfo(dt)
             fill = info.max if op == "min" else info.min
-        outs.append(torch.full((num_groups,), fill, dtype=dt, device=device))
+        outs.append(torch.full((*lead, num_groups), fill, dtype=dt, device=device))
     return outs
+
+
+def _out_dtype(op: str, v: Optional[torch.Tensor]) -> torch.dtype:
+    """The dtype of an op's result: f64/i64 SUM, i64 COUNT, value-dtype MIN/MAX."""
+    return v.dtype if op in ("min", "max") else _table_dtype(op, v)
+
+
+def fold_tables(ops, values, num_groups, device, lead=(), counters=1):
+    """The fold kernels' output tables (csrc/reduce_common.cuh, the fold
+    tile): one zeroed buffer that holds, per op, a `[*lead, num_groups]`
+    table in the op's result dtype (every identity is 0 bits there), then
+    `counters` 8-byte launch counters. Returns (tables, counter
+    addresses)."""
+    rows = math.prod(lead) * num_groups
+    spans, off = [], 0
+    for op, v in zip(ops, values):
+        dt = _out_dtype(op, v)
+        spans.append((off, dt))
+        off += -(-rows * dt.itemsize // 8) * 8
+    buf = torch.zeros(off + 8 * counters, dtype=torch.uint8, device=device)
+    tables = [buf[o: o + rows * dt.itemsize].view(dt).view(*lead, num_groups) for o, dt in spans]
+    return tables, [buf.data_ptr() + off + 8 * c for c in range(counters)]
 
 
 def _finish(ops, values, tables) -> tuple[torch.Tensor, ...]:
@@ -122,6 +153,27 @@ def _validate(gid, values, masks, ops, num_groups, dense):
             raise ValueError(f"value dtype {v.dtype} (takes f32/f64/i32/i64)")
         if m is not None and m.dtype != torch.bool:
             raise ValueError("masks must be bool")
+
+
+def fold_launches(n_ops: int, num_groups: int) -> list[tuple[int, int, int]]:
+    """How the fold tile (K2 dense mode, K6) covers `n_ops` tables of
+    `num_groups` slots: `(first op, stop, replicas)` per launch. The op
+    list splits evenly into the fewest launches whose tables fit one
+    block's shared memory (FOLD_SMEM_BYTES, at most FOLD_MAX_OPS ops), and
+    each slot is then held by the most replicas (a power of two up to
+    MAX_REPLICAS) that keep the launch's tables within REPLICA_BUDGET; one
+    when even a single copy does not."""
+    table = num_groups * 8
+    per = max(1, min(FOLD_MAX_OPS, FOLD_SMEM_BYTES // table))
+    n = -(-n_ops // per)
+    out = []
+    for i in range(n):
+        lo, hi = i * n_ops // n, (i + 1) * n_ops // n
+        reps = 1
+        while reps < MAX_REPLICAS and 2 * reps * table * (hi - lo) <= REPLICA_BUDGET:
+            reps *= 2
+        out.append((lo, hi, reps))
+    return out
 
 
 def segmented_reduce_plain(
@@ -170,24 +222,33 @@ def segmented_reduce(
     from datafusion_tpu_torch.ops.pallas.cuda_lib import check, load_library
 
     lib = load_library()
-    tables = _identity_tables(ops, values, num_groups, gid.device)
     n = gid.shape[0]
-    if n > 0 and num_groups > 0:
-        k = len(ops)
-        kinds = (ctypes.c_int * k)(*[_KIND[(op, None if v is None else v.dtype)] for op, v in zip(ops, values)])
-        vptr = (ctypes.c_void_p * k)(*[None if v is None else v.data_ptr() for v in values])
-        mptr = (ctypes.c_void_p * k)(*[None if m is None else m.data_ptr() for m in masks])
-        optr = (ctypes.c_void_p * k)(*[t.data_ptr() for t in tables])
-        with torch.cuda.device(gid.device):
-            stream = torch.cuda.current_stream(gid.device).cuda_stream
-            rc = lib.dft_segreduce(gid.data_ptr(), n, num_groups, int(dense), k,
-                                   kinds, vptr, mptr, optr, stream)
-        check(rc, "segreduce kernel")
-        # the C entry launches one CUDA kernel per op
-        if dense:
-            segmented_reduce.dense_launches += k
-        else:
-            segmented_reduce.sorted_launches += k
+    if n == 0 or num_groups == 0 or not ops:  # nothing to launch
+        return _finish(ops, values, _identity_tables(ops, values, num_groups, gid.device))
+    kinds = [_KIND[(op, None if v is None else v.dtype)] for op, v in zip(ops, values)]
+    vptr = [None if v is None else v.data_ptr() for v in values]
+    mptr = [None if m is None else m.data_ptr() for m in masks]
+
+    def arrays(lo, hi, tables):
+        k = hi - lo
+        return ((ctypes.c_int * k)(*kinds[lo:hi]), (ctypes.c_void_p * k)(*vptr[lo:hi]),
+                (ctypes.c_void_p * k)(*mptr[lo:hi]), (ctypes.c_void_p * k)(*[t.data_ptr() for t in tables[lo:hi]]))
+
+    with torch.cuda.device(gid.device):
+        stream = torch.cuda.current_stream(gid.device).cuda_stream
+        if dense:  # one launch per group of ops whose tables fit shared memory
+            launches = fold_launches(len(ops), num_groups)
+            tables, done = fold_tables(ops, values, num_groups, gid.device, counters=len(launches))
+            for (lo, hi, reps), counter in zip(launches, done):
+                rc = lib.dft_segreduce_dense(gid.data_ptr(), n, num_groups, reps, hi - lo, *arrays(lo, hi, tables),
+                                             counter, stream)
+                check(rc, "segreduce dense kernel")
+                segmented_reduce.dense_launches += 1
+            return tuple(tables)
+        tables = _identity_tables(ops, values, num_groups, gid.device)
+        rc = lib.dft_segreduce(gid.data_ptr(), n, num_groups, len(ops), *arrays(0, len(ops), tables), stream)
+    check(rc, "segreduce sorted kernel")
+    segmented_reduce.sorted_launches += len(ops)  # one kernel per op
     return _finish(ops, values, tables)
 
 

@@ -1,0 +1,67 @@
+"""Warm walls of the port's main-path queries on the card, for one checkout.
+
+    python3 scripts/torch_walls.py [--root DIR] [--reps 5]
+
+Runs chip_smoke.py's phase-4 queries (q1-q5 on one card, in a context made
+with bigdense on) and phase-6 queries (m1-m8 over 8 logical shards) over
+the same seeded table, and prints one JSON line: the median warm wall of
+each query in ms (host clock around `ctx.sql` plus a synchronize), with
+the card's name and power limit. The queries and data come from this
+checkout's chip_smoke.py; the engine comes from DIR (default: this
+checkout), which goes first on sys.path. A wall is mostly host time, and
+host time differs between machines by more than a kernel's time, so two
+checkouts are compared by running this script for each on the same
+machine and card, in turns (parent, change, change, parent).
+"""
+
+import argparse
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=HERE, help="checkout whose datafusion_tpu_torch runs the queries")
+    ap.add_argument("--reps", type=int, default=5, help="warm runs per query (the median is kept)")
+    args = ap.parse_args()
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    spec = importlib.util.spec_from_file_location("smoke", os.path.join(HERE, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("torch_walls: no CUDA device; the walls are measured on the card only")
+    import datafusion_tpu_torch as port
+
+    if not os.path.abspath(port.__file__).startswith(root):
+        sys.exit(f"torch_walls: imported {port.__file__}, not the checkout at {root}")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    # K4 once launched 48 KB of windows (3 ops, as q4 and q5 take) only after
+    # a larger launch had raised its shared-memory limit: warm it so that an
+    # older checkout runs q4 first
+    from datafusion_tpu_torch.ops.pallas import partition as pt
+
+    ids = torch.zeros(1024, dtype=torch.int32, device="cuda")
+    pt.windowed_reduce(ids, [None] * pt.MAX_OPS, [None] * pt.MAX_OPS, ops=("count",) * pt.MAX_OPS, num_groups=16)
+    arrays = smoke.main_arrays()
+    ctx = port.ExecutionContext(bigdense=True)
+    ctx.register_table("big", smoke.main_table(port, arrays))
+    mesh = port.ExecutionContext(mesh=port.make_mesh(8))
+    mesh.register_table("big", smoke.mesh_table(port, ctx.table("big"), arrays[5]))
+    walls = {}
+    for c, queries in ((ctx, smoke.MAIN_QUERIES), (mesh, smoke.MESH_QUERIES)):
+        for name, q, _ in queries:
+            walls[name] = smoke.warm_wall_ms(c, q, reps=args.reps)
+    print(json.dumps({"root": root, "card": card, "reps": args.reps, "warm_wall_ms": walls}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -80,6 +80,56 @@ def test_segreduce_kernel_matches_plain(cuda, dense):
         assert torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0))
 
 
+EDGE_OPS = ("sum", "count", "min", "max", "max", "min", "sum", "count", "sum", "max", "min", "count", "sum", "min",
+            "max")
+
+
+def _edge_streams(rng, n, n_ops, cuda):
+    """Op a's value (None for COUNT; i64 where a % 3 == 2, else f64 with
+    NaN / +-inf) and mask (none where a % 3 == 1)."""
+    f = torch.from_numpy(rng.standard_normal(n) * 100).to(cuda)
+    f[::997], f[5::1999], f[9::2003] = float("nan"), float("inf"), float("-inf")
+    i = torch.from_numpy(rng.integers(-10**12, 10**12, n)).to(cuda)
+    m1, m2 = (torch.from_numpy(rng.random(n) < p).to(cuda) for p in (0.9, 0.4))
+    ops = EDGE_OPS[:n_ops]
+    vals = [None if op == "count" else (i if a % 3 == 2 else f) for a, op in enumerate(ops)]
+    return ops, vals, [(m1, None, m2)[a % 3] for a in range(n_ops)]
+
+
+def _assert_tables(ops, k, p):
+    """Counts and MIN/MAX exact, f64 sums at rtol 1e-12 (atomic order)."""
+    for op, a, b in zip(ops, k, p):
+        if op == "sum" and a.dtype.is_floating_point:
+            torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-9, equal_nan=True)
+        else:
+            assert a.dtype == b.dtype and torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0)), op
+
+
+@pytest.mark.parametrize("case,g,n_ops", [("skew", 8, 5), ("uniform", 1000, 5), ("edge", 2048, 5),
+                                          ("split", 2048, 15), ("unaligned", 1000, 5)])
+def test_segreduce_dense_edges_match_plain(cuda, case, g, n_ops):
+    """K2 dense mode: 80% of the rows on one of 8 slots (replicas), the
+    2048-slot edge, 15 ops (two launches), and views one row off the
+    16-byte alignment (the tile's scalar loads); a ragged last tile."""
+    rng = np.random.default_rng(len(case) + g)
+    n = (1 << 20) + 3
+    ids = rng.integers(0, g + 1, n)
+    if case == "skew":
+        ids[rng.random(n) < 0.8] = 3
+    gid = torch.from_numpy(ids.astype(np.int32)).to(cuda)
+    ops, vals, masks = _edge_streams(rng, n, n_ops, cuda)
+    if case == "unaligned":
+        gid = gid[1:]
+        vals = [None if v is None else v[1:] for v in vals]
+        masks = [None if m is None else m[1:] for m in masks]
+    before = sr.segmented_reduce.dense_launches
+    k = sr.segmented_reduce(gid, vals, masks, ops=ops, num_groups=g, dense=True)
+    assert sr.segmented_reduce.dense_launches - before == len(sr.fold_launches(n_ops, g))
+    p = sr.segmented_reduce_plain(gid, vals, masks, ops=ops, num_groups=g)
+    torch.cuda.synchronize()
+    _assert_tables(ops, k, p)
+
+
 def test_fused_stage_kernel_matches_plain(cuda):
     t = _table(1 << 20, 4, cuda)
     ctx = port.ExecutionContext(device=cuda)
@@ -239,3 +289,36 @@ def test_mesh_queries_match_the_cpu(cuda, sql):
         for x, y in zip(ra.split("\t"), rb.split("\t")):
             if x != y:
                 assert "SUM" in sql and abs(float(x) - float(y)) <= 1e-12 * abs(float(y)), (x, y)
+
+
+@pytest.mark.parametrize("n_dev,slots,n_ops", [(8, 8 * 2048, 14), (1, 1251, 5), (8, 10_001, 5)])
+def test_ragged_exchange_fold_edges_match_plain(cuda, n_dev, slots, n_ops):
+    """K6 at 2048 slots per receiver with 14 ops, on a mesh of one shard,
+    and 80% of the rows on one gid: one launch each."""
+    from datafusion_tpu_torch.ops.pallas import ragged_shuffle as rs
+
+    rng = np.random.default_rng(15 + n_dev + n_ops)
+    n = 1 << 17
+    dst, sel, arrays = [], [], []
+    for j in range(n_dev):
+        g = rng.integers(0, slots, n)
+        if slots == 10_001:
+            g[rng.random(n) < 0.8] = 4321
+        ops, vals, masks = _edge_streams(rng, n, n_ops, cuda)
+        dst.append(torch.from_numpy(g % n_dev).to(cuda))
+        sel.append(torch.ones(n, dtype=torch.bool, device=cuda))
+        arrays.append([torch.from_numpy((g // n_dev).astype(np.int32)).to(cuda), vals[0], vals[2], masks[0], masks[2]])
+    sends, sizes, split_cap, _ = _regions(cuda, arrays, dst, sel, n_dev)
+    # each sender's regions: ids, the f64 and i64 values, the two masks
+    args = ([s[0] for s in sends],
+            [[None if op == "count" else s[2] if a % 3 == 2 else s[1] for a, op in enumerate(ops)] for s in sends],
+            [[s[3], s[4]] for s in sends], sizes)
+    kw = dict(ops=ops, mask_map=tuple((1, 0, 2)[a % 3] for a in range(n_ops)), n_dev=n_dev, split_cap=split_cap,
+              num_groups=-(-slots // n_dev))
+    before = rs.ragged_exchange_fold.launches
+    k = rs.ragged_exchange_fold(*args, **kw)
+    assert rs.ragged_exchange_fold.launches - before == 1
+    p = rs.ragged_exchange_fold_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for ki, pi in zip(k, p):
+        _assert_tables(ops, ki, pi)

@@ -17,6 +17,11 @@ import jax.numpy as jnp
 from datafusion_tpu.ops.pallas.segreduce import BLOCK, segmented_reduce_sorted
 from datafusion_tpu_torch.ops.pallas.segreduce import (
     DENSE_MAX_SLOTS,
+    FOLD_SMEM_BYTES,
+    MAX_REPLICAS,
+    REPLICA_BUDGET,
+    fold_launches,
+    fold_tables,
     segmented_reduce,
     segmented_reduce_plain,
 )
@@ -124,6 +129,62 @@ def test_dense_unsorted_ids(seed):
     mask = rng.random(n) < 0.7
     ops = ("sum", "count", "min", "max", "max")
     _check(ops, *_both(gid, (vals, None, vals, vals, ivals), (mask, None, mask, None, mask), ops, g, dense=True))
+
+
+# The cases the dense kernel's design must survive: a small table with
+# most rows on one slot (replicas), the widest table the JAX dense mode
+# takes at block 1024 (its window is ALIGN + block = 2048 slots), and an
+# op list longer than one launch's shared memory holds at that width.
+DENSE_EDGE_OPS = ("sum", "count", "min", "max", "max", "min", "sum", "count", "sum", "max", "min", "count", "sum",
+                  "min", "max")
+
+
+@pytest.mark.parametrize("case,g,n_ops", [("skew", 8, 5), ("edge", DENSE_MAX_SLOTS, 5), ("split", 2048, 15)])
+def test_dense_edge_cases(case, g, n_ops):
+    rng = np.random.default_rng(len(case) + g)
+    n = BLOCK * 4
+    gid = rng.integers(0, g + 1, n).astype(np.int32)  # id g: dropped rows
+    if case == "skew":
+        gid[rng.random(n) < 0.8] = 3
+    vals = (rng.standard_normal(n) * 10).astype(np.float32)
+    ivals = rng.integers(-50, 50, n).astype(np.int32)
+    m1, m2 = rng.random(n) < 0.7, rng.random(n) < 0.4
+    ops = DENSE_EDGE_OPS[:n_ops]
+    vs = tuple(None if op == "count" else (ivals if a % 3 == 2 else vals) for a, op in enumerate(ops))
+    ms = tuple((m1, None, m2)[a % 3] for a in range(n_ops))
+    assert len(fold_launches(n_ops, g)) == (2 if case == "split" else 1)
+    _check(ops, *_both(gid, vs, ms, ops, g, dense=True))
+
+
+@pytest.mark.parametrize("n_ops,g,want", [
+    (4, 1001, [(0, 4, 1)]),  # q3: 32 KB of tables, one copy
+    (4, 8, [(0, 4, 32)]),  # m2: one replica per lane
+    (5, 1251, [(0, 5, 1)]),  # m3's fold
+    (1, 2048, [(0, 1, 2)]),
+    (14, 2048, [(0, 14, 1)]),  # the most 2048-slot tables one launch holds
+    (15, 2048, [(0, 7, 1), (7, 15, 1)]),  # split evenly into the fewest launches
+    (40, 2048, [(0, 13, 1), (13, 26, 1), (26, 40, 1)]),
+    (33, 1, [(0, 16, 32), (16, 33, 32)]),  # past the ops a launch's struct holds
+])
+def test_fold_launches(n_ops, g, want):
+    got = fold_launches(n_ops, g)
+    assert got == want
+    for lo, hi, reps in got:
+        assert (hi - lo) * g * 8 <= FOLD_SMEM_BYTES and 1 <= reps <= MAX_REPLICAS and reps & (reps - 1) == 0
+        assert reps == 1 or reps * (hi - lo) * g * 8 <= REPLICA_BUDGET
+
+
+def test_fold_tables_layout():
+    """The fold kernels' tables: one zeroed buffer, each op's table in its
+    result dtype on an 8-byte boundary, then one counter per launch."""
+    f32, i64 = torch.zeros(3, dtype=torch.float32), torch.zeros(3, dtype=torch.int64)
+    ops = ("min", "count", "sum", "max", "sum")
+    tables, counters = fold_tables(ops, (f32, None, f32, i64, i64), 5, "cpu", lead=(3,), counters=2)
+    assert [t.dtype for t in tables] == [torch.float32, torch.int64, torch.float64, torch.int64, torch.int64]
+    assert all(t.shape == (3, 5) and not t.any() for t in tables)
+    base = tables[0].data_ptr()
+    assert [t.data_ptr() - base for t in tables] == [0, 64, 184, 304, 424]  # 60 bytes of f32 round up to 64
+    assert counters == [base + 544, base + 552]
 
 
 def test_nan_inf_and_wide_types():
