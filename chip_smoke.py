@@ -12,15 +12,20 @@ Phases, each printed on its own line:
      and a CASE / CAST / integer-divide-by-zero program
   3. K2 (segmented reduce) against its plain version on the card at 2^25
      rows, with masks and NaN / +-inf values: sorted mode with 65,536
-     groups; dense mode with 1,000 groups, 8 groups with 80% of the rows
-     on one, 2,048 groups, and 15 ops over 2,048 groups (two launches;
-     every other dense call one)
+     groups, every row its own group, one group, 7 groups (runs spanning
+     tiles and blocks), a tail of dropped ids, 15 ops and 33 ops (two
+     launches; every other sorted call one) over f64 / i32 / f32 / i64;
+     dense mode with 1,000 groups, 8 groups with 80% of the rows on one,
+     2,048 groups, and 15 ops over 2,048 groups (two launches; every other
+     dense call one)
   3b. K3 (slab partition) and K4 (windowed reduce) against their plain
-     versions on the card at 2^25 and 2^25 - 1000 rows: 10,001 slots
-     uniform, and 16,001 slots (8 buckets) with 80% of the rows on one
-     gid; masks packed into the gid, NaN / +-inf payloads. K3's slabs must
-     be equal element for element; K4's counts and MIN/MAX exact, its
-     sums within rtol 1e-9 (atomic order)
+     versions on the card: 10,001 slots uniform at 2^25 rows, K4 also over
+     the slab's rows shuffled; 16,383 slots with 80% of the rows on one gid
+     and 14 ops at 2^25 - 1000 rows (a ragged last block); 16,001 slots
+     with 80% on one gid; masks packed into the gid, NaN / +-inf payloads.
+     K3's slabs must be equal element for element; K4's counts and MIN/MAX
+     exact, its sums within rtol 1e-9 (atomic order), one launch a call;
+     K4's kernel-only time per case
   3c. K5 (ragged exchange) and K6 (ragged exchange + fold) against their
      plain versions on the card, 2^25 rows over 8 shards laid out by the
      shuffle (parallel/shuffle.py): K5 moving i32, f64 and u8 arrays with
@@ -36,9 +41,10 @@ Phases, each printed on its own line:
      and the bigdense GROUP BY (K3 + K4) over a key of TPC-H l_suppkey's
      SF1 domain, [1, 10000], for SUM/AVG/COUNT (q4) and MIN/MAX (q5); each
      checked against a numpy oracle; every kernel's launch count must go
-     up during this run. Then q4 and q5 once more on the packed co-sort +
-     K2 (a second context, bigdense off, over the same tables), with both
-     routes' warm walls and profiles
+     up during this run, q2 must make one K2 sorted launch and q4 / q5 one
+     K3 and one K4 launch each. Then q4 and q5 once more on the packed co-sort +
+     K2 (a second context, bigdense off, over the same tables: one K2
+     sorted launch each), with both routes' warm walls and profiles
   5. the uk_cities / aggregate_test / numerics CSV queries through
      register_csv, compared byte for byte with the checked-in goldens
   6. the distributed main path: ExecutionContext(mesh=make_mesh(8)), 8
@@ -49,8 +55,11 @@ Phases, each printed on its own line:
      multi- and single-key sample sorts (K5) with the global-rank LIMIT,
      m8 the per-shard top-k; each against a numpy oracle and the same
      query in a single-card context, with its EXPLAIN route, the K5 / K6
-     launches it made, its warm wall and profile; then K6 at m3's shape
-     (event and kernel-only time) and K2 dense at m2's per-shard shape
+     launches it made (m5: 9 K2 sorted launches, one per shard and the
+     merge), its warm wall and profile; then K5 at m6's shape against its
+     padded-transpose library call, K6 at m3's shape (event and
+     kernel-only time) and K2 dense at m2's per-shard shape
+Every kernel's kernel-only time comes from torch.profiler (kernel_only_ms).
 The reduce kernels' `library_ms` is one PyTorch call per op of the
 kernel's op list, summed (LIBRARY). Then one JSON line per kernel set (times, bounds, launches) and, last,
 {"ok": true, "device": {...}}. Any failed check raises and exits non-zero.
@@ -235,18 +244,58 @@ def kernel_only_ms(fn, name, per_call=1, reps=5):
     return sum(e.self_device_time_total for e in events) / max(launches, 1) * per_call / 1e3
 
 
+def host_only_ms(fn, reps=20):
+    """Host time of one call of `fn` (argument checks, tables, launch),
+    without waiting for the card: the mean over `reps` calls enqueued back
+    to back after a synchronize. The card runs behind, so the event time
+    of a call is about its host time plus its kernels' time."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t) / reps * 1e3
+    torch.cuda.synchronize()
+    return ms
+
+
 def slab_bytes(n, slab_rows, cols):
     """Bytes K3 must move: the gid and payloads read once, the slab written once."""
     width = 4 + sum(c.element_size() for c in cols)
     return (n + slab_rows) * width
 
 
-def compare_k3k4(gid, cols, id_mod, n_buckets, num_groups, mask_bits, ops, value_of):
+def compare_k4(gid, vals, masks, ops, num_groups):
+    """K4 against its plain version, one launch: counts and MIN/MAX exact,
+    f64 sums within rtol 1e-9 (atomic order). Returns the sums' max_abs_err."""
+    from datafusion_tpu_torch.ops.pallas import partition as pt
+
+    before = pt.windowed_reduce.launches
+    k = pt.windowed_reduce(gid, vals, masks, ops=ops, num_groups=num_groups)
+    check(pt.windowed_reduce.launches - before == 1, "K4 did not make exactly one launch")
+    p = pt.windowed_reduce_plain(gid, vals, masks, ops=ops, num_groups=num_groups)
+    torch.cuda.synchronize()
+    err = 0.0
+    for op, a, b in zip(ops, k, p):
+        if op == "sum" and a.dtype.is_floating_point:
+            torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-6, equal_nan=True)
+            check(torch.equal(torch.isnan(a), torch.isnan(b)), "K4 NaN sums differ")
+            fin = torch.isfinite(a) & torch.isfinite(b)
+            if fin.any():
+                err = max(err, float((a[fin] - b[fin]).abs().max()))
+        else:
+            check(torch.equal(a.nan_to_num(0.5), b.nan_to_num(0.5)), f"K4 {op} differs from the plain version")
+    return err
+
+
+def compare_k3k4(gid, cols, id_mod, n_buckets, num_groups, mask_bits, ops, value_of, shuffle=False):
     """K3 against its plain version (every slab equal, bit for bit), then
-    K4 over the kernel's slab against its plain version. `value_of[a]` is
-    the payload index of op a (None for COUNT); op a's mask is gid bit
-    `mask_bits[a]` (None: no mask). Returns (K3's max_abs_err over every
-    slab, with NaN against NaN as 0; K4's sum max_abs_err)."""
+    K4 over the kernel's slab against its plain version, and with
+    `shuffle` over the slab's rows in a random order too (any row order
+    gives the same result). `value_of[a]` is the payload index of op a
+    (None for COUNT); op a's mask is gid bit `mask_bits[a]` (None: no
+    mask). Returns (K3's max_abs_err over every slab, with NaN against NaN
+    as 0; K4's sum max_abs_err; K4's kernel-only ms over the slab)."""
     from datafusion_tpu_torch.ops.pallas import partition as pt
 
     ks = pt.slab_partition(gid, cols, n_buckets=n_buckets, id_mod=id_mod)
@@ -260,24 +309,19 @@ def compare_k3k4(gid, cols, id_mod, n_buckets, num_groups, mask_bits, ops, value
         same = (ad == bd) | (ad.isnan() & bd.isnan())
         k3_err = max(k3_err, float(torch.where(same, 0.0, (ad - bd).abs()).max()))
         del ad, bd, same
+    del ps
     pg = ks[0]
     gid_k = torch.where(pg >= pt.SENTINEL, pg, pg & (id_mod - 1))
     vals = [None if i is None else ks[1 + i] for i in value_of]
     masks = [None if b is None else ((pg >> b) & 1).bool() for b in mask_bits]
-    k = pt.windowed_reduce(gid_k, vals, masks, ops=ops, num_groups=num_groups)
-    p = pt.windowed_reduce_plain(gid_k, vals, masks, ops=ops, num_groups=num_groups)
-    torch.cuda.synchronize()
-    err = 0.0
-    for op, a, b in zip(ops, k, p):
-        if op == "sum" and a.dtype.is_floating_point:
-            torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-6, equal_nan=True)
-            check(torch.equal(torch.isnan(a), torch.isnan(b)), "K4 NaN sums differ")
-            fin = torch.isfinite(a) & torch.isfinite(b)
-            if fin.any():
-                err = max(err, float((a[fin] - b[fin]).abs().max()))
-        else:
-            check(torch.equal(a.nan_to_num(0.5), b.nan_to_num(0.5)), f"K4 {op} differs from the plain version")
-    return k3_err, err
+    err = compare_k4(gid_k, vals, masks, ops, num_groups)
+    ms = kernel_only_ms(lambda: pt.windowed_reduce(gid_k, vals, masks, ops=ops, num_groups=num_groups),
+                        "windowed_reduce_kernel")
+    if shuffle:
+        perm = torch.randperm(pg.numel(), device=pg.device)
+        err = max(err, compare_k4(gid_k[perm].contiguous(), [None if v is None else v[perm].contiguous() for v in vals],
+                                  [None if m is None else m[perm].contiguous() for m in masks], ops, num_groups))
+    return k3_err, err, ms
 
 
 def shard_regions(arrays, dst, sel, n_dev=8):
@@ -392,7 +436,7 @@ def log_shared_atomics(cuda_lib):
             found.setdefault(fn, set()).add(op)
     with open(os.path.join(ROOT, "chiprun_out", "sass_atoms.txt"), "w") as f:
         f.writelines(f"{k}: {' '.join(sorted(v))}\n" for k, v in sorted(found.items()))
-    for kernel in ("seg_dense_kernel", "ragged_exchange_fold_kernel", "windowed_reduce_kernel"):
+    for kernel in ("seg_sorted_kernel", "seg_dense_kernel", "ragged_exchange_fold_kernel", "windowed_reduce_kernel"):
         ops = set().union(*[v for k, v in found.items() if kernel in k])
         log(f"phase 1 SASS {kernel}: shared atomics {sorted(o for o in ops if o.startswith('ATOMS'))}; "
             f"global {sorted(o for o in ops if not o.startswith('ATOMS'))}")
@@ -483,36 +527,97 @@ def phase_k2(dev):
     return out
 
 
+def value_pool(f, i):
+    """The four value types from the f64 and i32 streams: f64, i32, f32,
+    i64 (wide enough that an i32 sum would overflow)."""
+    return f, i, f.float(), i.long() * 1_000_003
+
+
+def phase_k2_sorted(dev):
+    """K2 sorted mode's edge cases at N rows against its plain version:
+    every row its own group, one group, 7 groups (runs spanning many tiles
+    and blocks), a tail of dropped ids, and 15 and 33 ops (two launches),
+    each with two masks and f64 / i32 / f32 / i64 values with NaN / +-inf.
+    Every call must make len(sorted_launch_ops) launches."""
+    from datafusion_tpu_torch.ops.pallas import segreduce as sr
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    f = torch.randn(N, generator=gen, device=dev, dtype=torch.float64) * 100
+    f[::1_000_003] = float("nan")
+    f[7::2_000_003] = float("inf")
+    f[11::3_000_017] = float("-inf")
+    i = torch.randint(-10**6, 10**6, (N,), generator=gen, device=dev, dtype=torch.int32)
+    pool = value_pool(f, i)
+    m1 = torch.rand(N, generator=gen, device=dev) < 0.9
+    m2 = torch.rand(N, generator=gen, device=dev) < 0.4
+    err = 0.0
+    # (case, groups; None: every row its own, dropped tail, ops)
+    for case, g, tail, n_ops in (("every row its own group", None, 0, 5), ("one group", 1, 0, 5),
+                                 ("7 groups", 7, 0, 5), ("dropped tail", 65536, 1_234_567, 5),
+                                 ("15 ops", 65536, 0, 15), ("33 ops", 65536, 0, 33)):
+        if g is None:
+            gid, g = torch.arange(N, device=dev, dtype=torch.int32), N
+        else:
+            gid = torch.randint(0, g, (N,), generator=gen, device=dev).sort().values.int()
+        if tail:
+            gid[-tail:] = g
+        ops = tuple(EDGE_OPS[a % len(EDGE_OPS)] for a in range(n_ops))
+        vals = [None if op == "count" else pool[a % 4] for a, op in enumerate(ops)]
+        masks = [(m1, None, m2)[a % 3] for a in range(n_ops)]
+        before = sr.segmented_reduce.sorted_launches
+        e = compare_k2(gid, vals, masks, ops, g, False)
+        launches = sr.segmented_reduce.sorted_launches - before
+        check(launches == len(sr.sorted_launch_ops(n_ops)) == (2 if n_ops > 32 else 1),
+              f"K2 sorted made {launches} launches for {n_ops} ops")
+        err = max(err, e)
+        log(f"phase 3 K2 sorted: kernel == plain at {N} rows, {case} ({g} groups), {n_ops} ops, masks, "
+            f"f64/i32/f32/i64 + NaN/inf, {launches} launch(es) (sum max_abs_err {e})")
+        del gid
+    return err
+
+
+# K4's op lists over the payloads [f64, i32, f32, bool]: (ops, payload of
+# each op, mask bit of each op as an offset past the ids' bits)
+K4_OPS8 = (("count", "sum", "min", "max", "max", "min", "sum", "count"), (None, 0, 0, 0, 1, 2, 1, None),
+           (None, 0, 1, 0, None, 1, 0, 1))
+K4_OPS14 = tuple(x + y for x, y in zip(K4_OPS8, (("sum", "max", "min", "count", "sum", "max"), (2, 0, 1, None, 0, 2),
+                                                  (0, None, 1, 0, None, 1))))
+
+
 def phase_k3k4(dev):
     rng = np.random.default_rng(SEED + 3)
     k3_err, k4_err = 0.0, 0.0
-    for n in (N, N - 1000):
-        for nslots, skew in ((10_001, False), (16_001, True)):
-            # ids in [0, nslots]; nslots is the unselected rows' slot
-            ids = rng.integers(0, nslots + 1, n)
-            if skew:
-                ids[rng.random(n) < 0.8] = 12_345
-            id_mod = 1 << nslots.bit_length()
-            b0 = nslots.bit_length()
-            m1 = torch.from_numpy(rng.random(n) < 0.9).to(dev)
-            m2 = torch.from_numpy(rng.random(n) < 0.5).to(dev)
-            gid = torch.from_numpy(ids.astype(np.int32)).to(dev)
-            gid = gid | (m1.int() << b0) | (m2.int() << (b0 + 1))
-            f = torch.from_numpy(rng.standard_normal(n) * 100).to(dev)
-            f[::1_000_003] = float("nan")
-            f[7::2_000_003] = float("inf")
-            f[11::3_000_017] = float("-inf")
-            i = torch.from_numpy(rng.integers(-10**6, 10**6, n).astype(np.int32)).to(dev)
-            f32 = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
-            flag = torch.from_numpy(rng.random(n) < 0.3).to(dev)
-            ops = ("count", "sum", "min", "max", "max", "min", "sum", "count")
-            value_of = (None, 0, 0, 0, 1, 2, 1, None)
-            mask_bits = (None, b0, b0 + 1, b0, None, b0 + 1, b0, b0 + 1)
-            nb = -(-(nslots + 1) // 2048)
-            e3, e4 = compare_k3k4(gid, [f, i, f32, flag], id_mod, nb, nslots, mask_bits, ops, value_of)
-            k3_err, k4_err = max(k3_err, e3), max(k4_err, e4)
-            log(f"phase 3b K3/K4: {n} rows, {nslots} slots ({nb} buckets{', 80% on one gid' if skew else ''}): "
-                f"K3 slab == plain (max_abs_err {e3}), K4 == plain (sum max_abs_err {e4})")
+    # (rows, slots, 80% of the rows on one gid, op list, K4 also over the
+    # shuffled slab): 2,048-slot windows of 5 buckets; the widest op list
+    # (one block's shared memory) over 16,383 slots with a ragged last
+    # block; one bucket taking most rows
+    for n, nslots, skew, (ops, value_of, mask_off), shuffle in ((N, 10_001, False, K4_OPS8, True),
+                                                                (N - 1000, 16_383, True, K4_OPS14, False),
+                                                                (N, 16_001, True, K4_OPS8, False)):
+        # ids in [0, nslots]; nslots is the unselected rows' slot
+        ids = rng.integers(0, nslots + 1, n)
+        if skew:
+            ids[rng.random(n) < 0.8] = 12_345
+        id_mod = 1 << nslots.bit_length()
+        b0 = nslots.bit_length()
+        m1 = torch.from_numpy(rng.random(n) < 0.9).to(dev)
+        m2 = torch.from_numpy(rng.random(n) < 0.5).to(dev)
+        gid = torch.from_numpy(ids.astype(np.int32)).to(dev)
+        gid = gid | (m1.int() << b0) | (m2.int() << (b0 + 1))
+        f = torch.from_numpy(rng.standard_normal(n) * 100).to(dev)
+        f[::1_000_003] = float("nan")
+        f[7::2_000_003] = float("inf")
+        f[11::3_000_017] = float("-inf")
+        i = torch.from_numpy(rng.integers(-10**6, 10**6, n).astype(np.int32)).to(dev)
+        f32 = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
+        flag = torch.from_numpy(rng.random(n) < 0.3).to(dev)
+        mask_bits = tuple(None if o is None else b0 + o for o in mask_off)
+        nb = -(-(nslots + 1) // 2048)
+        e3, e4, ms = compare_k3k4(gid, [f, i, f32, flag], id_mod, nb, nslots, mask_bits, ops, value_of, shuffle)
+        k3_err, k4_err = max(k3_err, e3), max(k4_err, e4)
+        log(f"phase 3b K3/K4: {n} rows, {nslots} slots ({nb} buckets{', 80% on one gid' if skew else ''}), "
+            f"{len(ops)} ops: K3 slab == plain (max_abs_err {e3}), K4 == plain{' (also shuffled)' if shuffle else ''}, "
+            f"one launch (sum max_abs_err {e4}); K4 kernel only {ms:.3f} ms")
     return k3_err, k4_err
 
 
@@ -655,22 +760,27 @@ def phase_main_path(dev, kernel_stats, arrays):
     for _, q, note in queries:
         check(note in ctx.sql(f"EXPLAIN VERBOSE {q}").result_str(), f"{q} does not route to {note}")
 
-    fs.run_fused.launches = 0
-    sr.segmented_reduce.sorted_launches = 0
-    sr.segmented_reduce.dense_launches = 0
-    pt.slab_partition.launches = 0
-    pt.windowed_reduce.launches = 0
-    results, walls = {}, {}
+    counters = {"fused_stage": (fs.run_fused, "launches"), "segreduce_sorted": (sr.segmented_reduce, "sorted_launches"),
+                "segreduce_dense": (sr.segmented_reduce, "dense_launches"),
+                "slab_partition": (pt.slab_partition, "launches"), "windowed_reduce": (pt.windowed_reduce, "launches")}
+    for f, attr in counters.values():
+        setattr(f, attr, 0)
+    results, walls, per_query = {}, {}, {}
     for name, q, _ in queries:
+        before = {c: getattr(f, a) for c, (f, a) in counters.items()}
         t = time.perf_counter()
         results[name] = ctx.sql(q)
         torch.cuda.synchronize()
         walls[name] = (time.perf_counter() - t) * 1e3
-    launches = {"fused_stage": fs.run_fused.launches, "segreduce_sorted": sr.segmented_reduce.sorted_launches,
-                "segreduce_dense": sr.segmented_reduce.dense_launches,
-                "slab_partition": pt.slab_partition.launches, "windowed_reduce": pt.windowed_reduce.launches}
+        per_query[name] = {c: getattr(f, a) - before[c] for c, (f, a) in counters.items()}
+    launches = {c: getattr(f, a) for c, (f, a) in counters.items()}
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the main path")
+    # one launch for all of a query's ops: K2 sorted in q2, K3 and K4 in q4 / q5
+    check(per_query["q2"]["segreduce_sorted"] == 1, f"q2 made {per_query['q2']['segreduce_sorted']} K2 sorted launches")
+    for name in ("q4", "q5"):
+        check(per_query[name]["slab_partition"] == 1 and per_query[name]["windowed_reduce"] == 1,
+              f"{name} made {per_query[name]} launches, not one K3 and one K4")
 
     # numpy oracle: exact keys, counts, MIN and MAX; rtol=1e-9 for sums
     mask = (lat > 51.0) & (lat < 53)
@@ -726,13 +836,17 @@ def phase_main_path(dev, kernel_stats, arrays):
     ctx0.register_table("big", ctx.table("big"))
     for name, q in (("q4", q4), ("q5", q5)):
         check("packed-gid co-sort" in ctx0.sql(f"EXPLAIN VERBOSE {q}").result_str(), f"{name} packed route")
+        before = sr.segmented_reduce.sorted_launches
         check_bigdense_shape(name, ctx0.sql(q))
+        packed = sr.segmented_reduce.sorted_launches - before
+        check(packed == 1, f"{name} on the packed route made {packed} K2 sorted launches")
 
     runs = [(name, ctx, q) for name, q, _ in queries] + [("q4 packed", ctx0, q4), ("q5 packed", ctx0, q5)]
     warm = {name: warm_wall_ms(c_, q) for name, c_, q in runs}
     log("phase 4 main path: q1-q5 match the numpy oracle (q4/q5 on the bigdense and the packed route); "
         "wall ms first " + json.dumps({n: round(v, 3) for n, v in walls.items()}) + " warm (median of 5) "
-        + json.dumps({n: round(v, 3) for n, v in warm.items()}) + f"; launches {json.dumps(launches)}")
+        + json.dumps({n: round(v, 3) for n, v in warm.items()}) + f"; launches per query {json.dumps(per_query)}; "
+        "q4 / q5 on the packed route 1 K2 sorted launch each")
     profile_queries(runs)
 
     # each kernel timed at the shape the main path gives it
@@ -740,6 +854,8 @@ def phase_main_path(dev, kernel_stats, arrays):
     kernel_stats["fused_stage"].update(
         launches=launches["fused_stage"],
         ms=time_ms(lambda: fs.run_fused(prog, *ins, N, dev)),
+        kernel_ms=kernel_only_ms(lambda: fs.run_fused(prog, *ins, N, dev), "fused_stage_kernel"),
+        host_ms=host_only_ms(lambda: fs.run_fused(prog, *ins, N, dev)),
         plain_ms=time_ms(lambda: fs.evaluate_plain(prog, *ins, N), reps=3),
         bound_ms=program_bytes(prog, ins, N) / HBM_BYTES_PER_S * 1e3,
         ops_bound_ms=sum(op > fs.OP_NULL for op, *_ in prog.code) * N / F32_OPS_PER_S * 1e3,
@@ -765,7 +881,9 @@ def phase_main_path(dev, kernel_stats, arrays):
         kernel_stats[name].update(
             launches=launches[name],
             ms=time_ms(call),
-            kernel_ms=kernel_only_ms(call, "seg_dense" if dense else "seg_sorted", 1 if dense else len(ops)),
+            kernel_ms=kernel_only_ms(call, "seg_dense" if dense else "seg_sorted",
+                                     len(sr.fold_launches(len(ops), g) if dense else sr.sorted_launch_ops(len(ops)))),
+            host_ms=host_only_ms(call),
             plain_ms=time_ms(lambda: sr.segmented_reduce_plain(gid, vals, masks, ops=ops, num_groups=g), reps=3),
             bound_ms=k2_bytes(gid, vals, masks, g, ops) / HBM_BYTES_PER_S * 1e3,
             ops_bound_ms=len(ops) * N / F32_OPS_PER_S * 1e3,
@@ -782,6 +900,9 @@ def phase_main_path(dev, kernel_stats, arrays):
     kernel_stats["slab_partition"].update(
         launches=launches["slab_partition"],
         ms=time_ms(lambda: pt.slab_partition(gid4, cols, n_buckets=nb, id_mod=id_mod)),
+        kernel_ms=kernel_only_ms(lambda: pt.slab_partition(gid4, cols, n_buckets=nb, id_mod=id_mod),
+                                 "slab_partition_kernel"),
+        host_ms=host_only_ms(lambda: pt.slab_partition(gid4, cols, n_buckets=nb, id_mod=id_mod)),
         plain_ms=time_ms(lambda: pt.slab_partition_plain(gid4, cols, n_buckets=nb, id_mod=id_mod), reps=3),
         bound_ms=slab_bytes(N, rows, cols) / HBM_BYTES_PER_S * 1e3,
         # per row: the bucket (and, shift), the histogram add, the rank add
@@ -797,6 +918,9 @@ def phase_main_path(dev, kernel_stats, arrays):
     kernel_stats["windowed_reduce"].update(
         launches=launches["windowed_reduce"],
         ms=time_ms(lambda: pt.windowed_reduce(gid_k, vals4, masks4, ops=ops4, num_groups=nslots)),
+        kernel_ms=kernel_only_ms(lambda: pt.windowed_reduce(gid_k, vals4, masks4, ops=ops4, num_groups=nslots),
+                                 "windowed_reduce_kernel"),
+        host_ms=host_only_ms(lambda: pt.windowed_reduce(gid_k, vals4, masks4, ops=ops4, num_groups=nslots)),
         plain_ms=time_ms(lambda: pt.windowed_reduce_plain(gid_k, vals4, masks4, ops=ops4, num_groups=nslots), reps=3),
         bound_ms=(rows * 4 + live * (8 + 8) + nslots * 8 * len(ops4)) / HBM_BYTES_PER_S * 1e3,
         ops_bound_ms=len(ops4) * live / F32_OPS_PER_S * 1e3,
@@ -903,8 +1027,10 @@ def phase_mesh(dev, big, arrays, kernel_stats):
         check(per_query[name]["ragged_exchange"] > 0, f"{name} did not launch K5")
     for name in ("m3", "m4"):
         check(per_query[name]["ragged_exchange_fold"] > 0, f"{name} did not launch K6")
-    check(per_query["m1"]["fused_stage"] > 0 and per_query["m2"]["segreduce_dense"] > 0
-          and per_query["m5"]["segreduce_sorted"] > 0, "m1 / m2 / m5 did not launch K1 / K2 dense / K2 sorted")
+    check(per_query["m1"]["fused_stage"] > 0 and per_query["m2"]["segreduce_dense"] > 0,
+          "m1 / m2 did not launch K1 / K2 dense")
+    # K2 sorted: one launch per shard's partials plus one for the merge
+    check(per_query["m5"]["segreduce_sorted"] == 9, f"m5 made {per_query['m5']['segreduce_sorted']} K2 sorted launches")
 
     def cols(res):
         return [c for c, _ in res.cols]
@@ -977,6 +1103,8 @@ def phase_mesh(dev, big, arrays, kernel_stats):
     kernel_stats["ragged_exchange"].update(
         launches=launches["ragged_exchange"],
         ms=time_ms(lambda: rs.ragged_exchange(sends, sizes, **kw5)),
+        kernel_ms=kernel_only_ms(lambda: rs.ragged_exchange(sends, sizes, **kw5), "ragged_exchange_kernel"),
+        host_ms=host_only_ms(lambda: rs.ragged_exchange(sends, sizes, **kw5)),
         plain_ms=time_ms(lambda: rs.ragged_exchange_plain(sends, sizes, **kw5), reps=3),
         bound_ms=k5_bytes(sends, sizes, chunk) / HBM_BYTES_PER_S * 1e3,
         ops_bound_ms=0.0,
@@ -984,6 +1112,10 @@ def phase_mesh(dev, big, arrays, kernel_stats):
         library_ms=time_ms(lambda: [x.view(n_dev, n_dev, split_cap).transpose(0, 1).contiguous() for x in stacked]),
     )
     del stacked
+    s5 = kernel_stats["ragged_exchange"]
+    log(f"phase 6 K5 at m6's shape against the padded transpose, same run: event {s5['ms']:.3f} ms, kernel only "
+        f"{s5['kernel_ms']:.3f} ms, library {s5['library_ms']:.3f} ms (library / event "
+        f"{s5['library_ms'] / s5['ms']:.3f}); K5 {'loses' if s5['ms'] > s5['library_ms'] else 'does not lose'}")
     (a6, kw6) = capture(sh, "ragged_exchange_fold", lambda: ctx.sql(queries[2][1]))
     gids, vals, masks, sizes6 = a6
     L_, S_ = kw6["num_groups"], kw6["split_cap"]
@@ -1005,6 +1137,7 @@ def phase_mesh(dev, big, arrays, kernel_stats):
         launches=launches["ragged_exchange_fold"],
         ms=time_ms(call6),
         kernel_ms=kernel_only_ms(call6, "ragged_exchange_fold_kernel"),
+        host_ms=host_only_ms(call6),
         plain_ms=time_ms(lambda: rs.ragged_exchange_fold_plain(gids, vals, masks, sizes6, **kw6), reps=3),
         bound_ms=k6_bytes(gids, vals, masks, sizes6, L_, len(ops6)) / HBM_BYTES_PER_S * 1e3,
         ops_bound_ms=len(ops6) * int(sizes6.sum()) / F32_OPS_PER_S * 1e3,
@@ -1131,6 +1264,7 @@ def main():
     smi = phase_build()
     k1_err = phase_k1(dev)
     k2_err = phase_k2(dev)
+    k2_err["sorted"] = max(k2_err["sorted"], phase_k2_sorted(dev))
     k3_err, k4_err = phase_k3k4(dev)
     k5_err, k6_err = phase_k5k6(dev)
     src = "datafusion_tpu_torch/csrc"
@@ -1163,8 +1297,9 @@ def main():
         bound_by = "bytes" if s["bound_ms"] >= ops_bound else "operations"
         s["bound_ms"] = max(s["bound_ms"], ops_bound)
         kernels.append({"name": name, **s, "bound_by": bound_by})
-        log(f"kernel {name}: {s['ms']:.3f} ms vs bound {s['bound_ms']:.3f} ms ({bound_by}), "
-            f"plain {s['plain_ms']:.3f} ms, library {s['library_ms']}, launches {s['launches']}")
+        log(f"kernel {name}: {s['ms']:.3f} ms (kernel only {s['kernel_ms']:.3f}, host {s['host_ms']:.3f}) vs bound "
+            f"{s['bound_ms']:.3f} ms "
+            f"({bound_by}), plain {s['plain_ms']:.3f} ms, library {s['library_ms']}, launches {s['launches']}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

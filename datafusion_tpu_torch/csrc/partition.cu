@@ -10,8 +10,8 @@
 // The TPU kernels permuted and reduced with one-hot MXU products, so every
 // payload rode as f32 and had to be finite. Here K3 is a stable
 // counting-sort scatter that moves each payload as raw bytes of its own
-// width, and K4 reduces with atomics into shared-memory windows, with the
-// op traits of K2 (reduce_common.cuh).
+// width, and K4 reduces into shared-memory windows with the fold tile of
+// K2 and K6 (reduce_common.cuh).
 //
 // What bounds both on this card: bytes. K3 reads the gid column twice
 // (histogram, then scatter) and each payload once, and writes the slab,
@@ -28,21 +28,29 @@
 //   pass to pass. So the rank is stable (row order within a bucket), and
 //   the slab is deterministic: equal, element for element, to the plain
 //   version's. Gaps hold SENTINEL in the gid and zero bytes in payloads.
-// * K4: one block of 256 threads per run of K4_RUN slab rows, one row per
-//   thread per 256-row chunk. Each op keeps one 2048-slot window of its
-//   table in dynamic shared memory (8 bytes a slot). A chunk's window base
-//   is its least kept gid rounded down to WINDOW; the window is flushed to
-//   the device table, one global atomic per touched slot, when the base
-//   changes and at the end. A slab holds one bucket per chunk, in bucket
-//   order per input block, so a block flushes a few windows. A row outside
-//   its chunk's window (not produced by K3) goes to the device table by a
-//   global atomic, so the result never depends on the layout. Rows with a
-//   gid outside [0, num_groups) are dropped, SENTINEL gaps among them. All
-//   ops are reduced in one launch.
+// * K4: a grid of (part, bucket) blocks of 512 threads. Block (p, b) holds
+//   bucket b's DFT_WINDOW-slot window of every op in shared memory, in the
+//   fold tile's zero-identity form (reduce_common.cuh: 32-bit COUNT, f64 /
+//   i64 SUM, MIN/MAX on the unsigned order-preserving image), and folds
+//   every chunk of bucket b in part p, a run of consecutive SLAB_CHUNK-row
+//   chunks; then it flushes the window to the device table once, and the
+//   last block decodes MIN/MAX in place. A chunk belongs to the bucket of
+//   its first row's id (id / WINDOW, when that lies in [0, buckets x
+//   WINDOW)), and to bucket 0 otherwise (a SENTINEL gap, a negative id).
+//   A pass reads 512 chunk heads, one a thread, lists the bucket's chunks in
+//   shared memory, and folds them with the fold tile, 64 threads a chunk
+//   and 4 rows a thread (vector loads, one kind switch per tile and op,
+//   equal neighbouring ids combined in registers). A row whose id lies
+//   outside the block's window goes to the device table by a global atomic,
+//   and a row with an id outside [0, num_groups) is dropped (SENTINEL gaps
+//   among them), so any row order gives the same result; K3's layout is
+//   what keeps every row in its window. Parts per bucket: as many as the
+//   card holds blocks at the occupancy the windows allow (fold_blocks), so
+//   a bucket that takes most of the rows is still folded by every SM, and
+//   a window folds thousands of rows between its init and its one flush.
+//   The ids are read once, plus one chunk head in 256 per bucket.
 
 #include "reduce_common.cuh"
-
-#include <limits.h>
 
 #define DFT_SLAB_CHUNK 256
 #define DFT_SENTINEL (1 << 23)
@@ -50,8 +58,9 @@
 #define DFT_MAX_COLS 16
 #define K3_THREADS 1024
 #define K3_WARPS (K3_THREADS / 32)
-#define K4_THREADS DFT_SLAB_CHUNK
-#define K4_RUN 8192
+#define K4_HEADS DFT_FOLD_TPB                       // chunk heads a K4 block reads per pass
+#define K4_CHUNK_THREADS (DFT_SLAB_CHUNK / DFT_TILE)  // K4 threads that fold one chunk
+#define K4_GROUPS (DFT_FOLD_TPB / K4_CHUNK_THREADS)   // chunks a K4 block folds at once
 
 // --- K3 slab partition -----------------------------------------------------
 struct SlabCols {
@@ -165,63 +174,50 @@ slab_partition_kernel(const int* __restrict__ gid, int* __restrict__ out_gid, lo
 }
 
 // --- K4 windowed reduce ----------------------------------------------------
-struct WinOps {
-  int n;
-  int kinds[DFT_MAX_OPS];
-  const void* vals[DFT_MAX_OPS];
-  const uint8_t* masks[DFT_MAX_OPS];
-  void* outs[DFT_MAX_OPS];
-};
+// a chunk's bucket, from its first row's id
+__device__ __forceinline__ int chunk_bucket(int g, int n_buckets) {
+  return g >= 0 && g < n_buckets * DFT_WINDOW ? g / DFT_WINDOW : 0;
+}
 
-__global__ void __launch_bounds__(K4_THREADS)
-windowed_reduce_kernel(const int* __restrict__ gid, long long n, int num_groups, WinOps ops) {
+// three blocks an SM where the windows fit (at most 40 registers): more
+// warps' loads in flight
+__global__ void __launch_bounds__(DFT_FOLD_TPB, 3)
+windowed_reduce_kernel(const int* __restrict__ gid, long long n, int num_groups, long long part_chunks, FoldArgs ops,
+                       unsigned int* done) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int s_min[K4_THREADS / 32];
-  __shared__ int s_base;
-  for (int a = 0; a < ops.n; ++a) {
-    DFT_DISPATCH_KIND(ops.kinds[a], win_init, smem + a * WIN_BYTES, DFT_WINDOW)
-  }
-  const long long r0 = (long long)blockIdx.x * K4_RUN;
-  const long long r1 = r0 + K4_RUN < n ? r0 + K4_RUN : n;
-  int cur = -1;  // base of the windows now held; block-uniform
-  for (long long c0 = r0; c0 < r1; c0 += K4_THREADS) {
-    const long long r = c0 + threadIdx.x;
-    const int g = r < r1 ? gid[r] : -1;
-    const bool keep = g >= 0 && g < num_groups;
-    int m = keep ? g : INT_MAX;
-    for (int off = 16; off > 0; off >>= 1) m = min(m, __shfl_xor_sync(0xffffffffu, m, off));
-    if ((threadIdx.x & 31) == 0) s_min[threadIdx.x >> 5] = m;
+  __shared__ FoldShared s;
+  __shared__ unsigned short s_list[K4_HEADS];  // this pass's chunks of the bucket, relative to the pass
+  __shared__ int s_n;
+  const int b = blockIdx.y, n_buckets = gridDim.y;
+  const int base = b * DFT_WINDOW;
+  const int tbl_bytes = DFT_WINDOW * 8;
+  load_fold_shared(s, ops);
+  fold_init(smem, ops.n * tbl_bytes);
+  const long long chunks = (n + DFT_SLAB_CHUNK - 1) / DFT_SLAB_CHUNK;
+  const long long c0 = (long long)blockIdx.x * part_chunks;
+  const long long c1 = c0 + part_chunks < chunks ? c0 + part_chunks : chunks;
+  const int group = threadIdx.x / K4_CHUNK_THREADS;
+  const long long lane_row = (long long)(threadIdx.x % K4_CHUNK_THREADS) * DFT_TILE;
+  for (long long p = c0; p < c1; p += K4_HEADS) {
+    if (threadIdx.x == 0) s_n = 0;
     __syncthreads();
-    if (threadIdx.x == 0) {
-      int mm = s_min[0];
-      for (int w = 1; w < K4_THREADS / 32; ++w) mm = min(mm, s_min[w]);
-      s_base = mm == INT_MAX ? -1 : mm / DFT_WINDOW * DFT_WINDOW;
-    }
+    // 1. one chunk head a thread: the pass's chunks of bucket b, in any order
+    const long long head = p + threadIdx.x;
+    if (head < c1 && chunk_bucket(__ldg(gid + head * DFT_SLAB_CHUNK), n_buckets) == b)
+      s_list[atomicAdd(&s_n, 1)] = (unsigned short)threadIdx.x;
     __syncthreads();
-    const int base = s_base;
-    if (base < 0) continue;  // nothing kept in this chunk
-    if (base != cur) {
-      if (cur >= 0) {
-        for (int a = 0; a < ops.n; ++a) {
-          DFT_DISPATCH_KIND(ops.kinds[a], win_flush, smem + a * WIN_BYTES, ops.outs[a], cur, DFT_WINDOW)
-        }
-        __syncthreads();
-      }
-      cur = base;
+    // 2. K4_CHUNK_THREADS threads a chunk, DFT_TILE rows each
+    const int cnt = s_n;
+    for (int i = group; i < cnt; i += K4_GROUPS) {
+      const long long r = (p + s_list[i]) * DFT_SLAB_CHUNK + lane_row;
+      const int c = r >= n ? 0 : n - r < DFT_TILE ? (int)(n - r) : DFT_TILE;
+      fold_window_tile(smem, tbl_bytes, ops.n, s, gid, r, c, base, num_groups);
     }
-    if (keep) {
-      for (int a = 0; a < ops.n; ++a) {
-        DFT_DISPATCH_KIND(ops.kinds[a], win_add, smem + a * WIN_BYTES, ops.outs[a], ops.vals[a], ops.masks[a],
-                          r, g, g - base)
-      }
-    }
+    __syncthreads();  // the list is read before the next pass writes it
   }
   __syncthreads();
-  if (cur >= 0) {
-    for (int a = 0; a < ops.n; ++a) {
-      DFT_DISPATCH_KIND(ops.kinds[a], win_flush, smem + a * WIN_BYTES, ops.outs[a], cur, DFT_WINDOW)
-    }
-  }
+  const int slots = num_groups - base < DFT_WINDOW ? num_groups - base : DFT_WINDOW;
+  fold_flush(smem, tbl_bytes, ops.n, s, base, slots, 1, num_groups, done);
 }
 
 // --- C entries ---------------------------------------------------------------
@@ -250,30 +246,34 @@ extern "C" int dft_slab_partition(const int* gid, int* out_gid, long long n, int
   return (int)cudaGetLastError();
 }
 
-// K4. Same op contract as dft_segreduce: kinds[a] selects the op kind,
-// vals[a] / masks[a] / outs[a] are device pointers (vals/masks may be
-// null), and the output tables arrive initialised to each op's identity.
+// K4. kinds, vals and masks as for dft_segreduce; outs[a] is op a's
+// [num_groups] device table and `done` a device counter, all zeroed
+// (reduce_common.cuh, the fold tile): op a's table ends as the op's
+// output, as for K2.
 extern "C" int dft_windowed_reduce(const int* gid, long long n, int num_groups, int n_ops, const int* kinds,
                                    const void* const* vals, const uint8_t* const* masks, void* const* outs,
-                                   void* stream) {
+                                   unsigned int* done, void* stream) {
   if (n <= 0 || num_groups <= 0 || n_ops == 0) return 0;
-  if (n_ops < 0 || n_ops > DFT_MAX_OPS) return (int)cudaErrorInvalidValue;
-  WinOps o;
-  o.n = n_ops;
-  for (int a = 0; a < n_ops; ++a) {
-    if (!dft_valid_kind(kinds[a])) return (int)cudaErrorInvalidValue;
-    o.kinds[a] = kinds[a];
-    o.vals[a] = vals[a];
-    o.masks[a] = masks[a];
-    o.outs[a] = outs[a];
-  }
-  // always: the block's static arrays count against the same limit, so 48 KB
-  // of windows alone already passes the default
-  const int smem = n_ops * WIN_BYTES;
-  const cudaError_t err =
-      cudaFuncSetAttribute(windowed_reduce_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  FoldArgs o;
+  if (n_ops > DFT_MAX_OPS || num_groups > 65535 * DFT_WINDOW || !fold_args(&o, n_ops, kinds, vals, masks, outs))
+    return (int)cudaErrorInvalidValue;
+  const int n_buckets = (num_groups + DFT_WINDOW - 1) / DFT_WINDOW;
+  const int smem = n_ops * DFT_WINDOW * 8;
+  cudaError_t err;
+  const long long fill = fold_blocks(windowed_reduce_kernel, smem, &err);
   if (err != cudaSuccess) return (int)err;
-  const long long blocks = (n + K4_RUN - 1) / K4_RUN;
-  windowed_reduce_kernel<<<(unsigned int)blocks, K4_THREADS, smem, (cudaStream_t)stream>>>(gid, n, num_groups, o);
+  // parts per bucket: as many as the card holds blocks at once, so that a
+  // bucket that takes most rows (skew) is still folded by the whole card;
+  // at least one chunk each, and fewer than 2^31 rows each (COUNT's shared
+  // counters)
+  const long long chunks = (n + DFT_SLAB_CHUNK - 1) / DFT_SLAB_CHUNK;
+  long long parts = fill;
+  if (parts > chunks) parts = chunks;
+  const long long least = chunks * DFT_SLAB_CHUNK / DFT_BLOCK_MAX_ROWS + 1;
+  if (parts < least) parts = least;
+  const long long part_chunks = (chunks + parts - 1) / parts;
+  parts = (chunks + part_chunks - 1) / part_chunks;
+  const dim3 grid((unsigned int)parts, (unsigned int)n_buckets);
+  windowed_reduce_kernel<<<grid, DFT_FOLD_TPB, smem, (cudaStream_t)stream>>>(gid, n, num_groups, part_chunks, o, done);
   return (int)cudaGetLastError();
 }

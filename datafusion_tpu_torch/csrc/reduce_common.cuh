@@ -1,13 +1,13 @@
 // Reduction op traits shared by K2 (segreduce.cu), K4 (partition.cu) and
 // K6 (ragged_shuffle.cu): the op kinds, the order-preserving integer image
-// of floats, the per-op identity / contribution / combine / atomic, the
-// shared-memory windows of K4, and the fold tile of K2 dense mode and K6.
+// of floats, the per-op contribution / combine / atomic, and the fold
+// tile of K2 (both modes), K4 and K6.
 //
 // SUM accumulates in f64 for float values and in i64 for integers, COUNT
 // is i64, and MIN/MAX keep the value type: f32/f64 reduce on their
-// order-preserving integer image (NaN past +inf). `atomic` works on a
-// shared or a global address: f64 atomicAdd is native, and 64-bit
-// MIN/MAX use atomicMin/atomicMax on the signed image.
+// order-preserving integer image (NaN past +inf), held in the fold
+// tile's zero-identity form below. `atomic` works on a shared or a global
+// address.
 
 #pragma once
 
@@ -16,6 +16,7 @@
 #include <stdint.h>
 #include <string.h>
 
+#include <mutex>
 #include <type_traits>
 
 // op kinds; mirrored in ops/pallas/segreduce.py `_KIND`
@@ -35,15 +36,15 @@ __device__ __forceinline__ long long img64(double x) {
 }
 
 // --- op traits: value type In, accumulator Acc, contribution, combine ---
-// `of(x)` is value x's contribution; `contrib(v, r)` is row r's.
+// `of(x)` is value x's contribution. MIN/MAX's Acc is the signed
+// order-preserving image; their tables hold it in the fold tile's form
+// (Zero<Op> below).
 template <typename InT, typename AccT>
 struct SumOp {
   typedef InT In;
   typedef AccT Acc;
   static constexpr int MM = 0;  // neither MIN (1) nor MAX (2)
-  static __device__ __forceinline__ Acc identity() { return (Acc)0; }
   static __device__ __forceinline__ Acc of(In x) { return (Acc)x; }
-  static __device__ __forceinline__ Acc contrib(const In* v, long long r) { return of(v[r]); }
   static __device__ __forceinline__ Acc combine(Acc x, Acc y) { return x + y; }
 };
 struct SumF64Op : SumOp<double, double> {
@@ -67,10 +68,6 @@ struct CountOp {
   typedef uint8_t In;  // no value stream
   typedef long long Acc;
   static constexpr int MM = 0;
-  static __device__ __forceinline__ Acc identity() { return 0; }
-  static __device__ __forceinline__ Acc of(In) { return 1; }
-  static __device__ __forceinline__ Acc contrib(const In*, long long) { return 1; }
-  static __device__ __forceinline__ Acc combine(Acc x, Acc y) { return x + y; }
   static __device__ __forceinline__ void atomic(long long* p, long long v) {
     atomicAdd((unsigned long long*)p, (unsigned long long)v);
   }
@@ -80,23 +77,8 @@ struct MinMaxOp {
   typedef InT In;
   typedef AccT Acc;
   static constexpr int MM = IS_MIN ? 1 : 2;
-  static __device__ __forceinline__ Acc identity();
   static __device__ __forceinline__ Acc of(In x);
-  static __device__ __forceinline__ Acc contrib(const In* v, long long r) { return of(v[r]); }
-  static __device__ __forceinline__ Acc combine(Acc x, Acc y) {
-    return IS_MIN ? (y < x ? y : x) : (y > x ? y : x);
-  }
-  static __device__ __forceinline__ void atomic(Acc* p, Acc v) {
-    if (IS_MIN) atomicMin(p, v); else atomicMax(p, v);
-  }
 };
-#define MINMAX_IDENTITY(InT, AccT, LO, HI)                                             \
-  template <> __device__ __forceinline__ AccT MinMaxOp<InT, AccT, true>::identity() { return HI; }  \
-  template <> __device__ __forceinline__ AccT MinMaxOp<InT, AccT, false>::identity() { return LO; }
-MINMAX_IDENTITY(float, int, (int)0x80000000, 0x7FFFFFFF)
-MINMAX_IDENTITY(double, long long, (long long)0x8000000000000000LL, 0x7FFFFFFFFFFFFFFFLL)
-MINMAX_IDENTITY(int, int, (int)0x80000000, 0x7FFFFFFF)
-MINMAX_IDENTITY(long long, long long, (long long)0x8000000000000000LL, 0x7FFFFFFFFFFFFFFFLL)
 #define MINMAX_OF(InT, AccT, EXPR)                                                  \
   template <> __device__ __forceinline__ AccT MinMaxOp<InT, AccT, true>::of(InT x) { return EXPR; }  \
   template <> __device__ __forceinline__ AccT MinMaxOp<InT, AccT, false>::of(InT x) { return EXPR; }
@@ -136,48 +118,13 @@ typedef MinMaxOp<long long, long long, false> MaxI64Op;
 
 static inline bool dft_valid_kind(int kind) { return kind >= K_SUM_F32 && kind <= K_MAX_I64; }
 
-// --- shared-memory windows (K4) ------------------------------------------
-// One DFT_WINDOW-slot window per op, WIN_BYTES each (8-byte slots), in a
-// block's dynamic shared memory: at most DFT_MAX_OPS of them fit the
-// 227 KB a Hopper block may hold.
+// A window is DFT_WINDOW slots of 8 bytes per op (K4's bucket, K6's
+// receiver table): DFT_MAX_OPS of them fit the 227 KB a Hopper block may
+// hold.
 #define DFT_WINDOW 2048
-#define WIN_BYTES (DFT_WINDOW * 8)
 #define DFT_MAX_OPS 14
 
-// the first `slots` slots of a window to identity
-template <class Op>
-__device__ __forceinline__ void win_init(unsigned char* win, int slots) {
-  typedef typename Op::Acc Acc;
-  for (int i = threadIdx.x; i < slots; i += blockDim.x) ((Acc*)win)[i] = Op::identity();
-}
-
-// every touched slot of the window's first `slots` into the device table,
-// and back to identity
-template <class Op>
-__device__ __forceinline__ void win_flush(unsigned char* win, void* out, int base, int slots) {
-  typedef typename Op::Acc Acc;
-  for (int i = threadIdx.x; i < slots; i += blockDim.x) {
-    const Acc v = ((Acc*)win)[i];
-    if (v != Op::identity()) {
-      Op::atomic((Acc*)out + base + i, v);
-      ((Acc*)win)[i] = Op::identity();
-    }
-  }
-}
-
-// row r (slot g of the table, `local` of the window) into the window, or
-// straight into the table when it lies outside the window
-template <class Op>
-__device__ __forceinline__ void win_add(unsigned char* win, void* out, const void* vals, const uint8_t* mask,
-                                        long long r, int g, int local) {
-  typedef typename Op::Acc Acc;
-  if (mask != nullptr && !mask[r]) return;
-  const Acc c = Op::contrib((const typename Op::In*)vals, r);
-  if (local < DFT_WINDOW) Op::atomic((Acc*)win + local, c);
-  else Op::atomic((Acc*)out + g, c);
-}
-
-// --- the fold tile (K2 dense mode, K6) -------------------------------------
+// --- the fold tile (K2 dense mode, K4, K6; K2 sorted mode shares its loads and tables)
 // A block folds rows into one shared-memory table per op, `slots` live
 // slots of 8-byte entries, each slot held `reps` times (a power of two up
 // to 32): lane l of a warp updates replica l % reps, so the lanes of a
@@ -209,6 +156,40 @@ struct FoldShared {
   const uint8_t* mask[DFT_FOLD_MAX_OPS];
   void* out[DFT_FOLD_MAX_OPS];
 };
+
+// the same, passed by value to a kernel
+struct FoldArgs {
+  int n;
+  int kinds[DFT_FOLD_MAX_OPS];
+  const void* vals[DFT_FOLD_MAX_OPS];
+  const uint8_t* masks[DFT_FOLD_MAX_OPS];
+  void* outs[DFT_FOLD_MAX_OPS];
+};
+
+// The C entries' op arrays into FoldArgs; false for a bad count or kind.
+static inline bool fold_args(FoldArgs* o, int n_ops, const int* kinds, const void* const* vals,
+                             const uint8_t* const* masks, void* const* outs) {
+  if (n_ops < 0 || n_ops > DFT_FOLD_MAX_OPS) return false;
+  o->n = n_ops;
+  for (int a = 0; a < n_ops; ++a) {
+    if (!dft_valid_kind(kinds[a])) return false;
+    o->kinds[a] = kinds[a];
+    o->vals[a] = vals[a];
+    o->masks[a] = masks[a];
+    o->outs[a] = outs[a];
+  }
+  return true;
+}
+
+// a block's copy of the kernel's FoldArgs; read after the next __syncthreads
+__device__ __forceinline__ void load_fold_shared(FoldShared& s, const FoldArgs& o) {
+  if (threadIdx.x < o.n) {
+    s.kind[threadIdx.x] = o.kinds[threadIdx.x];
+    s.val[threadIdx.x] = o.vals[threadIdx.x];
+    s.mask[threadIdx.x] = o.masks[threadIdx.x];
+    s.out[threadIdx.x] = o.outs[threadIdx.x];
+  }
+}
 
 static inline bool dft_valid_reps(int reps) { return reps >= 1 && reps <= DFT_MAX_REPS && (reps & (reps - 1)) == 0; }
 
@@ -304,6 +285,10 @@ __device__ __forceinline__ void tile_fold(unsigned char* tbl, int reps, int rep,
   typedef Zero<Op> Z;
   typedef typename Op::In In;
   typedef typename Z::Shared Acc;
+  bool any = false;
+#pragma unroll
+  for (int k = 0; k < DFT_TILE; ++k) any |= w[k] >= 0;
+  if (!any) return;  // no row kept: read no values (K3's gaps)
   In x[DFT_TILE] = {};
   if constexpr (!std::is_same<Op, CountOp>::value) load_tile((const In*)vals, r, cnt, x);
   bool keep[DFT_TILE];
@@ -363,6 +348,48 @@ __device__ __forceinline__ void fold_range(unsigned char* smem, int tbl_bytes, i
   }
 }
 
+// one op's rows of a tile whose slot lies outside the block's window
+// (far[k] >= 0): each by a global atomic into the device table
+template <class Op>
+__device__ __forceinline__ void tile_far(void* out, const void* vals, const uint8_t* mask, long long r, int cnt,
+                                         const int (&far)[DFT_TILE]) {
+  typedef Zero<Op> Z;
+  typedef typename Op::In In;
+  In x[DFT_TILE] = {};
+  if constexpr (!std::is_same<Op, CountOp>::value) load_tile((const In*)vals, r, cnt, x);
+#pragma unroll
+  for (int k = 0; k < DFT_TILE; ++k)
+    if (far[k] >= 0 && (mask == nullptr || mask[r + k]))
+      Z::atomic((typename Z::Acc*)out + far[k], Z::widen(Z::of(x[k])));
+}
+
+// One thread's tile, rows r .. r + c - 1, into the block's tables of the
+// window [base, base + DFT_WINDOW) (one replica): a row whose id lies in
+// [0, num_groups) but outside the window goes to the device table by a
+// global atomic, and any other row is dropped.
+__device__ __forceinline__ void fold_window_tile(unsigned char* smem, int tbl_bytes, int n_ops, const FoldShared& s,
+                                                 const int* __restrict__ gid, long long r, int c, int base,
+                                                 int num_groups) {
+  int w[DFT_TILE], far[DFT_TILE];
+  load_tile(gid, r, c, w);
+  bool any_far = false;
+#pragma unroll
+  for (int k = 0; k < DFT_TILE; ++k) {
+    const int g = w[k];
+    const bool keep = k < c && g >= 0 && g < num_groups;
+    const bool in = keep && g >= base && g - base < DFT_WINDOW;
+    far[k] = keep && !in ? g : -1;
+    any_far |= far[k] >= 0;
+    w[k] = in ? g - base : -1;
+  }
+  for (int a = 0; a < n_ops; ++a) {
+    DFT_DISPATCH_KIND(s.kind[a], tile_fold, smem + a * tbl_bytes, 1, 0, s.val[a], s.mask[a], r, c, w)
+    if (any_far) {
+      DFT_DISPATCH_KIND(s.kind[a], tile_far, s.out[a], s.val[a], s.mask[a], r, c, far)
+    }
+  }
+}
+
 // one op's touched slots, replicas combined, into its device table from slot `base`
 template <class Op>
 __device__ __forceinline__ void tile_flush(unsigned char* tbl, void* out, long long base, int slots, int reps) {
@@ -383,17 +410,12 @@ __device__ __forceinline__ void tile_decode(void* out, long long n) {
     for (long long i = threadIdx.x; i < n; i += blockDim.x) Z::decode((typename Z::Acc*)out + i);
 }
 
-// Every op's table into its device table from slot `base`; then the last
-// block of the grid to get here (a ticket on `done`, 0 before the launch)
-// decodes the ops' `n_out`-slot device tables in place.
-__device__ __forceinline__ void fold_flush(unsigned char* smem, int tbl_bytes, int n_ops, const FoldShared& s,
-                                           long long base, int slots, int reps, long long n_out,
-                                           unsigned int* done) {
+// The last block of the grid to get here (a ticket on `done`, 0 before
+// the launch) decodes the ops' `n_out`-slot device tables in place, once
+// every block's writes to them are done.
+__device__ __forceinline__ void fold_finish(int n_ops, const FoldShared& s, long long n_out, unsigned int* done) {
   __shared__ bool last;
-  for (int a = 0; a < n_ops; ++a) {
-    DFT_DISPATCH_KIND(s.kind[a], tile_flush, smem + a * tbl_bytes, s.out[a], base, slots, reps)
-  }
-  __threadfence();  // this block's flush reaches every block before its ticket
+  __threadfence();  // this block's writes reach every block before its ticket
   __syncthreads();
   if (threadIdx.x == 0) last = atomicAdd(done, 1u) == gridDim.x * gridDim.y - 1;
   __syncthreads();
@@ -404,17 +426,48 @@ __device__ __forceinline__ void fold_flush(unsigned char* smem, int tbl_bytes, i
   }
 }
 
+// Every op's table into its device table from slot `base`, then
+// fold_finish.
+__device__ __forceinline__ void fold_flush(unsigned char* smem, int tbl_bytes, int n_ops, const FoldShared& s,
+                                           long long base, int slots, int reps, long long n_out,
+                                           unsigned int* done) {
+  for (int a = 0; a < n_ops; ++a) {
+    DFT_DISPATCH_KIND(s.kind[a], tile_flush, smem + a * tbl_bytes, s.out[a], base, slots, reps)
+  }
+  fold_finish(n_ops, s, n_out, done);
+}
+
 // The grid that fills the card: blocks of DFT_FOLD_TPB threads with
 // `smem` dynamic bytes each that fit an SM at once, times the SMs.
 // Returns 0 and sets *err when the kernel cannot take `smem`.
+// The answer is kept per (device, kernel, smem): the attribute call and
+// the occupancy query cost host time that a call of a sub-millisecond
+// kernel would pay every time. The kernel's shared-memory limit only ever
+// rises, so a launch with less than the largest `smem` seen still fits.
 template <typename K>
 static inline long long fold_blocks(K kernel, int smem, cudaError_t* err) {
-  *err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  struct Known { int dev; const void* kernel; int smem; long long blocks; };
+  static Known known[64];
+  static int n_known = 0;
+  static std::mutex mu;
+  int dev = 0;
+  *err = cudaGetDevice(&dev);
   if (*err != cudaSuccess) return 0;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
+  std::lock_guard<std::mutex> lock(mu);
+  int limit = -1;  // the limit set for this kernel on this device so far
+  for (int i = 0; i < n_known; ++i) {
+    if (known[i].dev != dev || known[i].kernel != (const void*)kernel) continue;
+    if (known[i].smem == smem) return known[i].blocks;
+    if (known[i].smem > limit) limit = known[i].smem;
+  }
+  if (smem > limit) *err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (*err != cudaSuccess) return 0;
+  int sms = 0, per_sm = 0;
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, DFT_FOLD_TPB, smem);
   if (*err == cudaSuccess && per_sm < 1) *err = cudaErrorInvalidConfiguration;
-  return *err == cudaSuccess ? (long long)per_sm * sms : 0;
+  if (*err != cudaSuccess) return 0;
+  const long long blocks = (long long)per_sm * sms;
+  if (n_known < 64) known[n_known++] = {dev, (const void*)kernel, smem, blocks};
+  return blocks;
 }

@@ -12,124 +12,222 @@
 // datafusion_tpu/ops/aggregate.py:1165-1172 does). Float sums follow IEEE
 // for NaN and +-inf natively, so no sanitize / exact-restore pass exists.
 //
-// What bounds it on this card: bytes. Sorted mode reads the group ids
-// once per op, dense mode once per launch, and each value (and optional
-// mask) stream once, with one combine per row and op; the accumulator
-// tables are small next to the row streams. In dense mode the shared
-// atomics come next: a small table takes many lanes to one slot.
+// What bounds it on this card: bytes. Both modes read the group ids once
+// per launch and each value (and optional mask) stream once, with one
+// combine per row and op; the accumulator tables are small next to the
+// row streams. In dense mode the shared atomics come next: a small table
+// takes many lanes to one slot.
 //
-// * Sorted mode (group ids ascending; ids >= num_groups only in the
-//   tail): each block takes a contiguous tile of TPB x IT rows, each
-//   thread IT consecutive rows. A thread reduces the runs of equal id in
-//   its rows sequentially; a run bounded inside the thread is complete and
-//   is stored directly. The threads' first/last run partials go to shared
-//   memory, where the last entry of each run combines its run in order. A
-//   run bounded inside the tile is stored directly; only the tile's first
-//   and last runs reach device memory through atomics. The accumulator
-//   table lives in device memory, so the TPU's VMEM budget gate
-//   (`accum_fits_vmem`) has no counterpart.
-// * Dense mode (ids in any order, num_groups <= 2048): one launch folds
-//   every op (up to DFT_FOLD_MAX_OPS, passed by value as K4's ops are), so
-//   the ids and each value and mask stream are read once per row. The
-//   grid fills the card at the occupancy the tables' shared memory allows
+// Both modes make one launch for every op (up to DFT_FOLD_MAX_OPS, passed
+// by value), load a thread's DFT_TILE consecutive rows as vectors with the
+// fold tile's loads, take the op kind's switch once per tile, and write
+// the fold tile's zero-identity tables (reduce_common.cuh): the wrapper's
+// one zeroed buffer comes back as the outputs, the last block having
+// decoded MIN/MAX in place.
+//
+// * Sorted mode (group ids ascending; ids outside [0, num_groups) only
+//   at the ends): each warp reduces a span of consecutive 128-row tiles,
+//   the grid filling the card. A lane walks its 4 rows' runs in
+//   registers; a run bounded inside the lane is complete and stored
+//   directly. A segmented scan over the lanes (shuffles, no shared
+//   memory) completes the runs that cross lanes, and the run open at the
+//   tile's end is carried in registers to the next tile (op a's in lane
+//   a). So a run is written once, by a plain store, unless it may reach
+//   past the warp's span (its id is that of the row before or after the
+//   span): only a span's first and last runs reach device memory through
+//   global atomics, whose f64 add, 64-bit add and 64-bit unsigned max are
+//   native there. The accumulator table lives in device memory, so the
+//   TPU's VMEM budget gate (`accum_fits_vmem`) has no counterpart.
+// * Dense mode (ids in any order, num_groups <= 2048): the grid fills
+//   the card at the occupancy the tables' shared memory allows
 //   (fold_blocks); each 512-thread block folds a grid-stride range of
-//   DFT_TILE_ROWS-row tiles into per-op shared tables with the fold tile of
-//   reduce_common.cuh (4 rows a thread, vector loads, one kind switch per
-//   tile and op), each slot held `reps` times so the lanes of a warp on a
-//   small table do not contend, then flushes each touched slot into the
-//   device table by one global atomic; the last block decodes MIN/MAX in
-//   place, so the wrapper's one zeroed buffer comes back as the outputs.
-//   f64 / i64 sums, i64 counts, MIN/MAX on the order-preserving image.
-//   The caller (ops/pallas/
-//   segreduce.py `fold_launches`) picks `reps` and splits an op list
-//   whose tables do not fit one block's shared memory into the fewest
-//   launches that fit.
+//   DFT_TILE_ROWS-row tiles into per-op shared tables with the fold tile,
+//   each slot held `reps` times so the lanes of a warp on a small table do
+//   not contend, then flushes each touched slot into the device table by
+//   one global atomic. The caller (ops/pallas/segreduce.py
+//   `fold_launches`) picks `reps` and splits an op list whose tables do
+//   not fit one block's shared memory into the fewest launches that fit.
 //
-// The sorted-mode entry launches one kernel per op; ops read their own
-// value and mask streams (the Python wrapper passes each distinct stream
-// once). The op kinds and traits live in reduce_common.cuh, shared with
-// K4 and K6.
+// The op kinds and traits live in reduce_common.cuh, shared with K4 and
+// K6.
 
 #include "reduce_common.cuh"
 
-#define TPB 256
-#define IT 8
 #define DENSE_MAX_SLOTS 2048
+#define SORTED_WARPS (DFT_FOLD_TPB / 32)
+#define SORTED_TILE_ROWS (32 * DFT_TILE)  // a warp's tile
+#define FULL_MASK 0xffffffffu
 
 // --- sorted mode ---------------------------------------------------------
-template <class Op>
-__global__ void seg_sorted_kernel(const int* __restrict__ gid, const typename Op::In* __restrict__ vals,
-                                  const uint8_t* __restrict__ mask, typename Op::Acc* __restrict__ out,
-                                  long long n, int num_groups) {
-  typedef typename Op::Acc Acc;
-  __shared__ int s_gid[2 * TPB];
-  __shared__ Acc s_acc[2 * TPB];
-  const int t = threadIdx.x;
-  const long long r0 = (long long)blockIdx.x * (TPB * IT) + (long long)t * IT;
+template <typename T>
+__device__ __forceinline__ unsigned long long to_bits(T v) {
+  unsigned long long b = 0;
+  memcpy(&b, &v, sizeof(T));
+  return b;
+}
+template <typename T>
+__device__ __forceinline__ T from_bits(unsigned long long b) {
+  T v;
+  memcpy(&v, &b, sizeof(T));
+  return v;
+}
 
-  int cur = -1, gF = -1;
-  Acc acc = Op::identity(), aF = Op::identity();
-  for (int k = 0; k < IT; ++k) {
-    const long long r = r0 + k;
-    if (r >= n) break;
-    const int g = gid[r];
-    if (g < 0 || g >= num_groups) break;  // dropped rows form the tail
-    const Acc c = (mask == nullptr || mask[r]) ? Op::contrib(vals, r) : Op::identity();
-    if (g != cur) {
-      if (cur >= 0) {
-        if (gF < 0) { gF = cur; aF = acc; }
-        else out[cur] = acc;  // run bounded inside this thread: complete
-      }
-      cur = g;
-      acc = c;
+// run g's total v into the device table: by an atomic when the run may
+// reach past the warp's span (its id is that of the row before or after
+// the span), else by a store (no other warp holds a row of it)
+template <class Op>
+__device__ __forceinline__ void run_store(void* out, int g, typename Zero<Op>::Shared v, int edge_lo, int edge_hi) {
+  typedef Zero<Op> Z;
+  typedef typename Z::Acc Acc;
+  if (g == edge_lo || g == edge_hi) Z::atomic((Acc*)out + g, Z::widen(v));
+  else ((Acc*)out)[g] = Z::widen(v);
+}
+
+template <class Op>
+__device__ __forceinline__ void carry_store(void* out, int g, unsigned long long bits, int edge_lo, int edge_hi) {
+  run_store<Op>(out, g, from_bits<typename Zero<Op>::Shared>(bits), edge_lo, edge_hi);
+}
+
+// The runs of a warp's tile, the same for every op: each lane's DFT_TILE
+// ids (-1 for a dropped row), its first and last run, the first lane of
+// its last run's segment in the warp, the last run of the lane before
+// (lane 0: the run carried from the previous tile, or -1) and the first
+// run of the lane after (lane 31: its own last run, which goes on).
+struct Runs {
+  int w[DFT_TILE];
+  int fid, lid, head, prev, next;
+};
+
+__device__ __forceinline__ Runs tile_runs(const int* __restrict__ gid, long long r, int c, int num_groups) {
+  const int lane = threadIdx.x & 31;
+  Runs R;
+  load_tile(gid, r, c, R.w);
+  R.fid = R.lid = -1;
+#pragma unroll
+  for (int k = 0; k < DFT_TILE; ++k) {
+    if (k >= c || R.w[k] < 0 || R.w[k] >= num_groups) {
+      R.w[k] = -1;
     } else {
-      acc = Op::combine(acc, c);
+      if (R.fid < 0) R.fid = R.w[k];
+      R.lid = R.w[k];
     }
   }
-  // entries (first run, last run); a single-run thread pairs its run with
-  // an identity entry of the same id, so the valid entries stay a prefix
-  if (cur >= 0 && gF < 0) { gF = cur; aF = acc; acc = Op::identity(); }
-  s_gid[2 * t] = gF;
-  s_acc[2 * t] = aF;
-  s_gid[2 * t + 1] = cur;
-  s_acc[2 * t + 1] = acc;
-  __syncthreads();
+  const int up = __shfl_up_sync(FULL_MASK, R.lid, 1);
+  const unsigned heads = __ballot_sync(FULL_MASK, lane == 0 || up != R.lid);
+  R.head = 31 - __clz(heads & (FULL_MASK >> (31 - lane)));
+  R.prev = up;
+  const int down = __shfl_down_sync(FULL_MASK, R.fid, 1);
+  R.next = lane == 31 ? R.lid : down;
+  return R;
+}
 
-  // each run's last entry combines the run, in entry order
-  for (int e = 2 * t; e < 2 * t + 2; ++e) {
-    const int g = s_gid[e];
-    if (g < 0) continue;
-    const bool last_of_tile = (e == 2 * TPB - 1) || s_gid[e + 1] < 0;
-    if (!last_of_tile && s_gid[e + 1] == g) continue;
-    int s = e;
-    while (s > 0 && s_gid[s - 1] == g) --s;
-    Acc total = s_acc[s];
-    for (int j = s + 1; j <= e; ++j) total = Op::combine(total, s_acc[j]);
-    if (s == 0 || last_of_tile) Op::atomic(&out[g], total);  // may span tiles
-    else out[g] = total;  // bounded inside the tile: complete
+// One op over a warp's tile. A lane walks its rows' runs in registers: a
+// run bounded inside the lane is complete and stored; its first run waits
+// for the lanes before it and its last one for the lanes after it. A
+// segmented scan (shuffles) over the lanes' last runs, with the carried
+// run added to the warp's first segment, completes both; the run still
+// open at lane 31 is carried to the next tile, op a's in lane a's `carry`.
+template <class Op>
+__device__ __forceinline__ void sorted_tile(const Runs& R, const void* vals, const uint8_t* mask, void* out,
+                                            long long r, int cnt, int a, unsigned long long& carry, int ckey,
+                                            int lid31, int edge_lo, int edge_hi) {
+  typedef Zero<Op> Z;
+  typedef typename Op::In In;
+  typedef typename Z::Shared Acc;
+  const int lane = threadIdx.x & 31;
+  In x[DFT_TILE] = {};
+  uint8_t m[DFT_TILE];
+  if (R.lid < 0) cnt = 0;  // no row kept: read no values
+  if constexpr (!std::is_same<Op, CountOp>::value) load_tile((const In*)vals, r, cnt, x);
+  if (mask != nullptr) {
+    load_tile(mask, r, cnt, m);
+  } else {
+#pragma unroll
+    for (int k = 0; k < DFT_TILE; ++k) m[k] = 1;
   }
+  Acc first = 0, acc = 0;
+  int cur = -1, runs = 0;
+#pragma unroll
+  for (int k = 0; k < DFT_TILE; ++k) {
+    const int g = R.w[k];
+    if (g < 0) continue;
+    if (g != cur) {
+      if (cur >= 0) {
+        if (runs == 0) first = acc;
+        else run_store<Op>(out, cur, acc, edge_lo, edge_hi);
+        ++runs;
+      }
+      cur = g;
+      acc = 0;  // from the identity, as the plain version's table: -0.0 sums read +0.0
+    }
+    acc = Z::combine(acc, m[k] ? Z::of(x[k]) : (Acc)0);
+  }
+  Acc S = acc;  // the last run, then its total over the lanes so far
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const Acc o = __shfl_up_sync(FULL_MASK, S, d);
+    if (lane - d >= R.head) S = Z::combine(o, S);
+  }
+  const Acc cv = from_bits<Acc>(__shfl_sync(FULL_MASK, carry, a));
+  if (ckey >= 0 && R.head == 0 && R.lid == ckey) S = Z::combine(cv, S);
+  Acc before = __shfl_up_sync(FULL_MASK, S, 1);
+  if (lane == 0) before = cv;
+  if (runs > 0) run_store<Op>(out, R.fid, R.prev == R.fid ? Z::combine(before, first) : first, edge_lo, edge_hi);
+  if (R.lid >= 0 && R.next != R.lid) run_store<Op>(out, R.lid, S, edge_lo, edge_hi);
+  const Acc s31 = __shfl_sync(FULL_MASK, S, 31);
+  if (lane == a) carry = lid31 >= 0 ? to_bits(s31) : 0ULL;
+}
+
+// Each warp reduces one span of `warp_tiles` consecutive tiles, every op
+// of `ops` per tile, carrying the open run from tile to tile; the last
+// block decodes MIN/MAX.
+__global__ void __launch_bounds__(DFT_FOLD_TPB)
+seg_sorted_kernel(const int* __restrict__ gid, long long n, int num_groups, long long warp_tiles, FoldArgs ops,
+                  unsigned int* done) {
+  __shared__ FoldShared s;
+  load_fold_shared(s, ops);
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const long long span = warp_tiles * SORTED_TILE_ROWS;
+  const long long r0 = ((long long)blockIdx.x * SORTED_WARPS + threadIdx.x / 32) * span;
+  if (r0 < n) {  // warp-uniform
+    const long long r1 = r0 + span < n ? r0 + span : n;
+    const int edge_lo = r0 > 0 ? __ldg(gid + r0 - 1) : -1;
+    const int edge_hi = r1 < n ? __ldg(gid + r1) : -1;
+    unsigned long long carry = 0;
+    int ckey = -1;  // the carried run's id, -1 for none
+    for (long long t = r0; t < r1; t += SORTED_TILE_ROWS) {
+      const long long r = t + lane * DFT_TILE;
+      const int c = r >= r1 ? 0 : r1 - r < DFT_TILE ? (int)(r1 - r) : DFT_TILE;
+      Runs R = tile_runs(gid, r, c, num_groups);
+      if (ckey >= 0 && __shfl_sync(FULL_MASK, R.fid, 0) != ckey) {  // the carried run ended with the last tile
+        if (lane < ops.n) {
+          DFT_DISPATCH_KIND(s.kind[lane], carry_store, s.out[lane], ckey, carry, edge_lo, edge_hi)
+        }
+        ckey = -1;
+      }
+      if (lane == 0) R.prev = ckey;
+      const int lid31 = __shfl_sync(FULL_MASK, R.lid, 31);
+      for (int a = 0; a < ops.n; ++a) {
+        DFT_DISPATCH_KIND(s.kind[a], sorted_tile, R, s.val[a], s.mask[a], s.out[a], r, c, a, carry, ckey, lid31,
+                          edge_lo, edge_hi)
+      }
+      ckey = lid31;
+    }
+    if (ckey >= 0 && lane < ops.n) {
+      DFT_DISPATCH_KIND(s.kind[lane], carry_store, s.out[lane], ckey, carry, edge_lo, edge_hi)
+    }
+  }
+  fold_finish(ops.n, s, num_groups, done);
 }
 
 // --- dense mode ----------------------------------------------------------
-struct DenseOps {
-  int n;
-  int kinds[DFT_FOLD_MAX_OPS];
-  const void* vals[DFT_FOLD_MAX_OPS];
-  const uint8_t* masks[DFT_FOLD_MAX_OPS];
-  void* outs[DFT_FOLD_MAX_OPS];
-};
-
 __global__ void __launch_bounds__(DFT_FOLD_TPB)
-seg_dense_kernel(const int* __restrict__ gid, long long n, int num_groups, int reps, DenseOps ops,
+seg_dense_kernel(const int* __restrict__ gid, long long n, int num_groups, int reps, FoldArgs ops,
                  unsigned int* done) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ FoldShared s;
-  if (threadIdx.x < ops.n) {
-    s.kind[threadIdx.x] = ops.kinds[threadIdx.x];
-    s.val[threadIdx.x] = ops.vals[threadIdx.x];
-    s.mask[threadIdx.x] = ops.masks[threadIdx.x];
-    s.out[threadIdx.x] = ops.outs[threadIdx.x];
-  }
+  load_fold_shared(s, ops);
   const int tbl_bytes = num_groups * reps * 8;
   fold_init(smem, ops.n * tbl_bytes);
   __syncthreads();
@@ -139,55 +237,43 @@ seg_dense_kernel(const int* __restrict__ gid, long long n, int num_groups, int r
 }
 
 // --- C entries ---------------------------------------------------------------
+// Both modes: kinds[a] selects op a's kind (reduce_common.cuh), vals[a] /
+// masks[a] are its device streams (either may be null), outs[a] is its
+// [num_groups] device table and `done` a device counter, all zeroed (the
+// fold tile's tables): op a's table ends as the op's output (f64/i64 SUM,
+// i64 COUNT, MIN/MAX in the value type with +-inf for an empty float slot).
 
-template <class Op>
-static void launch_sorted(const int* gid, const void* vals, const uint8_t* mask, void* out, long long n,
-                          int num_groups, cudaStream_t stream) {
-  typedef typename Op::In In;
-  typedef typename Op::Acc Acc;
-  const long long blocks = (n + TPB * IT - 1) / (TPB * IT);
-  seg_sorted_kernel<Op><<<(unsigned int)blocks, TPB, 0, stream>>>(gid, (const In*)vals, mask, (Acc*)out, n,
-                                                                   num_groups);
-}
-
-// Sorted mode, one launch per op. kinds[a] selects the op kind, vals[a] /
-// masks[a] / outs[a] are device pointers (vals/masks may be null). The
-// output tables arrive initialised to each op's identity.
+// Sorted mode, one launch for every op given (at most DFT_FOLD_MAX_OPS).
 extern "C" int dft_segreduce(const int* gid, long long n, int num_groups, int n_ops, const int* kinds,
                              const void* const* vals, const uint8_t* const* masks, void* const* outs,
-                             void* stream) {
-  if (n <= 0 || num_groups <= 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  for (int a = 0; a < n_ops; ++a) {
-    if (!dft_valid_kind(kinds[a])) return (int)cudaErrorInvalidValue;
-    DFT_DISPATCH_KIND(kinds[a], launch_sorted, gid, vals[a], masks[a], outs[a], n, num_groups, s)
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return 0;
+                             unsigned int* done, void* stream) {
+  if (n <= 0 || num_groups <= 0 || n_ops == 0) return 0;
+  FoldArgs o;
+  if (!fold_args(&o, n_ops, kinds, vals, masks, outs)) return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  long long blocks = fold_blocks(seg_sorted_kernel, 0, &err);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = (n + SORTED_TILE_ROWS - 1) / SORTED_TILE_ROWS;
+  const long long warps = (tiles + SORTED_WARPS - 1) / SORTED_WARPS;
+  if (blocks > warps) blocks = warps;
+  long long warp_tiles = (tiles + blocks * SORTED_WARPS - 1) / (blocks * SORTED_WARPS);
+  // a span of fewer than 2^31 rows: COUNT's carry is 32-bit
+  if (warp_tiles > DFT_BLOCK_MAX_ROWS / SORTED_TILE_ROWS) warp_tiles = DFT_BLOCK_MAX_ROWS / SORTED_TILE_ROWS;
+  blocks = (tiles + warp_tiles * SORTED_WARPS - 1) / (warp_tiles * SORTED_WARPS);
+  seg_sorted_kernel<<<(unsigned int)blocks, DFT_FOLD_TPB, 0, (cudaStream_t)stream>>>(gid, n, num_groups, warp_tiles,
+                                                                                     o, done);
+  return (int)cudaGetLastError();
 }
 
 // Dense mode, one launch for every op given, each slot held `reps` times
-// in shared memory. kinds, vals and masks as for dft_segreduce; outs[a]
-// is op a's [num_groups] device table and `done` a device counter, all
-// zeroed (reduce_common.cuh, the fold tile): op a's table ends as the
-// op's output (f64/i64 SUM, i64 COUNT, MIN/MAX in the value type with
-// +-inf for an empty float slot).
+// in shared memory.
 extern "C" int dft_segreduce_dense(const int* gid, long long n, int num_groups, int reps, int n_ops,
                                    const int* kinds, const void* const* vals, const uint8_t* const* masks,
                                    void* const* outs, unsigned int* done, void* stream) {
   if (n <= 0 || num_groups <= 0 || n_ops == 0) return 0;
-  if (num_groups > DENSE_MAX_SLOTS || n_ops < 0 || n_ops > DFT_FOLD_MAX_OPS || !dft_valid_reps(reps))
+  FoldArgs o;
+  if (num_groups > DENSE_MAX_SLOTS || !dft_valid_reps(reps) || !fold_args(&o, n_ops, kinds, vals, masks, outs))
     return (int)cudaErrorInvalidValue;
-  DenseOps o;
-  o.n = n_ops;
-  for (int a = 0; a < n_ops; ++a) {
-    if (!dft_valid_kind(kinds[a])) return (int)cudaErrorInvalidValue;
-    o.kinds[a] = kinds[a];
-    o.vals[a] = vals[a];
-    o.masks[a] = masks[a];
-    o.outs[a] = outs[a];
-  }
   const long long smem = (long long)n_ops * num_groups * reps * 8;
   if (smem > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   cudaError_t err;

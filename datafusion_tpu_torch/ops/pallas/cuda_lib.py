@@ -101,13 +101,13 @@ def load_library() -> ctypes.CDLL:
     lib.dft_fused_stage.restype = i32
     lib.dft_fused_stage_program_size.argtypes = []
     lib.dft_fused_stage_program_size.restype = i32
-    lib.dft_segreduce.argtypes = [vp, i64, i32, i32, vp, vp, vp, vp, vp]
+    lib.dft_segreduce.argtypes = [vp, i64, i32, i32, vp, vp, vp, vp, vp, vp]
     lib.dft_segreduce.restype = i32
     lib.dft_segreduce_dense.argtypes = [vp, i64, i32, i32, i32, vp, vp, vp, vp, vp, vp]
     lib.dft_segreduce_dense.restype = i32
     lib.dft_slab_partition.argtypes = [vp, vp, i64, i32, i32, i32, i32, i32, vp, vp, vp, vp]
     lib.dft_slab_partition.restype = i32
-    lib.dft_windowed_reduce.argtypes = [vp, i64, i32, i32, vp, vp, vp, vp, vp]
+    lib.dft_windowed_reduce.argtypes = [vp, i64, i32, i32, vp, vp, vp, vp, vp, vp]
     lib.dft_windowed_reduce.restype = i32
     lib.dft_ragged_exchange.argtypes = [vp, vp, vp, vp, i32, i32, i64, i32, vp]
     lib.dft_ragged_exchange.restype = i32

@@ -16,7 +16,9 @@ Port of datafusion_tpu/ops/pallas/partition.py.
     / i64 sums, i64 counts, value-dtype MIN/MAX, +-inf for a float slot no
     row reached. Rows with a gid outside [0, num_groups) are dropped, the
     SENTINEL gaps among them. Any row order gives the same result; the
-    slab layout is what makes the kernel fast (one window per chunk).
+    slab layout is what makes the kernel fast (each chunk's rows lie in
+    the window of its first row's bucket, which one block folds from
+    many slabs).
 
 What was the TPU's is gone: payloads keep their own dtype (any 1-, 2-,
 4- or 8-byte type) instead of riding as f32, so there are no 16-bit
@@ -42,6 +44,7 @@ from datafusion_tpu_torch.ops.pallas.segreduce import (
     _finish,
     _identity_tables,
     _validate,
+    fold_tables,
     segmented_reduce_plain,
 )
 
@@ -189,20 +192,21 @@ def windowed_reduce(
     from datafusion_tpu_torch.ops.pallas.cuda_lib import check, load_library
 
     lib = load_library()
-    tables = _identity_tables(ops, values, num_groups, gid.device)
     n = gid.shape[0]
-    if n > 0 and num_groups > 0 and ops:
-        k = len(ops)
-        kinds = (ctypes.c_int * k)(*[_KIND[(op, None if v is None else v.dtype)] for op, v in zip(ops, values)])
-        vptr = (ctypes.c_void_p * k)(*[None if v is None else v.data_ptr() for v in values])
-        mptr = (ctypes.c_void_p * k)(*[None if m is None else m.data_ptr() for m in masks])
-        optr = (ctypes.c_void_p * k)(*[t.data_ptr() for t in tables])
-        with torch.cuda.device(gid.device):
-            stream = torch.cuda.current_stream(gid.device).cuda_stream
-            rc = lib.dft_windowed_reduce(gid.data_ptr(), n, num_groups, k, kinds, vptr, mptr, optr, stream)
-        check(rc, "windowed_reduce kernel")
-        windowed_reduce.launches += 1
-    return _finish(ops, values, tables)
+    if n == 0 or num_groups == 0 or not ops:  # nothing to launch
+        return _finish(ops, values, _identity_tables(ops, values, num_groups, gid.device))
+    tables, (done,) = fold_tables(ops, values, num_groups, gid.device)
+    k = len(ops)
+    kinds = (ctypes.c_int * k)(*[_KIND[(op, None if v is None else v.dtype)] for op, v in zip(ops, values)])
+    vptr = (ctypes.c_void_p * k)(*[None if v is None else v.data_ptr() for v in values])
+    mptr = (ctypes.c_void_p * k)(*[None if m is None else m.data_ptr() for m in masks])
+    optr = (ctypes.c_void_p * k)(*[t.data_ptr() for t in tables])
+    with torch.cuda.device(gid.device):
+        stream = torch.cuda.current_stream(gid.device).cuda_stream
+        rc = lib.dft_windowed_reduce(gid.data_ptr(), n, num_groups, k, kinds, vptr, mptr, optr, done, stream)
+    check(rc, "windowed_reduce kernel")
+    windowed_reduce.launches += 1
+    return tuple(tables)
 
 
 # CUDA kernel launches (one per call that reached the card)

@@ -18,9 +18,11 @@ None means every (kept) row contributes; a value of None is a COUNT.
 Sorted mode (`dense=False`) requires ascending ids with the dropped rows
 in the tail — what the grouped aggregate's co-sort produces. Dense mode
 takes ids in any order with num_groups <= DENSE_MAX_SLOTS (the sort-free
-GROUP BY for small key domains). Dense mode folds all its ops in one
-launch, or in the fewest launches whose tables fit a block's shared
-memory (`fold_launches`, shared with K6).
+GROUP BY for small key domains). Sorted mode reduces every op in one
+launch, or in the fewest launches of at most FOLD_MAX_OPS ops
+(`sorted_launch_ops`); dense mode in the fewest launches whose tables fit
+a block's shared memory (`fold_launches`, shared with K6). Both write the
+fold tables of `fold_tables` and return them as the outputs.
 
 CPU tensors take `segmented_reduce_plain`; CUDA tensors launch
 csrc/segreduce.cu (or raise).
@@ -114,7 +116,9 @@ def fold_tables(ops, values, num_groups, device, lead=(), counters=1):
         spans.append((off, dt))
         off += -(-rows * dt.itemsize // 8) * 8
     buf = torch.zeros(off + 8 * counters, dtype=torch.uint8, device=device)
-    tables = [buf[o: o + rows * dt.itemsize].view(dt).view(*lead, num_groups) for o, dt in spans]
+    tables = [buf[o: o + rows * dt.itemsize].view(dt) for o, dt in spans]
+    if lead:
+        tables = [t.view(*lead, num_groups) for t in tables]
     return tables, [buf.data_ptr() + off + 8 * c for c in range(counters)]
 
 
@@ -155,6 +159,18 @@ def _validate(gid, values, masks, ops, num_groups, dense):
             raise ValueError("masks must be bool")
 
 
+def _even_split(n_ops: int, per: int) -> list[tuple[int, int]]:
+    """`n_ops` ops split evenly into the fewest runs of at most `per`."""
+    n = -(-n_ops // per)
+    return [(i * n_ops // n, (i + 1) * n_ops // n) for i in range(n)]
+
+
+def sorted_launch_ops(n_ops: int) -> list[tuple[int, int]]:
+    """How sorted mode covers `n_ops` ops: `(first op, stop)` per launch,
+    the fewest launches of at most FOLD_MAX_OPS ops, split evenly."""
+    return _even_split(n_ops, FOLD_MAX_OPS)
+
+
 def fold_launches(n_ops: int, num_groups: int) -> list[tuple[int, int, int]]:
     """How the fold tile (K2 dense mode, K6) covers `n_ops` tables of
     `num_groups` slots: `(first op, stop, replicas)` per launch. The op
@@ -165,10 +181,8 @@ def fold_launches(n_ops: int, num_groups: int) -> list[tuple[int, int, int]]:
     when even a single copy does not."""
     table = num_groups * 8
     per = max(1, min(FOLD_MAX_OPS, FOLD_SMEM_BYTES // table))
-    n = -(-n_ops // per)
     out = []
-    for i in range(n):
-        lo, hi = i * n_ops // n, (i + 1) * n_ops // n
+    for lo, hi in _even_split(n_ops, per):
         reps = 1
         while reps < MAX_REPLICAS and 2 * reps * table * (hi - lo) <= REPLICA_BUDGET:
             reps *= 2
@@ -234,22 +248,25 @@ def segmented_reduce(
         return ((ctypes.c_int * k)(*kinds[lo:hi]), (ctypes.c_void_p * k)(*vptr[lo:hi]),
                 (ctypes.c_void_p * k)(*mptr[lo:hi]), (ctypes.c_void_p * k)(*[t.data_ptr() for t in tables[lo:hi]]))
 
+    if dense:  # one launch per group of ops whose tables fit shared memory
+        launches = fold_launches(len(ops), num_groups)
+    else:
+        launches = [(lo, hi, 1) for lo, hi in sorted_launch_ops(len(ops))]
+    tables, done = fold_tables(ops, values, num_groups, gid.device, counters=len(launches))
     with torch.cuda.device(gid.device):
         stream = torch.cuda.current_stream(gid.device).cuda_stream
-        if dense:  # one launch per group of ops whose tables fit shared memory
-            launches = fold_launches(len(ops), num_groups)
-            tables, done = fold_tables(ops, values, num_groups, gid.device, counters=len(launches))
-            for (lo, hi, reps), counter in zip(launches, done):
+        for (lo, hi, reps), counter in zip(launches, done):
+            if dense:
                 rc = lib.dft_segreduce_dense(gid.data_ptr(), n, num_groups, reps, hi - lo, *arrays(lo, hi, tables),
                                              counter, stream)
                 check(rc, "segreduce dense kernel")
                 segmented_reduce.dense_launches += 1
-            return tuple(tables)
-        tables = _identity_tables(ops, values, num_groups, gid.device)
-        rc = lib.dft_segreduce(gid.data_ptr(), n, num_groups, len(ops), *arrays(0, len(ops), tables), stream)
-    check(rc, "segreduce sorted kernel")
-    segmented_reduce.sorted_launches += len(ops)  # one kernel per op
-    return _finish(ops, values, tables)
+            else:
+                rc = lib.dft_segreduce(gid.data_ptr(), n, num_groups, hi - lo, *arrays(lo, hi, tables), counter,
+                                       stream)
+                check(rc, "segreduce sorted kernel")
+                segmented_reduce.sorted_launches += 1
+    return tuple(tables)
 
 
 # CUDA kernel launches per mode

@@ -44,13 +44,6 @@ def main():
         sys.exit(f"torch_walls: imported {port.__file__}, not the checkout at {root}")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
-    # K4 once launched 48 KB of windows (3 ops, as q4 and q5 take) only after
-    # a larger launch had raised its shared-memory limit: warm it so that an
-    # older checkout runs q4 first
-    from datafusion_tpu_torch.ops.pallas import partition as pt
-
-    ids = torch.zeros(1024, dtype=torch.int32, device="cuda")
-    pt.windowed_reduce(ids, [None] * pt.MAX_OPS, [None] * pt.MAX_OPS, ops=("count",) * pt.MAX_OPS, num_groups=16)
     arrays = smoke.main_arrays()
     ctx = port.ExecutionContext(bigdense=True)
     ctx.register_table("big", smoke.main_table(port, arrays))

@@ -130,6 +130,76 @@ def test_segreduce_dense_edges_match_plain(cuda, case, g, n_ops):
     _assert_tables(ops, k, p)
 
 
+def _value_streams(rng, n, n_ops, cuda):
+    """Op a's value (None for COUNT; f64 with NaN / +-inf, i64, f32, i32
+    by a % 4) and mask (none where a % 3 == 1)."""
+    f = rng.standard_normal(n) * 100
+    f[::997], f[5::1999], f[9::2003] = np.nan, np.inf, -np.inf
+    pool = [torch.from_numpy(x).to(cuda) for x in (f, rng.integers(-10**12, 10**12, n),
+                                                  f.astype(np.float32), rng.integers(-10**6, 10**6, n).astype(np.int32))]
+    m1, m2 = (torch.from_numpy(rng.random(n) < p).to(cuda) for p in (0.9, 0.4))
+    ops = tuple(EDGE_OPS[a % len(EDGE_OPS)] for a in range(n_ops))
+    vals = [None if op == "count" else pool[a % 4] for a, op in enumerate(ops)]
+    return ops, vals, [(m1, None, m2)[a % 3] for a in range(n_ops)]
+
+
+@pytest.mark.parametrize("case,n_ops", [("own", 5), ("one", 5), ("long", 5), ("tail", 5), ("split", 15),
+                                        ("split", 33), ("unaligned", 5)])
+def test_segreduce_sorted_edges_match_plain(cuda, case, n_ops):
+    """K2 sorted mode: every row its own group, one group, runs that span
+    tiles and blocks, a tail of dropped ids, 15 and 33 ops (33: two
+    launches), and views one row off the 16-byte alignment."""
+    rng = np.random.default_rng(len(case) + n_ops)
+    n = (1 << 20) + 5
+    ids = {"own": np.arange(n), "one": np.zeros(n, np.int64), "long": np.sort(rng.integers(0, 7, n))}.get(
+        case, np.sort(rng.integers(0, 50_000, n)))
+    g = int(ids.max()) + 1
+    if case == "tail":
+        ids[-123_457:] = g
+    gid = torch.from_numpy(ids.astype(np.int32)).to(cuda)
+    ops, vals, masks = _value_streams(rng, n, n_ops, cuda)
+    if case == "unaligned":
+        gid = gid[1:]
+        vals = [None if v is None else v[1:] for v in vals]
+        masks = [None if m is None else m[1:] for m in masks]
+    before = sr.segmented_reduce.sorted_launches
+    k = sr.segmented_reduce(gid, vals, masks, ops=ops, num_groups=g)
+    assert sr.segmented_reduce.sorted_launches - before == len(sr.sorted_launch_ops(n_ops)) == (1 if n_ops <= 32 else 2)
+    p = sr.segmented_reduce_plain(gid, vals, masks, ops=ops, num_groups=g)
+    torch.cuda.synchronize()
+    _assert_tables(ops, k, p)
+
+
+@pytest.mark.parametrize("case", ["slab", "shuffled", "widest", "skew", "ragged"])
+def test_windowed_reduce_edges_match_plain(cuda, case):
+    """K4 over K3's slab of 10,001 slots; the same slab shuffled (chunks
+    mix buckets: any row order gives the same result); 14 ops over 16,383
+    slots; 80% of the rows on one gid; a row count that ends inside a
+    chunk. One launch each."""
+    from datafusion_tpu_torch.ops.pallas import partition as pt
+
+    rng = np.random.default_rng(len(case))
+    nslots = 16_383 if case == "widest" else 10_001
+    ids = rng.integers(0, nslots + 1, 1 << 20)
+    if case == "skew":
+        ids[rng.random(ids.shape[0]) < 0.8] = 4321
+    id_mod = 1 << nslots.bit_length()
+    slab = pt.slab_partition(torch.from_numpy(ids.astype(np.int32)).to(cuda), [],
+                             n_buckets=-(-(nslots + 1) // pt.WINDOW), id_mod=id_mod)[0]
+    if case == "shuffled":
+        slab = slab[torch.randperm(slab.shape[0], device=cuda)].contiguous()
+    if case == "ragged":
+        slab = slab[: slab.shape[0] - 1000 - 77]
+    n_ops = pt.MAX_OPS if case == "widest" else 5
+    ops, vals, masks = _value_streams(rng, slab.shape[0], n_ops, cuda)
+    before = pt.windowed_reduce.launches
+    k = pt.windowed_reduce(slab, vals, masks, ops=ops, num_groups=nslots)
+    assert pt.windowed_reduce.launches - before == 1
+    p = pt.windowed_reduce_plain(slab, vals, masks, ops=ops, num_groups=nslots)
+    torch.cuda.synchronize()
+    _assert_tables(ops, k, p)
+
+
 def test_fused_stage_kernel_matches_plain(cuda):
     t = _table(1 << 20, 4, cuda)
     ctx = port.ExecutionContext(device=cuda)

@@ -136,6 +136,49 @@ def test_windowed_reduce_matches_jax():
     np.testing.assert_array_equal(mx, wx)
 
 
+@pytest.mark.parametrize("shuffled", [False, True])
+def test_windowed_reduce_widest_op_list(shuffled):
+    """K4's widest op list (MAX_OPS windows: one block's shared memory)
+    over 16,383 slots, a ragged slab and, shuffled, rows in any order:
+    f64 / i64 values beyond the JAX kernel's domain, against an f64 / i64
+    numpy oracle (sums at rtol=1e-12, the rest exact)."""
+    rng = np.random.default_rng(8)
+    nslots, n = 16_383, 6001
+    gid = rng.integers(0, nslots + 1, n).astype(np.int32)  # nslots: unselected rows
+    f = rng.standard_normal(n) * 100
+    iv = rng.integers(-(10**12), 10**12, n)
+    m = rng.random(n) < 0.6
+    id_mod, nb = _layout(nslots)
+    og, of, oiv, om = slab_partition(torch.from_numpy(gid), [torch.from_numpy(a) for a in (f, iv, m)],
+                                     n_buckets=nb, id_mod=id_mod, pblock=4096)
+    if shuffled:
+        perm = torch.from_numpy(rng.permutation(og.shape[0]))
+        og, of, oiv, om = (t[perm].contiguous() for t in (og, of, oiv, om))
+    ops = ("sum", "count", "min", "max", "max", "min", "sum", "count", "sum", "max", "min", "count", "sum", "min")
+    assert len(ops) == MAX_OPS
+    vals = [None if op == "count" else (oiv if a % 3 == 2 else of) for a, op in enumerate(ops)]
+    masks = [(om, None)[a % 2] for a in range(len(ops))]
+    got = windowed_reduce(og, vals, masks, ops=ops, num_groups=nslots)
+    for a, (op, out) in enumerate(zip(ops, got)):
+        x = iv if a % 3 == 2 else f
+        keep = (gid < nslots) & (m if a % 2 == 0 else True)
+        g, x = gid[keep], x[keep]
+        if op == "count":
+            np.testing.assert_array_equal(out.numpy(), np.bincount(g, minlength=nslots))
+        elif op == "sum":
+            want = np.zeros(nslots, x.dtype)
+            np.add.at(want, g, x)
+            np.testing.assert_allclose(out.numpy(), want, rtol=1e-12, atol=1e-9)
+        else:
+            if x.dtype == np.float64:
+                empty = np.inf if op == "min" else -np.inf
+            else:
+                empty = np.iinfo(np.int64).max if op == "min" else np.iinfo(np.int64).min
+            want = np.full(nslots, empty, x.dtype)
+            (np.minimum if op == "min" else np.maximum).at(want, g, x)
+            np.testing.assert_array_equal(out.numpy(), want)
+
+
 def test_slab_reduce_matches_the_plain_reduce():
     """The bigdense reducer (masks packed into gid bits, payloads through
     K3, unpacked for K4) against K2's plain reduce on the unpartitioned

@@ -20,10 +20,12 @@ from datafusion_tpu_torch.ops.pallas.segreduce import (
     FOLD_SMEM_BYTES,
     MAX_REPLICAS,
     REPLICA_BUDGET,
+    FOLD_MAX_OPS,
     fold_launches,
     fold_tables,
     segmented_reduce,
     segmented_reduce_plain,
+    sorted_launch_ops,
 )
 
 
@@ -172,6 +174,31 @@ def test_fold_launches(n_ops, g, want):
     for lo, hi, reps in got:
         assert (hi - lo) * g * 8 <= FOLD_SMEM_BYTES and 1 <= reps <= MAX_REPLICAS and reps & (reps - 1) == 0
         assert reps == 1 or reps * (hi - lo) * g * 8 <= REPLICA_BUDGET
+
+
+@pytest.mark.parametrize("n_ops,want", [
+    (1, [(0, 1)]),
+    (4, [(0, 4)]),  # q2: one launch
+    (FOLD_MAX_OPS, [(0, 32)]),
+    (33, [(0, 16), (16, 33)]),  # split evenly into the fewest launches
+    (65, [(0, 21), (21, 43), (43, 65)]),
+])
+def test_sorted_launch_ops(n_ops, want):
+    assert sorted_launch_ops(n_ops) == want
+
+
+def test_sorted_op_list_past_one_launch():
+    """33 ops, two sorted-mode launches on the card, with masks, f32 and
+    i32 values and a dropped tail, against the JAX kernel."""
+    gid, vals, mask, g = make_case(BLOCK * 2, 150, seed=9, invalid_tail=100)
+    rng = np.random.default_rng(9)
+    ivals = rng.integers(-1000, 1000, gid.shape[0]).astype(np.int32)
+    m2 = mask & (rng.random(gid.shape[0]) < 0.5)
+    ops = tuple(DENSE_EDGE_OPS[a % len(DENSE_EDGE_OPS)] for a in range(33))
+    vs = tuple(None if op == "count" else (ivals if a % 3 == 2 else vals) for a, op in enumerate(ops))
+    ms = tuple((mask, m2)[a % 2] for a in range(33))
+    assert len(sorted_launch_ops(len(ops))) == 2
+    _check(ops, *_both(gid, vs, ms, ops, g))
 
 
 def test_fold_tables_layout():
