@@ -5,11 +5,17 @@ plain PyTorch versions.
 
 Phases, each printed on its own line:
   1. the card (nvidia-smi name and power limit), then the nvcc build of
-     the kernels from datafusion_tpu_torch/csrc/ and its time, and the
-     shared and global atomics the fold kernels compile to (cuobjdump)
-  2. K1 (fused scan/filter/project) against its plain version on the card:
-     random f64/i32 columns with NULLs at 2^25 rows, for the c1 program
-     and a CASE / CAST / integer-divide-by-zero program
+     the kernels from datafusion_tpu_torch/csrc/ and its time, the
+     `-Xptxas -v` report of K1's and K5's kernels (registers, stack frame,
+     spills), and the shared and global atomics the fold kernels compile
+     to (cuobjdump)
+  2. K1 (fused scan/filter/project) against its plain version on the card
+     at 2^25 rows, bit for bit: random f64/i32 columns with NULLs for the
+     c1 program and a CASE / CAST / integer-divide-by-zero program, a
+     program over every value type with its edges (ALL_TYPES: NaN, +-inf,
+     -0.0, INT_MIN / -1, zero divisors), and limits_program() at the
+     kernel's capacity (64 instructions, 32 registers, 12 inputs and
+     outputs, 32 constants)
   3. K2 (segmented reduce) against its plain version on the card at 2^25
      rows, with masks and NaN / +-inf values: sorted mode with 65,536
      groups, every row its own group, one group, 7 groups (runs spanning
@@ -30,7 +36,8 @@ Phases, each printed on its own line:
      plain versions on the card, 2^25 rows over 8 shards laid out by the
      shuffle (parallel/shuffle.py): K5 moving i32, f64 and u8 arrays with
      uniform destinations, 80% of every shard's rows to one shard, and
-     one shard sending nothing (valid prefixes bit-equal); K6 over 10,001
+     one shard sending nothing, and 17 arrays of 1, 2, 4 and 8 bytes in two
+     launches (valid prefixes bit-equal); K6 over 10,001
      slots (1,251 per shard) with SUM f64, COUNT, MIN f64, MAX i32, two
      masks and NaN / +-inf, for uniform gids and 80% of the rows on one
      gid, then 2,048 slots per shard with 14 ops, and a mesh of one shard
@@ -56,10 +63,14 @@ Phases, each printed on its own line:
      m8 the per-shard top-k; each against a numpy oracle and the same
      query in a single-card context, with its EXPLAIN route, the K5 / K6
      launches it made (m5: 9 K2 sorted launches, one per shard and the
-     merge), its warm wall and profile; then K5 at m6's shape against its
-     padded-transpose library call, K6 at m3's shape (event and
-     kernel-only time) and K2 dense at m2's per-shard shape
-Every kernel's kernel-only time comes from torch.profiler (kernel_only_ms).
+     merge), its warm wall and profile; then K1 at m1's shard shape (event,
+     kernel-only and host time of each of its launches), K5 at m6's shape
+     against its padded-transpose library call (and that its wrapper
+     makes no call that copies host memory to the device), K6 at m3's
+     shape (event and kernel-only time) and K2 dense at m2's per-shard
+     shape
+Every kernel's kernel-only time comes from torch.profiler (kernel_only_ms),
+its wrapper's host time from host_only_ms (`host_ms` in the kernels' line).
 The reduce kernels' `library_ms` is one PyTorch call per op of the
 kernel's op list, summed (LIBRARY). Then one JSON line per kernel set (times, bounds, launches) and, last,
 {"ok": true, "device": {...}}. Any failed check raises and exits non-zero.
@@ -109,9 +120,10 @@ def time_ms(fn, reps=5):
     return statistics.median(times)
 
 
-def fused_program(ctx, table_name, sql):
+def fused_program(ctx, table_name, sql, build=None):
     """The K1 program the compiler builds for `sql` (Projection over
-    Selection over TableScan), with the scanned input tensors."""
+    Selection over TableScan), with the scanned input tensors. `build`
+    replaces fused_stage.compile_program (the same arguments)."""
     from datafusion_tpu_torch.ops.pallas import fused_stage as fs
     from datafusion_tpu_torch.plan import logical as L
     from datafusion_tpu_torch.plan.optimizer import push_down_filters, push_down_projection
@@ -124,7 +136,7 @@ def fused_program(ctx, table_name, sql):
     idx = list(range(len(table.schema))) if scan.projection is None else list(scan.projection)
     cols = [table.columns[i] for i in idx]
     computed = [e for e in plan.exprs if not isinstance(e, L.Column)]
-    prog = fs.compile_program(
+    prog = (build or fs.compile_program)(
         table.schema.project(idx), [c.dictionary for c in cols], [c.validity is not None for c in cols],
         sel.expr, computed,
     )
@@ -141,23 +153,39 @@ def program_bytes(prog, ins, n):
     return b * n
 
 
-def compare_k1(prog, ins, n, dev):
+def same_bits(a, b):
+    """Bit for bit, any NaN equal to any NaN (payloads carry no meaning)."""
+    if a.dtype == torch.bool:
+        return torch.equal(a, b)
+    bits = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    same = a.view(bits) == b.view(bits)
+    if a.dtype.is_floating_point:
+        same |= a.isnan() & b.isnan()
+    return bool(same.all())
+
+
+def compare_k1(prog, ins, n, dev, run=None):
     """Kernel vs plain on the same inputs: sel, validity and valid data
-    must be identical (same IEEE operations). Returns max |diff|."""
+    must be identical (same IEEE operations). `run` replaces
+    fused_stage.run_fused (the same arguments). Returns max |diff| over
+    the valid values (NaN against NaN as 0)."""
     from datafusion_tpu_torch.ops.pallas import fused_stage as fs
 
-    ks, ko = fs.run_fused(prog, *ins, n, dev)
+    ks, ko = (run or fs.run_fused)(prog, *ins, n, dev)
     ps, po = fs.evaluate_plain(prog, *ins, n)
     torch.cuda.synchronize()
-    check(torch.equal(ks, ps), "K1 selection differs from the plain version")
+    check((ks is None) == (ps is None) and (ks is None or torch.equal(ks, ps)),
+          "K1 selection differs from the plain version")
     err = 0.0
     for (kd, kv), (pd, pv) in zip(ko, po):
         check((kv is None) == (pv is None) and (kv is None or torch.equal(kv, pv)), "K1 validity differs")
         valid = torch.ones(n, dtype=torch.bool, device=dev) if kv is None else kv
         a, b = kd[valid], pd[valid]
-        check(torch.equal(a, b), "K1 data differs from the plain version")
-        if a.numel():
-            err = max(err, float((a.double() - b.double()).abs().max()))
+        check(a.dtype == b.dtype and same_bits(a, b), "K1 data differs from the plain version")
+        if a.numel() and a.dtype != torch.bool:
+            a, b = a.double(), b.double()
+            diff = torch.where((a == b) | (a.isnan() & b.isnan()), 0.0, (a - b).abs())
+            err = max(err, float(diff.max()))
     return err
 
 
@@ -229,19 +257,81 @@ def kernel_only_ms(fn, name, per_call=1, reps=5):
     """Device time of one call of `fn`, which launches `per_call` kernels
     named `name`: their mean time in torch.profiler over `reps` calls after
     a warm-up, times `per_call` (the mean stands even if the trace misses
-    a launch)."""
+    a launch). On the H100 the tracer has missed every launch of K5's
+    kernel and some of K1's (both take a struct of pointers by value), and
+    some traces recorded no device activity at all: a trace without the
+    kernel is taken once more, and if that misses it too the time is
+    `queued_ms`'s, said so in the log."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if name in e.key and e.device_type == torch.autograd.DeviceType.CUDA]
-    launches = sum(e.count for e in events)
-    check(launches > 0, f"torch.profiler recorded no {name} kernel")
-    return sum(e.self_device_time_total for e in events) / max(launches, 1) * per_call / 1e3
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if name in e.key and e.device_type == torch.autograd.DeviceType.CUDA]
+        launches = sum(e.count for e in events)
+        if launches:
+            return sum(e.self_device_time_total for e in events) / launches * per_call / 1e3
+    ms = queued_ms(fn)
+    log(f"torch.profiler recorded no {name} launch in two traces; its device time is from queued events: {ms:.3f} ms")
+    return ms
+
+
+def queued_ms(fn, reps=20):
+    """Device time of one call of `fn` without the tracer: the calls are
+    enqueued while the card runs a sleep kernel, then timed by CUDA events
+    around them, so the card runs them back to back and no host time
+    enters. Fails if the sleep ended before the last call was enqueued."""
+    fn()
+    torch.cuda.synchronize()
+    slept = torch.cuda.Event()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)  # about 50 ms at the H100's clock
+    slept.record()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    check(not slept.query(), "the card finished its sleep before the timed calls were enqueued")
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def host_copies(fn):
+    """The calls `fn` makes that copy host memory to the card, found by
+    wrapping, for the call, every PyTorch call that can: torch.tensor and
+    torch.as_tensor naming a device, and Tensor.to / .cuda / .copy_ /
+    .pin_memory (any call of these counts). The tracer on this card misses
+    launches and whole traces, so the calls are checked, not a trace."""
+    seen, patched = [], []
+
+    def spy_on(owner, name, copies):
+        real = getattr(owner, name)
+
+        def spy(*a, **kw):
+            if copies(kw):
+                seen.append(name)
+            return real(*a, **kw)
+
+        patched.append((owner, name, real, name in vars(owner)))
+        setattr(owner, name, spy)
+
+    for name in ("tensor", "as_tensor"):
+        spy_on(torch, name, lambda kw: kw.get("device") is not None and torch.device(kw["device"]).type != "cpu")
+    for name in ("to", "cuda", "copy_", "pin_memory"):
+        spy_on(torch.Tensor, name, lambda kw: True)
+    try:
+        fn()
+    finally:
+        for owner, name, real, own in patched:
+            if own:
+                setattr(owner, name, real)
+            else:
+                delattr(owner, name)
+    return seen
 
 
 def host_only_ms(fn, reps=20):
@@ -413,9 +503,26 @@ def phase_build():
     regs = [ln.strip() for ln in ptxas.splitlines() if "registers" in ln]
     log(f"phase 1 build: nvcc sm_90a, {len(cuda_lib.SOURCES)} sources in parallel, {secs:.2f} s; "
         f"{len(regs)} kernel register reports (chiprun_out/ptxas.txt)")
+    for name, props in ptxas_reports(ptxas, ("fused_stage_kernel", "ragged_exchange_kernel")).items():
+        log(f"phase 1 ptxas {name}: {props}")
     cuda_lib.load_library()
     log_shared_atomics(cuda_lib)
     return smi
+
+
+def ptxas_reports(log_text, kernels):
+    """Per compiled kernel whose name contains one of `kernels`: its
+    `-Xptxas -v` lines (stack frame, spills; registers, shared memory)."""
+    import re
+
+    out, name = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", line)
+        if m:
+            name = m.group(1)
+        elif name and any(k in name for k in kernels) and ("stack frame" in line or "Used" in line):
+            out.setdefault(name, []).append(line.split(":", 1)[-1].strip() if "Used" in line else line.strip())
+    return {k: "; ".join(v) for k, v in out.items()}
 
 
 def log_shared_atomics(cuda_lib):
@@ -442,6 +549,113 @@ def log_shared_atomics(cuda_lib):
             f"global {sorted(o for o in ops if not o.startswith('ATOMS'))}")
 
 
+# every value type of K1, for the all-types program: (name, type, numpy
+# dtype); `nv` and `j` carry NULLs
+ALL_TYPES = (("b", "Boolean", np.bool_), ("i8", "Int8", np.int8), ("i16", "Int16", np.int16),
+             ("i32", "Int32", np.int32), ("i64", "Int64", np.int64), ("u8", "UInt8", np.uint8),
+             ("u16", "UInt16", np.uint16), ("u32", "UInt32", np.uint32), ("f32", "Float32", np.float32),
+             ("f64", "Float64", np.float64), ("nv", "Float64", np.float64), ("j", "Int32", np.int32))
+K1_ALL_TYPES = ("SELECT i8 + i8, i16 * i16, i32 / j, u8 - u8, u16 * u16, u32 + u32, f32 * 2 + f32, f64 - nv, "
+                "CAST(i64 AS INT), CAST(f64 AS BIGINT), CAST(u32 AS DOUBLE), i64 % 7 FROM t WHERE b OR f64 > 0")
+
+
+def edge_column(rng, dtype, n):
+    """Values of `dtype` with its edges: zeros, -1, the extremes, and for
+    floats NaN, +-inf and -0.0."""
+    if dtype == np.bool_:
+        return rng.random(n) < 0.5
+    if np.issubdtype(dtype, np.integer):
+        info = np.iinfo(dtype)
+        x = rng.integers(max(info.min, -1000), min(info.max, 1000) + 1, n).astype(dtype)
+        x[::7], x[3::11], x[5::13] = info.min, info.max, 0
+        if info.min < 0:
+            x[6::17] = -1
+        return x
+    x = (rng.standard_normal(n) * 100).astype(dtype)
+    x[::19], x[4::23], x[8::29], x[9::31] = np.nan, np.inf, -np.inf, -0.0
+    return x
+
+
+def limits_program():
+    """A K1 program at the kernel's capacity: 64 instructions over 32
+    registers, 12 inputs of every value type, 32 constants, 12 outputs and
+    a predicate, with registers reused as allocation reuses them and every
+    opcode that is exact on every device (the transcendental functions
+    are left to SQL programs)."""
+    from datafusion_tpu_torch.ops.pallas import fused_stage as fs
+
+    types = (fs.T_BOOL, fs.T_I8, fs.T_I16, fs.T_I32, fs.T_I64, fs.T_U8, fs.T_U16, fs.T_U32, fs.T_F32, fs.T_F64,
+             fs.T_F64, fs.T_I32)
+    consts = [(1.5, fs.T_F64), (2.0, fs.T_F64), (7.5, fs.T_F64), (300, fs.T_I16), (-7, fs.T_I64), (200, fs.T_U8),
+              (0.1, fs.T_F32), (0.5, fs.T_F64), (5, fs.T_I32), (-1, fs.T_I32), (0, fs.T_I64), (123456789012, fs.T_I64),
+              (1000, fs.T_U16), (1 << 31, fs.T_U32)]
+    consts += [(k / 3, fs.T_F64) for k in range(fs.MAX_CONST - len(consts))]
+    code = []
+
+    def op(o, t, d, a=0, b=0, c=0, k=None):  # k: operand b is the immediate consts[k]
+        code.append((o, t, d, a, b if k is None else k, c, 0 if k is None else 1, 0 if k is None else consts[k][1]))
+
+    for i, t in enumerate(types):  # r0-r11: the inputs
+        op(fs.OP_LOAD, t, i, i)
+    for i, t in enumerate(types):  # r12-r23: each input as f64
+        op(fs.OP_CAST, fs.T_F64, 12 + i, i, c=t)
+    op(fs.OP_ADD, fs.T_F64, 24, 21, 22)
+    op(fs.OP_MUL, fs.T_F64, 25, 20, k=0)
+    op(fs.OP_SUB, fs.T_F64, 26, 15, 16)
+    op(fs.OP_DIV, fs.T_F64, 27, 16, 23)  # by zero: +-inf, NaN
+    op(fs.OP_MATH1, fs.T_F64, 28, 24, c=fs.MATH1["abs"])
+    op(fs.OP_MATH1, fs.T_F64, 29, 25, c=fs.MATH1["floor"])
+    op(fs.OP_MATH2, fs.T_F64, 30, 26, c=fs.MATH2["round"], k=1)
+    op(fs.OP_MOD, fs.T_F64, 31, 26, k=2)  # all 32 registers live
+    op(fs.OP_ADD, fs.T_I8, 12, 1, 1)  # integer wrap at every width
+    op(fs.OP_MUL, fs.T_I16, 13, 2, k=3)
+    op(fs.OP_DIV, fs.T_I32, 14, 3, 11)  # NULL on a zero divisor, INT_MIN / -1
+    op(fs.OP_MOD, fs.T_I64, 15, 4, k=4)
+    op(fs.OP_SUB, fs.T_U8, 16, 5, k=5)
+    op(fs.OP_ADD, fs.T_U16, 17, 6, 6)
+    op(fs.OP_MUL, fs.T_U32, 18, 7, 7)
+    op(fs.OP_ADD, fs.T_F32, 19, 8, k=6)
+    op(fs.OP_DIV, fs.T_F32, 20, 19, 8)
+    op(fs.OP_GT, fs.T_F64, 21, 9, k=7)
+    op(fs.OP_LE, fs.T_I32, 22, 3, k=8)
+    op(fs.OP_AND, fs.T_BOOL, 23, 21, 22)
+    op(fs.OP_OR, fs.T_BOOL, 21, 23, 0)
+    op(fs.OP_ISNULL, fs.T_BOOL, 22, 10)
+    op(fs.OP_SELECT, fs.T_F64, 23, 21, 24, c=27)
+    op(fs.OP_SELECT, fs.T_I32, 24, 22, c=14, k=9)
+    op(fs.OP_CAST, fs.T_I64, 25, 23, c=fs.T_F64)  # float -> int saturates
+    op(fs.OP_CAST, fs.T_U8, 26, 28, c=fs.T_F64)
+    op(fs.OP_CAST, fs.T_F32, 27, 15, c=fs.T_I64)
+    op(fs.OP_CAST, fs.T_I16, 28, 14, c=fs.T_I32)
+    op(fs.OP_CAST, fs.T_BOOL, 29, 29, c=fs.T_F64)
+    op(fs.OP_KEEPV, fs.T_F64, 30, 30, 14)
+    op(fs.OP_EQ, fs.T_I64, 31, 15, k=10)
+    op(fs.OP_ISNOTNULL, fs.T_BOOL, 22, 14)
+    op(fs.OP_CONST, fs.T_I64, 21, 11)
+    op(fs.OP_MUL, fs.T_I64, 21, 21, 4)
+    op(fs.OP_NULL, fs.T_F64, 0)
+    op(fs.OP_SELECT, fs.T_F64, 1, 31, 0, c=30)
+    op(fs.OP_NE, fs.T_F32, 2, 20, 19)
+    op(fs.OP_LT, fs.T_U16, 3, 17, k=12)
+    op(fs.OP_GE, fs.T_U32, 4, 18, k=13)
+    op(fs.OP_AND, fs.T_BOOL, 5, 2, 22)
+    outs = ((12, fs.T_I8), (13, fs.T_I16), (24, fs.T_I32), (21, fs.T_I64), (16, fs.T_U8), (17, fs.T_U16),
+            (18, fs.T_U32), (27, fs.T_F32), (1, fs.T_F64), (25, fs.T_I64), (29, fs.T_BOOL), (26, fs.T_U8))
+    return fs.Program(code=code, consts=[fs._const_bits(v, t) for v, t in consts], inputs=list(range(fs.MAX_IN)),
+                      input_types=list(types), outputs=[(r, t, True) for r, t in outs], sel_reg=5, n_regs=fs.MAX_REGS)
+
+
+def limits_inputs(prog, n, dev, rng):
+    """One edge column per input type of limits_program(), each with a
+    validity."""
+    from datafusion_tpu_torch.ops.pallas import fused_stage as fs
+
+    np_of = {fs.T_BOOL: np.bool_, fs.T_I8: np.int8, fs.T_I16: np.int16, fs.T_I32: np.int32, fs.T_I64: np.int64,
+             fs.T_U8: np.uint8, fs.T_U16: np.uint16, fs.T_U32: np.uint32, fs.T_F32: np.float32, fs.T_F64: np.float64}
+    data = [torch.from_numpy(edge_column(rng, np_of[t], n)).to(dev).to(fs._storage(t)) for t in prog.input_types]
+    return data, [torch.from_numpy(rng.random(n) > 0.1).to(dev) for _ in data]
+
+
 def phase_k1(dev):
     import datafusion_tpu_torch as port
     from datafusion_tpu_torch.ops.pallas import fused_stage as fs
@@ -459,18 +673,26 @@ def phase_k1(dev):
     validity = [rng.random(N) > 0.1, None, rng.random(N) > 0.2, None]
     ctx = port.ExecutionContext(device=dev)
     ctx.register_table("nt", port.Table.from_arrays(schema, arrays, validity=validity, device=dev))
+    typed = port.Schema([port.Field(name, P[t], name in ("nv", "j")) for name, t, _ in ALL_TYPES])
+    ctx.register_table("t", port.Table.from_arrays(
+        typed, [edge_column(rng, dt, N) for _, _, dt in ALL_TYPES],
+        validity=[rng.random(N) > 0.2 if name in ("nv", "j") else None for name, _, _ in ALL_TYPES], device=dev))
+    cases = [(name, fused_program(ctx, table, sql)) for name, table, sql in (
+        ("c1", "nt", "SELECT i, a, b, a + b FROM nt WHERE a > 51.0 AND a < 53"),
+        ("case_cast_div0", "nt", "SELECT CASE WHEN a > 52 THEN CAST(i AS DOUBLE) ELSE b / 3 END, i / j, i % j, "
+                                 "CAST(a * 100 AS INT) FROM nt WHERE a IS NULL OR i > 0"),
+        ("all types", "t", K1_ALL_TYPES),
+    )]
+    limits = limits_program()
+    cases.append(("limits", (limits, limits_inputs(limits, N, dev, rng))))
     res = {}
-    for name, sql in (
-        ("c1", "SELECT i, a, b, a + b FROM nt WHERE a > 51.0 AND a < 53"),
-        ("case_cast_div0", "SELECT CASE WHEN a > 52 THEN CAST(i AS DOUBLE) ELSE b / 3 END, i / j, i % j, "
-                           "CAST(a * 100 AS INT) FROM nt WHERE a IS NULL OR i > 0"),
-    ):
-        prog, ins = fused_program(ctx, "nt", sql)
+    for name, (prog, ins) in cases:
         err = compare_k1(prog, ins, N, dev)
         ms = time_ms(lambda: fs.run_fused(prog, *ins, N, dev))
         plain = time_ms(lambda: fs.evaluate_plain(prog, *ins, N), reps=3)
         log(f"phase 2 K1 {name}: kernel == plain at {N} rows (max_abs_err {err}), "
-            f"{len(prog.code)} instructions, kernel {ms:.3f} ms, plain {plain:.3f} ms, "
+            f"{len(prog.code)} instructions over {prog.n_regs} registers ({fs.tile_rows(prog.n_regs)} rows a "
+            f"thread), kernel {ms:.3f} ms, plain {plain:.3f} ms, "
             f"bound {program_bytes(prog, ins, N) / HBM_BYTES_PER_S * 1e3:.3f} ms")
         res[name] = err
     return res
@@ -627,7 +849,10 @@ def phase_k5k6(dev):
     n_dev, n = 8, N // 8
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     k5_err = 0.0
-    for layout in ("uniform", "skew", "empty"):
+    # uniform destinations, 80% of every shard's rows to shard 3, shard 5
+    # sending nothing, and 17 arrays of 1, 2, 4 and 8 bytes (two launches:
+    # one holds 16)
+    for layout in ("uniform", "skew", "empty", "batched"):
         dst, sel, arrays = [], [], []
         for j in range(n_dev):
             d = torch.randint(0, n_dev, (n,), generator=gen, device=dev)
@@ -635,16 +860,24 @@ def phase_k5k6(dev):
                 d = torch.where(torch.rand(n, generator=gen, device=dev) < 0.8, 3, d)
             dst.append(d)
             sel.append(torch.full((n,), not (layout == "empty" and j == 5), dtype=torch.bool, device=dev))
-            arrays.append([
+            cols = [
                 torch.randint(-2**31, 2**31 - 1, (n,), generator=gen, device=dev, dtype=torch.int32),
                 torch.randn(n, generator=gen, device=dev, dtype=torch.float64),
                 torch.randint(0, 256, (n,), generator=gen, device=dev, dtype=torch.uint8),
-            ])
+            ]
+            if layout == "batched":
+                cols += [torch.randint(-2**15, 2**15, (n,), generator=gen, device=dev, dtype=torch.int16),
+                         torch.randint(-2**40, 2**40, (n,), generator=gen, device=dev, dtype=torch.int64)]
+                cols = (cols * 4)[:17]
+            arrays.append(cols)
         sends, sizes, split_cap, chunk = shard_regions(arrays, dst, sel)
+        before = rs.ragged_exchange.launches
         e = compare_k5(sends, sizes, split_cap, chunk)
+        launches = rs.ragged_exchange.launches - before
+        check(launches == (2 if layout == "batched" else 1), f"K5 made {launches} launches for {len(sends[0])} arrays")
         k5_err = max(k5_err, e)
-        log(f"phase 3c K5 {layout}: {N} rows over {n_dev} shards, split_cap {split_cap}, chunk {chunk}: "
-            f"kernel == plain on every valid prefix (max_abs_err {e})")
+        log(f"phase 3c K5 {layout}: {N} rows over {n_dev} shards, {len(sends[0])} arrays, split_cap {split_cap}, "
+            f"chunk {chunk}, {launches} launch(es): kernel == plain on every valid prefix (max_abs_err {e})")
         del sends, arrays
     k6_err = 0.0
     # (shards, slots over all shards, 80% of rows on one gid, ops): m3's
@@ -974,19 +1207,21 @@ def profile_queries(runs, phase="phase 4", out="profile.txt"):
 
 
 def capture(module, name, run):
-    """The arguments of the last call `run()` makes to `module.name`."""
+    """The arguments of every call `run()` makes to `module.name`, as
+    (args, kwargs) in call order."""
     real, box = getattr(module, name), []
 
     def spy(*a, **kw):
         box.append((a, kw))
         return real(*a, **kw)
 
+    spy.__dict__ = real.__dict__  # the launch counters the function keeps on itself
     setattr(module, name, spy)
     try:
         run()
     finally:
         setattr(module, name, real)
-    return box[-1]
+    return box
 
 
 def phase_mesh(dev, big, arrays, kernel_stats):
@@ -1095,8 +1330,23 @@ def phase_mesh(dev, big, arrays, kernel_stats):
         + json.dumps({n: round(v, 3) for n, v in warm.items()}) + f"; launches per query {json.dumps(per_query)}")
     profile_queries(runs, "phase 6", "profile_mesh.txt")
 
+    # K1 at m1's shard shape: each of its launches (one per shard) timed
+    calls = capture(fs, "run_fused", lambda: ctx.sql(queries[0][1]))
+    check(len(calls) == per_query["m1"]["fused_stage"], "m1's K1 calls")
+    rows = []
+    for (prog1, ind, inv, n1, dev1), _ in calls:
+        call1 = lambda: fs.run_fused(prog1, ind, inv, n1, dev1)  # noqa: E731
+        rows.append((n1, time_ms(call1), kernel_only_ms(call1, "fused_stage_kernel"), host_only_ms(call1),
+                     program_bytes(prog1, (ind, inv), n1) / HBM_BYTES_PER_S * 1e3))
+    log(f"phase 6 K1 at m1's shard shape, {len(rows)} launches, {len(prog1.code)} instructions over "
+        f"{prog1.n_regs} registers: " + "; ".join(
+            f"{n1} rows: event {ms:.3f} / kernel {km:.3f} / host {hm:.3f} ms, bound {bd:.3f}"
+            for n1, ms, km, hm, bd in rows)
+        + f"; sums: event {sum(r[1] for r in rows):.3f}, kernel {sum(r[2] for r in rows):.3f}, "
+        f"bound {sum(r[4] for r in rows):.3f} ms")
+
     # K5 and K6 timed on the inputs the main path gave them (m6, m3)
-    (a5, kw5) = capture(sh, "ragged_exchange", lambda: ctx.sql(queries[5][1]))
+    (a5, kw5) = capture(sh, "ragged_exchange", lambda: ctx.sql(queries[5][1]))[-1]
     sends, sizes = a5
     n_dev, split_cap, chunk = kw5["n_dev"], kw5["split_cap"], kw5["chunk"]
     stacked = [torch.stack([s_[a] for s_ in sends]) for a in range(len(sends[0]))]
@@ -1112,11 +1362,13 @@ def phase_mesh(dev, big, arrays, kernel_stats):
         library_ms=time_ms(lambda: [x.view(n_dev, n_dev, split_cap).transpose(0, 1).contiguous() for x in stacked]),
     )
     del stacked
+    copies = host_copies(lambda: rs.ragged_exchange(sends, sizes, **kw5))
+    check(not copies, f"K5's wrapper copied host memory to the device: {copies}")
     s5 = kernel_stats["ragged_exchange"]
     log(f"phase 6 K5 at m6's shape against the padded transpose, same run: event {s5['ms']:.3f} ms, kernel only "
         f"{s5['kernel_ms']:.3f} ms, library {s5['library_ms']:.3f} ms (library / event "
         f"{s5['library_ms'] / s5['ms']:.3f}); K5 {'loses' if s5['ms'] > s5['library_ms'] else 'does not lose'}")
-    (a6, kw6) = capture(sh, "ragged_exchange_fold", lambda: ctx.sql(queries[2][1]))
+    (a6, kw6) = capture(sh, "ragged_exchange_fold", lambda: ctx.sql(queries[2][1]))[-1]
     gids, vals, masks, sizes6 = a6
     L_, S_ = kw6["num_groups"], kw6["split_cap"]
     ops6 = kw6["ops"]
@@ -1152,7 +1404,7 @@ def phase_mesh(dev, big, arrays, kernel_stats):
     # K2 dense at m2's per-shard shape: the last shard's call
     from datafusion_tpu_torch.parallel import dist
 
-    a2, kw2 = capture(dist, "segmented_reduce", lambda: ctx.sql(queries[1][1]))
+    a2, kw2 = capture(dist, "segmented_reduce", lambda: ctx.sql(queries[1][1]))[-1]
     gid2, vals2, masks2 = a2
     call2 = lambda: sr.segmented_reduce(gid2, vals2, masks2, **kw2)  # noqa: E731
     ms2, kms2 = time_ms(call2), kernel_only_ms(call2, "seg_dense")

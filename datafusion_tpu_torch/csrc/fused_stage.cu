@@ -6,20 +6,30 @@
 // CUDA kernel cannot trace closures, so this kernel is an interpreter of
 // a short linear register program (the design of cuDF's compute_column):
 // datafusion_tpu_torch/ops/pallas/fused_stage.py lowers the predicate and
-// every computed projection into one Program at plan time, and each
-// thread evaluates that program for its rows.
+// every computed projection into one Program at plan time, allocates its
+// registers by liveness and folds constants into operands, and this
+// kernel evaluates that program over tiles of rows.
 //
 // What bounds it on this card: bytes. Every input column the program
 // references is read once and every output (the uint8 selection mask,
 // each computed column and its optional validity) is written once, at a
 // handful of operations per byte — far below the H100's ~20 FLOP/byte
-// ridge for f64. The design therefore keeps every intermediate in the
-// thread's register file (8-byte slots plus one validity bit each): the
-// only device-memory traffic is the one read of each input and the one
-// write of each output, with neighbouring threads on neighbouring rows so
-// loads and stores coalesce. The program itself sits in the kernel
-// parameter space (constant bank), so the interpreter's dispatch is
-// uniform across a warp and does not diverge.
+// ridge for f64. So the only device-memory traffic is that one read and
+// one write, and the design keeps the interpreter's own costs off it:
+//   * one dispatch per tile, not per row: a block of FS_THREADS threads
+//     owns a tile of R x FS_THREADS rows and walks the tiles in a
+//     persistent grid; each instruction is decoded once per tile (the
+//     program sits in the parameter space, so the dispatch is uniform)
+//     and runs a loop over the thread's R rows with no switch inside;
+//   * the register file is in shared memory, not local memory: n_regs
+//     rows of R x FS_THREADS 8-byte slots, each thread on its own slots
+//     (lane-consecutive, so no bank conflicts and no barriers), validity
+//     one 32-bit mask per row in the thread's registers; the wrapper
+//     picks R so that a block holds about 64 KB;
+//   * with R >= 2 a thread owns rows in pairs, so a LOAD is R / 2 vector
+//     loads in flight where the column is aligned, coalesced across the
+//     warp; the outputs are stored the same way at the end of the tile;
+//   * an instruction's second operand may be an immediate constant.
 //
 // Semantics carried exactly from the JAX package (ops/expr_eval.py):
 //   * integer `/` truncates and `%` is the C remainder (lax.div/lax.rem);
@@ -34,11 +44,15 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "launch_fill.cuh"
+
 #define DFT_MAX_INSTR 64
 #define DFT_MAX_REGS 32
 #define DFT_MAX_IN 12
 #define DFT_MAX_OUT 12
 #define DFT_MAX_CONST 32
+#define FS_THREADS 256
+#define FS_MAX_SMEM 232448  // an H100 block's shared memory
 
 // value types (logical width + signedness); mirrored in fused_stage.py
 enum {
@@ -62,8 +76,10 @@ enum {
 };
 enum { F_POW = 0, F_FMOD, F_ATAN2, F_ROUND, F_TRUNC };
 
+// imm: operand b is consts[b], valid on every row, not a register;
+// imm_ty is the constant's type, which only the plain version reads
 struct Instr {
-  uint8_t op, ty, dst, a, b, c, pad0, pad1;
+  uint8_t op, ty, dst, a, b, c, imm, imm_ty;
 };
 
 // Laid out with 8-byte members first so the ctypes mirror in
@@ -87,67 +103,30 @@ union Reg {
   long long i;
 };
 
-__device__ __forceinline__ bool is_float(int t) { return t == T_F32 || t == T_F64; }
+__host__ __device__ __forceinline__ bool is_float(int t) { return t == T_F32 || t == T_F64; }
 
-// wrap an integer to its logical width (two's complement / modular)
-__device__ __forceinline__ long long wrap(long long x, int t) {
+// Wrapping an integer to its logical width (two's complement / modular)
+// as one shift pair and a mask, chosen once per instruction.
+struct Wrap {
+  int sh;         // 64 - width for the signed narrow types, else 0
+  long long msk;  // the unsigned types' value mask, else all ones
+  bool to_bool;
+  __device__ __forceinline__ long long operator()(long long x) const {
+    const long long y = ((long long)((unsigned long long)x << sh) >> sh) & msk;
+    return to_bool ? (long long)(x != 0) : y;
+  }
+};
+
+__device__ __forceinline__ Wrap wrap_of(int t) {
   switch (t) {
-    case T_BOOL: return x != 0;
-    case T_I8: return (long long)(int8_t)x;
-    case T_I16: return (long long)(int16_t)x;
-    case T_I32: return (long long)(int32_t)x;
-    case T_U8: return x & 0xFFLL;
-    case T_U16: return x & 0xFFFFLL;
-    case T_U32: return x & 0xFFFFFFFFLL;
-    default: return x;
-  }
-}
-
-__device__ __forceinline__ Reg load(const void* p, int t, long long row) {
-  Reg r;
-  switch (t) {
-    case T_BOOL: r.i = ((const uint8_t*)p)[row] != 0; break;
-    case T_I8: r.i = ((const int8_t*)p)[row]; break;
-    case T_I16: r.i = ((const int16_t*)p)[row]; break;
-    case T_I32: case T_U16: r.i = ((const int32_t*)p)[row]; break;
-    case T_I64: case T_U32: r.i = ((const long long*)p)[row]; break;
-    case T_U8: r.i = ((const uint8_t*)p)[row]; break;
-    case T_F32: r.f = (double)((const float*)p)[row]; break;
-    default: r.f = ((const double*)p)[row]; break;
-  }
-  return r;
-}
-
-__device__ __forceinline__ void store(void* p, int t, long long row, Reg r) {
-  switch (t) {
-    case T_BOOL: ((uint8_t*)p)[row] = r.i != 0; break;
-    case T_I8: ((int8_t*)p)[row] = (int8_t)r.i; break;
-    case T_I16: ((int16_t*)p)[row] = (int16_t)r.i; break;
-    case T_I32: case T_U16: ((int32_t*)p)[row] = (int32_t)r.i; break;
-    case T_I64: case T_U32: ((long long*)p)[row] = r.i; break;
-    case T_U8: ((uint8_t*)p)[row] = (uint8_t)r.i; break;
-    case T_F32: ((float*)p)[row] = __double2float_rn(r.f); break;
-    default: ((double*)p)[row] = r.f; break;
-  }
-}
-
-__device__ __forceinline__ double farith(int op, int t, double x, double y) {
-  if (t == T_F32) {
-    float a = __double2float_rn(x), b = __double2float_rn(y);
-    switch (op) {
-      case OP_ADD: return (double)__fadd_rn(a, b);
-      case OP_SUB: return (double)__fsub_rn(a, b);
-      case OP_MUL: return (double)__fmul_rn(a, b);
-      case OP_DIV: return (double)__fdiv_rn(a, b);
-      default: return (double)fmodf(a, b);
-    }
-  }
-  switch (op) {
-    case OP_ADD: return __dadd_rn(x, y);
-    case OP_SUB: return __dsub_rn(x, y);
-    case OP_MUL: return __dmul_rn(x, y);
-    case OP_DIV: return __ddiv_rn(x, y);
-    default: return fmod(x, y);
+    case T_BOOL: return {0, -1LL, true};
+    case T_I8: return {56, -1LL, false};
+    case T_I16: return {48, -1LL, false};
+    case T_I32: return {32, -1LL, false};
+    case T_U8: return {0, 0xFFLL, false};
+    case T_U16: return {0, 0xFFFFLL, false};
+    case T_U32: return {0, 0xFFFFFFFFLL, false};
+    default: return {0, -1LL, false};
   }
 }
 
@@ -155,41 +134,15 @@ __device__ __forceinline__ double sign_of(double x) {
   return x > 0.0 ? 1.0 : (x < 0.0 ? -1.0 : x);  // lax.sign: keeps +-0, NaN
 }
 
-__device__ double math1(int f, double x) {
-  switch (f) {
-    case F_SQRT: return sqrt(x);
-    case F_ABS: return fabs(x);
-    case F_EXP: return exp(x);
-    case F_LOG: return log(x);
-    case F_LOG10: return log10(x);
-    case F_LOG2: return log2(x);
-    case F_SIN: return sin(x);
-    case F_COS: return cos(x);
-    case F_TAN: return tan(x);
-    case F_ASIN: return asin(x);
-    case F_ACOS: return acos(x);
-    case F_ATAN: return atan(x);
-    case F_FLOOR: return floor(x);
-    case F_CEIL: return ceil(x);
-    default: return sign_of(x);
-  }
+__device__ __forceinline__ double sql_round(double x, double y) {  // half away from zero
+  const double m = pow(10.0, y);
+  const double v = __dmul_rn(x, m);
+  return __ddiv_rn(__dmul_rn(sign_of(v), floor(__dadd_rn(fabs(v), 0.5))), m);
 }
 
-__device__ double math2(int f, double x, double y) {
-  switch (f) {
-    case F_POW: return pow(x, y);
-    case F_FMOD: return fmod(x, y);
-    case F_ATAN2: return atan2(x, y);
-    case F_ROUND: {  // SQL ROUND: half away from zero
-      double m = pow(10.0, y);
-      double v = __dmul_rn(x, m);
-      return __ddiv_rn(__dmul_rn(sign_of(v), floor(__dadd_rn(fabs(v), 0.5))), m);
-    }
-    default: {
-      double m = pow(10.0, y);
-      return __ddiv_rn(trunc(__dmul_rn(x, m)), m);
-    }
-  }
+__device__ __forceinline__ double sql_trunc(double x, double y) {
+  const double m = pow(10.0, y);
+  return __ddiv_rn(trunc(__dmul_rn(x, m)), m);
 }
 
 // value range of an integer type, for saturating float -> int casts
@@ -205,133 +158,465 @@ __device__ __forceinline__ void int_bounds(int t, long long* lo, long long* hi) 
   }
 }
 
-// CAST between value types: `from` is the source type (in `c`). Float ->
-// integer truncates and saturates at the target's range, NaN giving 0
-// (XLA's conversion); integer -> integer wraps to the target width.
-__device__ __forceinline__ Reg cast(Reg v, int from, int to) {
-  Reg r;
-  if (is_float(to)) {
-    double d = is_float(from) ? v.f : (double)v.i;
-    if (to == T_F32) {
-      float f = is_float(from) ? __double2float_rn(v.f) : __ll2float_rn(v.i);
-      d = (double)f;
-    }
-    r.f = d;
-  } else if (to == T_BOOL) {
-    r.i = is_float(from) ? (v.f != 0.0) : (v.i != 0);
-  } else if (is_float(from)) {
-    long long lo, hi;
-    int_bounds(to, &lo, &hi);
-    const double x = v.f;
-    r.i = x != x ? 0 : (x >= (double)hi ? hi : (x <= (double)lo ? lo : __double2ll_rz(x)));
-  } else {
-    r.i = wrap(v.i, to);
+// One tile: rows [base, base + R * FS_THREADS) of n. Thread t's slot r of
+// register x is file[x * R * FS_THREADS + r * FS_THREADS] (file points at
+// the thread's own column). With R >= 2, slots 2q and 2q + 1 hold two
+// neighbouring rows, so a column's rows of one warp are one contiguous
+// range for each q.
+template <int R>
+struct Tile {
+  Reg* file;
+  long long base, n;
+  __device__ __forceinline__ Reg* reg(int x) const { return file + x * (R * FS_THREADS); }
+  __device__ __forceinline__ long long row(int r) const {
+    return R == 1 ? base + threadIdx.x : base + (long long)(r >> 1) * (2 * FS_THREADS) + 2 * threadIdx.x + (r & 1);
   }
-  return r;
+  __device__ __forceinline__ bool whole() const { return base + R * FS_THREADS <= n; }
+};
+
+template <typename S>
+struct alignas(2 * sizeof(S)) Pair {
+  S x, y;
+};
+
+// The thread's R rows of a column; rows past n read as 0. Pairs by one
+// vector load where the tile is whole and the column aligned.
+template <int R, typename S>
+__device__ __forceinline__ void fetch(const S* __restrict__ p, const Tile<R>& t, S (&v)[R]) {
+  if (R > 1 && t.whole() && ((uintptr_t)p & (2 * sizeof(S) - 1)) == 0) {
+#pragma unroll
+    for (int q = 0; q < R / 2; ++q) {
+      const Pair<S> w = *(const Pair<S>*)(p + t.row(2 * q));
+      v[2 * q] = w.x;
+      v[2 * q + 1] = w.y;
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const long long row = t.row(r);
+      v[r] = row < t.n ? p[row] : (S)0;
+    }
+  }
 }
 
-__global__ void fused_stage_kernel(const Program P, long long n) {
-  long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long row = (long long)blockIdx.x * blockDim.x + threadIdx.x; row < n;
-       row += stride) {
-    Reg r[DFT_MAX_REGS];
-    unsigned int valid = 0xFFFFFFFFu;
-    for (int pc = 0; pc < P.n_instr; ++pc) {
-      const Instr in = P.code[pc];
-      const int d = in.dst, a = in.a, b = in.b, t = in.ty;
-      const unsigned int va = (valid >> a) & 1u, vb = (valid >> b) & 1u;
-      unsigned int vd = 1u;
-      Reg out;
-      out.i = 0;
-      switch (in.op) {
-        case OP_LOAD: {
-          out = load(P.in_data[a], P.in_type[a], row);
-          const uint8_t* vp = P.in_valid[a];
-          vd = vp ? (vp[row] != 0) : 1u;
-          break;
-        }
-        case OP_CONST: out.i = P.consts[a]; break;
-        case OP_NULL: vd = 0u; break;
-        case OP_ADD: case OP_SUB: case OP_MUL:
-          if (is_float(t)) {
-            out.f = farith(in.op, t, r[a].f, r[b].f);
-          } else {
-            unsigned long long x = (unsigned long long)r[a].i;
-            unsigned long long y = (unsigned long long)r[b].i;
-            unsigned long long z = in.op == OP_ADD ? x + y : (in.op == OP_SUB ? x - y : x * y);
-            out.i = wrap((long long)z, t);
-          }
-          vd = va & vb;
-          break;
-        case OP_DIV: case OP_MOD:
-          vd = va & vb;
-          if (is_float(t)) {
-            out.f = farith(in.op, t, r[a].f, r[b].f);
-          } else {
-            long long x = r[a].i, y = r[b].i;
-            if (y == 0) {  // NULL on a zero divisor (divide by 1 underneath)
-              vd = 0u;
-              out.i = in.op == OP_DIV ? x : 0;
-            } else if (y == -1) {  // no INT_MIN / -1 overflow trap
-              out.i = in.op == OP_DIV ? wrap((long long)(0ULL - (unsigned long long)x), t) : 0;
-            } else {
-              out.i = wrap(in.op == OP_DIV ? x / y : x % y, t);
-            }
-          }
-          break;
-        case OP_EQ: case OP_NE: case OP_LT: case OP_LE: case OP_GT: case OP_GE: {
-          bool res;
-          if (is_float(t)) {
-            double x = r[a].f, y = r[b].f;
-            res = in.op == OP_EQ ? x == y : in.op == OP_NE ? x != y : in.op == OP_LT ? x < y
-                : in.op == OP_LE ? x <= y : in.op == OP_GT ? x > y : x >= y;
-          } else {
-            long long x = r[a].i, y = r[b].i;
-            res = in.op == OP_EQ ? x == y : in.op == OP_NE ? x != y : in.op == OP_LT ? x < y
-                : in.op == OP_LE ? x <= y : in.op == OP_GT ? x > y : x >= y;
-          }
-          out.i = res;
-          vd = va & vb;
-          break;
-        }
-        case OP_AND: out.i = (r[a].i != 0) && (r[b].i != 0); vd = va & vb; break;
-        case OP_OR: out.i = (r[a].i != 0) || (r[b].i != 0); vd = va & vb; break;
-        case OP_CAST: out = cast(r[a], in.c, t); vd = va; break;
-        case OP_ISNULL: out.i = !va; break;
-        case OP_ISNOTNULL: out.i = va; break;
-        case OP_SELECT: {  // CASE arm: a = condition, b = then, c = else
-          const bool take = (r[a].i != 0) && va;
-          out = take ? r[b] : r[in.c];
-          vd = take ? vb : ((valid >> in.c) & 1u);
-          break;
-        }
-        case OP_KEEPV: out = r[a]; vd = vb; break;  // value of a, validity of b
-        case OP_MATH1: out.f = math1(in.c, r[a].f); vd = va; break;
-        case OP_MATH2: out.f = math2(in.c, r[a].f, r[b].f); vd = va & vb; break;
-        default: break;
-      }
-      r[d] = out;
-      valid = (valid & ~(1u << d)) | (vd << d);
+// The thread's R rows into a column; rows past n are not written.
+template <int R, typename S>
+__device__ __forceinline__ void put(S* __restrict__ p, const Tile<R>& t, const S (&v)[R]) {
+  if (R > 1 && t.whole() && ((uintptr_t)p & (2 * sizeof(S) - 1)) == 0) {
+#pragma unroll
+    for (int q = 0; q < R / 2; ++q) {
+      Pair<S> w;
+      w.x = v[2 * q];
+      w.y = v[2 * q + 1];
+      *(Pair<S>*)(p + t.row(2 * q)) = w;
     }
-    if (P.sel_reg >= 0) {
+  } else {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const long long row = t.row(r);
+      if (row < t.n) p[row] = v[r];
+    }
+  }
+}
+
+#define FS_ROWS _Pragma("unroll") for (int r = 0; r < R; ++r)
+
+template <int R, typename S>
+__device__ __forceinline__ void load_int(const void* p, const Tile<R>& t, Reg* D) {
+  S v[R];
+  fetch<R>((const S*)p, t, v);
+  FS_ROWS D[r * FS_THREADS].i = (long long)v[r];
+}
+
+template <int R, typename S>
+__device__ __forceinline__ void load_float(const void* p, const Tile<R>& t, Reg* D) {
+  S v[R];
+  fetch<R>((const S*)p, t, v);
+  FS_ROWS D[r * FS_THREADS].f = (double)v[r];
+}
+
+template <int R>
+__device__ __forceinline__ void load_bool(const void* p, const Tile<R>& t, Reg* D) {
+  uint8_t v[R];
+  fetch<R>((const uint8_t*)p, t, v);
+  FS_ROWS D[r * FS_THREADS].i = v[r] != 0;
+}
+
+template <int R, typename S>
+__device__ __forceinline__ void store_int(void* p, const Tile<R>& t, const Reg* X) {
+  S v[R];
+  FS_ROWS v[r] = (S)X[r * FS_THREADS].i;
+  put<R>((S*)p, t, v);
+}
+
+template <int R>
+__device__ __forceinline__ void store_bool(void* p, const Tile<R>& t, const Reg* X) {
+  uint8_t v[R];
+  FS_ROWS v[r] = X[r * FS_THREADS].i != 0;
+  put<R>((uint8_t*)p, t, v);
+}
+
+template <int R>
+__device__ __forceinline__ void store_f32(void* p, const Tile<R>& t, const Reg* X) {
+  float v[R];
+  FS_ROWS v[r] = __double2float_rn(X[r * FS_THREADS].f);
+  put<R>((float*)p, t, v);
+}
+
+template <int R>
+__device__ __forceinline__ void store_f64(void* p, const Tile<R>& t, const Reg* X) {
+  double v[R];
+  FS_ROWS v[r] = X[r * FS_THREADS].f;
+  put<R>((double*)p, t, v);
+}
+
+// per-row operand access inside one instruction (see run_instr)
+#define AR(r) A[(r) * FS_THREADS]
+#define BR(r) B[(r) * bstride]
+#define CR(r) C[(r) * FS_THREADS]
+#define DR(r) D[(r) * FS_THREADS]
+#define VA(r) ((valid[r] >> a) & 1u)
+#define VB(r) (((valid[r] >> bsh) & 1u) | bimm)
+#define SETV(r, v) valid[r] = (valid[r] & ~(1u << d)) | ((unsigned)(v) << d)
+
+#define FS_F64_BIN(E) FS_ROWS { const double x = AR(r).f, y = BR(r).f; DR(r).f = (E); }
+#define FS_F32_BIN(E) \
+  FS_ROWS { const float x = __double2float_rn(AR(r).f), y = __double2float_rn(BR(r).f); DR(r).f = (double)(E); }
+#define FS_INT_BIN(E) \
+  FS_ROWS { const unsigned long long x = AR(r).i, y = BR(r).i; DR(r).i = w((long long)(E)); }
+#define FS_CMP(OPC, E)                                                             \
+  case OPC:                                                                        \
+    if (is_float(ty)) {                                                            \
+      FS_ROWS { const double x = AR(r).f, y = BR(r).f; DR(r).i = (E); }            \
+    } else {                                                                       \
+      FS_ROWS { const long long x = AR(r).i, y = BR(r).i; DR(r).i = (E); }         \
+    }                                                                              \
+    break;
+#define FS_MATH1(F, E) \
+  case F: { FS_ROWS { const double x = AR(r).f; DR(r).f = (E); } } break;
+#define FS_MATH2(F, E) \
+  case F: { FS_ROWS { const double x = AR(r).f, y = BR(r).f; DR(r).f = (E); } } break;
+
+// One instruction over the thread's R rows of the tile: decoded once,
+// then one loop per (opcode, type) with no switch inside. A destination
+// may be one of the operands' registers: each row reads its operands
+// before it writes.
+template <int R>
+__device__ __forceinline__ void run_instr(const Program& P, const Instr in, const Tile<R>& t, unsigned (&valid)[R],
+                                          const Reg* s_const) {
+  const int op = in.op, ty = in.ty, d = in.dst, a = in.a, c = in.c;
+  Reg* D = t.reg(d);
+  const Reg* A = t.reg(a);
+  const Reg* C = t.reg(c);
+  // operand b: a register, or the immediate consts[b] read by every row
+  const Reg* B = in.imm ? s_const + in.b : t.reg(in.b);
+  const int bstride = in.imm ? 0 : FS_THREADS;
+  const int bsh = in.imm ? 0 : in.b;
+  const unsigned bimm = in.imm ? 1u : 0u;
+  switch (op) {
+    case OP_LOAD: {
+      const void* p = P.in_data[a];
+      switch (P.in_type[a]) {
+        case T_BOOL: load_bool<R>(p, t, D); break;
+        case T_I8: load_int<R, int8_t>(p, t, D); break;
+        case T_I16: load_int<R, int16_t>(p, t, D); break;
+        case T_I32: case T_U16: load_int<R, int32_t>(p, t, D); break;
+        case T_I64: case T_U32: load_int<R, long long>(p, t, D); break;
+        case T_U8: load_int<R, uint8_t>(p, t, D); break;
+        case T_F32: load_float<R, float>(p, t, D); break;
+        default: load_float<R, double>(p, t, D); break;
+      }
+      const uint8_t* vp = P.in_valid[a];
+      if (vp) {
+        uint8_t v[R];
+        fetch<R>(vp, t, v);
+        FS_ROWS SETV(r, v[r] != 0);
+      } else {
+        FS_ROWS SETV(r, 1u);
+      }
+      break;
+    }
+    case OP_CONST: {
+      const long long k = s_const[a].i;
+      FS_ROWS { DR(r).i = k; SETV(r, 1u); }
+      break;
+    }
+    case OP_NULL: {
+      FS_ROWS { DR(r).i = 0; SETV(r, 0u); }
+      break;
+    }
+    case OP_ADD: case OP_SUB: case OP_MUL: {
+      if (ty == T_F64) {
+        if (op == OP_ADD) {
+          FS_F64_BIN(__dadd_rn(x, y))
+        } else if (op == OP_SUB) {
+          FS_F64_BIN(__dsub_rn(x, y))
+        } else {
+          FS_F64_BIN(__dmul_rn(x, y))
+        }
+      } else if (ty == T_F32) {
+        if (op == OP_ADD) {
+          FS_F32_BIN(__fadd_rn(x, y))
+        } else if (op == OP_SUB) {
+          FS_F32_BIN(__fsub_rn(x, y))
+        } else {
+          FS_F32_BIN(__fmul_rn(x, y))
+        }
+      } else {
+        const Wrap w = wrap_of(ty);
+        if (op == OP_ADD) {
+          FS_INT_BIN(x + y)
+        } else if (op == OP_SUB) {
+          FS_INT_BIN(x - y)
+        } else {
+          FS_INT_BIN(x * y)
+        }
+      }
+      FS_ROWS SETV(r, VA(r) & VB(r));
+      break;
+    }
+    case OP_DIV: case OP_MOD: {
+      if (ty == T_F64) {
+        if (op == OP_DIV) {
+          FS_F64_BIN(__ddiv_rn(x, y))
+        } else {
+          FS_F64_BIN(fmod(x, y))
+        }
+        FS_ROWS SETV(r, VA(r) & VB(r));
+      } else if (ty == T_F32) {
+        if (op == OP_DIV) {
+          FS_F32_BIN(__fdiv_rn(x, y))
+        } else {
+          FS_F32_BIN(fmodf(x, y))
+        }
+        FS_ROWS SETV(r, VA(r) & VB(r));
+      } else {
+        const Wrap w = wrap_of(ty);
+        const bool div = op == OP_DIV;
+        FS_ROWS {
+          const long long x = AR(r).i, y = BR(r).i;
+          unsigned vd = VA(r) & VB(r);
+          long long o;
+          if (y == 0) {  // NULL on a zero divisor (divide by 1 underneath)
+            vd = 0u;
+            o = div ? x : 0;
+          } else if (y == -1) {  // no INT_MIN / -1 overflow trap
+            o = div ? w((long long)(0ULL - (unsigned long long)x)) : 0;
+          } else {
+            o = w(div ? x / y : x % y);
+          }
+          DR(r).i = o;
+          SETV(r, vd);
+        }
+      }
+      break;
+    }
+    case OP_EQ: case OP_NE: case OP_LT: case OP_LE: case OP_GT: case OP_GE:
+      switch (op) {
+        FS_CMP(OP_EQ, x == y)
+        FS_CMP(OP_NE, x != y)
+        FS_CMP(OP_LT, x < y)
+        FS_CMP(OP_LE, x <= y)
+        FS_CMP(OP_GT, x > y)
+        FS_CMP(OP_GE, x >= y)
+      }
+      FS_ROWS SETV(r, VA(r) & VB(r));
+      break;
+    case OP_AND: {
+      FS_ROWS { DR(r).i = (AR(r).i != 0) && (BR(r).i != 0); SETV(r, VA(r) & VB(r)); }
+      break;
+    }
+    case OP_OR: {
+      FS_ROWS { DR(r).i = (AR(r).i != 0) || (BR(r).i != 0); SETV(r, VA(r) & VB(r)); }
+      break;
+    }
+    case OP_CAST: {  // from type c to type ty
+      // float -> integer truncates and saturates at the target's range, NaN
+      // giving 0 (XLA's conversion); integer -> integer wraps
+      if (ty == T_F32) {
+        if (is_float(c)) {
+          FS_ROWS DR(r).f = (double)__double2float_rn(AR(r).f);
+        } else {
+          FS_ROWS DR(r).f = (double)__ll2float_rn(AR(r).i);
+        }
+      } else if (ty == T_F64) {
+        if (is_float(c)) {
+          FS_ROWS DR(r) = AR(r);
+        } else {
+          FS_ROWS DR(r).f = (double)AR(r).i;
+        }
+      } else if (ty == T_BOOL) {
+        if (is_float(c)) {
+          FS_ROWS DR(r).i = AR(r).f != 0.0;
+        } else {
+          FS_ROWS DR(r).i = AR(r).i != 0;
+        }
+      } else if (is_float(c)) {
+        long long lo, hi;
+        int_bounds(ty, &lo, &hi);
+        const double flo = (double)lo, fhi = (double)hi;
+        FS_ROWS {
+          const double x = AR(r).f;
+          DR(r).i = x != x ? 0 : (x >= fhi ? hi : (x <= flo ? lo : __double2ll_rz(x)));
+        }
+      } else {
+        const Wrap w = wrap_of(ty);
+        FS_ROWS DR(r).i = w(AR(r).i);
+      }
+      FS_ROWS SETV(r, VA(r));
+      break;
+    }
+    case OP_ISNULL: {
+      FS_ROWS { DR(r).i = !VA(r); SETV(r, 1u); }
+      break;
+    }
+    case OP_ISNOTNULL: {
+      FS_ROWS { DR(r).i = VA(r); SETV(r, 1u); }
+      break;
+    }
+    case OP_SELECT: {  // CASE arm: a = condition, b = then, c = else
+      FS_ROWS {
+        const bool take = (AR(r).i != 0) && VA(r);
+        const Reg o = take ? BR(r) : CR(r);
+        const unsigned vd = take ? VB(r) : ((valid[r] >> c) & 1u);
+        DR(r) = o;
+        SETV(r, vd);
+      }
+      break;
+    }
+    case OP_KEEPV: {  // value of a, validity of b
+      FS_ROWS { const unsigned vd = VB(r); DR(r) = AR(r); SETV(r, vd); }
+      break;
+    }
+    case OP_MATH1:
+      switch (c) {
+        FS_MATH1(F_SQRT, sqrt(x))
+        FS_MATH1(F_ABS, fabs(x))
+        FS_MATH1(F_EXP, exp(x))
+        FS_MATH1(F_LOG, log(x))
+        FS_MATH1(F_LOG10, log10(x))
+        FS_MATH1(F_LOG2, log2(x))
+        FS_MATH1(F_SIN, sin(x))
+        FS_MATH1(F_COS, cos(x))
+        FS_MATH1(F_TAN, tan(x))
+        FS_MATH1(F_ASIN, asin(x))
+        FS_MATH1(F_ACOS, acos(x))
+        FS_MATH1(F_ATAN, atan(x))
+        FS_MATH1(F_FLOOR, floor(x))
+        FS_MATH1(F_CEIL, ceil(x))
+        default: { FS_ROWS { const double x = AR(r).f; DR(r).f = sign_of(x); } } break;
+      }
+      FS_ROWS SETV(r, VA(r));
+      break;
+    case OP_MATH2:
+      switch (c) {
+        FS_MATH2(F_POW, pow(x, y))
+        FS_MATH2(F_FMOD, fmod(x, y))
+        FS_MATH2(F_ATAN2, atan2(x, y))
+        FS_MATH2(F_ROUND, sql_round(x, y))
+        default: { FS_ROWS { const double x = AR(r).f, y = BR(r).f; DR(r).f = sql_trunc(x, y); } } break;
+      }
+      FS_ROWS SETV(r, VA(r) & VB(r));
+      break;
+    default:
+      break;
+  }
+}
+
+template <int R>
+__global__ void __launch_bounds__(FS_THREADS) fused_stage_kernel(const __grid_constant__ Program P, long long n) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ Reg s_const[DFT_MAX_CONST];
+  if (threadIdx.x < DFT_MAX_CONST) s_const[threadIdx.x].i = P.consts[threadIdx.x];
+  __syncthreads();
+  Tile<R> t;
+  t.file = (Reg*)smem + threadIdx.x;
+  t.n = n;
+  const long long step = (long long)gridDim.x * (R * FS_THREADS);
+  for (t.base = (long long)blockIdx.x * (R * FS_THREADS); t.base < n; t.base += step) {
+    unsigned valid[R];
+    FS_ROWS valid[r] = 0xFFFFFFFFu;
+    for (int pc = 0; pc < P.n_instr; ++pc) run_instr<R>(P, P.code[pc], t, valid, s_const);
+    if (P.sel_reg >= 0) {  // a NULL predicate drops the row
       const int s = P.sel_reg;
-      P.sel[row] = (r[s].i != 0) && ((valid >> s) & 1u);  // NULL predicate drops
+      const Reg* X = t.reg(s);
+      uint8_t v[R];
+      FS_ROWS v[r] = (X[r * FS_THREADS].i != 0) && ((valid[r] >> s) & 1u);
+      put<R>(P.sel, t, v);
     }
     for (int o = 0; o < P.n_out; ++o) {
       const int reg = P.out_reg[o];
-      store(P.out_data[o], P.out_type[o], row, r[reg]);
-      if (P.out_valid[o]) P.out_valid[o][row] = (valid >> reg) & 1u;
+      const Reg* X = t.reg(reg);
+      void* p = P.out_data[o];
+      switch (P.out_type[o]) {
+        case T_BOOL: store_bool<R>(p, t, X); break;
+        case T_I8: store_int<R, int8_t>(p, t, X); break;
+        case T_I16: store_int<R, int16_t>(p, t, X); break;
+        case T_I32: case T_U16: store_int<R, int32_t>(p, t, X); break;
+        case T_I64: case T_U32: store_int<R, long long>(p, t, X); break;
+        case T_U8: store_int<R, uint8_t>(p, t, X); break;
+        case T_F32: store_f32<R>(p, t, X); break;
+        default: store_f64<R>(p, t, X); break;
+      }
+      if (P.out_valid[o]) {
+        uint8_t v[R];
+        FS_ROWS v[r] = (valid[r] >> reg) & 1u;
+        put<R>(P.out_valid[o], t, v);
+      }
     }
   }
 }
 
-extern "C" int dft_fused_stage(const Program* p, long long n, void* stream) {
-  if (n <= 0) return 0;
-  const int threads = 256;
-  long long blocks = (n + threads - 1) / threads;
-  if (blocks > (1LL << 30)) blocks = 1LL << 30;
-  fused_stage_kernel<<<(unsigned int)blocks, threads, 0, (cudaStream_t)stream>>>(*p, n);
+template <int R>
+static int fs_launch(const Program* p, long long n, int n_regs, cudaStream_t stream) {
+  const int smem = n_regs * R * FS_THREADS * (int)sizeof(Reg);
+  if (smem > FS_MAX_SMEM) return (int)cudaErrorInvalidValue;
+  auto kernel = fused_stage_kernel<R>;
+  cudaError_t err;
+  long long blocks = dft_fill_blocks(kernel, FS_THREADS, smem, &err);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = (n + R * FS_THREADS - 1) / (R * FS_THREADS);
+  if (blocks > tiles) blocks = tiles;
+  kernel<<<(unsigned int)blocks, FS_THREADS, smem, stream>>>(*p, n);
   return (int)cudaGetLastError();
+}
+
+// Does every register, input, constant and output the program names lie
+// inside the capacities and the n_regs-register file?
+static bool fs_valid(const Program* p, int n_regs) {
+  if (p->n_instr < 0 || p->n_instr > DFT_MAX_INSTR || p->n_in < 0 || p->n_in > DFT_MAX_IN || p->n_out < 0 ||
+      p->n_out > DFT_MAX_OUT || p->sel_reg >= n_regs)
+    return false;
+  for (int i = 0; i < p->n_instr; ++i) {
+    const Instr& in = p->code[i];
+    if (in.dst >= n_regs || in.op > OP_MATH2) return false;
+    const bool reads_a = in.op >= OP_ADD, reads_b = (in.op >= OP_ADD && in.op <= OP_OR) || in.op == OP_SELECT ||
+                         in.op == OP_KEEPV || in.op == OP_MATH2;
+    if (in.op == OP_LOAD ? in.a >= p->n_in : in.op == OP_CONST ? in.a >= DFT_MAX_CONST : reads_a && in.a >= n_regs)
+      return false;
+    if (reads_b && in.b >= (in.imm ? DFT_MAX_CONST : n_regs)) return false;
+    if (in.op == OP_SELECT && in.c >= n_regs) return false;
+  }
+  for (int o = 0; o < p->n_out; ++o)
+    if (p->out_reg[o] < 0 || p->out_reg[o] >= n_regs) return false;
+  return true;
+}
+
+// K1. p: the program with this call's pointers; n_regs: the registers
+// its code names (1-32); rows: rows per thread of a tile (1, 2, 4 or 8;
+// the wrapper's tile_rows), so a block holds n_regs * rows * 2 KB of
+// shared memory.
+extern "C" int dft_fused_stage(const Program* p, long long n, int n_regs, int rows, void* stream) {
+  if (n <= 0) return 0;
+  if (n_regs < 1 || n_regs > DFT_MAX_REGS || !fs_valid(p, n_regs)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (rows) {
+    case 1: return fs_launch<1>(p, n, n_regs, s);
+    case 2: return fs_launch<2>(p, n, n_regs, s);
+    case 4: return fs_launch<4>(p, n, n_regs, s);
+    case 8: return fs_launch<8>(p, n, n_regs, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" int dft_fused_stage_program_size() { return (int)sizeof(Program); }

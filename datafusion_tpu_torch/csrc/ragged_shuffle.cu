@@ -11,14 +11,15 @@
 // behind a semaphore barrier; K6 stages the arrived chunks through VMEM and
 // folds them with one-hot MXU products. On one card every shard's buffers
 // lie in the same HBM, so there is no peer, no barrier and no landing
-// buffer: K5 is one launch of plain copies, and K6 reads each routed row
+// buffer: K5 is plain copies, and K6 reads each routed row
 // straight from its sender's send buffer, so exchange and fold are one pass.
 //
 // Layout (both kernels): every array is a sender's [n_dev * split_cap]
 // region layout; region i holds the rows for receiver i, valid prefix
 // sizes[j, i] (sizes is the [n_dev, n_dev] int32 count matrix, row j =
-// sender j). K5's pointer tables are int64 device arrays, array-major:
-// ptr[a * n_dev + shard]; K6 takes one packed table (below).
+// sender j). K5 takes its pointers in its launch parameters (ExchangeArgs,
+// below), so its wrapper copies nothing to the device; K6 takes one packed
+// table (below).
 //
 // What bounds both on this card: bytes. K5 reads and writes each live
 // chunk once (a region's last chunk copies up to chunk - 1 rows of its
@@ -26,12 +27,21 @@
 // writes each receiver's tables once. Neither computes more than a few
 // operations per byte.
 //
-// * K5: one block of 256 threads per (chunk k, sender j, receiver i,
-//   array a); a block past ceil(sizes[j, i] / chunk) returns at once. The
-//   block copies chunk k of region i of sender j to region j of receiver
-//   i, in 16-byte words when both addresses allow it. Tails past
-//   sizes[j, i] are not written: the receive validity is
-//   slot % split_cap < sizes[j, i], so no validity rides the exchange.
+// * K5: one block of 256 threads per (chunk k, sender j, receiver i); a
+//   block past ceil(sizes[j, i] / chunk) returns at once, so sizes is read
+//   once per chunk and pair, not once per array. The block copies chunk k
+//   of region i of sender j to region j of receiver i for every array of
+//   the launch: the 16-byte words of all its aligned arrays form one range,
+//   and each thread loads K5_UNROLL words of it before it stores them, so
+//   a thread keeps that many loads in flight whatever the arrays' widths.
+//   An array whose addresses are not 16-byte aligned is copied byte by
+//   byte. Array a's receivers share one buffer, [n_dev][n_dev *
+//   split_cap]: receiver i's view starts at i * n_dev * split_cap, so the
+//   launch needs one receive base per array. Tails past sizes[j, i] are
+//   not written: the receive validity is slot % split_cap < sizes[j, i],
+//   so no validity rides the exchange. The parameter space holds
+//   K5_MAX_SEND sender pointers; the wrapper splits a larger array list
+//   over several launches.
 // * K6: a grid of (B, n_dev receivers) blocks of DFT_FOLD_TPB threads;
 //   B x n_dev blocks fill the SMs at the occupancy the tables' shared
 //   memory allows. Block b of receiver i walks every sender's region i,
@@ -54,28 +64,77 @@
 #include <stdint.h>
 
 #define K5_THREADS 256
+#define K5_UNROLL 4      // 16-byte loads a thread keeps in flight
+#define K5_MAX_ARRS 16   // arrays per launch
+#define K5_MAX_SEND 384  // sender pointers per launch: n_arrs * n_dev
 #define DFT_MAX_DEV 255  // n_dev * n_dev pairs must fit gridDim.y
+
+// K5's pointers, passed by value in the kernel's parameter space (3,272
+// bytes, inside the classic 4 KB limit); mirrored in ragged_shuffle.py.
+struct ExchangeArgs {
+  const void* send[K5_MAX_SEND];  // array-major: array a of sender j at a * n_dev + j
+  void* recv[K5_MAX_ARRS];        // array a's receive buffer, [n_dev][n_dev * split_cap]
+  int esize[K5_MAX_ARRS];         // element widths: 1, 2, 4 or 8 bytes
+  int n_arrs;
+};
 
 // --- K5 ragged exchange --------------------------------------------------------
 __global__ void __launch_bounds__(K5_THREADS)
-ragged_exchange_kernel(const long long* __restrict__ send, const long long* __restrict__ recv,
-                       const int* __restrict__ esize, const int* __restrict__ sizes, int n_dev,
-                       long long split_cap, int chunk) {
+ragged_exchange_kernel(const ExchangeArgs X, const int* __restrict__ sizes, int n_dev, long long split_cap,
+                       int chunk) {
+  __shared__ const uint4* s_src[K5_MAX_ARRS];
+  __shared__ uint4* s_dst[K5_MAX_ARRS];
+  __shared__ long long s_end[K5_MAX_ARRS];  // running sum of the aligned arrays' words
+  __shared__ int s_n;
   const long long k = blockIdx.x;
   const int pair = blockIdx.y;  // j * n_dev + i
-  const int a = blockIdx.z;
   const int j = pair / n_dev, i = pair % n_dev;
-  if (k * chunk >= (long long)sizes[pair]) return;
-  const long long es = esize[a];
-  const unsigned char* src =
-      (const unsigned char*)send[(long long)a * n_dev + j] + ((long long)i * split_cap + k * chunk) * es;
-  unsigned char* dst = (unsigned char*)recv[(long long)a * n_dev + i] + ((long long)j * split_cap + k * chunk) * es;
-  const long long bytes = (long long)chunk * es;
-  if ((((uintptr_t)src | (uintptr_t)dst | (uintptr_t)bytes) & 15) == 0) {
-    const long long words = bytes / 16;
-    for (long long w = threadIdx.x; w < words; w += K5_THREADS) ((uint4*)dst)[w] = ((const uint4*)src)[w];
-  } else {
-    for (long long b = threadIdx.x; b < bytes; b += K5_THREADS) dst[b] = src[b];
+  if (k * chunk >= (long long)sizes[pair]) return;  // block-uniform: a dead chunk
+  const long long src_row = (long long)i * split_cap + k * chunk;
+  const long long dst_row = ((long long)i * n_dev + j) * split_cap + k * chunk;
+  if (threadIdx.x == 0) {
+    long long end = 0;
+    int m = 0;
+    for (int a = 0; a < X.n_arrs; ++a) {
+      const long long es = X.esize[a];
+      const unsigned char* src = (const unsigned char*)X.send[a * n_dev + j] + src_row * es;
+      unsigned char* dst = (unsigned char*)X.recv[a] + dst_row * es;
+      if ((((uintptr_t)src | (uintptr_t)dst) & 15) != 0) continue;  // the byte loop below
+      end += chunk * es / 16;  // chunk >= 128 rows: whole words
+      s_src[m] = (const uint4*)src;
+      s_dst[m] = (uint4*)dst;
+      s_end[m++] = end;
+    }
+    s_n = m;
+  }
+  __syncthreads();
+  const int n_vec = s_n;
+  const long long words = n_vec ? s_end[n_vec - 1] : 0;
+  int m = 0;  // the array of this thread's current word; words only rise
+  for (long long w0 = threadIdx.x; w0 < words; w0 += (long long)K5_THREADS * K5_UNROLL) {
+    uint4 v[K5_UNROLL];
+    uint4* d[K5_UNROLL];
+#pragma unroll
+    for (int u = 0; u < K5_UNROLL; ++u) {
+      const long long w = w0 + (long long)u * K5_THREADS;
+      d[u] = nullptr;
+      if (w < words) {
+        while (w >= s_end[m]) ++m;
+        const long long off = w - (m ? s_end[m - 1] : 0);
+        v[u] = s_src[m][off];
+        d[u] = s_dst[m] + off;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < K5_UNROLL; ++u)
+      if (d[u]) *d[u] = v[u];
+  }
+  for (int a = 0; a < X.n_arrs; ++a) {  // unaligned arrays, byte by byte
+    const long long es = X.esize[a];
+    const unsigned char* src = (const unsigned char*)X.send[a * n_dev + j] + src_row * es;
+    unsigned char* dst = (unsigned char*)X.recv[a] + dst_row * es;
+    if ((((uintptr_t)src | (uintptr_t)dst) & 15) == 0) continue;
+    for (long long b = threadIdx.x; b < chunk * es; b += K5_THREADS) dst[b] = src[b];
   }
 }
 
@@ -122,21 +181,27 @@ ragged_exchange_fold_kernel(const long long* __restrict__ ptrs, const int* __res
 
 // --- C entries -------------------------------------------------------------------
 
-// K5. send / recv: [n_arrs * n_dev] device pointer tables; esize: [n_arrs]
-// device element widths (1, 2, 4 or 8; checked by the wrapper); sizes:
-// [n_dev, n_dev] device int32 counts, each at most split_cap (the caller's
-// contract). chunk is a power of two in [128, 1024] dividing split_cap.
-extern "C" int dft_ragged_exchange(const long long* send, const long long* recv, const int* esize, const int* sizes,
-                                   int n_dev, int n_arrs, long long split_cap, int chunk, void* stream) {
-  if (n_arrs == 0 || split_cap == 0) return 0;
-  if (n_dev < 1 || n_dev > DFT_MAX_DEV || n_arrs < 0 || n_arrs > 65535 || chunk < 128 || chunk > 1024 ||
-      (chunk & (chunk - 1)) != 0 || split_cap < 0 || split_cap % chunk != 0 || split_cap / chunk > 0x7fffffffLL)
+// K5. x: the launch's pointers (ExchangeArgs; x->n_arrs * n_dev <=
+// K5_MAX_SEND); sizes: [n_dev, n_dev] device int32 counts, each at most
+// split_cap (the caller's contract). chunk is a power of two in
+// [128, 1024] dividing split_cap.
+extern "C" int dft_ragged_exchange(const ExchangeArgs* x, const int* sizes, int n_dev, long long split_cap, int chunk,
+                                   void* stream) {
+  if (x->n_arrs == 0 || split_cap == 0) return 0;
+  if (n_dev < 1 || n_dev > DFT_MAX_DEV || x->n_arrs < 0 || x->n_arrs > K5_MAX_ARRS ||
+      x->n_arrs * n_dev > K5_MAX_SEND || chunk < 128 || chunk > 1024 || (chunk & (chunk - 1)) != 0 || split_cap < 0 ||
+      split_cap % chunk != 0 || split_cap / chunk > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned int)(split_cap / chunk), (unsigned int)(n_dev * n_dev), (unsigned int)n_arrs);
-  ragged_exchange_kernel<<<grid, K5_THREADS, 0, (cudaStream_t)stream>>>(send, recv, esize, sizes, n_dev, split_cap,
-                                                                        chunk);
+  for (int a = 0; a < x->n_arrs; ++a) {
+    const int es = x->esize[a];
+    if (es != 1 && es != 2 && es != 4 && es != 8) return (int)cudaErrorInvalidValue;
+  }
+  const dim3 grid((unsigned int)(split_cap / chunk), (unsigned int)(n_dev * n_dev));
+  ragged_exchange_kernel<<<grid, K5_THREADS, 0, (cudaStream_t)stream>>>(*x, sizes, n_dev, split_cap, chunk);
   return (int)cudaGetLastError();
 }
+
+extern "C" int dft_ragged_exchange_args_size() { return (int)sizeof(ExchangeArgs); }
 
 // K6. ptrs: one packed device table of (1 + 2 * n_ops) * n_dev pointers:
 // the senders' int32 window ids, then op a's values by sender (at

@@ -16,8 +16,9 @@
 #include <stdint.h>
 #include <string.h>
 
-#include <mutex>
 #include <type_traits>
+
+#include "launch_fill.cuh"
 
 // op kinds; mirrored in ops/pallas/segreduce.py `_KIND`
 enum {
@@ -438,36 +439,10 @@ __device__ __forceinline__ void fold_flush(unsigned char* smem, int tbl_bytes, i
 }
 
 // The grid that fills the card: blocks of DFT_FOLD_TPB threads with
-// `smem` dynamic bytes each that fit an SM at once, times the SMs.
-// Returns 0 and sets *err when the kernel cannot take `smem`.
-// The answer is kept per (device, kernel, smem): the attribute call and
-// the occupancy query cost host time that a call of a sub-millisecond
-// kernel would pay every time. The kernel's shared-memory limit only ever
-// rises, so a launch with less than the largest `smem` seen still fits.
+// `smem` dynamic bytes each that fit an SM at once, times the SMs
+// (launch_fill.cuh). Returns 0 and sets *err when the kernel cannot take
+// `smem`.
 template <typename K>
 static inline long long fold_blocks(K kernel, int smem, cudaError_t* err) {
-  struct Known { int dev; const void* kernel; int smem; long long blocks; };
-  static Known known[64];
-  static int n_known = 0;
-  static std::mutex mu;
-  int dev = 0;
-  *err = cudaGetDevice(&dev);
-  if (*err != cudaSuccess) return 0;
-  std::lock_guard<std::mutex> lock(mu);
-  int limit = -1;  // the limit set for this kernel on this device so far
-  for (int i = 0; i < n_known; ++i) {
-    if (known[i].dev != dev || known[i].kernel != (const void*)kernel) continue;
-    if (known[i].smem == smem) return known[i].blocks;
-    if (known[i].smem > limit) limit = known[i].smem;
-  }
-  if (smem > limit) *err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (*err != cudaSuccess) return 0;
-  int sms = 0, per_sm = 0;
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, DFT_FOLD_TPB, smem);
-  if (*err == cudaSuccess && per_sm < 1) *err = cudaErrorInvalidConfiguration;
-  if (*err != cudaSuccess) return 0;
-  const long long blocks = (long long)per_sm * sms;
-  if (n_known < 64) known[n_known++] = {dev, (const void*)kernel, smem, blocks};
-  return blocks;
+  return dft_fill_blocks(kernel, DFT_FOLD_TPB, smem, err);
 }

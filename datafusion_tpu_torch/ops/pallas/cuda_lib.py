@@ -30,7 +30,7 @@ PKG_DIR = Path(__file__).resolve().parents[2]
 SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 SOURCES = ("fused_stage.cu", "segreduce.cu", "partition.cu", "ragged_shuffle.cu")
-HEADERS = ("reduce_common.cuh",)
+HEADERS = ("reduce_common.cuh", "launch_fill.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -94,10 +94,15 @@ def build_library(verbose: bool = False) -> tuple[Path, float, str]:
 
 @functools.cache
 def load_library() -> ctypes.CDLL:
-    """The kernels' shared library, built on first use."""
+    """The kernels' shared library, built on first use. The structs passed
+    by value (K1's Program, K5's ExchangeArgs) are checked against their
+    ctypes mirrors once, here."""
+    from datafusion_tpu_torch.ops.pallas.fused_stage import _CProgram
+    from datafusion_tpu_torch.ops.pallas.ragged_shuffle import ExchangeArgs
+
     lib = ctypes.CDLL(str(build_library()[0]))
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.dft_fused_stage.argtypes = [vp, i64, vp]
+    lib.dft_fused_stage.argtypes = [vp, i64, i32, i32, vp]
     lib.dft_fused_stage.restype = i32
     lib.dft_fused_stage_program_size.argtypes = []
     lib.dft_fused_stage_program_size.restype = i32
@@ -109,10 +114,15 @@ def load_library() -> ctypes.CDLL:
     lib.dft_slab_partition.restype = i32
     lib.dft_windowed_reduce.argtypes = [vp, i64, i32, i32, vp, vp, vp, vp, vp, vp]
     lib.dft_windowed_reduce.restype = i32
-    lib.dft_ragged_exchange.argtypes = [vp, vp, vp, vp, i32, i32, i64, i32, vp]
+    lib.dft_ragged_exchange.argtypes = [vp, vp, i32, i64, i32, vp]
     lib.dft_ragged_exchange.restype = i32
+    lib.dft_ragged_exchange_args_size.argtypes = []
+    lib.dft_ragged_exchange_args_size.restype = i32
     lib.dft_ragged_exchange_fold.argtypes = [vp, vp, i32, i64, i32, i32, i32, vp, vp, vp, vp]
     lib.dft_ragged_exchange_fold.restype = i32
+    for name, struct in (("dft_fused_stage_program_size", _CProgram), ("dft_ragged_exchange_args_size", ExchangeArgs)):
+        if getattr(lib, name)() != ctypes.sizeof(struct):
+            raise ExecutionError(f"{struct.__name__}'s layout differs between Python and CUDA")
     return lib
 
 

@@ -4,9 +4,17 @@ Port of datafusion_tpu/ops/pallas/fused_stage.py `run_fused`. The Pallas
 kernel traced a closure of compiled JAX expressions; here the plan
 compiler lowers the predicate and every computed projection into a
 short linear register `Program` (`compile_program`), and one CUDA kernel
-(csrc/fused_stage.cu) interprets it row by row, reading each referenced
-input column once and writing the selection mask plus each computed
-column (and its validity) once.
+(csrc/fused_stage.cu) interprets it a tile of rows at a time, reading
+each referenced input column once and writing the selection mask plus
+each computed column (and its validity) once.
+
+`compile_program` ends with two passes over the builder's program:
+`fold_immediates` lets an instruction read a constant as its second
+operand (so no instruction fills a register with it) and drops the dead
+instructions, and `allocate_registers` maps the logical registers onto
+as few physical ones as the liveness over the linear code allows. The
+kernel keeps the physical registers in shared memory, so fewer of them
+buy a larger tile (`tile_rows`).
 
 The opcode set IS the plan-time whitelist: `compile_program` raises
 `Unsupported` for anything outside it, and the compiler then keeps the
@@ -18,8 +26,9 @@ the CPU tests run it, and chip_smoke.py holds the kernel against it.
 from __future__ import annotations
 
 import ctypes
+import heapq
 import math
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Optional, Sequence
 
 import numpy as np
@@ -103,9 +112,12 @@ class Unsupported(Exception):
 
 @dataclass
 class Program:
-    """A linear register program. `code` rows are (op, type, dst, a, b, c);
-    `inputs` are table column indices (LOAD's `a` indexes this list);
-    `outputs` are (register, type, nullable) per computed expression."""
+    """A linear register program. `code` rows are (op, type, dst, a, b, c,
+    imm, imm_type): with `imm` set, operand b is the constant `consts[b]`
+    (of type imm_type, always valid) rather than a register; `inputs` are
+    table column indices (LOAD's `a` indexes this list); `outputs` are
+    (register, type, nullable) per computed expression. `n_regs` counts
+    the registers the code names."""
 
     code: list = field(default_factory=list)
     consts: list = field(default_factory=list)  # 64-bit patterns
@@ -114,6 +126,7 @@ class Program:
     outputs: list = field(default_factory=list)
     sel_reg: int = -1
     n_regs: int = 0
+    c_program: object = field(default=None, repr=False, compare=False)  # c_program()'s cache
 
 
 def value_type(dt: DataType) -> int:
@@ -151,7 +164,7 @@ class ProgramBuilder:
             raise Unsupported(f"more than {MAX_REGS} registers")
         if len(self.p.code) >= MAX_INSTR:
             raise Unsupported(f"more than {MAX_INSTR} instructions")
-        self.p.code.append((op, ty, dst, a, b, c))
+        self.p.code.append((op, ty, dst, a, b, c, 0, 0))
         self.nullable.append(nullable)
         return dst
 
@@ -331,12 +344,13 @@ class ProgramBuilder:
         raise Unsupported(f"function {e.name}")
 
 
-def compile_program(
+def build_program(
     schema, dicts, nullable: Sequence[bool], predicate: Optional[Expr], computed: Sequence[Expr],
     fn_registry: Optional[dict] = None,
 ) -> Program:
-    """Lower the predicate and each computed expression into one Program.
-    Raises Unsupported when anything falls outside the opcode set."""
+    """Lower the predicate and each computed expression into one Program,
+    one register per instruction (the limits apply here). Raises
+    Unsupported when anything falls outside the opcode set."""
     for name, fn in (fn_registry or {}).items():
         if name in SCALAR_FUNCTIONS and fn is not SCALAR_FUNCTIONS[name]:
             raise Unsupported(f"user function overriding {name}")
@@ -355,13 +369,95 @@ def compile_program(
     return b.p
 
 
+def compile_program(
+    schema, dicts, nullable: Sequence[bool], predicate: Optional[Expr], computed: Sequence[Expr],
+    fn_registry: Optional[dict] = None,
+) -> Program:
+    """The program the kernel runs: `build_program`'s, with constants
+    folded into operands and its registers allocated."""
+    return allocate_registers(fold_immediates(build_program(schema, dicts, nullable, predicate, computed,
+                                                            fn_registry)))
+
+
+# registers each opcode reads: operand a, b (unless an immediate), c
+_READS_A = frozenset(range(OP_ADD, OP_MATH2 + 1))
+_READS_B = frozenset(range(OP_ADD, OP_OR + 1)) | {OP_SELECT, OP_KEEPV, OP_MATH2}
+_IMM_B = _READS_B - {OP_KEEPV}  # KEEPV reads b's validity only
+
+
+def _operands(row) -> tuple[bool, bool, bool]:
+    """Which of instruction `row`'s operands a, b, c name registers."""
+    op, imm = row[0], row[6]
+    return op in _READS_A, op in _READS_B and not imm, op == OP_SELECT
+
+
+def _reads(row) -> list[int]:
+    """The registers instruction `row` reads."""
+    return [x for x, is_reg in zip(row[3:6], _operands(row)) if is_reg]
+
+
+def _pinned(p: Program) -> set:
+    """Registers read after the code: the selection and the outputs."""
+    return {r for r, _, _ in p.outputs} | ({p.sel_reg} if p.sel_reg >= 0 else set())
+
+
+def fold_immediates(p: Program) -> Program:
+    """Constants as operands: an instruction whose second operand is a
+    CONST's register names the constant instead, and instructions whose
+    register nothing reads (those CONSTs) are dropped. `p` is the
+    builder's program, where every register is written once."""
+    const_of = {row[2]: (row[3], row[1]) for row in p.code if row[0] == OP_CONST}
+    code = []
+    for row in p.code:
+        op, ty, d, a, b, c, imm, imm_ty = row
+        if op in _IMM_B and not imm and b in const_of:
+            k, kt = const_of[b]
+            row = (op, ty, d, a, k, c, 1, kt)
+        code.append(row)
+    live, kept = _pinned(p), []
+    for row in reversed(code):
+        if row[2] in live:
+            live.discard(row[2])
+            live.update(_reads(row))
+            kept.append(row)
+    return replace(p, code=kept[::-1], c_program=None)
+
+
+def allocate_registers(p: Program) -> Program:
+    """Map `p`'s registers (each written once) onto the fewest physical
+    ones by liveness over the linear code: a register is free after its
+    last read, and the selection and the outputs stay live to the end.
+    An instruction may write the register one of its operands frees."""
+    pinned = _pinned(p)
+    last = {}
+    for i, row in enumerate(p.code):
+        for r in _reads(row):
+            last[r] = i
+    free, phys, code = list(range(MAX_REGS)), {}, []
+    for i, row in enumerate(p.code):
+        op, ty, d, a, b, c, imm, imm_ty = row
+        regs = _reads(row)
+        a, b, c = (phys[x] if is_reg else x for x, is_reg in zip((a, b, c), _operands(row)))
+        for r in set(regs):
+            if last[r] == i and r not in pinned:
+                heapq.heappush(free, phys[r])
+        phys[d] = heapq.heappop(free)
+        code.append((op, ty, phys[d], a, b, c, imm, imm_ty))
+    return replace(p, code=code, outputs=[(phys[r], t, nl) for r, t, nl in p.outputs],
+                   sel_reg=phys[p.sel_reg] if p.sel_reg >= 0 else -1, n_regs=max(phys.values(), default=-1) + 1,
+                   c_program=None)
+
+
 # ---------------------------------------------------------------------------
 # the plain PyTorch version
 # ---------------------------------------------------------------------------
 
 
+_STORAGE = {t: torch_dtype(dt) for t, dt in _LOGICAL.items()}
+
+
 def _storage(t: int) -> torch.dtype:
-    return torch_dtype(_LOGICAL[t])
+    return _STORAGE[t]
 
 
 def _math1(f: int, x: torch.Tensor) -> torch.Tensor:
@@ -385,6 +481,14 @@ def _math2(f: int, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return torch.trunc(v) / m
 
 
+def _const_tensor(bits: int, t: int, dev) -> torch.Tensor:
+    """A constant's 64-bit pattern as a 0-d tensor of its type's storage."""
+    bits = np.array(bits, np.int64)
+    if t in (T_F32, T_F64):
+        return torch.tensor(float(bits.view(np.float64)), dtype=_storage(t), device=dev)
+    return torch.tensor(int(bits), device=dev).to(_storage(t))
+
+
 def evaluate_plain(
     program: Program,
     in_data: Sequence[torch.Tensor],
@@ -399,36 +503,37 @@ def evaluate_plain(
     vals: list = [None] * program.n_regs
     valid: list = [None] * program.n_regs  # None = all valid
 
-    def v_of(r):
-        return true if valid[r] is None else valid[r]
+    def v_of(v):
+        return true if v is None else v
 
-    def both(a, b):
-        if valid[a] is None:
-            return valid[b]
-        if valid[b] is None:
-            return valid[a]
-        return valid[a] & valid[b]
+    def both(x, y):
+        if x is None:
+            return y
+        if y is None:
+            return x
+        return x & y
 
-    for op, t, d, a, b, c in program.code:
-        vd = None
+    for op, t, d, a, b, c, imm, imm_ty in program.code:
+        vd, y, vy = None, None, None
+        # operand b: a register, or the immediate consts[b] (always valid)
+        if imm:
+            y, vy = _const_tensor(program.consts[b], imm_ty, dev), None
+        elif op in _READS_B:
+            y, vy = vals[b], valid[b]
         if op == OP_LOAD:
             out, vd = in_data[a], in_valid[a]
         elif op == OP_CONST:
-            bits = np.array(program.consts[a], np.int64)
-            if t in (T_F32, T_F64):
-                out = torch.tensor(float(bits.view(np.float64)), dtype=_storage(t), device=dev)
-            else:
-                out = torch.tensor(int(bits), device=dev).to(_storage(t))
+            out = _const_tensor(program.consts[a], t, dev)
         elif op == OP_NULL:
             out = torch.zeros((), dtype=_storage(t), device=dev)
             vd = torch.zeros((), dtype=torch.bool, device=dev)
         elif op in (OP_ADD, OP_SUB, OP_MUL):
             fn = {OP_ADD: torch.add, OP_SUB: torch.sub, OP_MUL: torch.mul}[op]
-            out = wrap_to(fn(vals[a], vals[b]), _LOGICAL[t])
-            vd = both(a, b)
+            out = wrap_to(fn(vals[a], y), _LOGICAL[t])
+            vd = both(valid[a], vy)
         elif op in (OP_DIV, OP_MOD):
-            x, y = vals[a], vals[b]
-            vd = both(a, b)
+            x = vals[a]
+            vd = both(valid[a], vy)
             if t in (T_F32, T_F64):
                 out = torch.div(x, y) if op == OP_DIV else torch.fmod(x, y)
             else:
@@ -437,29 +542,29 @@ def evaluate_plain(
                 vd = nz if vd is None else vd & nz
         elif OP_EQ <= op <= OP_GE:
             fn = (torch.eq, torch.ne, torch.lt, torch.le, torch.gt, torch.ge)[op - OP_EQ]
-            out = fn(vals[a], vals[b])
-            vd = both(a, b)
+            out = fn(vals[a], y)
+            vd = both(valid[a], vy)
         elif op in (OP_AND, OP_OR):
             fn = torch.logical_and if op == OP_AND else torch.logical_or
-            out = fn(vals[a] != 0, vals[b] != 0)
-            vd = both(a, b)
+            out = fn(vals[a] != 0, y != 0)
+            vd = both(valid[a], vy)
         elif op == OP_CAST:
             out = cast_tensor(vals[a], _LOGICAL[t])
             vd = valid[a]
         elif op == OP_ISNULL:
-            out = torch.logical_not(v_of(a))
+            out = torch.logical_not(v_of(valid[a]))
         elif op == OP_ISNOTNULL:
-            out = v_of(a)
+            out = v_of(valid[a])
         elif op == OP_SELECT:
-            take = (vals[a] != 0) & v_of(a)
-            out = torch.where(take, vals[b], vals[c])
-            vd = None if valid[b] is None and valid[c] is None else torch.where(take, v_of(b), v_of(c))
+            take = (vals[a] != 0) & v_of(valid[a])
+            out = torch.where(take, y, vals[c])
+            vd = None if vy is None and valid[c] is None else torch.where(take, v_of(vy), v_of(valid[c]))
         elif op == OP_KEEPV:
-            out, vd = vals[a], valid[b]
+            out, vd = vals[a], vy
         elif op == OP_MATH1:
             out, vd = _math1(c, vals[a]), valid[a]
         elif op == OP_MATH2:
-            out, vd = _math2(c, vals[a], vals[b]), both(a, b)
+            out, vd = _math2(c, vals[a], y), both(valid[a], vy)
         else:
             raise ValueError(f"bad opcode {op}")
         vals[d], valid[d] = out, vd
@@ -470,11 +575,11 @@ def evaluate_plain(
     sel = None
     if program.sel_reg >= 0:
         s = program.sel_reg
-        sel = full((vals[s] != 0) & v_of(s), torch.bool)  # NULL predicate drops
+        sel = full((vals[s] != 0) & v_of(valid[s]), torch.bool)  # NULL predicate drops
     outs = []
     for r, t, nullable in program.outputs:
         data = full(vals[r], _storage(t))
-        outs.append((data, full(v_of(r), torch.bool) if nullable else None))
+        outs.append((data, full(v_of(valid[r]), torch.bool) if nullable else None))
     return sel, outs
 
 
@@ -484,7 +589,7 @@ def evaluate_plain(
 
 
 class _Instr(ctypes.Structure):
-    _fields_ = [(n, ctypes.c_uint8) for n in ("op", "ty", "dst", "a", "b", "c", "pad0", "pad1")]
+    _fields_ = [(n, ctypes.c_uint8) for n in ("op", "ty", "dst", "a", "b", "c", "imm", "imm_ty")]
 
 
 class _CProgram(ctypes.Structure):
@@ -504,6 +609,56 @@ class _CProgram(ctypes.Structure):
         ("out_reg", ctypes.c_int * MAX_OUT),
         ("code", _Instr * MAX_INSTR),
     ]
+
+
+def c_program(program: Program) -> _CProgram:
+    """The kernel's `Program` struct for `program`, built once and kept on
+    it; each call fills in only the pointers (`bind_program`)."""
+    cp = program.c_program
+    if cp is None:
+        if len(program.code) > MAX_INSTR or program.n_regs > MAX_REGS or len(program.consts) > MAX_CONST:
+            raise ValueError("program exceeds the kernel's capacity")
+        cp = _CProgram()
+        cp.consts[: len(program.consts)] = program.consts
+        cp.in_type[: len(program.inputs)] = program.input_types
+        cp.out_type[: len(program.outputs)] = [t for _, t, _ in program.outputs]
+        cp.out_reg[: len(program.outputs)] = [r for r, _, _ in program.outputs]
+        cp.n_instr, cp.n_in, cp.n_out, cp.sel_reg = (
+            len(program.code), len(program.inputs), len(program.outputs), program.sel_reg,
+        )
+        for i, row in enumerate(program.code):
+            cp.code[i] = _Instr(*row)
+        program.c_program = cp
+    return cp
+
+
+def bind_program(cp: _CProgram, in_data, in_valid, outs, sel) -> None:
+    """Point `cp` at one call's tensors: inputs, (data, validity) outputs
+    and the selection (validity and sel may be None)."""
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    cp.in_data[: len(in_data)] = [ptr(d) for d in in_data]
+    cp.in_valid[: len(in_valid)] = [ptr(v) for v in in_valid]
+    cp.out_data[: len(outs)] = [ptr(d) for d, _ in outs]
+    cp.out_valid[: len(outs)] = [ptr(v) for _, v in outs]
+    cp.sel = ptr(sel)
+
+
+# a block's threads, and the 8-byte register slots (n_regs x rows) a thread
+# may hold: 64 KB of shared memory a block
+THREADS, TILE_REGS = 256, 32
+
+
+def tile_rows(n_regs: int) -> int:
+    """Rows per thread of the kernel's tile: the largest of 8, 4, 2, 1
+    whose register file, n_regs x rows x THREADS 8-byte slots, stays
+    within 64 KB of shared memory (R = 8 at 4 registers, 1 at 32)."""
+    for r in (8, 4, 2):
+        if n_regs * r <= TILE_REGS:
+            return r
+    return 1
 
 
 def _check_inputs(program, in_data, in_valid, n, device):
@@ -541,37 +696,17 @@ def run_fused(
     if device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     _check_inputs(program, in_data, in_valid, n, device)
-    if lib.dft_fused_stage_program_size() != ctypes.sizeof(_CProgram):
-        raise RuntimeError("Program layout differs between Python and CUDA")
-    cp = _CProgram()
-    for i, k in enumerate(program.consts):
-        cp.consts[i] = k
-    for i, (d, v) in enumerate(zip(in_data, in_valid)):
-        cp.in_data[i] = d.data_ptr()
-        cp.in_valid[i] = None if v is None else v.data_ptr()
-        cp.in_type[i] = program.input_types[i]
-    outs = []
-    for o, (r, t, nullable) in enumerate(program.outputs):
-        data = torch.empty(n, dtype=_storage(t), device=device)
-        val = torch.empty(n, dtype=torch.bool, device=device) if nullable else None
-        cp.out_data[o] = data.data_ptr()
-        cp.out_valid[o] = None if val is None else val.data_ptr()
-        cp.out_type[o] = t
-        cp.out_reg[o] = r
-        outs.append((data, val))
-    sel = None
-    if program.sel_reg >= 0:
-        sel = torch.empty(n, dtype=torch.bool, device=device)
-        cp.sel = sel.data_ptr()
-    cp.n_instr, cp.n_in, cp.n_out, cp.sel_reg = (
-        len(program.code), len(program.inputs), len(program.outputs), program.sel_reg,
-    )
-    for i, row in enumerate(program.code):
-        cp.code[i] = _Instr(*row, 0, 0)
+    cp = c_program(program)
+    outs = [(torch.empty(n, dtype=_storage(t), device=device),
+             torch.empty(n, dtype=torch.bool, device=device) if nullable else None)
+            for _, t, nullable in program.outputs]
+    sel = torch.empty(n, dtype=torch.bool, device=device) if program.sel_reg >= 0 else None
     if n > 0:
+        bind_program(cp, in_data, in_valid, outs, sel)
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
-            check(lib.dft_fused_stage(ctypes.byref(cp), n, stream), "fused_stage kernel")
+            check(lib.dft_fused_stage(ctypes.byref(cp), n, program.n_regs, tile_rows(program.n_regs), stream),
+                  "fused_stage kernel")
         run_fused.launches += 1
     return sel, outs
 

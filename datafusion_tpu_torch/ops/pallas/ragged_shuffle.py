@@ -14,7 +14,10 @@ is ever dropped and the JAX package's overflow retry has no counterpart.
   * K5 `ragged_exchange(sends, sizes)`: `sends[j]` is shard j's list of
     region-layout arrays (any dtype of 1, 2, 4 or 8 bytes); returns each
     receiver's list. Only `ceil(sizes[j, i] / chunk)` chunks move per
-    pair; tails stay unwritten.
+    pair; tails stay unwritten. On the card, array a's receivers are
+    views of one `[n_dev * n_dev * split_cap]` buffer, and the pointers
+    ride in the kernel's launch parameters (`exchange_args`), so a call
+    makes `n_arrs` allocations and no host-to-device copy.
   * K6 `ragged_exchange_fold`: routed rows carry a receiver-local window
     id (< num_groups <= 2048), per-op values and deduplicated masks; each
     receiver gets K2's per-op tables over its windows
@@ -50,6 +53,7 @@ from datafusion_tpu_torch.ops.pallas.segreduce import (
 
 CHUNKS = (1024, 512, 256, 128)  # K5 chunk sizes, in rows
 MAX_DEV = 255  # csrc/ragged_shuffle.cu DFT_MAX_DEV
+K5_MAX_ARRS, K5_MAX_SEND = 16, 384  # ExchangeArgs' capacity: arrays, sender pointers per launch
 
 
 def pick_chunk(split_cap: int) -> Optional[int]:
@@ -77,29 +81,63 @@ def _check_region(t: torch.Tensor, n_dev: int, split_cap: int, device) -> None:
         raise ValueError("region-layout arrays must be contiguous 1-D [n_dev * split_cap] tensors on one device")
 
 
-def _pointer_table(ts, device) -> torch.Tensor:
-    return torch.tensor([0 if t is None else t.data_ptr() for t in ts], dtype=torch.int64, device=device)
-
-
 # --- K5 ---------------------------------------------------------------------
 
 
 def _check_exchange(sends, sizes, n_dev, split_cap, chunk):
+    """Every check in one pass: sender 0's arrays in full, every other
+    sender's against sender 0's (dtype, shape, contiguity, device)."""
     if len(sends) != n_dev:
         raise ValueError("one list of arrays per sender")
     if chunk not in CHUNKS or split_cap % chunk:
         raise ValueError(f"chunk must be one of {CHUNKS} and divide split_cap")
     dev = sends[0][0].device if sends and sends[0] else sizes.device
     _check_sizes(sizes, n_dev, split_cap, dev)
-    for arrs in sends:
-        if len(arrs) != len(sends[0]):
+    for t in sends[0]:
+        _check_region(t, n_dev, split_cap, dev)
+        if t.element_size() not in (1, 2, 4, 8):
+            raise ValueError(f"dtype {t.dtype} is not 1, 2, 4 or 8 bytes wide")
+    spec = [(t.dtype, t.shape, t.is_contiguous(), t.device) for t in sends[0]]
+    for arrs in sends[1:]:
+        if len(arrs) != len(spec):
             raise ValueError("every sender sends the same arrays")
-        for a, t in enumerate(arrs):
-            _check_region(t, n_dev, split_cap, dev)
-            if t.dtype != sends[0][a].dtype:
-                raise ValueError("an array has one dtype on every sender")
-            if t.element_size() not in (1, 2, 4, 8):
-                raise ValueError(f"dtype {t.dtype} is not 1, 2, 4 or 8 bytes wide")
+        if [(t.dtype, t.shape, t.is_contiguous(), t.device) for t in arrs] != spec:
+            raise ValueError("every sender's arrays must have sender 0's dtypes, shapes, contiguity and device")
+
+
+class ExchangeArgs(ctypes.Structure):
+    """csrc/ragged_shuffle.cu ExchangeArgs: one launch's pointers."""
+
+    _fields_ = [
+        ("send", ctypes.c_void_p * K5_MAX_SEND),
+        ("recv", ctypes.c_void_p * K5_MAX_ARRS),
+        ("esize", ctypes.c_int * K5_MAX_ARRS),
+        ("n_arrs", ctypes.c_int),
+    ]
+
+
+def exchange_args(sends, bufs, n_dev: int) -> list[ExchangeArgs]:
+    """K5's launch parameters: the arrays split into launches of at most
+    K5_MAX_ARRS arrays and K5_MAX_SEND sender pointers, each with its
+    senders' pointers (array-major), its receive buffers and widths."""
+    per = min(K5_MAX_ARRS, K5_MAX_SEND // n_dev)
+    out = []
+    for lo in range(0, len(bufs), per):
+        hi = min(lo + per, len(bufs))
+        x = ExchangeArgs()
+        x.n_arrs = hi - lo
+        x.send[: x.n_arrs * n_dev] = [sends[j][a].data_ptr() for a in range(lo, hi) for j in range(n_dev)]
+        x.recv[: x.n_arrs] = [b.data_ptr() for b in bufs[lo:hi]]
+        x.esize[: x.n_arrs] = [b.element_size() for b in bufs[lo:hi]]
+        out.append(x)
+    return out
+
+
+def receivers(bufs, n_dev: int, split_cap: int) -> list[list[torch.Tensor]]:
+    """Each receiver's arrays: views of the per-array buffers, receiver
+    i's `[n_dev * split_cap]` at i * n_dev * split_cap."""
+    views = [b.view(n_dev, n_dev * split_cap).unbind(0) for b in bufs]
+    return [[v[i] for v in views] for i in range(n_dev)]
 
 
 def ragged_exchange_plain(
@@ -133,7 +171,9 @@ def ragged_exchange(
     chunk: int,
 ) -> list[list[torch.Tensor]]:
     """All-to-all of region-layout arrays (K5, module doc): returns each
-    receiver's arrays, valid in region j's first `sizes[j, i]` rows."""
+    receiver's arrays, valid in region j's first `sizes[j, i]` rows. On
+    the card they are read-only views of one buffer per array; one
+    launch per `exchange_args` entry."""
     sends = [list(s) for s in sends]
     _check_exchange(sends, sizes, n_dev, split_cap, chunk)
     dev = sizes.device
@@ -144,19 +184,15 @@ def ragged_exchange(
     from datafusion_tpu_torch.ops.pallas.cuda_lib import check, load_library
 
     lib = load_library()
-    recvs = [[torch.empty_like(t) for t in sends[0]] for _ in range(n_dev)]
-    n_arrs = len(sends[0])
-    if n_arrs and split_cap:
-        send_p = _pointer_table([sends[j][a] for a in range(n_arrs) for j in range(n_dev)], dev)
-        recv_p = _pointer_table([recvs[i][a] for a in range(n_arrs) for i in range(n_dev)], dev)
-        esize = torch.tensor([t.element_size() for t in sends[0]], dtype=torch.int32, device=dev)
+    bufs = [torch.empty(n_dev * n_dev * split_cap, dtype=t.dtype, device=dev) for t in sends[0]]
+    if bufs and split_cap:
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = lib.dft_ragged_exchange(send_p.data_ptr(), recv_p.data_ptr(), esize.data_ptr(), sizes.data_ptr(),
-                                         n_dev, n_arrs, split_cap, chunk, stream)
-        check(rc, "ragged_exchange kernel")
-        ragged_exchange.launches += 1
-    return recvs
+            for x in exchange_args(sends, bufs, n_dev):
+                check(lib.dft_ragged_exchange(ctypes.byref(x), sizes.data_ptr(), n_dev, split_cap, chunk, stream),
+                      "ragged_exchange kernel")
+                ragged_exchange.launches += 1
+    return receivers(bufs, n_dev, split_cap)
 
 
 # --- K6 ---------------------------------------------------------------------

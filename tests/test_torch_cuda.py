@@ -4,6 +4,11 @@ card run them with `python -m pytest tests/test_torch_cuda.py -q`. The
 file imports neither jax nor the JAX package (the card's machine has
 no JAX)."""
 
+import importlib.util
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -12,6 +17,7 @@ import datafusion_tpu_torch as port
 from datafusion_tpu_torch.ops.pallas import fused_stage as fs
 from datafusion_tpu_torch.ops.pallas import segreduce as sr
 
+ROOT = Path(__file__).resolve().parents[1]
 
 @pytest.fixture
 def cuda():
@@ -200,26 +206,67 @@ def test_windowed_reduce_edges_match_plain(cuda, case):
     _assert_tables(ops, k, p)
 
 
-def test_fused_stage_kernel_matches_plain(cuda):
-    t = _table(1 << 20, 4, cuda)
-    ctx = port.ExecutionContext(device=cuda)
-    ctx.register_table("t", t)
-    plan = ctx.plan("SELECT CASE WHEN j > 0 THEN k / j ELSE -k END, lat * lng - nv, CAST(f AS DOUBLE) FROM t "
-                    "WHERE lat > 40 AND (nv IS NULL OR nv < 7)")
-    sel_node = plan.input
-    cols = [(c.data, c.validity) for c in t.columns]
-    prog = fs.compile_program(sel_node.input.schema, [None] * 6, [c.validity is not None for c in t.columns],
-                              sel_node.expr, list(plan.exprs))
-    ins = ([cols[i][0] for i in prog.inputs], [cols[i][1] for i in prog.inputs])
-    ks, ko = fs.run_fused(prog, *ins, t.num_rows, cuda)
-    ps, po = fs.evaluate_plain(prog, *ins, t.num_rows)
-    torch.cuda.synchronize()
-    assert torch.equal(ks, ps)
-    for (kd, kv), (pd, pv) in zip(ko, po):
-        assert (kv is None) == (pv is None)
-        valid = torch.ones_like(ks) if kv is None else kv
-        assert kv is None or torch.equal(kv, pv)
-        assert torch.equal(kd[valid], pd[valid])
+def _chip_smoke():
+    """chip_smoke.py as a module: its K1 inputs and checks serve here too."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+FIRST_LAUNCH_64KB = """
+import numpy as np, torch
+from datafusion_tpu_torch.ops.pallas import fused_stage as fs
+import chip_smoke
+prog = chip_smoke.limits_program()
+assert fs.tile_rows(prog.n_regs) * prog.n_regs * fs.THREADS * 8 > 48 * 1024
+n = (1 << 16) + 3
+ins = chip_smoke.limits_inputs(prog, n, torch.device("cuda"), np.random.default_rng(2))
+chip_smoke.compare_k1(prog, ins, n, torch.device("cuda"))
+assert fs.run_fused.launches == 1
+print("ok")
+"""
+
+
+@pytest.mark.parametrize("case,n", [("sql", 1 << 20), ("sql", (1 << 20) - 777), ("sql", 100), ("all types", 1 << 20),
+                                    ("all types", (1 << 20) + 5), ("limits", (1 << 20) - 3),
+                                    ("first launch above 48 KB", None)])
+def test_fused_stage_kernel_matches_plain(cuda, case, n):
+    """K1 against its plain version, sel, validity and values bit for bit:
+    a CASE / divide / CAST program, a program over every value type with
+    its edges (NaN, +-inf, INT_MIN / -1, zero divisors), chip_smoke.limits_program()
+    (64 instructions, 32 registers, 12 inputs and outputs: one row a
+    thread, 64 KB of shared memory), row counts that end inside a tile and
+    fill less than one; and in a fresh process whose first K1 launch holds
+    64 KB of shared memory (the kernel's limit must be raised first)."""
+    smoke = _chip_smoke()
+    if case == "first launch above 48 KB":
+        run = subprocess.run([sys.executable, "-c", FIRST_LAUNCH_64KB], cwd=ROOT, capture_output=True, text=True,
+                             timeout=600)
+        assert run.returncode == 0 and run.stdout.strip().endswith("ok"), run.stdout + run.stderr
+        return
+    if case == "limits":
+        prog = smoke.limits_program()
+        ins = smoke.limits_inputs(prog, n, cuda, np.random.default_rng(9))
+    else:
+        ctx = port.ExecutionContext(device=cuda)
+        if case == "sql":
+            ctx.register_table("t", _table(n, 4, cuda))
+            sql = ("SELECT CASE WHEN j > 0 THEN k / j ELSE -k END, lat * lng - nv, CAST(f AS DOUBLE) FROM t "
+                   "WHERE lat > 40 AND (nv IS NULL OR nv < 7)")
+        else:
+            rng = np.random.default_rng(n)
+            P = port.DataType
+            schema = port.Schema([port.Field(c, P[t], c in ("nv", "j")) for c, t, _ in smoke.ALL_TYPES])
+            ctx.register_table("t", port.Table.from_arrays(
+                schema, [smoke.edge_column(rng, dt, n) for _, _, dt in smoke.ALL_TYPES],
+                validity=[rng.random(n) > 0.2 if c in ("nv", "j") else None for c, _, _ in smoke.ALL_TYPES],
+                device=cuda))
+            sql = smoke.K1_ALL_TYPES
+        prog, ins = smoke.fused_program(ctx, "t", sql)
+    before = fs.run_fused.launches
+    assert smoke.compare_k1(prog, ins, n, cuda) == 0.0
+    assert fs.run_fused.launches - before == 1
 
 
 @pytest.mark.parametrize("n", [1 << 20, (1 << 20) - 777])
@@ -270,9 +317,12 @@ def _regions(cuda, arrays, dst, sel, n_dev=8):
     return sends, sizes, split_cap, chunk
 
 
-@pytest.mark.parametrize("layout", ["uniform", "skew", "empty"])
+@pytest.mark.parametrize("layout", ["uniform", "skew", "empty", "batched"])
 def test_ragged_exchange_kernel_matches_plain(cuda, layout):
-    """K5's valid prefixes equal the plain version's bit for bit."""
+    """K5's valid prefixes equal the plain version's bit for bit; 17
+    arrays take two launches (16 a launch), every other call one. Each
+    receiver's arrays are views of one buffer per array, and the wrapper
+    makes no call that copies host memory to the device."""
     from datafusion_tpu_torch.ops.pallas import ragged_shuffle as rs
 
     rng = np.random.default_rng(13)
@@ -284,16 +334,30 @@ def test_ragged_exchange_kernel_matches_plain(cuda, layout):
             d[rng.random(n) < 0.8] = 3
         dst.append(torch.from_numpy(d).to(cuda))
         sel.append(torch.full((n,), not (layout == "empty" and j == 5), device=cuda))
-        arrays.append([torch.from_numpy(rng.integers(-9, 9, n).astype(np.int32)).to(cuda),
-                       torch.from_numpy(rng.standard_normal(n)).to(cuda),
-                       torch.from_numpy(rng.integers(0, 255, n).astype(np.uint8)).to(cuda)])
+        cols = [torch.from_numpy(rng.integers(-9, 9, n).astype(np.int32)).to(cuda),
+                torch.from_numpy(rng.standard_normal(n)).to(cuda),
+                torch.from_numpy(rng.integers(0, 255, n).astype(np.uint8)).to(cuda)]
+        if layout == "batched":
+            cols += [torch.from_numpy(rng.integers(-999, 999, n).astype(np.int16)).to(cuda),
+                     torch.from_numpy(rng.integers(-2**40, 2**40, n)).to(cuda)]
+            cols = (cols * 4)[:17]
+        arrays.append(cols)
     sends, sizes, split_cap, chunk = _regions(cuda, arrays, dst, sel)
+    before = rs.ragged_exchange.launches
     k = rs.ragged_exchange(sends, sizes, n_dev=8, split_cap=split_cap, chunk=chunk)
+    assert rs.ragged_exchange.launches - before == (2 if layout == "batched" else 1)
+    copies = _chip_smoke().host_copies(lambda: rs.ragged_exchange(sends, sizes, n_dev=8, split_cap=split_cap,
+                                                                   chunk=chunk))
+    assert not copies, copies
     p = rs.ragged_exchange_plain(sends, sizes, n_dev=8, split_cap=split_cap, chunk=chunk)
     torch.cuda.synchronize()
     sz = sizes.tolist()
+    for a in range(len(arrays[0])):
+        base = k[0][a]._base
+        assert base is not None and base.numel() == 8 * 8 * split_cap
+        assert all(k[i][a]._base is base and k[i][a].storage_offset() == i * 8 * split_cap for i in range(8))
     for i in range(8):
-        for a in range(3):
+        for a in range(len(arrays[0])):
             for j in range(8):
                 span = slice(j * split_cap, j * split_cap + sz[j][i])
                 assert torch.equal(k[i][a][span], p[i][a][span]), (i, a, j)

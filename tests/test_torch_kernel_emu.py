@@ -1,29 +1,40 @@
-"""The reduce kernels' CUDA source (K2 both modes, K4) run on the CPU.
+"""The kernels' CUDA source (K1, K2 both modes, K4, K5) run on the CPU.
 
 The kernels have no interpret mode, so this file compiles
-`datafusion_tpu_torch/csrc/segreduce.cu` and `partition.cu` with the host
-C++ compiler against a small emulation of the CUDA runtime (EMU_RUNTIME
-below): each block's threads are std::threads, a warp's shuffles and
-ballots and a block's __syncthreads are barriers, blocks run one after
-another (so a static local is the block's shared memory), and atomics take
-a mutex. The C entries are then called through ctypes exactly as the
-wrappers call them, on small inputs, and held to the plain versions:
-counts and MIN/MAX exact, f64 sums at rtol 1e-12. It checks the kernels'
-logic (runs, carries, windows, flushes, the last block's decode); what the
-card's compiler accepts and how fast the kernels run show only on the card
-(chip_smoke.py, tests/test_torch_cuda.py). Skips where no g++ is found.
+`datafusion_tpu_torch/csrc/segreduce.cu`, `partition.cu`,
+`fused_stage.cu` and `ragged_shuffle.cu` with the host C++ compiler
+against a small emulation of the CUDA runtime (EMU_RUNTIME below): each
+block's threads are std::threads, a warp's shuffles and ballots and a
+block's __syncthreads are barriers, blocks run one after another (so a
+static local is the block's shared memory), atomics take a mutex, and the
+rounding intrinsics are the host's IEEE operations (built with
+-ffp-contract=off, so nothing fuses into an FMA). The C entries are then
+called through ctypes with the arguments the wrappers pack (the same
+functions pack them), on small inputs, and held to the plain versions:
+K1 and K5 bit for bit (K1's transcendental functions to 1 ulp: libm is
+not libdevice), counts and MIN/MAX exact, f64 sums at rtol 1e-12. It
+checks the kernels' logic (tiles, register reuse, immediates, runs,
+carries, windows, flushes, the last block's decode, batched launches);
+what the card's compiler accepts and how fast the kernels run show only on
+the card (chip_smoke.py, tests/test_torch_cuda.py). Skips where no g++ is
+found.
 """
 
 import ctypes
+import importlib.util
 import re
 import shutil
 import subprocess
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
+import datafusion_tpu_torch as port
+from datafusion_tpu_torch.ops.pallas import fused_stage as fs
 from datafusion_tpu_torch.ops.pallas import partition as pt
+from datafusion_tpu_torch.ops.pallas import ragged_shuffle as rs
 from datafusion_tpu_torch.ops.pallas import segreduce as sr
 
 EMU_RUNTIME = r"""
@@ -43,6 +54,7 @@ EMU_RUNTIME = r"""
 #define __shared__ static
 #define __launch_bounds__(...)
 #define __align__(n) __attribute__((aligned(n)))
+#define __grid_constant__
 typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorInvalidConfiguration = 9 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
@@ -119,6 +131,16 @@ template <typename T> T __ldcg(const T* p) { std::lock_guard<std::mutex> g(emu_m
 inline int __float_as_int(float x) { int b; memcpy(&b, &x, 4); return b; }
 inline long long __double_as_longlong(double x) { long long b; memcpy(&b, &x, 8); return b; }
 inline double __dadd_rn(double a, double b) { return a + b; }
+inline double __dsub_rn(double a, double b) { return a - b; }
+inline double __dmul_rn(double a, double b) { return a * b; }
+inline double __ddiv_rn(double a, double b) { return a / b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
+inline float __double2float_rn(double x) { return (float)x; }
+inline long long __double2ll_rz(double x) { return (long long)x; }
+inline float __ll2float_rn(long long x) { return (float)x; }
 #define EMU_ATOMIC(T, NAME, EXPR) \
   inline T NAME(T* p, T v) { std::lock_guard<std::mutex> g(emu_mu); T old = *p; *p = EXPR; return old; }
 EMU_ATOMIC(unsigned int, atomicAdd, old + v)
@@ -156,7 +178,7 @@ void emu_launch(dim3 grid, dim3 block, size_t smem, cudaStream_t, F f) {
 
 @pytest.fixture(scope="module")
 def emu(tmp_path_factory):
-    """The reduce kernels' sources built against EMU_RUNTIME, as a ctypes library."""
+    """The kernels' sources built against EMU_RUNTIME, as a ctypes library."""
     from datafusion_tpu_torch.ops.pallas.cuda_lib import SRC_DIR
 
     gxx = shutil.which("g++")
@@ -165,28 +187,35 @@ def emu(tmp_path_factory):
     d = tmp_path_factory.mktemp("kernel_emu")
     (d / "cuda_runtime.h").write_text(EMU_RUNTIME)
     procs = []
-    for name in ("segreduce.cu", "partition.cu"):
+    names = ("segreduce.cu", "partition.cu", "fused_stage.cu", "ragged_shuffle.cu")
+    for name in names:
         src = (SRC_DIR / name).read_text()
         src = src.replace("extern __shared__ __align__(16) unsigned char smem[];", "unsigned char* smem = emu_smem;")
         src = re.sub(r"(\w+)<<<(.*?)>>>\((.*?)\);", r"emu_launch(\2, [&] { \1(\3); });", src, flags=re.S)
         (d / f"{name}.cpp").write_text(src)
         procs.append(subprocess.Popen(
-            [gxx, "-std=c++20", "-O1", "-fPIC", "-pthread", "-Wno-unknown-pragmas", f"-I{d}", f"-I{SRC_DIR}", "-c",
+            [gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-pthread", "-Wno-unknown-pragmas", f"-I{d}",
+             f"-I{SRC_DIR}", "-c",
              str(d / f"{name}.cpp"), "-o", str(d / f"{name}.o")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True))
     for p in procs:
         out, _ = p.communicate()
         assert p.returncode == 0, out
     lib_path = d / "libemu.so"
-    subprocess.run([gxx, "-shared", "-pthread", str(d / "segreduce.cu.o"), str(d / "partition.cu.o"), "-o",
-                    str(lib_path)], check=True)
+    subprocess.run([gxx, "-shared", "-pthread", *[str(d / f"{name}.o") for name in names], "-o", str(lib_path)],
+                   check=True)
     lib = ctypes.CDLL(str(lib_path))
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.dft_segreduce.argtypes = [vp, i64, i32, i32, vp, vp, vp, vp, vp, vp]
     lib.dft_segreduce_dense.argtypes = [vp, i64, i32, i32, i32, vp, vp, vp, vp, vp, vp]
     lib.dft_windowed_reduce.argtypes = [vp, i64, i32, i32, vp, vp, vp, vp, vp, vp]
-    for f in (lib.dft_segreduce, lib.dft_segreduce_dense, lib.dft_windowed_reduce):
+    lib.dft_fused_stage.argtypes = [vp, i64, i32, i32, vp]
+    lib.dft_ragged_exchange.argtypes = [vp, vp, i32, i64, i32, vp]
+    for f in (lib.dft_segreduce, lib.dft_segreduce_dense, lib.dft_windowed_reduce, lib.dft_fused_stage,
+              lib.dft_ragged_exchange):
         f.restype = i32
+    assert lib.dft_fused_stage_program_size() == ctypes.sizeof(fs._CProgram)
+    assert lib.dft_ragged_exchange_args_size() == ctypes.sizeof(rs.ExchangeArgs)
     return lib
 
 
@@ -304,3 +333,193 @@ def test_dense_kernel_matches_plain(emu, monkeypatch, g, n_ops):
     ops, vals, masks = _streams(rng, gid.shape[0], n_ops)
     k, _ = _launch(emu, "dense", gid, vals, masks, ops, g)
     _assert_tables(ops, k, sr.segmented_reduce_plain(gid, vals, masks, ops=ops, num_groups=g))
+
+
+# --- K1: the fused stage's tile interpreter ----------------------------------
+
+def _chip_smoke():
+    """chip_smoke.py as a module: its K1 inputs (value types and their
+    edges, limits_program()'s columns, the program itself) serve these checks too."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+smoke = _chip_smoke()
+
+
+def _typed_table(n, seed):
+    """A table of every value type (smoke.ALL_TYPES); `nv` and `j` carry NULLs."""
+    rng = np.random.default_rng(seed)
+    P = port.DataType
+    schema = port.Schema([port.Field(name, P[t], name in ("nv", "j")) for name, t, _ in smoke.ALL_TYPES])
+    arrays = [smoke.edge_column(rng, dt, n) for _, _, dt in smoke.ALL_TYPES]
+    validity = [rng.random(n) > 0.2 if name in ("nv", "j") else None for name, _, _ in smoke.ALL_TYPES]
+    return port.Table.from_arrays(schema, arrays, validity=validity, device="cpu")
+
+
+def _sql_program(table, sql):
+    """The K1 program the compiler builds for `sql` over `table` (as t),
+    with its input tensors."""
+    from datafusion_tpu_torch.plan import logical as L
+    from datafusion_tpu_torch.plan.optimizer import push_down_filters, push_down_projection
+
+    ctx = port.ExecutionContext(device="cpu")
+    ctx.register_table("t", table)
+    plan = push_down_projection(push_down_filters(ctx.plan(sql)))
+    sel = plan.input if isinstance(plan.input, L.Selection) else None
+    scan = plan.input.input if sel is not None else plan.input
+    idx = list(range(len(table.schema))) if scan.projection is None else list(scan.projection)
+    cols = [table.columns[i] for i in idx]
+    computed = [e for e in plan.exprs if not isinstance(e, L.Column)]
+    prog = fs.compile_program(table.schema.project(idx), [c.dictionary for c in cols],
+                              [c.validity is not None for c in cols], None if sel is None else sel.expr, computed)
+    return prog, ([cols[i].data for i in prog.inputs], [cols[i].validity for i in prog.inputs])
+
+
+def _limits_inputs(n, seed):
+    """smoke.limits_program() and one edge column per input type, each with a validity."""
+    prog = smoke.limits_program()
+    return prog, smoke.limits_inputs(prog, n, "cpu", np.random.default_rng(seed))
+
+
+def run_k1(lib, prog, ins, n):
+    """The wrapper's launch on CPU tensors: the cached C program bound to
+    fresh outputs, one C call."""
+    outs = [(torch.empty(n, dtype=fs._storage(t)), torch.empty(n, dtype=torch.bool) if nl else None)
+            for _, t, nl in prog.outputs]
+    sel = torch.empty(n, dtype=torch.bool) if prog.sel_reg >= 0 else None
+    cp = fs.c_program(prog)
+    fs.bind_program(cp, *ins, outs, sel)
+    assert lib.dft_fused_stage(ctypes.byref(cp), n, prog.n_regs, fs.tile_rows(prog.n_regs), None) == 0
+    return sel, outs
+
+
+def _bits(x):
+    return x.view({1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[x.element_size()]).long()
+
+
+def assert_k1(got, want, ulps=0):
+    """sel and validity equal; every valid value bit for bit (any NaN
+    equal to any NaN: payloads carry no meaning), or floats within `ulps`
+    units in the last place."""
+    assert (got[0] is None) == (want[0] is None) and (got[0] is None or torch.equal(got[0], want[0]))
+    for (kd, kv), (pd, pv) in zip(got[1], want[1]):
+        assert kd.dtype == pd.dtype and (kv is None) == (pv is None)
+        assert kv is None or torch.equal(kv, pv)
+        live = torch.ones_like(kd, dtype=torch.bool) if kv is None else kv
+        a, b = kd[live], pd[live]
+        if kd.dtype == torch.bool:
+            assert torch.equal(a, b)
+        elif kd.dtype.is_floating_point:
+            off = ~((_bits(a) == _bits(b)) | (a.isnan() & b.isnan()))
+            assert bool(((_bits(a) - _bits(b))[off].abs() <= ulps).all())
+        else:
+            assert torch.equal(_bits(a), _bits(b))
+
+
+K1_SQL = {
+    "all types": smoke.K1_ALL_TYPES,
+    "ints": "SELECT i8 + i8, i16 * i16, i32 / j, i32 % j, i64 - i64 * 3, u8 + u8, u16 * u16, u32 + u32, "
+            "CAST(i32 AS SMALLINT), CAST(i64 AS INT), CAST(u32 AS TINYINT) FROM t WHERE j IS NOT NULL OR b",
+    "floats": "SELECT f32 * 2 + f32, f32 / f32, f64 - nv, f64 / 0.0, f64 % 3.5, CAST(f64 AS INT), CAST(f64 AS BIGINT), "
+              "CAST(f32 AS DOUBLE), CAST(i64 AS FLOAT), CAST(u8 AS DOUBLE), abs(f64), floor(nv) FROM t "
+              "WHERE f64 > -50 AND nv < 80",
+    "compares": "SELECT i8 < i16, u16 >= 100, f32 = f32, f64 <> nv, nv IS NULL, CAST(f64 AS BOOLEAN) FROM t "
+                "WHERE b OR u8 < 30",
+    "case": "SELECT CASE WHEN j > 0 THEN i32 WHEN j < 0 THEN j END, CASE WHEN nv IS NULL THEN f64 ELSE nv END, "
+            "sign(f64), round(f64, 2), trunc(nv, 1) FROM t WHERE j IS NOT NULL",
+    "one register": "SELECT f64 FROM t WHERE b",
+    "transcendental": "SELECT sqrt(f64), exp(nv / 30), ln(f64), log10(nv), log2(f64), sin(f64), cos(nv), tan(f64), "
+                      "atan(f64), power(nv, 1.5), atan2(f64, nv), asin(nv / 100) FROM t",
+}
+
+
+@pytest.mark.parametrize("case,n", [("all types", 4099), ("ints", 5003), ("floats", 5003), ("compares", 5003),
+                                    ("case", 100), ("one register", 3 * 2048), ("transcendental", 2049),
+                                    ("limits", 3001), ("limits", 200), ("limits", 0)])
+def test_fused_stage_kernel_matches_plain(emu, monkeypatch, case, n):
+    """K1 on programs the compiler builds over every value type (NULLs,
+    integer /0 and INT_MIN / -1, NaN, +-inf, -0.0), tiles of 8, 4, 2 and 1
+    rows a thread, and smoke.limits_program() at the kernel's capacity;
+    `n` below one tile, not a multiple of it, and 0. The emulated card has
+    2 SMs, so each block walks several tiles."""
+    monkeypatch.setenv("EMU_SMS", "2")
+    if case == "limits":
+        prog, ins = _limits_inputs(n, 7)
+        assert (len(prog.code), prog.n_regs, len(prog.inputs), len(prog.outputs), len(prog.consts)) == (
+            fs.MAX_INSTR, fs.MAX_REGS, fs.MAX_IN, fs.MAX_OUT, fs.MAX_CONST)
+    else:
+        prog, ins = _sql_program(_typed_table(n, len(case)), K1_SQL[case])
+    got = run_k1(emu, prog, ins, n)
+    assert_k1(got, fs.evaluate_plain(prog, *ins, n), ulps=1 if case == "transcendental" else 0)
+
+
+def test_fused_stage_tiles_and_checks(emu):
+    """Every tile size the wrapper picks occurs, the immediates shorten
+    q1's program to 6 instructions over 3 registers, and the C entry
+    refuses a program that names a register past n_regs."""
+    t = _typed_table(64, 3)
+    sizes = {fs.tile_rows(_sql_program(t, K1_SQL[c])[0].n_regs) for c in K1_SQL} | {fs.tile_rows(fs.MAX_REGS)}
+    assert sizes == {1, 2, 4, 8}
+    q1, _ = _sql_program(t, "SELECT i32, f64, nv, f64 + nv FROM t WHERE f64 > 51.0 AND f64 < 53")
+    assert (len(q1.code), q1.n_regs) == (6, 3)
+    prog, ins = _limits_inputs(64, 1)
+    cp = fs.c_program(prog)
+    fs.bind_program(cp, *ins, [(torch.empty(64, dtype=fs._storage(t)), torch.empty(64, dtype=torch.bool))
+                                for _, t, _ in prog.outputs], torch.empty(64, dtype=torch.bool))
+    assert emu.dft_fused_stage(ctypes.byref(cp), 64, prog.n_regs - 1, 1, None) != 0
+    assert emu.dft_fused_stage(ctypes.byref(cp), 64, prog.n_regs, 3, None) != 0
+
+
+# --- K5: the ragged exchange ---------------------------------------------------
+
+K5_CASES = {  # n_dev, split_cap, chunk, dtypes, which senders' arrays sit one element off alignment
+    "widths": (4, 512, 128, (torch.uint8, torch.int16, torch.int32, torch.float64, torch.int64, torch.float32), ()),
+    "chunk 1024": (3, 2048, 1024, (torch.float64, torch.uint8, torch.int32), ()),
+    "empty pairs": (4, 256, 128, (torch.int32, torch.float64), ()),
+    "one shard": (1, 384, 128, (torch.int64, torch.uint8), ()),
+    "batched": (2, 256, 128, (torch.uint8, torch.int16, torch.int32, torch.float64) * 4 + (torch.int64,), ()),
+    "unaligned": (4, 256, 128, (torch.int16, torch.float64, torch.int32), (1, 2)),
+}
+
+
+@pytest.mark.parametrize("case", list(K5_CASES))
+def test_ragged_exchange_kernel_matches_plain(emu, case):
+    """K5 through `exchange_args` and `receivers`, as the wrapper calls it:
+    every valid prefix bit-equal to the plain version; nothing written past
+    a pair's live chunks; one launch per 16 arrays (17 arrays: two)."""
+    n_dev, split_cap, chunk, dtypes, off = K5_CASES[case]
+    rng = np.random.default_rng(len(case))
+    sizes = rng.integers(0, split_cap + 1, (n_dev, n_dev))
+    sizes[0, -1] = split_cap
+    if case == "empty pairs":
+        sizes[1, :], sizes[:, 2] = 0, 0
+    sizes = torch.from_numpy(sizes.astype(np.int32))
+    width = n_dev * split_cap
+
+    def region(dt, j):
+        raw = torch.from_numpy(rng.integers(0, 256, (width + 1) * 8).astype(np.uint8))
+        x = raw.view(dt)[: width + 1]
+        return x[1:] if j in off else x[:width]
+
+    sends = [[region(dt, j) for dt in dtypes] for j in range(n_dev)]
+    bufs = [torch.full((n_dev * width,), 0x5A, dtype=torch.uint8).view(torch.uint8).to(dt) for dt in dtypes]
+    blank = [b.clone() for b in bufs]
+    launches = rs.exchange_args(sends, bufs, n_dev)
+    assert len(launches) == (2 if len(dtypes) > rs.K5_MAX_ARRS else 1)
+    for x in launches:
+        assert emu.dft_ragged_exchange(ctypes.byref(x), sizes.data_ptr(), n_dev, split_cap, chunk, None) == 0
+    got = rs.receivers(bufs, n_dev, split_cap)
+    want = rs.ragged_exchange_plain(sends, sizes, n_dev=n_dev, split_cap=split_cap, chunk=chunk)
+    sz = sizes.tolist()
+    for i in range(n_dev):
+        assert all(g.data_ptr() == b.data_ptr() + i * width * b.element_size() for g, b in zip(got[i], bufs))
+        for a, (g, w) in enumerate(zip(got[i], want[i])):
+            for j in range(n_dev):
+                lo = j * split_cap
+                assert torch.equal(_bits(g[lo: lo + sz[j][i]]), _bits(w[lo: lo + sz[j][i]])), (i, a, j)
+                live = -(-sz[j][i] // chunk) * chunk
+                tail = slice(i * width + lo + live, i * width + lo + split_cap)
+                assert torch.equal(_bits(bufs[a][tail]), _bits(blank[a][tail])), (i, a, j)
