@@ -1416,6 +1416,229 @@ def phase_mesh(dev, big, arrays, kernel_stats):
         f"{per_query['m2']['segreduce_dense']} times")
 
 
+PRIORITIES = ("1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED", "5-LOW")  # TPC-H o_orderpriority
+PREFIX = 1 << 20  # rows of the row-order case
+
+
+def join_arrays(n=N, seed=SEED + 7):
+    """Phase 7's columns as numpy arrays, from the seed. `o`, lineitem's
+    l_orderkey for big's n rows: dbgen's sparse keys (order i's key is
+    (i // 8) * 32 + i % 8 + 1, so 8 of every 32 keys are used, TPC-H
+    4.2.3) with 1-7 lines an order; about 1/16 of the orders get no line.
+    `line_order` is each line's order index; orders holds every order up
+    to the one the cut at n rows falls in."""
+    rng = np.random.default_rng(seed)
+    m = int(n / 3.5) + 64
+    lines = rng.integers(1, 8, m)
+    lines[rng.random(m) < 1 / 16] = 0
+    ends = np.cumsum(lines)
+    m = int(np.searchsorted(ends, n)) + 1
+    lines = lines[:m]
+    lines[-1] -= int(ends[m - 1]) - n
+    idx = np.arange(m)
+    keys = ((idx // 8) * 32 + idx % 8 + 1).astype(np.int32)
+    line_order = np.repeat(idx, lines)
+    return {
+        "o": keys[line_order], "line_order": line_order,
+        "o_orderkey": keys, "o_totalprice": np.round(rng.uniform(857.71, 555285.16, m), 2),
+        "o_orderpriority": rng.integers(0, len(PRIORITIES), m).astype(np.int32),
+        "s_suppkey": np.arange(1, 10_001, dtype=np.int32),
+        "s_acctbal": np.round(rng.uniform(-999.99, 9999.99, 10_000), 2),  # about 9% negative
+        "pk": np.arange(1000, dtype=np.int32), "w": rng.random(1000),
+    }
+
+
+def join_tables(port, big, ja, dev):
+    """Phase 7's tables on the card: big plus `o` (phase 4's columns, no
+    copy), orders, supplier and dim."""
+    P = port.DataType
+
+    def col(dt, a, vocab=None):
+        return port.Column(dt, torch.from_numpy(a).to(dev), None, vocab)
+
+    def table(fields, cols):
+        return port.Table(port.Schema([port.Field(f, c.dtype, False) for f, c in zip(fields, cols)]), tuple(cols),
+                          cols[0].data.shape[0])
+
+    bigo = port.Table(port.Schema(list(big.schema.fields) + [port.Field("o", P.Int32, False)]),
+                      big.columns + (col(P.Int32, ja["o"]),), big.num_rows)
+    orders = table(("o_orderkey", "o_totalprice", "o_orderpriority"),
+                   [col(P.Int32, ja["o_orderkey"]), col(P.Float64, ja["o_totalprice"]),
+                    col(P.Utf8, ja["o_orderpriority"], PRIORITIES)])
+    supplier = table(("s_suppkey", "s_acctbal"), [col(P.Int32, ja["s_suppkey"]), col(P.Float64, ja["s_acctbal"])])
+    dim = table(("pk", "w"), [col(P.Int32, ja["pk"]), col(P.Float64, ja["w"])])
+    return {"big": bigo, "orders": orders, "supplier": supplier, "dim": dim}
+
+
+# phase 7's queries: (name, SQL, what EXPLAIN VERBOSE must show)
+JOIN_QUERIES = (
+    ("j1", "SELECT big.k, COUNT(big.lat), MAX(dim.w) FROM big JOIN dim ON big.k = dim.pk WHERE big.lat > 53 "
+     "GROUP BY k", ("join: direct", "dense sort-free group-by (int[0,999])")),
+    ("j2", "SELECT o_orderpriority, COUNT(big.lat), SUM(big.lat) FROM orders LEFT JOIN big "
+     "ON orders.o_orderkey = big.o GROUP BY o_orderpriority", ("join: direct", "sort (stable build sort",
+                                                              "dense sort-free")),
+    ("j3", "SELECT COUNT(*), SUM(lat) FROM big WHERE g NOT IN (SELECT s_suppkey FROM supplier WHERE s_acctbal < 0)",
+     ("Join: type=Left", "join: sort (")),
+)
+MESH_JOIN_QUERIES = (
+    ("m9", JOIN_QUERIES[0][1], ("join: broadcast", "local direct", "dense sort-free group-by per shard (int[0,999])")),
+    ("m10", JOIN_QUERIES[1][1], ("join: shuffle", "dense sort-free group-by per shard")),
+)
+JOIN_OPS = ("aten::sort", "aten::searchsorted", "aten::repeat_interleave", "aten::index", "aten::bincount",
+            "aten::nonzero", "ragged_exchange")
+
+
+def profile_joins(runs):
+    """torch.profiler over one warm run of each (name, context, query):
+    device-busy ms of the wall, the largest device operations, and the
+    device time under each of the join's own operations (JOIN_OPS: the
+    build sort, searchsorted, repeat_interleave, the gathers, the direct
+    join's bincount, compaction, and K5's exchange); full tables in
+    chiprun_out/profile_joins.txt."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tables, out = [], {}
+    for name, ctx, q in runs:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+            t = time.perf_counter()
+            ctx.sql(q)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+        events = prof.key_averages()
+        dev_events = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in dev_events) / 1e3
+        top = sorted(dev_events, key=lambda e: e.self_device_time_total, reverse=True)[:5]
+        ops = {}
+        for e in events:
+            for op in JOIN_OPS:
+                if e.key.startswith(op) or (op == "ragged_exchange" and op in e.key and e in dev_events):
+                    total = getattr(e, "device_time_total", 0) if e not in dev_events else e.self_device_time_total
+                    ops[op] = round(ops.get(op, 0.0) + total / 1e3, 3)
+        out[name] = {"wall_ms": round(wall, 3), "device_busy_ms": round(busy, 3), "join_ops_ms": ops}
+        log(f"phase 7 profile {name}: wall {wall:.3f} ms, device busy {busy:.3f} ms ({100 * busy / wall:.1f}%); "
+            f"top device ops (ms): " + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f}" for e in top)
+            + f"; join ops (device ms) {json.dumps(ops)}")
+        tables.append(f"== {name}: {q}\n" + events.table(sort_by="self_device_time_total", row_limit=30))
+    with open(os.path.join(ROOT, "chiprun_out", "profile_joins.txt"), "w") as f:
+        f.write("\n".join(tables))
+    return out
+
+
+def phase_joins(dev, big, arrays, kernel_stats):
+    """Phase 7: joins at 2^25 rows on one card and over the mesh."""
+    import datafusion_tpu_torch as port
+    from datafusion_tpu_torch.ops.pallas import fused_stage as fs
+    from datafusion_tpu_torch.ops.pallas import partition as pt
+    from datafusion_tpu_torch.ops.pallas import ragged_shuffle as rs
+    from datafusion_tpu_torch.ops.pallas import segreduce as sr
+
+    k, _d, lat, _lng, g, _mode = arrays
+    t0 = time.perf_counter()
+    ja = join_arrays()
+    tables = join_tables(port, big, ja, dev)
+    torch.cuda.synchronize()
+    log(f"phase 7 tables: big + o ({N} rows), orders {ja['o_orderkey'].shape[0]} rows "
+        f"({int((np.bincount(ja['line_order'], minlength=ja['o_orderkey'].shape[0]) == 0).sum())} without lines), "
+        f"supplier 10000, dim 1000; made in {time.perf_counter() - t0:.2f} s")
+    single = port.ExecutionContext()
+    mesh = port.ExecutionContext(mesh=port.make_mesh(8))
+    for c_ in (single, mesh):
+        for name, t in tables.items():
+            c_.register_table(name, t)
+    queries = [(n, single, q, notes) for n, q, notes in JOIN_QUERIES] + [
+        (n, mesh, q, notes) for n, q, notes in MESH_JOIN_QUERIES]
+    routes = {}
+    for name, c_, q, notes in queries:
+        txt = c_.sql(f"EXPLAIN VERBOSE {q}").result_str()
+        for note in notes:
+            check(note in txt, f"{name} does not route to {note}")
+        routes[name] = [line[len("physical: "):] for line in txt.splitlines() if line.startswith("physical: join")]
+
+    counters = {"fused_stage": (fs.run_fused, "launches"), "segreduce_sorted": (sr.segmented_reduce, "sorted_launches"),
+                "segreduce_dense": (sr.segmented_reduce, "dense_launches"),
+                "slab_partition": (pt.slab_partition, "launches"), "windowed_reduce": (pt.windowed_reduce, "launches"),
+                "ragged_exchange": (rs.ragged_exchange, "launches"),
+                "ragged_exchange_fold": (rs.ragged_exchange_fold, "launches")}
+    for f, attr in counters.values():
+        setattr(f, attr, 0)
+    results, walls, per_query, taken = {}, {}, {}, {}
+    for name, c_, q, _ in queries:
+        before = {c: getattr(f, a) for c, (f, a) in counters.items()}
+        t = time.perf_counter()
+        results[name] = c_.sql(q)
+        torch.cuda.synchronize()
+        walls[name] = (time.perf_counter() - t) * 1e3
+        per_query[name] = {c: getattr(f, a) - before[c] for c, (f, a) in counters.items()}
+        taken[name] = sorted(set(results[name].routes))
+    launches = {c: getattr(f, a) for c, (f, a) in counters.items()}
+    check(per_query["j1"]["segreduce_dense"] == 1, f"j1 made {per_query['j1']['segreduce_dense']} K2 dense launches")
+    check(per_query["m9"]["segreduce_dense"] == 8, f"m9 made {per_query['m9']['segreduce_dense']} K2 dense launches")
+    check(per_query["j2"]["segreduce_dense"] >= 1 and per_query["m10"]["segreduce_dense"] >= 1, "j2 / m10 K2 dense")
+    check(per_query["m10"]["ragged_exchange"] >= 2, f"m10 made {per_query['m10']['ragged_exchange']} K5 launches")
+    check(taken["j1"] == ["join: direct"] and taken["j2"] == ["join: sort"] and taken["j3"] == ["join: sort"],
+          f"single-card routes taken {taken}")
+    check(taken["m9"] == ["join: direct"] and "join: shuffle, skew salt 1" in taken["m10"],
+          f"mesh routes taken {taken}")
+
+    def cols(res):
+        return [c for c, _ in res.cols]
+
+    def same(got, want, name, floats=()):
+        check(len(got) == len(want), f"{name}: column count")
+        for j, (a, b) in enumerate(zip(got, want)):
+            ok = (np.allclose(a, b, rtol=1e-9, atol=0) if j in floats
+                  else a.shape == b.shape and np.array_equal(a, b))
+            check(ok, f"{name}: column {j} differs")
+
+    def by_key(res):
+        c = cols(res)
+        order = np.argsort(c[0], kind="stable")
+        return [x[order] for x in c]
+
+    # the numpy oracle: exact keys, counts, MIN / MAX; f64 sums at rtol 1e-9
+    m1 = (lat > 53) & (k < 1000)
+    kc = np.bincount(k[m1], minlength=1000)
+    kp = np.flatnonzero(kc)
+    j1_want = [kp, kc[kp], ja["w"][kp]]
+    same(by_key(results["j1"]), j1_want, "j1")
+    same(by_key(results["m9"]), j1_want, "m9")
+    prio_line = ja["o_orderpriority"][ja["line_order"]]
+    j2_want = [np.arange(len(PRIORITIES)), np.bincount(prio_line, minlength=len(PRIORITIES)),
+               np.bincount(prio_line, weights=lat, minlength=len(PRIORITIES))]
+    for name in ("j2", "m10"):
+        check(results[name].column_values(0) == list(PRIORITIES), f"{name} keys")
+        same(by_key(results[name]), j2_want, name, (2,))
+    same(by_key(results["m10"]), by_key(results["j2"]), "m10 vs one card", (2,))
+    keep = ~np.isin(g, ja["s_suppkey"][ja["s_acctbal"] < 0])
+    same(cols(results["j3"]), [np.array([keep.sum()]), np.array([lat[keep].sum()])], "j3", (1,))
+
+    # row order: no GROUP BY, over a 2^20-row prefix; orders' keys are
+    # unique and dense enough, so the ladder ends in the swapped direct
+    # join and the rows come in big's order
+    n_ord = int(ja["line_order"][PREFIX - 1]) + 1
+    pre = port.ExecutionContext()
+    for name, t, rows in (("big", tables["big"], PREFIX), ("orders", tables["orders"], n_ord)):
+        pre.register_table(name, port.Table(t.schema, tuple(port.Column(c.dtype, c.data[:rows], None, c.dictionary)
+                                                            for c in t.columns), rows))
+    q_order = ("SELECT o_orderkey, o_totalprice, big.lat FROM orders JOIN big ON orders.o_orderkey = big.o")
+    res = pre.sql(q_order)
+    check(res.routes == ("join: direct (swapped: build=left side)",), f"row-order case took {res.routes}")
+    lo = ja["line_order"][:PREFIX]
+    same(cols(res), [ja["o"][:PREFIX], ja["o_totalprice"][lo], lat[:PREFIX]], "row-order case")
+
+    runs = [(name, c_, q) for name, c_, q, _ in queries]
+    warm = {name: warm_wall_ms(c_, q) for name, c_, q in runs}
+    log("phase 7 joins: j1-j3, m9 and m10 match the numpy oracle (m10 also the single card's j2), the row-order case "
+        f"({PREFIX} rows) took the swapped direct join in big's order; EXPLAIN routes {json.dumps(routes)}; "
+        f"routes taken {json.dumps(taken)}; wall ms first " + json.dumps({n: round(v, 3) for n, v in walls.items()})
+        + " warm (median of 5) " + json.dumps({n: round(v, 3) for n, v in warm.items()})
+        + f"; launches per query {json.dumps(per_query)}")
+    profiles = profile_joins(runs)
+    for name, s_ in kernel_stats.items():
+        s_["join_launches"] = launches[name]
+    return {"warm_ms": warm, "profiles": profiles, "launches": per_query}
+
+
 def phase_csv(dev):
     import datafusion_tpu_torch as port
     from datafusion_tpu_torch.utils.fmt import rust_f32, rust_f64
@@ -1543,6 +1766,7 @@ def main():
     big = phase_main_path(dev, kernel_stats, arrays)
     phase_csv(dev)
     phase_mesh(dev, big, arrays, kernel_stats)
+    phase_joins(dev, big, arrays, kernel_stats)
     kernels = []
     for name, s in kernel_stats.items():
         ops_bound = s.pop("ops_bound_ms")

@@ -4,7 +4,8 @@ Port of datafusion_tpu/exec/compiler.py for the main path: TableScan,
 Selection, Projection (with the fused scan/filter/project stage, kernel
 K1), Aggregate (dense and packed/sorted GROUP BY over kernel K2, the
 opt-in bigdense GROUP BY over kernels K3 and K4, and ungrouped), Sort,
-Limit and ORDER BY ... LIMIT as a top-k selection.
+Limit and ORDER BY ... LIMIT as a top-k selection, and Join (inner, left,
+right, full and cross; ops/join.py).
 
 Each plan node lowers once, at plan time, to a function over the scanned
 tables' columns; torch runs it eagerly on the tables' device. Selection
@@ -15,7 +16,9 @@ its fixed-capacity overflow retry (CompiledQuery.run) have no
 counterpart. Routing is decided at plan time and recorded in `notes`:
 the `_elementwise_safe` whitelist and K1's opcode set for the fused
 stage, the DENSE_MAX_GROUPS gate for K2's dense mode, and the bigdense
-gate (`_bigdense_ok`).
+gate (`_bigdense_ok`). A join's strategy is the one choice made at run
+time (`_join_runner`): the JAX package's retry ladder, decided by a count
+of repeated build keys; CompiledQuery.run reports it in `routes`.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import torch
 from datafusion_tpu_torch.columnar.table import Table, resolve_device
 from datafusion_tpu_torch.errors import ExecutionError, NotImplementedError_
 from datafusion_tpu_torch.ops import aggregate as agg_ops
+from datafusion_tpu_torch.ops import join as join_ops
 from datafusion_tpu_torch.ops import sort as sort_ops
 from datafusion_tpu_torch.ops.expr_eval import SCALAR_FUNCTIONS, ColVal, broadcast_col, compile_expr
 from datafusion_tpu_torch.ops.pallas import fused_stage as fs
@@ -85,16 +89,35 @@ class Lowered:
     GROUP BY domain probe reads; None for computed columns. `layout` is
     None for a stage that maps one env (or one shard's env) to a Batch,
     and "partitioned" / "replicated" for a distributed stage, which maps
-    the shards' envs to a ShardedBatch (parallel/dist.py)."""
+    the shards' envs to a ShardedBatch (parallel/dist.py). `capacity` is
+    the JAX package's static row capacity of the node (see
+    `ref_capacity`), which gates the direct join as it does there.
+    `bounds[j]` is a (lo, hi) bound on column j's selected, valid values
+    that a join proved (`_lower_join`); None where none is known."""
 
     schema: Schema
     dicts: list[Optional[tuple[str, ...]]]
     fn: Callable[[list], Batch]
     sources: Optional[list[Optional[tuple[int, int]]]] = None
     layout: Optional[str] = None
+    capacity: int = 0
+    bounds: Optional[list[Optional[tuple[int, int]]]] = None
 
     def src(self) -> list[Optional[tuple[int, int]]]:
         return self.sources if self.sources is not None else [None] * len(self.schema)
+
+    def bnd(self) -> list[Optional[tuple[int, int]]]:
+        return list(self.bounds) if self.bounds is not None else [None] * len(self.schema)
+
+
+REF_PAD_UNIT = 1024  # the JAX package pads every table to a multiple of this (its columnar/table.py PAD_UNIT)
+
+
+def ref_capacity(rows: int) -> int:
+    """The JAX package's capacity of a table of `rows` rows: `rows`
+    rounded up to REF_PAD_UNIT, at least one unit. The port sizes nothing
+    by it; it only reproduces the direct join's domain gate."""
+    return max(REF_PAD_UNIT, -(-rows // REF_PAD_UNIT) * REF_PAD_UNIT)
 
 
 @dataclass
@@ -119,11 +142,20 @@ class CompiledQuery:
     _host_post: Optional[tuple] = None
     notes: tuple[str, ...] = ()
     _mesh: Optional[object] = None  # parallel.mesh.Mesh of a distributed plan
+    _routes: Optional[list] = None  # filled by the stages that choose a route at run time (joins)
 
     def run(self):
         """Execute and materialize the selected rows on the host. A
         distributed plan runs over the scanned tables' row-block shards
-        and materializes its ShardedBatch merged."""
+        and materializes its ShardedBatch merged. The result's `routes`
+        lists what the run-time choices took: each join's strategy."""
+        routes = self._routes if self._routes is not None else []
+        routes.clear()
+        res = self._run()
+        res.routes = tuple(routes)
+        return res
+
+    def _run(self):
         from datafusion_tpu_torch.exec.result import ResultTable
 
         if self._mesh is None:
@@ -363,6 +395,12 @@ def topk_rank(kd: torch.Tensor, kv, sel: torch.Tensor, asc: bool) -> torch.Tenso
 
 
 class PlanCompiler:
+    DEFAULT_GROUP_CAPACITY = 64 * 1024  # the JAX package's co-sort group capacity (`capacity` only)
+    # the direct join's largest domain, as in the JAX package: a small
+    # multiple of the build side's capacity, and an absolute guard
+    DIRECT_JOIN_DOM_FACTOR = 4
+    DIRECT_JOIN_DOM_MAX = 1 << 26
+
     def __init__(self, tables: dict[str, Table], fn_registry=None, device=None, bigdense: bool = False):
         """`bigdense`: route GROUP BYs of 2,048 to 16,383 slots to the
         radix-partition path (K3 + K4) rather than the packed co-sort."""
@@ -372,6 +410,7 @@ class PlanCompiler:
         self.bigdense = bigdense
         self.scan_tables: list[Table] = []
         self.notes: list[str] = []  # physical choices, for EXPLAIN VERBOSE
+        self.routes: list[str] = []  # run-time choices of the last run (CompiledQuery.run)
         # decline diagnostics survive speculative rollbacks
         self.sticky_notes: list[str] = []
 
@@ -408,6 +447,8 @@ class PlanCompiler:
             return self._lower_limit(plan)
         if isinstance(plan, L.EmptyRelation):
             return self._lower_empty(plan)
+        if isinstance(plan, L.Join):
+            return self._lower_join(plan)
         raise NotImplementedError_(
             f"plan node {type(plan).__name__} is not part of the torch port yet"
         )
@@ -415,7 +456,7 @@ class PlanCompiler:
     def _lower_empty(self, plan: L.EmptyRelation) -> Lowered:
         # one synthetic row so literal-only projections emit one row
         dev = self.device
-        return Lowered(plan.schema, [], lambda env: Batch([], torch.ones(1, dtype=torch.bool, device=dev)))
+        return Lowered(plan.schema, [], lambda env: Batch([], torch.ones(1, dtype=torch.bool, device=dev)), capacity=8)
 
     def _lower_scan(self, plan: L.TableScan) -> Lowered:
         table = self.tables.get(plan.table_name)
@@ -436,6 +477,7 @@ class PlanCompiler:
             [table.columns[i].dictionary for i in indices],
             fn,
             sources=[(slot, i) for i in indices],
+            capacity=ref_capacity(n),
         )
 
     def _lower_selection(self, plan: L.Selection) -> Lowered:
@@ -452,7 +494,7 @@ class PlanCompiler:
             keep = pd if pv is None else torch.logical_and(pd, pv)  # NULL -> drop
             return Batch(b.cols, torch.logical_and(b.sel, keep))
 
-        return Lowered(child.schema, child.dicts, fn, child.sources)
+        return Lowered(child.schema, child.dicts, fn, child.sources, capacity=child.capacity, bounds=child.bounds)
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -554,7 +596,7 @@ class PlanCompiler:
         child_src = child.src()
         sources = [child_src[e.index] if isinstance(e, L.Column) else None for e in exprs]
         out_dicts = [dicts[e.index] if isinstance(e, L.Column) else None for e in exprs]
-        return Lowered(plan.schema, out_dicts, fn, sources)
+        return Lowered(plan.schema, out_dicts, fn, sources, capacity=child.capacity)
 
     def _lower_projection(self, plan: L.Projection) -> Lowered:
         fused = self._speculative(lambda: self._try_fused_stage(plan))
@@ -569,9 +611,11 @@ class PlanCompiler:
             b = child.fn(env)
             return Batch([c.fn(b.cols) for c in compiled], b.sel)
 
-        child_src = child.src()
+        child_src, child_bnd = child.src(), child.bnd()
         sources = [child_src[e.index] if isinstance(e, L.Column) else None for e in plan.exprs]
-        return Lowered(plan.schema, [c.dictionary for c in compiled], fn, sources)
+        bounds = [child_bnd[e.index] if isinstance(e, L.Column) else None for e in plan.exprs]
+        return Lowered(plan.schema, [c.dictionary for c in compiled], fn, sources, capacity=child.capacity,
+                       bounds=bounds)
 
     # ------------------------------------------------------------------
     def _aggregate_meta(self, plan: L.Aggregate, child: Lowered):
@@ -614,7 +658,7 @@ class PlanCompiler:
                 cols = [(d.reshape(1), None if v is None else v.reshape(1)) for d, v in outs]
                 return Batch(cols, torch.ones(1, dtype=torch.bool, device=dev))
 
-            return Lowered(plan.schema, out_dicts, fn0)
+            return Lowered(plan.schema, out_dicts, fn0, capacity=8)
 
         probe = self._probe_key_domains(group_c, plan.group_exprs, child)
         doms, offs, notes = probe if probe is not None else ([], [], [])
@@ -640,7 +684,7 @@ class PlanCompiler:
                 okeys, oaggs, ng = slots_fn(keys, specs_of(b), b.sel, doms, offs)
                 return Batch(list(okeys) + list(oaggs), torch.ones(ng, dtype=torch.bool, device=dev))
 
-            return Lowered(plan.schema, out_dicts, fn_slots)
+            return Lowered(plan.schema, out_dicts, fn_slots, capacity=min(child.capacity, prod + 1))
 
         packed = 1 <= prod <= agg_ops.PACKED_MAX_GROUPS
         if packed:
@@ -661,7 +705,8 @@ class PlanCompiler:
             )
             return Batch(list(okeys) + list(oaggs), torch.ones(ng, dtype=torch.bool, device=dev))
 
-        return Lowered(plan.schema, out_dicts, fn)
+        cap = min(child.capacity, prod + 1 if packed else self.DEFAULT_GROUP_CAPACITY)
+        return Lowered(plan.schema, out_dicts, fn, capacity=cap)
 
     def _bigdense_ok(self, plan: L.Aggregate, prod: int) -> bool:
         """The opt-in bigdense gate (`self.bigdense`, fixed when the
@@ -727,21 +772,35 @@ class PlanCompiler:
 
     def _int_key_range(self, gexpr, child: Lowered):
         """min/max of a GROUP BY key that is a pure pass-through of a
-        scanned integer column, read at plan time from the table. A
-        filtered-out extreme only widens the range."""
+        scanned integer column, or that a join bounded
+        (`_scanned_int_range`)."""
         e = gexpr.expr if isinstance(gexpr, L.Alias) else gexpr
         if not isinstance(e, L.Column):
             return None
-        if not child.schema.fields[e.index].dtype.is_integer:
+        return self._scanned_int_range(child, e.index)
+
+    def _scanned_int_range(self, child: Lowered, col_idx: int):
+        """min/max of the integer column `col_idx` of `child`: the scanned
+        column it passes through, read at plan time from the table (a
+        filtered-out extreme only widens the range), intersected with the
+        bound a join proved for it; the bound alone where the column has
+        no scan source. None when neither is known."""
+        if not child.schema.fields[col_idx].dtype.is_integer:
             return None
-        src = child.src()[e.index]
+        bound = child.bnd()[col_idx]
+        src = child.src()[col_idx]
         if src is None:
-            return None
+            return bound
         tbl = self.scan_tables[src[0]]
         if tbl.num_rows <= 0:
             return None
         data = tbl.columns[src[1]].data
-        return int(data.min()), int(data.max())
+        kmin, kmax = int(data.min()), int(data.max())
+        if bound is not None:
+            kmin, kmax = max(kmin, bound[0]), min(kmax, bound[1])
+            if kmax < kmin:
+                return None
+        return kmin, kmax
 
     # ------------------------------------------------------------------
     def _lower_sort(self, plan: L.Sort) -> Lowered:
@@ -757,7 +816,7 @@ class PlanCompiler:
             cols = sort_ops.sort_batch(key_vals, b.cols, b.sel)
             return Batch(cols, torch.ones(int(b.sel.sum()), dtype=torch.bool, device=dev))
 
-        return Lowered(child.schema, child.dicts, fn)
+        return Lowered(child.schema, child.dicts, fn, capacity=child.capacity)
 
     def _lower_limit(self, plan: L.Limit) -> Lowered:
         # ORDER BY ... LIMIT k fuses into a top-k selection: a k-row gather
@@ -786,7 +845,7 @@ class PlanCompiler:
             b = child.fn(env)
             return Batch(b.cols, sort_ops.limit_mask(b.sel, k, off))
 
-        return Lowered(child.schema, child.dicts, fn)
+        return Lowered(child.schema, child.dicts, fn, capacity=child.capacity)
 
     @staticmethod
     def _skip_rows(lowered: Lowered, offset: int) -> Lowered:
@@ -799,7 +858,7 @@ class PlanCompiler:
             iota = torch.arange(b.capacity, device=b.sel.device)
             return Batch(b.cols, torch.logical_and(b.sel, iota >= offset))
 
-        return Lowered(lowered.schema, lowered.dicts, fn)
+        return Lowered(lowered.schema, lowered.dicts, fn, capacity=lowered.capacity)
 
     def _lower_topk(self, plan: L.Sort, k: int) -> Optional[Lowered]:
         return self._topk_over(plan, self.lower(plan.input), k)
@@ -828,7 +887,7 @@ class PlanCompiler:
             ]
             return Batch(cols, torch.ones(kk, dtype=torch.bool, device=dev))
 
-        return Lowered(child.schema, child.dicts, fn)
+        return Lowered(child.schema, child.dicts, fn, capacity=min(k, child.capacity))
 
     def _packed_rank(self, plan: L.Sort, child: Lowered):
         """Multi-key ORDER BY ... LIMIT k via one packed lexicographic
@@ -879,6 +938,201 @@ class PlanCompiler:
 
         return rank_fn
 
+    # ------------------------------------------------------------------
+    def _lower_join(self, plan: L.Join) -> Lowered:
+        swapped = self._right_as_left(plan)
+        if swapped is not None:
+            return self._swap_back(plan, self._lower_join(swapped))
+        left, right = self.lower(plan.left), self.lower(plan.right)
+        run, meta = self._join_runner(plan, left, right)
+
+        def fn(env) -> Batch:
+            return run(left.fn(env), right.fn(env))
+
+        return Lowered(plan.schema, left.dicts + right.dicts, fn, **meta)
+
+    @staticmethod
+    def _right_as_left(plan: L.Join) -> Optional[L.Join]:
+        """A RIGHT join as the LEFT join with the sides swapped (its
+        output columns come right side first); None for other joins."""
+        if plan.join_type is not L.JoinType.Right:
+            return None
+        return L.Join(plan.right, plan.left, tuple((r, l) for l, r in plan.on), L.JoinType.Left,
+                      plan.right.schema.join(plan.left.schema))
+
+    @staticmethod
+    def _swap_back(plan: L.Join, inner: Lowered) -> Lowered:
+        """The swapped LEFT join's columns permuted back to (left...,
+        right...)."""
+        n_right = len(plan.right.schema)
+
+        def fn(env) -> Batch:
+            b = inner.fn(env)
+            return Batch(b.cols[n_right:] + b.cols[:n_right], b.sel)
+
+        return Lowered(plan.schema, inner.dicts[n_right:] + inner.dicts[:n_right], fn, capacity=inner.capacity)
+
+    def _direct_join_domain(self, li: int, ri: int, left: Lowered, right: Lowered):
+        """(kmin, domain) of the direct join when the build key's value
+        domain is known at plan time and small: dictionary codes (the
+        merged vocabulary) or a scanned or bounded integer column
+        (`_scanned_int_range`). `right` / `ri` name the build side, which
+        may be the plan's left side (the swapped direct join). The domain
+        is at most DIRECT_JOIN_DOM_FACTOR times the build side's JAX
+        capacity and DIRECT_JOIN_DOM_MAX: the JAX package's gate, so the
+        port takes the direct join where the JAX package does."""
+        ld, rd = left.dicts[li], right.dicts[ri]
+        if ld is not None and rd is not None:
+            dom = len(ld) if ld == rd else len(set(ld) | set(rd))
+            rng = (0, dom - 1) if dom > 0 else None
+        elif ld is None and rd is None:
+            rng = self._scanned_int_range(right, ri)
+        else:
+            return None
+        if rng is None:
+            return None
+        dom = rng[1] - rng[0] + 1
+        if dom < 1 or dom > min(self.DIRECT_JOIN_DOM_FACTOR * right.capacity, self.DIRECT_JOIN_DOM_MAX):
+            return None
+        return rng[0], dom
+
+    def _join_key_remaps(self, plan: L.Join, left: Lowered, right: Lowered) -> list:
+        """Per key pair: None, or (left map, right map) from each side's
+        dictionary codes onto the merged sorted vocabulary, for Utf8 keys
+        whose dictionaries differ."""
+        remaps = []
+        for li, ri in plan.on:
+            ld, rd = left.dicts[li], right.dicts[ri]
+            if (ld is None) != (rd is None):
+                raise ExecutionError("join key type mismatch (Utf8 vs numeric)")
+            if ld is None or ld == rd:
+                remaps.append(None)
+                continue
+            merged = sorted(set(ld) | set(rd))
+            remaps.append(tuple(
+                torch.as_tensor(np.searchsorted(merged, np.asarray(d, dtype=object).astype(str)),
+                                dtype=torch.int64, device=self.device)
+                for d in (ld, rd)
+            ))
+        return remaps
+
+    def _join_runner(self, plan: L.Join, left: Lowered, right: Lowered, *, swap_ok: bool = True,
+                     direct_ok: bool = True, how: str = ""):
+        """The plan-time half of an INNER / LEFT / FULL / cross join: the
+        strategy ladder, the note, and the output's metadata. Returns
+        (run, meta): `run(lb, rb)` joins a left and a right Batch at run
+        time, and `meta` holds the Lowered's sources, bounds and capacity.
+
+        The ladder is the JAX package's retry ladder taken as a decision:
+        (1) the direct join, build = right side, when its key domain is
+        known (`_direct_join_domain`) and its selected keys are unique;
+        (2) for INNER joins (`swap_ok`), the direct join with the left side
+        as the build; (3) the sort join. The swapped direct join emits rows
+        in the right side's order, every other strategy in the left side's,
+        as in the JAX package. The distributed joins (parallel/dist.py)
+        take the ladder without (2) or, after a shuffle, only (3), and put
+        `how` before it in the note. `run(lb, rb, tail=False)` leaves a
+        FULL join's unmatched build rows out and returns (head Batch,
+        matched, build_matched) for a caller that appends them itself;
+        `run.keys(batch, side)` are the key columns of a left (0) or right
+        (1) batch, Utf8 codes mapped onto the merged vocabulary."""
+        jt = plan.join_type
+        inner, is_full = jt is L.JoinType.Inner, jt is L.JoinType.Full
+        keep_unmatched = not inner  # LEFT and FULL; RIGHT arrives swapped
+        cross = not plan.on
+        dom_u = dom_s = None
+        if direct_ok and not is_full and len(plan.on) == 1:
+            li0, ri0 = plan.on[0]
+            dom_u = self._direct_join_domain(li0, ri0, left, right)
+            if inner and swap_ok:
+                dom_s = self._direct_join_domain(ri0, li0, right, left)
+        remaps = self._join_key_remaps(plan, left, right)
+        ladder = [
+            f"direct{' (swapped: build=left side)' if swapped else ''} (dense build domain "
+            f"[{dom[0]}, {dom[0] + dom[1]}), one scatter + per-column gather)"
+            for dom, swapped in ((dom_u, False), (dom_s, True)) if dom is not None
+        ]
+        ladder.append(
+            "sort (" + ("cross join, one constant key; " if cross else "")
+            + "stable build sort, searchsorted ranges, repeat_interleave expand"
+            + (", unmatched build rows appended" if is_full else "") + ")"
+        )
+        self.notes.append("join: " + how + "; if build keys repeat, ".join(ladder))
+        dev, routes = self.device, self.routes
+
+        def keys(b: Batch, side: int) -> list:
+            out = []
+            for pair, remap in zip(plan.on, remaps):
+                d, v = broadcast_col(b.cols[pair[side]], b.capacity)
+                if remap is not None:
+                    m = remap[side]
+                    d = m[d.to(torch.int64).clamp(0, max(m.shape[0] - 1, 0))] if m.numel() else d.to(torch.int64)
+                out.append((d, v))
+            return out
+
+        def run(lb: Batch, rb: Batch, tail: bool = True):
+            lk, rk = keys(lb, 0), keys(rb, 1)
+            if dom_u is not None:
+                bcols, matched, dups = join_ops.direct_index_join(
+                    lk[0], lb.sel, rk[0], rb.sel, rb.cols, *dom_u, matched_validity=keep_unmatched
+                )
+                if not dups:
+                    routes.append("join: direct")
+                    return Batch(list(lb.cols) + bcols, lb.sel if keep_unmatched else lb.sel & matched)
+            if dom_s is not None:
+                lcols, matched, dups = join_ops.direct_index_join(
+                    rk[0], rb.sel, lk[0], lb.sel, lb.cols, *dom_s, matched_validity=False
+                )
+                if not dups:
+                    routes.append("join: direct (swapped: build=left side)")
+                    return Batch(lcols + list(rb.cols), rb.sel & matched)
+            if cross:  # one shared constant key: every pair matches
+                lk = [(torch.zeros(lb.capacity, dtype=torch.int32, device=dev), None)]
+                rk = [(torch.zeros(rb.capacity, dtype=torch.int32, device=dev), None)]
+            res = join_ops.join_indices(lk, lb.sel, rk, rb.sel, keep_unmatched_probe=keep_unmatched,
+                                        want_build_matched=is_full)
+            p_idx, b_idx, matched = res[:3]
+            routes.append("join: sort")
+            pcols = join_ops.gather_columns(lb.cols, p_idx, lb.capacity)
+            bcols = join_ops.gather_columns(rb.cols, b_idx, rb.capacity)
+            if keep_unmatched:
+                bcols = [(d, matched if v is None else v & matched) for d, v in bcols]
+            n_out = p_idx.shape[0]
+            if is_full:
+                if not tail:
+                    return Batch(pcols + bcols, torch.ones(n_out, dtype=torch.bool, device=dev)), matched, res[3]
+                pcols, bcols, n_out = join_ops.full_merge_tail(pcols, bcols, matched, rb.cols, rb.sel & ~res[3])
+            return Batch(pcols + bcols, torch.ones(n_out, dtype=torch.bool, device=dev))
+
+        run.keys = keys
+        nl, nr = len(left.schema), len(right.schema)
+        if dom_u is not None or dom_s is not None:
+            # the first candidate is direct: probe rows stay in place, so
+            # the probe side's columns keep their scan sources, and an
+            # INNER join's surviving keys lie in the build domain
+            dom, swapped = (dom_u, False) if dom_u is not None else (dom_s, True)
+            bounds = left.bnd() + (right.bnd() if inner else [None] * nr)
+            if inner and remaps[0] is None:
+                kb = (dom[0], dom[0] + dom[1] - 1)
+                lb0 = bounds[li0]
+                bounds[li0] = kb if lb0 is None else (max(kb[0], lb0[0]), min(kb[1], lb0[1]))
+                bounds[nl + ri0] = kb
+            sources = [None] * nl + right.src() if swapped else left.src() + [None] * nr
+            return run, dict(sources=sources, bounds=bounds,
+                             capacity=right.capacity if swapped else left.capacity)
+        bounds = None
+        if inner and not cross:
+            # an INNER join's rows are a subset of each side's: the sides'
+            # bounds carry over, and a key lies in both sides' ranges
+            bounds = left.bnd() + right.bnd()
+            for li, ri in plan.on:
+                lr, rr = self._scanned_int_range(left, li), self._scanned_int_range(right, ri)
+                cand = rr if lr is None else lr if rr is None else (max(lr[0], rr[0]), min(lr[1], rr[1]))
+                if cand is not None and cand[0] <= cand[1]:
+                    bounds[li] = bounds[nl + ri] = cand
+        cap = left.capacity + right.capacity if is_full else max(left.capacity, right.capacity)
+        return run, dict(bounds=bounds, capacity=cap)
+
 
 def compile_plan(
     plan: L.LogicalPlan, tables: dict[str, Table], fn_registry=None, device=None, bigdense: bool = False
@@ -893,4 +1147,5 @@ def compile_plan(
         _scan_tables=pc.scan_tables,
         _host_post=host_post,
         notes=tuple(pc.notes + pc.sticky_notes),
+        _routes=pc.routes,
     )

@@ -25,6 +25,7 @@ class ResultTable:
     cols: list[tuple[np.ndarray, Optional[np.ndarray]]]
     dicts: list[Optional[tuple[str, ...]]]
     raw_text: Optional[str] = None  # EXPLAIN and other plain-text results
+    routes: tuple[str, ...] = ()  # the run-time route of each join (exec/compiler.py CompiledQuery.run)
 
     @property
     def num_rows(self) -> int:

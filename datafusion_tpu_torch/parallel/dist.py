@@ -16,6 +16,8 @@ ShardedBatch (exec/compiler.py):
     (parallel/shuffle.py); ORDER BY one key LIMIT k <= 4096: per-shard
     top-k and a top-k of the gathered candidates
   * LIMIT: global row ranks from the per-shard counts
+  * joins: the build side broadcast (all_gather) to every shard, or both
+    sides hash-repartitioned by key through K5 (`_lower_join`)
 
 Routing is decided by the plan alone; the JAX package's DFTPU_* routing
 options are not read. Its exchange:fold cost estimate was a TPU v5e
@@ -31,6 +33,8 @@ a replicated child.
 
 from __future__ import annotations
 
+import functools
+import math
 from typing import Optional
 
 import torch
@@ -44,13 +48,14 @@ from datafusion_tpu_torch.exec.compiler import (
     split_host_projection,
 )
 from datafusion_tpu_torch.ops import aggregate as agg_ops
+from datafusion_tpu_torch.ops import join as join_ops
 from datafusion_tpu_torch.ops import sort as sort_ops
 from datafusion_tpu_torch.ops.expr_eval import broadcast_col
 from datafusion_tpu_torch.ops.pallas.partition import MAX_OPS, WINDOW
 from datafusion_tpu_torch.ops.pallas.segreduce import from_sortable_int, segmented_reduce, to_sortable_int
 from datafusion_tpu_torch.parallel import collectives as C
 from datafusion_tpu_torch.parallel.mesh import Mesh
-from datafusion_tpu_torch.parallel.shuffle import exchange_fold, repartition
+from datafusion_tpu_torch.parallel.shuffle import exchange_fold, hash_keys_to_device, repartition, route, skew_salt
 from datafusion_tpu_torch.plan import logical as L
 from datafusion_tpu_torch.types import DataType, torch_dtype
 
@@ -102,7 +107,7 @@ class DistCompiler(PlanCompiler):
         def fn(envs) -> ShardedBatch:
             return ShardedBatch([low.fn(env) for env in envs], "partitioned")
 
-        return Lowered(low.schema, low.dicts, fn, low.sources, "partitioned")
+        return Lowered(low.schema, low.dicts, fn, low.sources, "partitioned", low.capacity, low.bounds)
 
     def _map(self, child: Lowered, local: Lowered) -> Lowered:
         """`local` (lowered over a stand-in for `child`'s shards) run on
@@ -115,14 +120,15 @@ class DistCompiler(PlanCompiler):
                 return ShardedBatch([local.fn(sb.shards[0])] * n, layout)
             return ShardedBatch([local.fn(b) for b in sb.shards], layout)
 
-        return Lowered(local.schema, local.dicts, fn, local.sources, layout)
+        return Lowered(local.schema, local.dicts, fn, local.sources, layout, local.capacity, local.bounds)
 
     def _per_shard(self, child: Lowered, build) -> Optional[Lowered]:
         """`build(c)` lowers a single-card stage over `c`: over a local
         child it stays local, over a distributed one it runs per shard."""
         if child.layout is None:
             return build(child)
-        local = build(Lowered(child.schema, child.dicts, lambda b: b, child.sources))
+        local = build(Lowered(child.schema, child.dicts, lambda b: b, child.sources, None, child.capacity,
+                              child.bounds))
         return None if local is None else self._map(child, local)
 
     def _gather_batch(self, child: Lowered) -> Lowered:
@@ -136,13 +142,13 @@ class DistCompiler(PlanCompiler):
         def fn(envs) -> ShardedBatch:
             return ShardedBatch([child.fn(envs).merged()] * n, "replicated")
 
-        return Lowered(child.schema, child.dicts, fn, None, "replicated")
+        return Lowered(child.schema, child.dicts, fn, None, "replicated", child.capacity)
 
     # -- local stages ----------------------------------------------------
     def _lower_empty(self, plan: L.EmptyRelation) -> Lowered:
         local, n = super()._lower_empty(plan), self.n_dev
         return Lowered(local.schema, local.dicts, lambda envs: ShardedBatch([local.fn(None)] * n, "replicated"),
-                       None, "replicated")
+                       None, "replicated", local.capacity)
 
     def _lower_selection(self, plan: L.Selection) -> Lowered:
         return self._per_shard(self.lower(plan.input), lambda c: self._selection_over(plan, c))
@@ -224,7 +230,7 @@ class DistCompiler(PlanCompiler):
                 out.append(Batch(res, torch.ones(res[0][0].shape[0], dtype=torch.bool, device=self.device)))
             return ShardedBatch(out, "partitioned")
 
-        return Lowered(child.schema, child.dicts, fn, None, "partitioned")
+        return Lowered(child.schema, child.dicts, fn, None, "partitioned", child.capacity)
 
     # -- limit ---------------------------------------------------------------
     def _lower_limit(self, plan: L.Limit) -> Lowered:
@@ -276,7 +282,133 @@ class DistCompiler(PlanCompiler):
                 out.append(Batch(b.cols, keep))
             return ShardedBatch(out, "partitioned")
 
-        return Lowered(child.schema, child.dicts, fn, None, "partitioned")
+        return Lowered(child.schema, child.dicts, fn, None, "partitioned", child.capacity)
+
+    # -- join ----------------------------------------------------------------
+    def _lower_join(self, plan: L.Join) -> Lowered:
+        """The JAX mesh's two joins (its dist.py:543-914): the hash-shuffle
+        join when both sides are partitioned, with keys, and the right
+        side's capacity times 4 exceeds the left side's; else the broadcast
+        join. RIGHT joins run as the swapped LEFT join."""
+        swapped = self._right_as_left(plan)
+        if swapped is not None:
+            return self._per_shard(self._lower_join(swapped), lambda c: self._swap_back(plan, c))
+        left, right = self.lower(plan.left), self.lower(plan.right)
+        if (
+            plan.on
+            and "replicated" not in (left.layout, right.layout)
+            and right.capacity * 4 > left.capacity
+        ):
+            return self._join_shuffle(plan, left, right)
+        return self._join_broadcast(plan, left, right)
+
+    def _join_broadcast(self, plan: L.Join, left: Lowered, right: Lowered) -> Lowered:
+        """The build (right) side all_gathered to every shard, and each
+        shard's left rows joined against it: the direct join (build = the
+        right side only) or the sort join, so rows come in the left side's
+        order, as on one card unless that takes the swapped direct join. A
+        FULL join ORs the build rows' matched marks over the shards and
+        appends the unmatched ones after the last shard's rows, where one
+        card puts them (the JAX mesh spreads them over its chips)."""
+        n, dev, nl = self.n_dev, self.device, len(left.schema)
+        right_g = self._gather_batch(right)
+        run, meta = self._join_runner(plan, left, right, swap_ok=False,
+                                      how="broadcast (build side all_gathered to every shard), local ")
+        is_full = plan.join_type is L.JoinType.Full
+        dicts = left.dicts + right.dicts
+        if left.layout == "replicated":
+            def fn_rep(envs) -> ShardedBatch:
+                return ShardedBatch([run(left.fn(envs).shards[0], right_g.fn(envs).shards[0])] * n, "replicated")
+
+            return Lowered(plan.schema, dicts, fn_rep, layout="replicated", **meta)
+        left_d = self._as_dist(left)
+
+        def fn(envs) -> ShardedBatch:
+            rb = right_g.fn(envs).shards[0]
+            shards = left_d.fn(envs).shards
+            if not is_full:
+                return ShardedBatch([run(b, rb) for b in shards], "partitioned")
+            heads = [run(b, rb, tail=False) for b in shards]
+            hit = functools.reduce(torch.logical_or, [bm for _, _, bm in heads])
+            last, matched, _ = heads[-1]
+            pcols, bcols, rows = join_ops.full_merge_tail(last.cols[:nl], last.cols[nl:], matched, rb.cols,
+                                                          rb.sel & ~hit)
+            tail = Batch(pcols + bcols, torch.ones(rows, dtype=torch.bool, device=dev))
+            return ShardedBatch([h for h, _, _ in heads[:-1]] + [tail], "partitioned")
+
+        return Lowered(plan.schema, dicts, fn, layout="partitioned", **meta)
+
+    def _join_shuffle(self, plan: L.Join, left: Lowered, right: Lowered) -> Lowered:
+        """Both sides hash-repartitioned by key (`hash_keys_to_device`, the
+        JAX mesh's hash) through K5 (parallel/shuffle.py `repartition`),
+        then the sort join on each shard, with a FULL join's unmatched
+        build rows appended there: every key lives on one shard. The probe
+        side's send counts, read once, give the skew salt (`skew_salt`):
+        salted probe rows go to `h * salt_r + row % salt_r`, the build rows
+        go once to each of their key's `salt_r` shards. A FULL join's build
+        row joins the tail, from its first copy, when no copy matched: the
+        copies' marks meet by global row index (the JAX mesh reads only
+        the first copy's, ROADMAP Queue 3). The rows come shard by shard,
+        in an order the JAX mesh does not specify either."""
+        n, dev, nl = self.n_dev, self.device, len(left.schema)
+        run, meta = self._join_runner(
+            plan, left, right, direct_ok=False,
+            how="shuffle (both sides hash-repartitioned over K5, skew salt from the probe side's send counts), "
+            "local ",
+        )
+        is_full = plan.join_type is L.JoinType.Full
+        meta["capacity"] = 2 * left.capacity + (2 * right.capacity if is_full else 0)  # the JAX mesh's
+        left_d, right_d = self._as_dist(left), self._as_dist(right)
+        routes = self.routes
+
+        def fn(envs) -> ShardedBatch:
+            lsb, rsb = left_d.fn(envs).shards, right_d.fn(envs).shards
+            lkeys = [[d for d, _ in run.keys(b, 0)] for b in lsb]
+            lsel = [b.sel for b in lsb]
+            ldst = [hash_keys_to_device(k, n) for k in lkeys]
+            lroutes = [route(d, s, n) for d, s in zip(ldst, lsel)]
+            salt_r = skew_salt(C.size_matrix([c for _, c in lroutes]), n)
+            if salt_r > 1:
+                ldst = [hash_keys_to_device(k, n, salt_r=salt_r, salt=torch.arange(b.capacity, device=dev) % salt_r)
+                        for k, b in zip(lkeys, lsb)]
+                lroutes = None
+            lrecv, lrsel = repartition([b.cols for b in lsb], ldst, lsel, n, lroutes)
+            rcols, rsel, rdst, base = [], [], [], 0
+            for b in rsb:
+                m = b.capacity
+                keys = [d for d, _ in run.keys(b, 1)]
+                cols = [broadcast_col(c, m) for c in b.cols]
+                replica = torch.div(torch.arange(m * salt_r, device=dev), max(m, 1), rounding_mode="floor")
+                if salt_r > 1:
+                    cols = [(d.repeat(salt_r), None if v is None else v.repeat(salt_r)) for d, v in cols]
+                    keys = [k.repeat(salt_r) for k in keys]
+                rdst.append(hash_keys_to_device(keys, n, salt_r=salt_r, salt=replica))
+                rsel.append(b.sel.repeat(salt_r))
+                if is_full:  # each build row's global index, and which copy may join the tail
+                    cols += [(base + torch.arange(m, device=dev).repeat(salt_r), None), (replica == 0, None)]
+                rcols.append(cols)
+                base += m
+            rrecv, rrsel = repartition(rcols, rdst, rsel, n)
+            if not is_full:
+                out = [run(Batch(lc, ls), Batch(rc, rs)) for lc, ls, rc, rs in zip(lrecv, lrsel, rrecv, rrsel)]
+            else:
+                # a build row's copies land on different shards: it is
+                # matched if any copy is, so the marks meet by global row
+                heads = [run(Batch(lc, ls), Batch(rc[:-2], rs), tail=False)
+                         for lc, ls, rc, rs in zip(lrecv, lrsel, rrecv, rrsel)]
+                hit = torch.zeros(max(base, 1), dtype=torch.bool, device=dev)
+                for (_, _, bm), rc in zip(heads, rrecv):
+                    hit[rc[-2][0][bm]] = True
+                out = []
+                for (head, matched, _), rc, rs in zip(heads, rrecv, rrsel):
+                    un = rs & rc[-1][0] & ~hit[torch.where(rs, rc[-2][0], 0)]
+                    pcols, bcols, rows = join_ops.full_merge_tail(head.cols[:nl], head.cols[nl:], matched,
+                                                                  rc[:-2], un)
+                    out.append(Batch(pcols + bcols, torch.ones(rows, dtype=torch.bool, device=dev)))
+            routes.append(f"join: shuffle, skew salt {salt_r}")
+            return ShardedBatch(out, "partitioned")
+
+        return Lowered(plan.schema, left.dicts + right.dicts, fn, layout="partitioned", **meta)
 
     # -- aggregate -----------------------------------------------------------
     def _aggregate_over(self, plan: L.Aggregate, child: Lowered) -> Lowered:
@@ -324,7 +456,7 @@ class DistCompiler(PlanCompiler):
                 (res,) = agg_ops._dense_window_aggregate(shards_of(child_d.fn(envs)), doms, offs, dense_reduce)
                 return ShardedBatch([batch(*res)] * n, "replicated")
 
-            return Lowered(plan.schema, out_dicts, fn_dense, None, "replicated")
+            return Lowered(plan.schema, out_dicts, fn_dense, None, "replicated", min(child.capacity, prod + 1))
 
         if self._fold_ok(plan, prod):
             self.notes.append(
@@ -342,7 +474,7 @@ class DistCompiler(PlanCompiler):
                 res = agg_ops._dense_window_aggregate(shards_of(child_d.fn(envs)), doms, offs, fold_reduce, slot_gid)
                 return ShardedBatch([batch(*r) for r in res], "partitioned")
 
-            return Lowered(plan.schema, out_dicts, fn_fold, None, "partitioned")
+            return Lowered(plan.schema, out_dicts, fn_fold, None, "partitioned", min(child.capacity, prod + 1))
 
         return self._merge_aggregate(plan, child_d, agg_meta, out_dicts, shards_of, batch,
                                      doms if 1 <= prod <= agg_ops.PACKED_MAX_GROUPS else None, offs, notes)
@@ -412,7 +544,8 @@ class DistCompiler(PlanCompiler):
             return ShardedBatch([Batch(list(mk) + out, torch.ones(ng, dtype=torch.bool, device=dev))] * self.n_dev,
                                 "replicated")
 
-        return Lowered(plan.schema, out_dicts, fn, None, "replicated")
+        groups = self.DEFAULT_GROUP_CAPACITY if doms is None else math.prod(d + 1 for d in doms) + 1
+        return Lowered(plan.schema, out_dicts, fn, None, "replicated", min(child.capacity, groups))
 
     def _ungrouped_dist(self, plan, child, agg_meta, out_dicts) -> Lowered:
         """Whole-table aggregates: per-shard scalars merged by psum / pmin /
@@ -449,7 +582,7 @@ class DistCompiler(PlanCompiler):
                 cols.append((r.to(out_t).reshape(1), (cnt > 0).reshape(1)))
             return ShardedBatch([Batch(cols, torch.ones(1, dtype=torch.bool, device=dev))] * n, "replicated")
 
-        return Lowered(plan.schema, out_dicts, fn, None, "replicated")
+        return Lowered(plan.schema, out_dicts, fn, None, "replicated", 8)
 
 
 def compile_plan_distributed(plan: L.LogicalPlan, tables, mesh: Mesh, fn_registry=None) -> CompiledQuery:
@@ -468,4 +601,5 @@ def compile_plan_distributed(plan: L.LogicalPlan, tables, mesh: Mesh, fn_registr
         _host_post=host_post,
         notes=tuple(pc.notes + pc.sticky_notes),
         _mesh=mesh,
+        _routes=pc.routes,
     )

@@ -32,6 +32,50 @@ from datafusion_tpu_torch.parallel.collectives import size_matrix
 REGION_ALIGN = CHUNKS[0]  # split_cap is a multiple of the largest chunk, so K5 copies 1024-row chunks
 
 
+M32 = 0xFFFFFFFF
+
+
+def _mul_u32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2^32 for x in [0, 2^32) held in int64, c < 2^32: the
+    constant goes in two 16-bit halves so no product leaves int64."""
+    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & M32
+
+
+def hash_keys_to_device(keys, n_dev: int, *, salt_r: int = 1, salt=None) -> torch.Tensor:
+    """The JAX package's key hash, element for element: each key column
+    as uint32 (integers wrap to their low 32 bits, floats truncate toward
+    zero), mixed (`* 2654435761`, `^ >> 16`), combined (`h * 31 + m`),
+    finished (`^ >> 13`), and taken mod `n_dev`. torch has no uint32
+    arithmetic on the card, so it runs in int64 masked to 32 bits after
+    every multiply and add.
+
+    Skew salting (`salt_r` > 1): a key's rows spread over `salt_r` shards,
+    `h * salt_r + salt`; probe rows pass `salt = row % salt_r`, and the
+    build side replicates each row once per salt value."""
+    h = None
+    for k in keys:
+        k = k.to(torch.int64) & M32
+        m = _mul_u32(k, 2654435761)
+        m = m ^ (m >> 16)
+        h = m if h is None else (_mul_u32(h, 31) + m) & M32
+    h = h ^ (h >> 13)
+    if salt_r > 1:
+        s = 0 if salt is None else salt.to(torch.int64) & M32
+        h = (_mul_u32(h, salt_r) + s) & M32
+    return (h % n_dev).to(torch.int32)
+
+
+def skew_salt(sizes: torch.Tensor, n_dev: int) -> int:
+    """The hash-shuffle join's skew salt, by the JAX package's rule: the
+    probe side's largest send cell over 4x the balanced share (its total
+    over n_dev^2) gives the need, capped at n_dev; a need above 1 salts
+    over max(2, min(n_dev, the next power of two)) shards. One host read."""
+    top, total = torch.stack([sizes.max(), sizes.sum()]).tolist() if sizes.numel() else (0, 0)
+    bal = max(total // (n_dev * n_dev), 1)
+    need = min(-(-top // (4 * bal)), n_dev)
+    return 1 if need <= 1 else max(2, min(n_dev, 1 << (need - 1).bit_length()))
+
+
 def route(dst: torch.Tensor, sel: torch.Tensor, n_dev: int) -> tuple[torch.Tensor, torch.Tensor]:
     """One shard's selected rows, stably ordered by destination, and
     their count per destination."""
@@ -83,12 +127,15 @@ def repartition(
     dsts: Sequence[torch.Tensor],
     sels: Sequence[torch.Tensor],
     n_dev: int,
+    routes=None,
 ) -> tuple[list[list[ColVal]], list[torch.Tensor]]:
     """Move every selected row of shard j to shard `dsts[j][row]`.
     `cols[j]` are shard j's columns; returns each receiver's columns and
     selection over its `n_dev * split_cap` received slots. Rows arrive
-    sender by sender, in each sender's order."""
-    routes = [route(d, s, n_dev) for d, s in zip(dsts, sels)]
+    sender by sender, in each sender's order. `routes`: the senders'
+    `route` results, where the caller has them already."""
+    if routes is None:
+        routes = [route(d, s, n_dev) for d, s in zip(dsts, sels)]
     sizes = size_matrix([c for _, c in routes])
     split_cap, chunk = region_capacity(sizes)
     sends, spec = [], None

@@ -425,6 +425,35 @@ def test_mesh_queries_match_the_cpu(cuda, sql):
                 assert "SUM" in sql and abs(float(x) - float(y)) <= 1e-12 * abs(float(y)), (x, y)
 
 
+@pytest.mark.parametrize("name", ["j1", "j2"])
+def test_join_queries_match_the_cpu(cuda, name):
+    """chip_smoke.py's j1 (direct join, then K2 dense over the narrowed
+    key) and j2 (sort join over repeated build keys, then K2 dense) at
+    2^20 rows: the card against the CPU."""
+    smoke = _chip_smoke()
+    n = 1 << 20
+    rng = np.random.default_rng(7)
+    P = port.DataType
+    big = port.Table.from_arrays(
+        port.Schema([port.Field("k", P.Int32, False), port.Field("lat", P.Float64, False)]),
+        [rng.integers(0, 65536, n).astype(np.int32), rng.random(n) * 10 + 48], device="cpu",
+    )
+    tables = smoke.join_tables(port, big, smoke.join_arrays(n), torch.device("cpu"))
+    gpu, cpu = port.ExecutionContext(device=cuda), port.ExecutionContext(device="cpu")
+    for t_name, t in tables.items():
+        gpu.register_table(t_name, t)
+        cpu.register_table(t_name, t)
+    sql = {q[0]: q[1] for q in smoke.JOIN_QUERIES}[name]
+    got = gpu.sql(sql)
+    assert got.routes == cpu.sql(sql).routes
+    a, b = got.result_str().splitlines(), cpu.sql(sql).result_str().splitlines()
+    assert len(a) == len(b) > 0
+    for ra, rb in zip(a, b):
+        for x, y in zip(ra.split("\t"), rb.split("\t")):
+            if x != y:
+                assert "SUM" in sql and abs(float(x) - float(y)) <= 1e-12 * abs(float(y)), (x, y)
+
+
 @pytest.mark.parametrize("n_dev,slots,n_ops", [(8, 8 * 2048, 14), (1, 1251, 5), (8, 10_001, 5)])
 def test_ragged_exchange_fold_edges_match_plain(cuda, n_dev, slots, n_ops):
     """K6 at 2048 slots per receiver with 14 ops, on a mesh of one shard,
