@@ -69,10 +69,26 @@ Phases, each printed on its own line:
      makes no call that copies host memory to the device), K6 at m3's
      shape (event and kernel-only time) and K2 dense at m2's per-shard
      shape
+  7. joins at 2^25 rows over big plus TPC-H-shaped orders / supplier and a
+     1,000-row dim: j1-j3 on one card, m9 / m10 the mesh's broadcast and
+     shuffle joins, against a numpy oracle, with the routes EXPLAIN shows
+     and the ones taken; a 2^20-row join that keeps big's row order
+  8. windows, UNION, grouping sets and INTERSECT ALL at 2^25 rows over
+     big, big + mode and orders (WINDOW_QUERIES, MESH_WINDOW_QUERIES):
+     w1 top 3 per partition, w2 a running sum and LAG under a GROUP BY, w3
+     whole-partition AVG / MAX (one K2 sorted launch, also held to its
+     plain version), u1 ROLLUP in a bigdense context (K3 + K4, K2 dense),
+     u2 INTERSECT ALL, u3 UNION over two dictionaries; m11-m14 over 8
+     shards (the PARTITION BY repartition over K5, the gathered global
+     window, ROLLUP on the fold, INTERSECT ALL); each against a numpy
+     oracle (counts, ranks, MIN / MAX exact; f64 sums within their stated
+     rounding bounds), with its EXPLAIN route, launches, warm wall and
+     profile (chiprun_out/profile_windows.txt)
 Every kernel's kernel-only time comes from torch.profiler (kernel_only_ms),
 its wrapper's host time from host_only_ms (`host_ms` in the kernels' line).
 The reduce kernels' `library_ms` is one PyTorch call per op of the
-kernel's op list, summed (LIBRARY). Then one JSON line per kernel set (times, bounds, launches) and, last,
+kernel's op list, summed (LIBRARY). Then one JSON line per kernel set (times, bounds, launches on the main
+paths, the joins and the windows) and, last,
 {"ok": true, "device": {...}}. Any failed check raises and exits non-zero.
 There is no CPU path: without CUDA the script exits with an error.
 """
@@ -1636,7 +1652,231 @@ def phase_joins(dev, big, arrays, kernel_stats):
     profiles = profile_joins(runs)
     for name, s_ in kernel_stats.items():
         s_["join_launches"] = launches[name]
-    return {"warm_ms": warm, "profiles": profiles, "launches": per_query}
+    return {"warm_ms": warm, "profiles": profiles, "launches": per_query, "tables": tables}
+
+
+# phase 8's queries: (name, SQL, what EXPLAIN VERBOSE must show). w1-w3,
+# u2 and u3 run in a single-card context, u1 in a bigdense one, m11-m14
+# over 8 shards
+WINDOW_QUERIES = (
+    ("w1", "SELECT d, k, lat, rn FROM (SELECT d, k, lat, ROW_NUMBER() OVER (PARTITION BY d ORDER BY lat DESC) AS rn "
+     "FROM big) q WHERE rn <= 3 ORDER BY d, rn", ("window: 1 function(s) over 1 spec sort(s) (stable sort passes per "
+                                                  "spec: 2)",)),
+    ("w2", "SELECT d, MAX(rs), SUM(dl) FROM (SELECT d, SUM(lng) OVER (PARTITION BY d ORDER BY k) AS rs, "
+     "lat - LAG(lat) OVER (PARTITION BY d ORDER BY k) AS dl FROM big WHERE g <= 5000) q GROUP BY d",
+     ("window: 2 function(s) over 1 spec sort(s) (stable sort passes per spec: 1)", "co-sort + segmented reduce")),
+    ("w3", "SELECT COUNT(*), SUM(lat - a), MAX(mx - lat) FROM (SELECT lat, AVG(lat) OVER (PARTITION BY g) AS a, "
+     "MAX(lat) OVER (PARTITION BY g) AS mx FROM big) q", ("2 whole-partition aggregate(s) on K2 sorted",)),
+    ("u1", "SELECT mode, d, COUNT(*), SUM(lat), MIN(lng) FROM bigm GROUP BY ROLLUP(mode, d)",
+     ("bigdense radix-partition sort-free group-by (dict=7 x int[0,999]", "dense sort-free group-by (dict=7)")),
+    ("u2", "SELECT COUNT(*) FROM (SELECT d FROM big WHERE lat > 57 INTERSECT ALL SELECT d FROM big WHERE lng < -7.8) q",
+     ("fused CUDA stage", "window: 1 function(s) over 1 spec sort(s)", "join: sort")),
+    ("u3", "SELECT mode FROM bigm UNION SELECT o_orderpriority FROM orders", ("dense sort-free group-by (dict=12)",)),
+)
+MESH_WINDOW_QUERIES = (
+    ("m11", WINDOW_QUERIES[0][1], ("window: hash-repartition by PARTITION BY keys over K5",)),
+    ("m12", "SELECT lat, r FROM (SELECT lat, RANK() OVER (ORDER BY lat DESC) AS r FROM big WHERE lat > 57.99) q "
+     "WHERE r <= 1000", ("window: gather to replicated, local evaluation",)),
+    ("m13", WINDOW_QUERIES[3][1], ("fused ragged-exchange fold, K6", "dense sort-free group-by per shard (dict=7)",
+                                   "union: partitioned inputs gathered to replicated")),
+    ("m14", WINDOW_QUERIES[4][1], ("window: hash-repartition by PARTITION BY keys over K5", "join: shuffle")),
+)
+U = 2.0 ** -53  # f64 unit roundoff
+
+
+def window_oracle(arrays, ja):
+    """Phase 8's answers from numpy: exact keys, counts, ranks and MIN /
+    MAX; sums in long double, partition by partition, with their rounding
+    bounds."""
+    k, d, lat, lng, g, mode = arrays
+    out = {}
+
+    def by(keys, rows=None):
+        """`rows` (default: all) stably ordered by `keys` (most significant
+        first, each below 2^16: numpy's stable sort is a radix sort there)."""
+        rows = np.arange(N) if rows is None else rows
+        for key in reversed(keys):
+            rows = rows[np.argsort(key[rows].astype(np.uint16), kind="stable")]
+        return rows
+
+    # w1: top 3 lat per d, ties in row order: among the rows above a
+    # threshold that leaves every d at least 3
+    thr = 57.9
+    while np.bincount(d[lat > thr], minlength=1000).min() < 3:
+        thr -= 1.0
+    cand = np.flatnonzero(lat > thr)
+    o = cand[np.argsort(-lat[cand], kind="stable")]
+    o = o[np.argsort(d[o], kind="stable")]
+    starts = np.flatnonzero(np.r_[True, d[o][1:] != d[o][:-1]])
+    top = (starts[:, None] + np.arange(3)).ravel()
+    out["w1"] = [d[o][top], k[o][top], lat[o][top], np.tile(np.arange(1, 4), len(starts))]
+    # w2: rows with g <= 5000 by (d, k), ties in row order
+    rows = by([d, k], np.flatnonzero(g <= 5000))
+    ds = d[rows]
+    bounds = np.r_[np.flatnonzero(np.r_[True, ds[1:] != ds[:-1]]), len(rows)]
+    mx, dl_sum, dl_tol = [], [], []
+    for a, b in zip(bounds[:-1], bounds[1:]):
+        mx.append(np.cumsum(lng[rows[a:b]].astype(np.longdouble)).max())
+        dl = np.diff(lat[rows[a:b]])
+        dl_sum.append(dl.astype(np.longdouble).sum())
+        dl_tol.append(max(len(dl) - 1, 0) * U * np.abs(dl).sum())  # an f64 sum of m terms in any order
+    out["w2"] = [ds[bounds[:-1]], np.array(mx), np.array(dl_sum), np.array(dl_tol),
+                 len(rows) * np.abs(lng[rows]).max() * 2.0**-52]
+    # w3: per-g mean and max of lat
+    og = by([g])
+    gs = np.flatnonzero(np.r_[True, g[og][1:] != g[og][:-1]])
+    cnt = np.diff(np.r_[gs, N])
+    mean = np.add.reduceat(lat[og].astype(np.longdouble), gs) / cnt
+    gmax = np.maximum.reduceat(lat[og], gs)
+    dev_abs = np.abs(lat[og] - np.repeat(mean, cnt).astype(np.float64)).sum()
+    # SUM(lat - a) is 0 but for rounding: each AVG within m_g u max|lat|,
+    # each difference within u |lat - a|, their sum within N u sum|lat - a|
+    out["w3"] = [N, (gmax - np.minimum.reduceat(lat[og], gs)).max(),
+                 U * (float((cnt.astype(np.float64) ** 2).sum()) * np.abs(lat).max() + (N + 1) * dev_abs)]
+    # u1: ROLLUP(mode, d)
+    key = mode.astype(np.int64) * 1000 + d
+    c = np.bincount(key, minlength=7000)
+    s_ = np.bincount(key, weights=lat, minlength=7000)
+    ok = by([key])
+    ks = np.flatnonzero(np.r_[True, key[ok][1:] != key[ok][:-1]])
+    mn = np.full(7000, np.inf)
+    mn[key[ok][ks]] = np.minimum.reduceat(lng[ok], ks)
+    roll = {}
+    for m_ in range(7):
+        for d_ in range(1000):
+            j = m_ * 1000 + d_
+            if c[j]:
+                roll[(SHIPMODES[m_], d_)] = (c[j], s_[j], mn[j])
+        sl = slice(m_ * 1000, (m_ + 1) * 1000)
+        roll[(SHIPMODES[m_], None)] = (c[sl].sum(), s_[sl].sum(), mn[sl].min())
+    roll[(None, None)] = (N, lat.sum(), lng.min())
+    out["u1"] = roll
+    # u2: INTERSECT ALL of the two sides' d multisets
+    out["u2"] = int(np.minimum(np.bincount(d[lat > 57], minlength=1000), np.bincount(d[lng < -7.8], minlength=1000)).sum())
+    out["u3"] = sorted(set(SHIPMODES) | {PRIORITIES[i] for i in np.unique(ja["o_orderpriority"])})
+    # m12: the 1000 largest lat above 57.99, ranked
+    big_lat = np.sort(lat[lat > 57.99])[::-1][:1000]
+    out["m12"] = big_lat
+    return out
+
+
+def check_window_results(name, res, want):
+    """`res` (a ResultTable) against the oracle's `want` for query `name`."""
+    cols = [c for c, _ in res.cols]
+    if name in ("w1", "m11"):
+        check(len(cols[0]) == len(want[0]) and all(np.array_equal(a, b) for a, b in zip(cols, want)),
+              f"{name} differs from the oracle")
+    elif name == "w2":
+        keys, mx, dl, dl_tol, atol = want
+        order = np.argsort(cols[0], kind="stable")
+        got = [c[order] for c in cols]
+        check(np.array_equal(got[0], keys), "w2 keys")
+        err = np.abs(got[1].astype(np.longdouble) - mx)
+        check(np.all(err <= atol + 1e-12 * np.abs(mx)), f"w2 MAX(rs) off by {float(err.max())} (atol {atol})")
+        err = np.abs(got[2].astype(np.longdouble) - dl)
+        check(np.all(err <= dl_tol + 1e-12 * np.abs(dl)), f"w2 SUM(dl) off by {float(err.max())}")
+    elif name == "w3":
+        n, spread, tol = want
+        check(cols[0][0] == n, "w3 COUNT")
+        check(abs(cols[1][0]) <= tol, f"w3 SUM(lat - a) = {cols[1][0]} beyond its bound {tol}")
+        check(cols[2][0] == spread, "w3 MAX(mx - lat)")
+    elif name in ("u1", "m13"):
+        modes = res.column_values(0)
+        d_ = cols[1]
+        dv = res.cols[1][1]
+        got = {}
+        for i, m_ in enumerate(modes):
+            got[(m_, None if (dv is not None and not dv[i]) else int(d_[i]))] = (cols[2][i], cols[3][i], cols[4][i])
+        check(got.keys() == want.keys(), f"{name}: {len(got)} groups, {len(want)} expected")
+        for key_, (c_, s_, m_) in want.items():
+            gc, gs_, gm = got[key_]
+            check(gc == c_ and gm == m_ and abs(gs_ - s_) <= 1e-9 * abs(s_), f"{name} group {key_}")
+    elif name in ("u2", "m14"):
+        check(int(cols[0][0]) == want, f"{name}: {cols[0][0]} rows, {want} expected")
+    elif name == "u3":
+        check(res.column_values(0) == want, f"u3: {res.column_values(0)}")
+    elif name == "m12":
+        order = np.argsort(cols[1], kind="stable")
+        check(np.array_equal(cols[0][order], want) and np.array_equal(cols[1][order], np.arange(1, len(want) + 1)),
+              "m12 differs from the oracle")
+
+
+def phase_windows(dev, big, arrays, tables, kernel_stats):
+    """Phase 8: windows, UNION, grouping sets and INTERSECT ALL at 2^25
+    rows on one card and over the mesh."""
+    import datafusion_tpu_torch as port
+    from datafusion_tpu_torch.ops.pallas import fused_stage as fs
+    from datafusion_tpu_torch.ops.pallas import partition as pt
+    from datafusion_tpu_torch.ops.pallas import ragged_shuffle as rs
+    from datafusion_tpu_torch.ops import window as window_ops
+    from datafusion_tpu_torch.ops.pallas import segreduce as sr
+
+    t0 = time.perf_counter()
+    bigm = mesh_table(port, big, arrays[5])
+    want = window_oracle(arrays, join_arrays())
+    log(f"phase 8 tables: big, bigm (big + mode), orders; numpy oracle in {time.perf_counter() - t0:.2f} s")
+    single, dense = port.ExecutionContext(), port.ExecutionContext(bigdense=True)
+    mesh = port.ExecutionContext(mesh=port.make_mesh(8))
+    for c_ in (single, dense, mesh):
+        for name, t in (("big", big), ("bigm", bigm), ("orders", tables["orders"])):
+            c_.register_table(name, t)
+    queries = [(n, dense if n == "u1" else single, q, notes) for n, q, notes in WINDOW_QUERIES] + [
+        (n, mesh, q, notes) for n, q, notes in MESH_WINDOW_QUERIES]
+    routes = {}
+    for name, c_, q, notes in queries:
+        txt = c_.sql(f"EXPLAIN VERBOSE {q}").result_str()
+        for note in notes:
+            check(note in txt, f"{name} does not route to {note}")
+        routes[name] = [ln[len("physical: "):] for ln in txt.splitlines() if ln.startswith("physical: ")]
+
+    counters = {"fused_stage": (fs.run_fused, "launches"), "segreduce_sorted": (sr.segmented_reduce, "sorted_launches"),
+                "segreduce_dense": (sr.segmented_reduce, "dense_launches"),
+                "slab_partition": (pt.slab_partition, "launches"), "windowed_reduce": (pt.windowed_reduce, "launches"),
+                "ragged_exchange": (rs.ragged_exchange, "launches"),
+                "ragged_exchange_fold": (rs.ragged_exchange_fold, "launches")}
+    for f, attr in counters.values():
+        setattr(f, attr, 0)
+    results, walls, per_query, taken = {}, {}, {}, {}
+    for name, c_, q, _ in queries:
+        before = {c: getattr(f, a) for c, (f, a) in counters.items()}
+        t = time.perf_counter()
+        results[name] = c_.sql(q)
+        torch.cuda.synchronize()
+        walls[name] = (time.perf_counter() - t) * 1e3
+        per_query[name] = {c: getattr(f, a) - before[c] for c, (f, a) in counters.items()}
+        taken[name] = sorted(set(results[name].routes))
+    launches = {c: getattr(f, a) for c, (f, a) in counters.items()}
+    for name, n in launches.items():
+        check(n > 0, f"{name} was not launched on phase 8's path")
+    check(per_query["w3"]["segreduce_sorted"] == 1, f"w3 made {per_query['w3']['segreduce_sorted']} K2 sorted launches")
+    check(per_query["u1"]["slab_partition"] >= 1 and per_query["u1"]["windowed_reduce"] >= 1
+          and per_query["u1"]["segreduce_dense"] >= 1, f"u1 launches {per_query['u1']}")
+    check(per_query["m11"]["ragged_exchange"] >= 1, f"m11 made {per_query['m11']['ragged_exchange']} K5 launches")
+    check(per_query["m13"]["ragged_exchange_fold"] >= 1, "m13 did not launch K6")
+    for name, _, _, _ in queries:
+        check_window_results(name, results[name], want["m12" if name == "m12" else {"m11": "w1", "m13": "u1",
+                                                                                    "m14": "u2"}.get(name, name)])
+    # w3's K2 sorted call against its plain version, on the same inputs
+    box = capture(window_ops, "segmented_reduce", lambda: single.sql(WINDOW_QUERIES[2][1]))
+    (args, kw), = box
+    kern = sr.segmented_reduce(*args, **kw)
+    plain = sr.segmented_reduce_plain(*args, **kw)
+    for op, a, b in zip(kw["ops"], kern, plain):
+        ok = torch.allclose(a, b, rtol=1e-9, atol=0) if op == "sum" else torch.equal(a, b)
+        check(ok, f"w3's K2 sorted {op} differs from its plain version")
+    log(f"phase 8 w3's K2 sorted call: {args[0].numel()} rows, {kw['num_groups']} partitions, ops {kw['ops']}: "
+        "kernel == plain (sums at rtol 1e-9)")
+
+    runs = [(name, c_, q) for name, c_, q, _ in queries]
+    warm = {name: warm_wall_ms(c_, q) for name, c_, q in runs}
+    log("phase 8 windows / union: w1-w3, u1-u3, m11-m14 match the numpy oracle; EXPLAIN routes "
+        + json.dumps(routes) + f"; routes taken {json.dumps(taken)}; wall ms first "
+        + json.dumps({n: round(v, 3) for n, v in walls.items()}) + " warm (median of 5) "
+        + json.dumps({n: round(v, 3) for n, v in warm.items()}) + f"; launches per query {json.dumps(per_query)}")
+    profile_queries(runs, "phase 8", "profile_windows.txt")
+    for name, s_ in kernel_stats.items():
+        s_["window_launches"] = launches[name]
+    return {"warm_ms": warm, "launches": per_query}
 
 
 def phase_csv(dev):
@@ -1766,7 +2006,8 @@ def main():
     big = phase_main_path(dev, kernel_stats, arrays)
     phase_csv(dev)
     phase_mesh(dev, big, arrays, kernel_stats)
-    phase_joins(dev, big, arrays, kernel_stats)
+    joins = phase_joins(dev, big, arrays, kernel_stats)
+    phase_windows(dev, big, arrays, joins["tables"], kernel_stats)
     kernels = []
     for name, s in kernel_stats.items():
         ops_bound = s.pop("ops_bound_ms")

@@ -4,8 +4,8 @@ Port of datafusion_tpu/exec/compiler.py for the main path: TableScan,
 Selection, Projection (with the fused scan/filter/project stage, kernel
 K1), Aggregate (dense and packed/sorted GROUP BY over kernel K2, the
 opt-in bigdense GROUP BY over kernels K3 and K4, and ungrouped), Sort,
-Limit and ORDER BY ... LIMIT as a top-k selection, and Join (inner, left,
-right, full and cross; ops/join.py).
+Limit and ORDER BY ... LIMIT as a top-k selection, Join (inner, left,
+right, full and cross; ops/join.py), Window (ops/window.py) and Union.
 
 Each plan node lowers once, at plan time, to a function over the scanned
 tables' columns; torch runs it eagerly on the tables' device. Selection
@@ -34,12 +34,13 @@ from datafusion_tpu_torch.errors import ExecutionError, NotImplementedError_
 from datafusion_tpu_torch.ops import aggregate as agg_ops
 from datafusion_tpu_torch.ops import join as join_ops
 from datafusion_tpu_torch.ops import sort as sort_ops
+from datafusion_tpu_torch.ops import window as window_ops
 from datafusion_tpu_torch.ops.expr_eval import SCALAR_FUNCTIONS, ColVal, broadcast_col, compile_expr
 from datafusion_tpu_torch.ops.pallas import fused_stage as fs
 from datafusion_tpu_torch.ops.pallas import partition as part
 from datafusion_tpu_torch.plan import logical as L
 from datafusion_tpu_torch.schema import Schema
-from datafusion_tpu_torch.types import DataType
+from datafusion_tpu_torch.types import DataType, torch_dtype
 
 
 @dataclass
@@ -108,6 +109,17 @@ class Lowered:
 
     def bnd(self) -> list[Optional[tuple[int, int]]]:
         return list(self.bounds) if self.bounds is not None else [None] * len(self.schema)
+
+
+def _key_dtype(c) -> torch.dtype:
+    """The device dtype of a compiled expression's data: dictionary codes
+    are int32."""
+    if c.dictionary is not None or c.dtype is DataType.Utf8:
+        return torch.int32
+    try:
+        return torch_dtype(c.dtype)
+    except ValueError:
+        return torch.int64
 
 
 REF_PAD_UNIT = 1024  # the JAX package pads every table to a multiple of this (its columnar/table.py PAD_UNIT)
@@ -449,6 +461,10 @@ class PlanCompiler:
             return self._lower_empty(plan)
         if isinstance(plan, L.Join):
             return self._lower_join(plan)
+        if isinstance(plan, L.Union):
+            return self._lower_union(plan)
+        if isinstance(plan, L.Window):
+            return self._lower_window(plan)
         raise NotImplementedError_(
             f"plan node {type(plan).__name__} is not part of the torch port yet"
         )
@@ -937,6 +953,138 @@ class PlanCompiler:
             return torch.where(b.sel, packed, -1)
 
         return rank_fn
+
+    # ------------------------------------------------------------------
+    def _lower_window(self, plan: L.Window) -> Lowered:
+        return self._window_over(plan, self.lower(plan.input))
+
+    def _window_key_domain(self, e: L.Expr, c, child: Lowered) -> Optional[tuple[int, int]]:
+        """An inclusive range of a window key's selected, valid values, which
+        lets the spec sort pack the key into that range's bits: dictionary
+        codes, or an integer key's scanned or bounded range
+        (`_int_key_range`). None where none is known."""
+        if c.dictionary is not None:
+            return 0, max(len(c.dictionary) - 1, 0)
+        return self._int_key_range(e, child)
+
+    def _window_over(self, plan: L.Window, child: Lowered) -> Lowered:
+        """Append one column per window expression (ops/window.py): one
+        spec sort per distinct (PARTITION BY, ORDER BY), shared by every
+        function over it. Like the JAX package's, the output keeps the
+        child's capacity and carries no sources or bounds."""
+        specs: list[dict] = []
+        spec_index: dict = {}
+        metas: list[tuple[int, int]] = []  # per window expr: (spec, call)
+        for wf in plan.window_exprs:
+            skey = (wf.partition_by, tuple((o.expr, o.asc, o.nulls_first) for o in wf.order_by))
+            if skey not in spec_index:
+                spec_index[skey] = len(specs)
+                part = [self.compile(e, child) for e in wf.partition_by]
+                order = [(self.compile(o.expr, child), o.asc, o.nulls_first is True) for o in wf.order_by]
+                exprs = list(wf.partition_by) + [o.expr for o in wf.order_by]
+                keys = part + [c for c, _, _ in order]
+                specs.append({
+                    "part": part, "order": order, "calls": [],
+                    "domains": [self._window_key_domain(e, c, child) for e, c in zip(exprs, keys)],
+                })
+            si = spec_index[skey]
+            arg_c = self.compile(wf.args[0], child) if wf.args else None
+            specs[si]["calls"].append((wf, arg_c))
+            metas.append((si, len(specs[si]["calls"]) - 1))
+
+        out_dicts = list(child.dicts)
+        for wf, (si, ci) in zip(plan.window_exprs, metas):
+            arg_c = specs[si]["calls"][ci][1]
+            out_dicts.append(arg_c.dictionary if (wf.return_type is DataType.Utf8 and arg_c is not None) else None)
+        passes, folded = [], 0
+        for spec in specs:
+            keys = spec["part"] + [c for c, _, _ in spec["order"]]
+            widths = [window_ops.key_width(_key_dtype(c), dom) for c, dom in zip(keys, spec["domains"])]
+            passes.append(len(window_ops.sort_layout(widths)))
+            has_order = bool(spec["order"])
+            folded += sum(window_ops.whole_partition(window_ops.WindowCall(wf.name, frame=wf.frame), has_order)
+                          for wf, _ in spec["calls"])
+        self.notes.append(
+            f"window: {len(plan.window_exprs)} function(s) over {len(specs)} spec sort(s) "
+            f"(stable sort passes per spec: {', '.join(map(str, passes))}"
+            + (f"; {folded} whole-partition aggregate(s) on K2 sorted" if folded else "") + ")"
+        )
+
+        def fn(env) -> Batch:
+            b = child.fn(env)
+            results = []
+            for spec in specs:
+                calls = [
+                    window_ops.WindowCall(wf.name, None if arg_c is None else arg_c.fn(b.cols), wf.offset, wf.frame)
+                    for wf, arg_c in spec["calls"]
+                ]
+                results.append(window_ops.window_spec(
+                    [c.fn(b.cols) for c in spec["part"]],
+                    [(c.fn(b.cols), asc, nf) for c, asc, nf in spec["order"]],
+                    calls, b.sel, spec["domains"],
+                ))
+            new_cols = [results[si][ci] for si, ci in metas]
+            return Batch(list(b.cols) + new_cols, b.sel)
+
+        return Lowered(plan.schema, out_dicts, fn, capacity=child.capacity)
+
+    # ------------------------------------------------------------------
+    def _lower_union(self, plan: L.Union) -> Lowered:
+        return self._union_over(plan, [self.lower(c) for c in plan.inputs])
+
+    def _union_over(self, plan: L.Union, children: list[Lowered]) -> Lowered:
+        dicts, concat = self._union_parts(plan, children)
+
+        def fn(env) -> Batch:
+            return concat([c.fn(env) for c in children])
+
+        return Lowered(plan.schema, dicts, fn, capacity=sum(c.capacity for c in children))
+
+    def _union_parts(self, plan: L.Union, children: list[Lowered]):
+        """UNION ALL: (the output dictionaries, `concat(batches)`), which
+        concatenates the children's columns and selections in child order.
+        Utf8 columns whose dictionaries differ remap into the sorted merged
+        vocabulary; a 0-row child's empty vocabulary maps nothing, its rows
+        are padding."""
+        ncols = len(plan.schema)
+        out_dicts: list[Optional[tuple[str, ...]]] = []
+        remaps: list[list[Optional[torch.Tensor]]] = []  # [col][child]
+        for j in range(ncols):
+            ds = [c.dicts[j] for c in children]
+            for_col = [None] * len(children)
+            if all(d is None for d in ds):
+                out_dicts.append(None)
+            elif any(d is None for d in ds):
+                raise ExecutionError(f"UNION column {j} mixes Utf8 and numeric")
+            elif all(d == ds[0] for d in ds):
+                out_dicts.append(ds[0])
+            else:
+                merged = tuple(sorted(set().union(*ds)))
+                out_dicts.append(merged)
+                for_col = [
+                    torch.as_tensor(np.searchsorted(merged, np.asarray(d, dtype=object).astype(str)),
+                                    dtype=torch.int32, device=self.device)
+                    for d in ds
+                ]
+            remaps.append(for_col)
+
+        def concat(bs: list[Batch]) -> Batch:
+            cols: list[ColVal] = []
+            for j in range(ncols):
+                any_valid = any(b.cols[j][1] is not None for b in bs)
+                parts_d, parts_v = [], []
+                for b, r in zip(bs, remaps[j]):
+                    d, v = broadcast_col(b.cols[j], b.capacity)
+                    if r is not None:
+                        d = torch.zeros_like(d) if r.shape[0] == 0 else r[d.to(torch.int64).clamp(0, r.shape[0] - 1)]
+                    parts_d.append(d)
+                    if any_valid:
+                        parts_v.append(torch.ones(b.capacity, dtype=torch.bool, device=b.sel.device) if v is None
+                                       else v)
+                cols.append((torch.cat(parts_d), torch.cat(parts_v) if any_valid else None))
+            return Batch(cols, torch.cat([b.sel for b in bs]))
+
+        return out_dicts, concat
 
     # ------------------------------------------------------------------
     def _lower_join(self, plan: L.Join) -> Lowered:

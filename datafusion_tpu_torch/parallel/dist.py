@@ -18,6 +18,9 @@ ShardedBatch (exec/compiler.py):
   * LIMIT: global row ranks from the per-shard counts
   * joins: the build side broadcast (all_gather) to every shard, or both
     sides hash-repartitioned by key through K5 (`_lower_join`)
+  * windows: rows hash-repartitioned by the PARTITION BY keys through K5,
+    or gathered to every shard (`_lower_window`); UNION ALL per shard, or
+    over gathered inputs where the children's layouts differ
 
 Routing is decided by the plan alone; the JAX package's DFTPU_* routing
 options are not read. Its exchange:fold cost estimate was a TPU v5e
@@ -283,6 +286,73 @@ class DistCompiler(PlanCompiler):
             return ShardedBatch(out, "partitioned")
 
         return Lowered(child.schema, child.dicts, fn, None, "partitioned", child.capacity)
+
+    # -- window ----------------------------------------------------------------
+    def _lower_window(self, plan: L.Window) -> Lowered:
+        """The JAX mesh's two window strategies (its dist.py:488-541). When
+        every window expression shares one non-empty PARTITION BY over a
+        partitioned child, the rows hash-repartition by those keys
+        (`hash_keys_to_device`, NULL keys zeroed so that they hash alike,
+        no skew salt: a window partition lands whole on one shard) through
+        K5 (`repartition`, which sizes its regions exactly), and each shard
+        evaluates its windows. Rows reach a receiver sender by sender, in
+        row-block order, so ties in a partition keep the single card's
+        order. Otherwise (global windows, mixed specs) the rows gather to
+        a replicated batch and the windows run once."""
+        child = self.lower(plan.input)
+        pkeys = plan.window_exprs[0].partition_by
+        same_spec = bool(pkeys) and all(wf.partition_by == pkeys for wf in plan.window_exprs)
+        if child.layout == "replicated" or not same_spec:
+            self.notes.append("window: gather to replicated, local evaluation")
+            return self._per_shard(self._gather_batch(child), lambda c: self._window_over(plan, c))
+        child = self._as_dist(child)
+        n = self.n_dev
+        part_c = [self.compile(e, child) for e in pkeys]
+        self.notes.append(f"window: hash-repartition by PARTITION BY keys over K5 (ragged exchange, {n} shards), "
+                          "then the windows per shard")
+
+        def fn(envs) -> ShardedBatch:
+            sb = child.fn(envs)
+            dsts = []
+            for b in sb.shards:
+                keys = []
+                for c in part_c:
+                    d, v = broadcast_col(c.fn(b.cols), b.capacity)
+                    keys.append(d if v is None else torch.where(v, d, torch.zeros((), dtype=d.dtype, device=d.device)))
+                dsts.append(hash_keys_to_device(keys, n))
+            cols, sels = repartition([b.cols for b in sb.shards], dsts, [b.sel for b in sb.shards], n)
+            return ShardedBatch([Batch(c, s) for c, s in zip(cols, sels)], "partitioned")
+
+        reparted = Lowered(child.schema, child.dicts, fn, child.sources, "partitioned", child.capacity, child.bounds)
+        return self._per_shard(reparted, lambda c: self._window_over(plan, c))
+
+    # -- union -----------------------------------------------------------------
+    def _lower_union(self, plan: L.Union) -> Lowered:
+        """UNION ALL over the mesh: local children concatenate per shard
+        (as one card would, shard by shard); partitioned ones too, shard by
+        shard; replicated ones once. Where the children's layouts differ
+        (the JAX mesh raises there), the partitioned ones gather to
+        replicated first (`_gather_batch`)."""
+        children = [self.lower(c) for c in plan.inputs]
+        layouts = {c.layout for c in children}
+        if layouts == {None}:
+            return self._union_over(plan, children)
+        if "replicated" in layouts and len(layouts) > 1:
+            self.notes.append("union: partitioned inputs gathered to replicated before the concatenation")
+            children = [self._gather_batch(c) for c in children]
+        rep = all(c.layout == "replicated" for c in children)
+        children = [c if rep else self._as_dist(c) for c in children]
+        dicts, concat = self._union_parts(plan, children)
+        n = self.n_dev
+
+        def fn(envs) -> ShardedBatch:
+            sbs = [c.fn(envs) for c in children]
+            if rep:
+                return ShardedBatch([concat([sb.shards[0] for sb in sbs])] * n, "replicated")
+            return ShardedBatch([concat([sb.shards[d] for sb in sbs]) for d in range(n)], "partitioned")
+
+        return Lowered(plan.schema, dicts, fn, None, "replicated" if rep else "partitioned",
+                       sum(c.capacity for c in children))
 
     # -- join ----------------------------------------------------------------
     def _lower_join(self, plan: L.Join) -> Lowered:

@@ -485,3 +485,34 @@ def test_ragged_exchange_fold_edges_match_plain(cuda, n_dev, slots, n_ops):
     torch.cuda.synchronize()
     for ki, pi in zip(k, p):
         _assert_tables(ops, ki, pi)
+
+
+@pytest.mark.parametrize("name", ["w1", "w3"])
+def test_window_queries_match_the_cpu(cuda, name):
+    """chip_smoke.py's w1 (top 3 per partition: the spec sort) and w3
+    (whole-partition AVG and MAX on K2 sorted) at 2^20 rows: the card
+    against the CPU. w1 is exact; w3's SUM(lat - a) is 0 but for rounding,
+    within 1e-6 (its terms sum in another order on the card)."""
+    smoke = _chip_smoke()
+    n = 1 << 20
+    rng = np.random.default_rng(8)
+    P = port.DataType
+    big = port.Table.from_arrays(
+        port.Schema([port.Field(c, t, False) for c, t in (("k", P.Int32), ("d", P.Int32), ("lat", P.Float64),
+                                                           ("lng", P.Float64), ("g", P.Int32))]),
+        [rng.integers(0, 65536, n).astype(np.int32), rng.integers(0, 1000, n).astype(np.int32),
+         rng.random(n) * 10 + 48, rng.random(n) * 12 - 9, rng.integers(1, 10_001, n).astype(np.int32)],
+        device="cpu",
+    )
+    gpu, cpu = port.ExecutionContext(device=cuda), port.ExecutionContext(device="cpu")
+    gpu.register_table("big", big)
+    cpu.register_table("big", big)
+    sql = {q[0]: q[1] for q in smoke.WINDOW_QUERIES}[name]
+    before = sr.segmented_reduce.sorted_launches
+    a, b = gpu.sql(sql).result_str().splitlines(), cpu.sql(sql).result_str().splitlines()
+    if name == "w3":
+        assert sr.segmented_reduce.sorted_launches - before == 1
+        (ca, sa, ma), (cb, sb, mb) = a[0].split("\t"), b[0].split("\t")
+        assert ca == cb and ma == mb and abs(float(sa) - float(sb)) <= 1e-6, (a, b)
+    else:
+        assert a == b and len(a) == 3000
