@@ -84,11 +84,22 @@ Phases, each printed on its own line:
      oracle (counts, ranks, MIN / MAX exact; f64 sums within their stated
      rounding bounds), with its EXPLAIN route, launches, warm wall and
      profile (chiprun_out/profile_windows.txt)
+  9. the rest of the aggregate family at 2^25 rows over big and big + mode
+     (AGG_QUERIES, MESH_AGG_QUERIES): a1 STDDEV / VARIANCE on the dense
+     route (two K2 dense launches), a2 MEDIAN and percentiles riding the
+     packed co-sort, a3 COUNT / SUM / AVG(DISTINCT) (one K2 sorted launch
+     each), a4 the ungrouped mix, a5 a geometric-mean UDAF (K2 dense), a6
+     TPC-H q16 over benchmarks/tpch.py's tables at scale 5 (30M lineitem
+     rows); m15-m18 over 8 shards (the repartition aggregate over K5, the
+     K6 fold, the gather); each against a numpy oracle, with its EXPLAIN
+     route, launches, warm wall and profile
+     (chiprun_out/profile_aggregates.txt); a1's and a3's K2 calls held to
+     K2's plain version
 Every kernel's kernel-only time comes from torch.profiler (kernel_only_ms),
 its wrapper's host time from host_only_ms (`host_ms` in the kernels' line).
 The reduce kernels' `library_ms` is one PyTorch call per op of the
 kernel's op list, summed (LIBRARY). Then one JSON line per kernel set (times, bounds, launches on the main
-paths, the joins and the windows) and, last,
+paths, the joins, the windows and the aggregates) and, last,
 {"ok": true, "device": {...}}. Any failed check raises and exits non-zero.
 There is no CPU path: without CUDA the script exits with an error.
 """
@@ -1879,6 +1890,250 @@ def phase_windows(dev, big, arrays, tables, kernel_stats):
     return {"warm_ms": warm, "launches": per_query}
 
 
+# phase 9's queries: (name, SQL, what EXPLAIN VERBOSE must show). a1-a6 run
+# on one card, m15-m18 over 8 shards; geomean is the UDAF of a5
+AGG_QUERIES = (
+    ("a1", "SELECT d, STDDEV(lat), VARIANCE(lng), COUNT(*) FROM big GROUP BY d",
+     ("dense sort-free group-by (int[0,999]); VAR/STDDEV squared deviations in a second K2 dense pass",)),
+    ("a2", "SELECT g, MEDIAN(lat), PERCENTILE(lat, 0.9), PERCENTILE_DISC(lat, 0.1), COUNT(lat) FROM big GROUP BY g",
+     ("packed-gid co-sort (int[1,10000]) + segmented reduce; the percentile argument rides the co-sort",)),
+    ("a3", "SELECT d, COUNT(DISTINCT g), SUM(DISTINCT k), AVG(DISTINCT k) FROM big GROUP BY d",
+     ("dense sort-free declined (COUNT_DISTINCT needs the sorted path)",
+      "2 DISTINCT argument(s), one sort within the groups each")),
+    ("a4", "SELECT COUNT(DISTINCT k), MEDIAN(lng), STDDEV_SAMP(lat) FROM big", ()),
+    ("a5", "SELECT d, geomean(lat) FROM big GROUP BY d", ("dense sort-free group-by (int[0,999])",)),
+    ("a6", None, ("join: ", "COUNT_DISTINCT needs the sorted path", "1 DISTINCT argument(s)")),
+)
+MESH_AGG_QUERIES = (
+    ("m15", AGG_QUERIES[0][1], ("hash-repartition by group keys over K5",
+                                "dense per shard and exchange-fold declined (STDDEV_SAMP")),
+    ("m16", "SELECT mode, COUNT(DISTINCT g) FROM bigm GROUP BY mode", ("hash-repartition by group keys over K5",)),
+    ("m17", "SELECT g, geomean(lat) FROM big GROUP BY g", ("fused ragged-exchange fold, K6",)),
+    ("m18", AGG_QUERIES[3][1], ("aggregate: gather to replicated, local evaluation",)),
+)
+
+
+Q16_SCALE = 5.0  # 30M lineitem rows, 1M parts
+
+
+def q16_tables(port, dev, scale):
+    """TPC-H q16's columns (benchmarks/tpch.py `gen_tables`, 6M lineitem
+    rows and 200K parts a unit of scale) on the card, and as numpy; only
+    the columns the query reads."""
+    sys.path.insert(0, os.path.join(ROOT, "benchmarks"))
+    from tpch import Q16ish, gen_tables
+
+    lineitem, _, _, part = gen_tables(scale)
+    P = port.DataType
+
+    def col(dt, a, vocab=None):
+        return port.Column(dt, torch.from_numpy(np.ascontiguousarray(a)).to(dev), None, vocab)
+
+    def table(cols):
+        return port.Table(port.Schema([port.Field(f, c.dtype, False) for f, c in cols.items()]),
+                          tuple(cols.values()), next(iter(cols.values())).data.shape[0])
+
+    codes = {}
+    for c in ("p_brand", "p_type"):
+        vocab, codes[c] = np.unique(part[c], return_inverse=True)
+        codes[c + "_vocab"] = tuple(str(v) for v in vocab)
+    li = {c: lineitem[c] for c in ("l_partkey", "l_suppkey", "l_quantity", "l_extendedprice")}
+    pa = {"p_partkey": part["p_partkey"], "p_size": part["p_size"], "p_brand": codes["p_brand"].astype(np.int32),
+          "p_type": codes["p_type"].astype(np.int32)}
+    tables = {
+        "lineitem": table({"l_partkey": col(P.Int32, li["l_partkey"]), "l_suppkey": col(P.Int32, li["l_suppkey"]),
+                           "l_quantity": col(P.Float32, li["l_quantity"]),
+                           "l_extendedprice": col(P.Float32, li["l_extendedprice"])}),
+        "part": table({"p_partkey": col(P.Int32, pa["p_partkey"]), "p_brand": col(P.Utf8, pa["p_brand"],
+                                                                                  codes["p_brand_vocab"]),
+                       "p_type": col(P.Utf8, pa["p_type"], codes["p_type_vocab"]), "p_size": col(P.Int32, pa["p_size"])}),
+    }
+    return tables, Q16ish, li, pa, codes
+
+
+def q16_oracle(li, pa, codes):
+    """Q16ish in numpy: (brand, type, distinct suppliers) of the top 20."""
+    bad = np.unique(li["l_suppkey"][(li["l_quantity"] > 49) & (li["l_extendedprice"] > 99000)])
+    brands, types = codes["p_brand_vocab"], codes["p_type_vocab"]
+    good = (pa["p_brand"] != brands.index("Brand#1")) & np.isin(pa["p_size"], (1, 14, 23, 45))
+    rows = good[li["l_partkey"]] & ~np.isin(li["l_suppkey"], bad)
+    key = pa["p_brand"][li["l_partkey"][rows]].astype(np.int64) * len(types) + pa["p_type"][li["l_partkey"][rows]]
+    n_supp = int(li["l_suppkey"].max()) + 1
+    pairs = np.unique(key * n_supp + li["l_suppkey"][rows])
+    cnt = np.bincount(pairs // n_supp, minlength=len(brands) * len(types))
+    groups = [(-int(c), brands[j // len(types)], types[j % len(types)]) for j, c in enumerate(cnt) if c]
+    return [(b, t, -c) for c, b, t in sorted(groups)[:20]]
+
+
+def agg_oracle(arrays):
+    """Phase 9's answers from numpy: exact counts, distinct counts and
+    sums of integers, percentiles by the JAX package's positions; f64
+    variances by two passes and geometric means, checked at rel 1e-9."""
+    k, d, lat, lng, g, mode = arrays
+    out = {}
+    f64 = np.float64
+
+    def var(key, x, m):
+        c = np.bincount(key, minlength=m)
+        mean = np.bincount(key, weights=x, minlength=m) / np.maximum(c, 1)
+        ss = np.bincount(key, weights=(x - mean[key]) ** 2, minlength=m)
+        return c, ss / np.maximum(c - 1, 1)
+
+    cd, var_lat = var(d, lat, 1000)
+    _, var_lng = var(d, lng, 1000)
+    out["a1"] = [np.arange(1000), np.sqrt(var_lat), var_lng, cd]
+    # a2: each g's lat ascending (numpy's stable radix sort on the uint16 key)
+    o = np.argsort(lat, kind="stable")
+    o = o[np.argsort(g[o].astype(np.uint16), kind="stable")]
+    ls = lat[o]
+    cg = np.bincount(g, minlength=10_001)[1:]
+    st = np.cumsum(cg) - cg
+
+    def cont(q):
+        rank = (cg - 1).astype(f64) * q
+        lo, hi = np.floor(rank).astype(np.int64), np.ceil(rank).astype(np.int64)
+        return ls[st + lo] + (ls[st + hi] - ls[st + lo]) * (rank - lo)
+
+    disc = ls[st + np.minimum(np.maximum(np.ceil(cg * 0.1).astype(np.int64), 1), cg) - 1]
+    out["a2"] = [np.arange(1, 10_001), cont(0.5), cont(0.9), disc, cg]
+    # a3: distinct (d, g) and (d, k) pairs on bitmaps
+    seen = np.zeros(1000 * 10_001, bool)
+    seen[d.astype(np.int64) * 10_001 + g] = True
+    dg = seen.reshape(1000, 10_001).sum(axis=1)
+    seen = np.zeros(1000 * 65536, bool)
+    seen[d.astype(np.int64) * 65536 + k] = True
+    seen = seen.reshape(1000, 65536)
+    dk = seen.sum(axis=1)
+    sk = (seen * np.arange(65536, dtype=np.int64)).sum(axis=1)
+    out["a3"] = [np.arange(1000), dg, sk, (sk / dk).astype(np.int32)]
+    # a4: ungrouped
+    n = lat.shape[0]
+    mid = np.partition(lng, [n // 2 - 1, n // 2])[[n // 2 - 1, n // 2]]
+    mean = lat.sum() / n
+    out["a4"] = [np.array([np.unique(k).shape[0]]), np.array([mid[0] + (mid[1] - mid[0]) * 0.5]),
+                 np.array([np.sqrt(((lat - mean) ** 2).sum() / (n - 1))])]
+    out["a5"] = [np.arange(1000), np.exp(np.bincount(d, weights=np.log(lat), minlength=1000) / cd)]
+    seen = np.zeros(7 * 10_001, bool)
+    seen[mode.astype(np.int64) * 10_001 + g] = True
+    out["m16"] = [np.arange(7), seen.reshape(7, 10_001).sum(axis=1)]
+    out["m17"] = [np.arange(1, 10_001), np.exp(np.bincount(g, weights=np.log(lat), minlength=10_001)[1:] / cg)]
+    return out
+
+
+def check_agg_results(name, res, want):
+    """`res` (a ResultTable) against the oracle's `want`: integer columns
+    exact, float ones at rel 1e-9 (a2's percentiles within 2 ulp: the port
+    fuses CONT's multiply-add, numpy does not; its DISC exact)."""
+    cols = [c for c, _ in res.cols]
+    if name == "a6":
+        got = list(zip(res.column_values(0), res.column_values(1), (int(c) for c in cols[2])))
+        check(got == want, f"a6: {got[:3]} ... against {want[:3]} ...")
+        return
+    if name == "m16":  # partitioned: the modes come shard by shard
+        check(sorted(res.column_values(0)) == list(SHIPMODES), f"m16 keys {res.column_values(0)}")
+        cols[0] = np.array([SHIPMODES.index(m_) for m_ in res.column_values(0)])
+    order = np.argsort(cols[0], kind="stable")
+    got = [c[order] for c in cols] if len(cols[0]) > 1 else cols
+    check(len(got) == len(want) and all(len(a) == len(b) for a, b in zip(got, want)), f"{name}: shapes")
+    for j, (a, b) in enumerate(zip(got, want)):
+        if b.dtype.kind in "iu":
+            ok = np.array_equal(a.astype(np.int64), b.astype(np.int64))
+        elif name == "a2" and j in (1, 2, 3):
+            ok = np.all(np.abs(a - b) <= 2 * np.spacing(np.abs(b)))
+        else:
+            ok = np.allclose(a, b, rtol=1e-9, atol=0)
+        check(ok, f"{name}: column {j} differs from the oracle")
+
+
+def phase_aggregates(dev, big, arrays, kernel_stats):
+    """Phase 9: the rest of the aggregate family at 2^25 rows (a1-a5,
+    m15-m18) and TPC-H q16's shape at scale 5 (a6), on one card and over
+    the mesh."""
+    import datafusion_tpu_torch as port
+    from datafusion_tpu_torch.ops import aggregate as agg_ops
+    from datafusion_tpu_torch.ops.pallas import fused_stage as fs
+    from datafusion_tpu_torch.ops.pallas import partition as pt
+    from datafusion_tpu_torch.ops.pallas import ragged_shuffle as rs
+    from datafusion_tpu_torch.ops.pallas import segreduce as sr
+
+    t0 = time.perf_counter()
+    bigm = mesh_table(port, big, arrays[5])
+    want = agg_oracle(arrays)
+    t1 = time.perf_counter()
+    q16, q16_sql, li, pa, codes = q16_tables(port, dev, Q16_SCALE)
+    want["a6"] = q16_oracle(li, pa, codes)
+    torch.cuda.synchronize()
+    log(f"phase 9 tables: big, bigm; numpy oracle in {t1 - t0:.2f} s; q16's lineitem "
+        f"{li['l_partkey'].shape[0]} rows and part {pa['p_partkey'].shape[0]} rows, made with their oracle in "
+        f"{time.perf_counter() - t1:.2f} s")
+    single, mesh = port.ExecutionContext(), port.ExecutionContext(mesh=port.make_mesh(8))
+    geomean = port.FunctionMeta("geomean", (port.Field("x", port.DataType.Float64, False),), port.DataType.Float64,
+                                port.FunctionType.Aggregate)
+    for c_ in (single, mesh):
+        for name, t in (("big", big), ("bigm", bigm), *q16.items()):
+            c_.register_table(name, t)
+        c_.register_function(geomean, port.AggregateUDF(map=torch.log, combine="sum",
+                                                        finalize=lambda s, n: torch.exp(s / n)))
+    queries = [(n, single, q16_sql if n == "a6" else q, notes) for n, q, notes in AGG_QUERIES] + [
+        (n, mesh, q, notes) for n, q, notes in MESH_AGG_QUERIES]
+    routes = {}
+    for name, c_, q, notes in queries:
+        txt = c_.sql(f"EXPLAIN VERBOSE {q}").result_str()
+        for note in notes:
+            check(note in txt, f"{name} does not route to {note}")
+        routes[name] = [ln[len("physical: "):] for ln in txt.splitlines() if ln.startswith("physical: ")]
+
+    counters = {"fused_stage": (fs.run_fused, "launches"), "segreduce_sorted": (sr.segmented_reduce, "sorted_launches"),
+                "segreduce_dense": (sr.segmented_reduce, "dense_launches"),
+                "slab_partition": (pt.slab_partition, "launches"), "windowed_reduce": (pt.windowed_reduce, "launches"),
+                "ragged_exchange": (rs.ragged_exchange, "launches"),
+                "ragged_exchange_fold": (rs.ragged_exchange_fold, "launches")}
+    for f, attr in counters.values():
+        setattr(f, attr, 0)
+    results, walls, per_query = {}, {}, {}
+    for name, c_, q, _ in queries:
+        before = {c: getattr(f, a) for c, (f, a) in counters.items()}
+        t = time.perf_counter()
+        results[name] = c_.sql(q)
+        torch.cuda.synchronize()
+        walls[name] = (time.perf_counter() - t) * 1e3
+        per_query[name] = {c: getattr(f, a) - before[c] for c, (f, a) in counters.items()}
+    launches = {c: getattr(f, a) for c, (f, a) in counters.items()}
+    for name in ("segreduce_sorted", "segreduce_dense", "ragged_exchange", "ragged_exchange_fold"):
+        check(launches[name] > 0, f"{name} was not launched on phase 9's path")
+    expect = {("a1", "segreduce_dense"): 2, ("a2", "segreduce_sorted"): 1, ("a3", "segreduce_sorted"): 1,
+              ("a5", "segreduce_dense"): 1, ("m15", "segreduce_sorted"): 16, ("m17", "ragged_exchange_fold"): 1}
+    for (name, kern), n in expect.items():
+        check(per_query[name][kern] == n, f"{name} made {per_query[name][kern]} {kern} launches, not {n}")
+    check(per_query["m15"]["ragged_exchange"] >= 1 and per_query["m16"]["ragged_exchange"] >= 1,
+          "m15 / m16 did not launch K5")
+    check(per_query["a6"]["segreduce_sorted"] >= 1, "a6 did not launch K2 sorted")
+    for name, _, _, _ in queries:
+        check_agg_results(name, results[name], want[{"m15": "a1", "m17": "m17", "m18": "a4"}.get(name, name)])
+    # the new op lists' K2 calls against K2's plain version, on the same inputs
+    for name, q, mode in (("a1", AGG_QUERIES[0][1], "dense"), ("a3", AGG_QUERIES[2][1], "sorted")):
+        box = capture(agg_ops, "segmented_reduce", lambda q=q: single.sql(q))
+        for args, kw in box:
+            kern = sr.segmented_reduce(*args, **kw)
+            plain = sr.segmented_reduce_plain(*args, ops=kw["ops"], num_groups=kw["num_groups"])
+            for op, a, b in zip(kw["ops"], kern, plain):
+                ok = torch.allclose(a, b, rtol=1e-9, atol=0) if op == "sum" else torch.equal(a, b)
+                check(ok, f"{name}'s K2 {mode} {op} differs from its plain version")
+        log(f"phase 9 {name}'s K2 {mode} calls: " + "; ".join(
+            f"{a[0].numel()} rows, {kw['num_groups']} groups, ops {kw['ops']}" for a, kw in box)
+            + ": kernel == plain (sums at rtol 1e-9)")
+
+    runs = [(name, c_, q) for name, c_, q, _ in queries]
+    warm = {name: warm_wall_ms(c_, q) for name, c_, q in runs}
+    log("phase 9 aggregates: a1-a6, m15-m18 match the numpy oracle; EXPLAIN routes " + json.dumps(routes)
+        + "; wall ms first " + json.dumps({n: round(v, 3) for n, v in walls.items()}) + " warm (median of 5) "
+        + json.dumps({n: round(v, 3) for n, v in warm.items()}) + f"; launches per query {json.dumps(per_query)}")
+    profile_queries(runs, "phase 9", "profile_aggregates.txt")
+    for name, s_ in kernel_stats.items():
+        s_["aggregate_launches"] = launches[name]
+    return {"warm_ms": warm, "launches": per_query}
+
+
 def phase_csv(dev):
     import datafusion_tpu_torch as port
     from datafusion_tpu_torch.utils.fmt import rust_f32, rust_f64
@@ -2008,6 +2263,7 @@ def main():
     phase_mesh(dev, big, arrays, kernel_stats)
     joins = phase_joins(dev, big, arrays, kernel_stats)
     phase_windows(dev, big, arrays, joins["tables"], kernel_stats)
+    phase_aggregates(dev, big, arrays, kernel_stats)
     kernels = []
     for name, s in kernel_stats.items():
         ops_bound = s.pop("ops_bound_ms")

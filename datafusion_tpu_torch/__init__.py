@@ -1,13 +1,15 @@
 """datafusion_tpu_torch — the PyTorch / CUDA port of datafusion_tpu.
 
 The same SQL engine (SQL parsing and planning, projection, selection,
-CAST, MIN/MAX/SUM/COUNT/AVG with GROUP BY, ORDER BY, LIMIT, CREATE
-EXTERNAL TABLE over CSV) running eagerly in PyTorch on an NVIDIA GPU,
-with hand-written Hopper (sm_90a) CUDA kernels where the JAX package had
-Pallas kernels: the fused scan/filter/project stage and the segmented
-reduce. The JAX package `datafusion_tpu` is the reference this package
-is tested against; this package imports nothing from it, and never
-imports jax.
+CAST, MIN/MAX/SUM/COUNT/AVG, STDDEV/VARIANCE, MEDIAN and percentiles,
+the DISTINCT aggregates and aggregate UDFs with GROUP BY, ORDER BY,
+LIMIT, joins, windows, UNION, CREATE EXTERNAL TABLE over CSV) running
+eagerly in PyTorch on an NVIDIA GPU, with hand-written Hopper (sm_90a)
+CUDA kernels where the JAX package had Pallas kernels: the fused
+scan/filter/project stage, the segmented reduce, the slab partition and
+windowed reduce, and the ragged exchange with and without its fold.
+The JAX package `datafusion_tpu` is the reference this package is tested
+against; this package imports nothing from it, and never imports jax.
 
 Entry points run on the card: `ExecutionContext()` means
 `device="cuda"` and raises on a machine without one unless the caller
@@ -26,7 +28,7 @@ from datafusion_tpu_torch.errors import (
     PlanError,
 )
 from datafusion_tpu_torch.exec.context import ExecutionContext
-from datafusion_tpu_torch.ops.functions import HostFunction
+from datafusion_tpu_torch.ops.functions import AggregateUDF, HostFunction
 from datafusion_tpu_torch.parallel.mesh import Mesh, make_mesh
 from datafusion_tpu_torch.plan.logical import Expr, LogicalPlan
 from datafusion_tpu_torch.plan.planner import FunctionMeta, FunctionType
@@ -34,6 +36,7 @@ from datafusion_tpu_torch.schema import Field, Schema
 from datafusion_tpu_torch.types import DataType, ScalarValue, can_coerce_from, get_supertype
 
 __all__ = [
+    "AggregateUDF",
     "Column",
     "CsvDataSource",
     "DataType",

@@ -634,10 +634,23 @@ class PlanCompiler:
                        bounds=bounds)
 
     # ------------------------------------------------------------------
+    @staticmethod
+    def _agg_function(e: L.AggregateFunction) -> tuple[str, float]:
+        """An aggregate's function and percentile fraction, as the JAX
+        package names them (its compiler.py:1041-1054): DISTINCT COUNT /
+        SUM / AVG become `*_distinct`; the planner's
+        `percentile[_disc[_desc]]_<q>` carry the fraction."""
+        fname = e.name.lower()
+        if e.distinct and fname in ("count", "sum", "avg"):
+            return f"{fname}_distinct", 0.5
+        for base in ("percentile_disc_desc", "percentile_disc", "percentile"):
+            if fname.startswith(base + "_"):
+                return base, float(fname[len(base) + 1:])
+        return fname, 0.5
+
     def _aggregate_meta(self, plan: L.Aggregate, child: Lowered):
         """The compiled group keys, (function, compiled argument, return
-        type) per aggregate, and the output dictionaries; raises for what
-        the port does not aggregate."""
+        type, fraction) per aggregate, and the output dictionaries."""
         group_c = [self.compile(e, child) for e in plan.group_exprs]
         agg_meta = []
         for e in plan.aggr_exprs:
@@ -645,27 +658,40 @@ class PlanCompiler:
                 raise ExecutionError(f"expected aggregate function, got {e!r}")
             if len(e.args) != 1:
                 raise ExecutionError("aggregate functions take exactly one argument")
-            fname = e.name.lower()
-            if e.distinct or fname not in agg_ops.GROUPED_FUNCS:
-                raise NotImplementedError_(
-                    f"aggregate {e.name}{'(DISTINCT)' if e.distinct else ''} "
-                    "is not part of the torch port yet"
-                )
-            agg_meta.append((fname, self.compile(e.args[0], child), e.return_type))
+            fname, q = self._agg_function(e)
+            if fname not in agg_ops.FUNCS:
+                raise ExecutionError(f"unknown aggregate function {e.name}")
+            agg_meta.append((fname, self.compile(e.args[0], child), e.return_type, q))
         out_dicts = [c.dictionary for c in group_c] + [
-            (arg.dictionary if rt is DataType.Utf8 else None) for (_, arg, rt) in agg_meta
+            (arg.dictionary if rt is DataType.Utf8 else None) for (_, arg, rt, _) in agg_meta
         ]
         return group_c, agg_meta, out_dicts
+
+    @staticmethod
+    def _specs_of(agg_meta, b: Batch) -> list:
+        return [agg_ops.AggSpec(name, broadcast_col(arg.fn(b.cols), b.capacity), rt, q)
+                for (name, arg, rt, q) in agg_meta]
+
+    @staticmethod
+    def _sorted_route_notes(plan: L.Aggregate) -> str:
+        """What the sorted route adds for the aggregate family, for EXPLAIN."""
+        funcs = [(PlanCompiler._agg_function(e)[0], repr(e.args[0])) for e in plan.aggr_exprs]
+        out = ""
+        if any(f in agg_ops.PCT_FUNCS for f, _ in funcs):
+            out += "; the percentile argument rides the co-sort"
+        n_distinct = len({a for f, a in funcs if f in agg_ops.DISTINCT_FUNCS})
+        if n_distinct:
+            out += f"; {n_distinct} DISTINCT argument(s), one sort within the groups each"
+        if any(f in agg_ops.VAR_FUNCS for f, _ in funcs):
+            out += "; VAR/STDDEV squared deviations in a second K2 sorted pass"
+        return out
 
     def _aggregate_over(self, plan: L.Aggregate, child: Lowered) -> Lowered:
         group_c, agg_meta, out_dicts = self._aggregate_meta(plan, child)
         dev = self.device
 
         def specs_of(b: Batch):
-            return [
-                agg_ops.AggSpec(name, broadcast_col(arg.fn(b.cols), b.capacity), rt)
-                for (name, arg, rt) in agg_meta
-            ]
+            return self._specs_of(agg_meta, b)
 
         if not group_c:
             def fn0(env) -> Batch:
@@ -684,9 +710,15 @@ class PlanCompiler:
             for d in doms:
                 prod *= d + 1  # +1 radix per key covers a NULL slot
         dense = 1 <= prod <= agg_ops.DENSE_MAX_GROUPS
-        if dense or self._bigdense_ok(plan, prod):
+        sorted_only = [name for name, _, _, _ in agg_meta if name not in agg_ops.DENSE_FUNCS]
+        if dense and sorted_only:
+            self.note_decline(f"aggregate: dense sort-free declined ({sorted_only[0].upper()} needs the sorted path)")
+            dense = False
+        if dense or self._bigdense_ok(plan, prod, agg_meta):
             if dense:
-                self.notes.append(f"aggregate: dense sort-free group-by ({' x '.join(notes)})")
+                two = any(name in agg_ops.VAR_FUNCS for name, _, _, _ in agg_meta)
+                self.notes.append(f"aggregate: dense sort-free group-by ({' x '.join(notes)})"
+                                  + ("; VAR/STDDEV squared deviations in a second K2 dense pass" if two else ""))
                 slots_fn = agg_ops.grouped_aggregate_dense
             else:
                 self.notes.append(
@@ -703,14 +735,15 @@ class PlanCompiler:
             return Lowered(plan.schema, out_dicts, fn_slots, capacity=min(child.capacity, prod + 1))
 
         packed = 1 <= prod <= agg_ops.PACKED_MAX_GROUPS
+        family = self._sorted_route_notes(plan)
         if packed:
-            self.notes.append(f"aggregate: packed-gid co-sort ({' x '.join(notes)}) + segmented reduce")
+            self.notes.append(f"aggregate: packed-gid co-sort ({' x '.join(notes)}) + segmented reduce{family}")
         else:
             if prod > agg_ops.PACKED_MAX_GROUPS:
                 self.note_decline(
                     f"aggregate: packed-gid declined (domain product {prod} > {agg_ops.PACKED_MAX_GROUPS})"
                 )
-            self.notes.append("aggregate: co-sort + segmented reduce")
+            self.notes.append(f"aggregate: co-sort + segmented reduce{family}")
 
         def fn(env) -> Batch:
             b = child.fn(env)
@@ -724,7 +757,7 @@ class PlanCompiler:
         cap = min(child.capacity, prod + 1 if packed else self.DEFAULT_GROUP_CAPACITY)
         return Lowered(plan.schema, out_dicts, fn, capacity=cap)
 
-    def _bigdense_ok(self, plan: L.Aggregate, prod: int) -> bool:
+    def _bigdense_ok(self, plan: L.Aggregate, prod: int, agg_meta) -> bool:
         """The opt-in bigdense gate (`self.bigdense`, fixed when the
         compiler is made). Every key must be probed (`prod` > 0), with
         DENSE_MAX_GROUPS < prod <= BIGDENSE_MAX_GROUPS, and the functions
@@ -736,8 +769,11 @@ class PlanCompiler:
             return False
         n_ops, n_masks = self._reduce_op_bound(plan)
         id_mod = 1 << prod.bit_length()
+        family = [name for name, _, _, _ in agg_meta if name in agg_ops.HOLISTIC_FUNCS]
         why = None
-        if n_ops > part.MAX_OPS:
+        if family:
+            why = f"{family[0].upper()} is not on K3 + K4"
+        elif n_ops > part.MAX_OPS:
             why = f"up to {n_ops} reduce ops, K4's shared memory holds {part.MAX_OPS} windows"
         elif id_mod << n_masks > part.SENTINEL:
             why = f"{n_masks} mask bits above id_mod {id_mod} reach SENTINEL"
@@ -749,15 +785,23 @@ class PlanCompiler:
     @staticmethod
     def _reduce_op_bound(plan: L.Aggregate) -> tuple[int, int]:
         """Upper bounds, from the plan alone, on the reduce ops and the
-        distinct masks of a dense-window GROUP BY (`agg_ops._op_list`)."""
-        funcs = [e.name.lower() for e in plan.aggr_exprs]
+        distinct masks of one reduce call of a GROUP BY (`agg_ops._op_list`)."""
+        funcs = [PlanCompiler._agg_function(e)[0] for e in plan.aggr_exprs]
         # a column argument is one tensor however often it is used; any
         # other argument is a new tensor (and validity) per aggregate
         args = [e.args[0] if isinstance(e.args[0], L.Column) else i for i, e in enumerate(plan.aggr_exprs)]
-        n_masks = len(set(args))
+        distinct = {a for f, a in zip(funcs, args) if f in agg_ops.DISTINCT_FUNCS}
+        n_masks = len(set(args)) + len(distinct)  # DISTINCT counts take their run flags as masks
+        ops = set()
+        for f, a in zip(funcs, args):
+            if f in agg_ops.DISTINCT_FUNCS:
+                ops.add(("count_distinct", a))
+                if f != "count_distinct":
+                    ops.add(("sum_distinct", a))
+            elif f not in ("count",) + agg_ops.PCT_FUNCS:
+                ops.add(("sum" if f in ("avg",) + agg_ops.VAR_FUNCS else f, a))
         # exists-count + one COUNT per mask + one op per (function, argument)
-        n_ops = 1 + n_masks + len({("sum" if f == "avg" else f, a) for f, a in zip(funcs, args) if f != "count"})
-        return n_ops, n_masks
+        return 1 + n_masks + len(ops), n_masks
 
     def _probe_key_domains(self, group_c, group_exprs, child: Lowered):
         """Per-key (domains, offsets, notes) for the dense/packed GROUP BY

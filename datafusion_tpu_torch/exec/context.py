@@ -22,6 +22,7 @@ from datafusion_tpu_torch.columnar.table import Table, resolve_device
 from datafusion_tpu_torch.errors import ExecutionError, NotImplementedError_, PlanError
 from datafusion_tpu_torch.exec.compiler import PlanCompiler, compile_plan, split_host_projection
 from datafusion_tpu_torch.exec.result import ResultTable
+from datafusion_tpu_torch.ops.functions import AggregateUDF
 from datafusion_tpu_torch.parallel.dist import DistCompiler, compile_plan_distributed
 from datafusion_tpu_torch.parallel.mesh import Mesh
 from datafusion_tpu_torch.plan.logical import LogicalPlan
@@ -58,7 +59,12 @@ class _Catalog:
         return entry[0] if entry else None
 
     def get_aggregate_udf(self, name: str):
-        return None  # aggregate UDFs are not part of the port yet
+        """The AggregateUDF registered under `name` (None for scalar UDFs
+        and unknown names): the planner's UDAF desugar reads it."""
+        entry = self.ctx._functions.get(name.lower())
+        if entry and isinstance(entry[1], AggregateUDF):
+            return entry[1]
+        return None
 
 
 class ExecutionContext:
@@ -123,11 +129,30 @@ class ExecutionContext:
         self.register_table(name, read_csv(path, schema, has_header=has_header, device=self.device))
 
     def register_function(self, meta: FunctionMeta, fn: Optional[Callable] = None) -> None:
-        """Register a scalar UDF: `fn` maps torch tensors to a tensor, or
-        is a HostFunction run on the host at result time."""
+        """Register a UDF. Scalar: `fn` maps torch tensors to a tensor, or
+        is a HostFunction run on the host at result time. Aggregate: `fn`
+        must be an AggregateUDF (map/combine/finalize, ops/functions.py),
+        whose map and finalize become the scalar hooks `<name>__map` and
+        `<name>__finalize` that the planner's desugar calls; a plain
+        callable is refused here rather than at execution."""
+        low = meta.name.lower()
         if meta.function_type is FunctionType.Aggregate:
-            raise NotImplementedError_("aggregate UDFs are not part of the torch port yet")
-        self._functions[meta.name.lower()] = (meta, fn)
+            if not isinstance(fn, AggregateUDF):
+                raise PlanError(
+                    f"aggregate UDF '{meta.name}' must be registered with an "
+                    "AggregateUDF(map=..., combine=..., finalize=...) (datafusion_tpu_torch.AggregateUDF)"
+                )
+            if fn.map_fn is not None:
+                self._functions[f"{low}__map"] = (
+                    FunctionMeta(f"{low}__map", meta.args, DataType.Float64, FunctionType.Scalar), fn.map_fn)
+            if fn.finalize_fn is not None:
+                self._functions[f"{low}__finalize"] = (
+                    FunctionMeta(f"{low}__finalize", (Field("agg", DataType.Float64, False),
+                                                      Field("n", DataType.Float64, False)),
+                                 meta.return_type, FunctionType.Scalar),
+                    fn.finalize_fn,
+                )
+        self._functions[low] = (meta, fn)
 
     def table(self, name: str) -> Table:
         return self._tables[name]

@@ -86,26 +86,25 @@ class CastRenderHost(HostFunction):
 
 
 class AggregateUDF:
-    """A user aggregate as a map/combine/finalize monoid — the shape that
-    runs on TPU at full speed (the reference's FunctionType::Aggregate
-    registry existed but get_function_meta was unimplemented!,
-    context.rs:255-257; this makes UDAFs executable, grouped AND
-    distributed, by desugaring onto the built-in segment machinery):
+    """A user aggregate as a map/combine/finalize monoid (the reference's
+    FunctionType::Aggregate registry existed but get_function_meta was
+    unimplemented!, context.rs:255-257; this makes UDAFs executable,
+    grouped AND distributed, by desugaring onto the built-in reductions):
 
         result = finalize(combine_over_group(map(*args)), count)
 
-    * map: elementwise jax fn over the argument column(s) → one array
+    * map: elementwise torch fn over the argument column(s) → one tensor
       (None = identity on the first argument)
     * combine: "sum" | "min" | "max" — the per-group reduction
-    * finalize: jax fn (combined, count) → result (None = combined)
+    * finalize: torch fn (combined, count) → result (None = combined)
 
     Example — geometric mean:
-        AggregateUDF(map=jnp.log, combine="sum",
-                     finalize=lambda s, n: jnp.exp(s / n))
+        AggregateUDF(map=torch.log, combine="sum",
+                     finalize=lambda s, n: torch.exp(s / n))
 
-    The desugared plan is ordinary SUM/MIN/MAX + COUNT, so every
-    execution path (sort-based, pallas dense, distributed partial+merge,
-    repartition) works unchanged.
+    The desugared plan is ordinary SUM/MIN/MAX + COUNT, so every route
+    (K2 dense or sorted, K3 + K4, and on a mesh the dense merge, the K6
+    fold or the partial + all_gather merge) runs it unchanged.
     """
 
     COMBINES = ("sum", "min", "max")

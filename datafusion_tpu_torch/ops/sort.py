@@ -49,6 +49,68 @@ def lexsort(keys: Sequence[torch.Tensor]) -> torch.Tensor:
     return perm
 
 
+PACK_BITS = 63  # a packed sort key stays a non-negative int64
+
+
+def pack_layout(widths: Sequence[Optional[int]]) -> list[list[int]]:
+    """Sort fields of `widths` bits, most significant first, greedily
+    packed into keys of at most PACK_BITS bits; a field of width None (a
+    64-bit code, or one whose width is not tracked) is a key of its own.
+    Returns the field indices of each key."""
+    groups, cur, bits = [], [], 0
+    for f, w in enumerate(widths):
+        if w is None:
+            if cur:
+                groups.append(cur)
+            groups.append([f])
+            cur, bits = [], 0
+        elif bits + w > PACK_BITS:
+            groups.append(cur)
+            cur, bits = [f], w
+        else:
+            cur.append(f)
+            bits += w
+    if cur:
+        groups.append(cur)
+    return groups
+
+
+def narrow_key(key: torch.Tensor, bits: int) -> torch.Tensor:
+    """A packed key in the narrowest integer dtype that holds it: a radix
+    sort's passes follow the key's width."""
+    for dt, b in ((torch.int8, 7), (torch.int16, 15), (torch.int32, 31)):
+        if bits <= b:
+            return key.to(dt)
+    return key
+
+
+def packed_order(fields) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """The stable order of rows by `fields`, most significant first, each
+    (code, width): a code of known width is in [0, 2^width) and shares a
+    key (`pack_layout`); one of width None is compared as it is. One
+    stable `torch.sort` per key, least significant first, each key in the
+    narrowest dtype that holds it. Returns (the permutation, the most
+    significant key in sorted order, the bits below its first field, so
+    that the first field is `top >> shift`)."""
+    perm = top = None
+    for group in reversed(pack_layout([w for _, w in fields])):
+        code, w = fields[group[0]]
+        if w is None:
+            key, shift = code, 0
+        else:
+            key, bits = None, 0
+            for f in reversed(group):
+                c, wf = fields[f]
+                c = c.to(torch.int64)
+                key = c if key is None else key + (c << bits)
+                bits += wf
+            key, shift = narrow_key(key, bits), bits - w
+        res = torch.sort(key if perm is None else key[perm], stable=True)
+        perm = res.indices if perm is None else perm[res.indices]
+        top = res.values
+    return perm, top, shift
+
+
 def sort_batch(
     keys: Sequence[tuple],
     cols: Sequence[ColVal],

@@ -62,10 +62,10 @@ import torch
 from datafusion_tpu_torch.errors import NotImplementedError_
 from datafusion_tpu_torch.ops.expr_eval import ColVal, full
 from datafusion_tpu_torch.ops.pallas.segreduce import from_sortable_int, segmented_reduce, to_sortable_int
+from datafusion_tpu_torch.ops.sort import pack_layout, packed_order
 
 SHIFTS = {"lag", "lead"}
 AGGS = {"sum", "count", "avg", "min", "max"}
-PACK_BITS = 63  # a packed key stays a non-negative int64
 
 # the bits of a key's code by data dtype, where no value range is known
 _WIDTH = {torch.bool: 1, torch.int8: 8, torch.uint8: 8, torch.int16: 16, torch.int32: 32, torch.float32: 32}
@@ -108,26 +108,11 @@ def sort_layout(widths: Sequence[Optional[int]]) -> list[list[int]]:
     """Pack the spec's fields, most significant first, into sort keys: the
     unselected flag (1 bit), then per key its null flag (1 bit) and its
     data (`widths[i]` bits, None for a 64-bit pass). Returns the field
-    indices of each key, greedily filled up to PACK_BITS."""
+    indices of each key, greedily filled up to PACK_BITS (`pack_layout`)."""
     sizes = [1]
     for w in widths:
         sizes += [1, w]
-    groups, cur, bits = [], [], 0
-    for f, w in enumerate(sizes):
-        if w is None:
-            if cur:
-                groups.append(cur)
-            groups.append([f])
-            cur, bits = [], 0
-        elif bits + w > PACK_BITS:
-            groups.append(cur)
-            cur, bits = [f], w
-        else:
-            cur.append(f)
-            bits += w
-    if cur:
-        groups.append(cur)
-    return groups
+    return pack_layout(sizes)
 
 
 def _code(data: torch.Tensor, asc: bool, domain, width: Optional[int]) -> torch.Tensor:
@@ -152,15 +137,6 @@ def _code(data: torch.Tensor, asc: bool, domain, width: Optional[int]) -> torch.
     return d + half if asc else (1 << width) - 1 - (d + half)
 
 
-def _narrow(key: torch.Tensor, bits: int) -> torch.Tensor:
-    """The packed key in the narrowest integer dtype that holds it: a
-    radix sort's passes follow the key's width."""
-    for dt, b in ((torch.int8, 7), (torch.int16, 15), (torch.int32, 31)):
-        if bits <= b:
-            return key.to(dt)
-    return key
-
-
 def spec_order(sel: torch.Tensor, keys, domains) -> torch.Tensor:
     """The spec's row permutation: selected rows first, then by each key
     `(data, valid, asc, nulls_first)` (NULLs last unless nulls_first),
@@ -174,22 +150,7 @@ def spec_order(sel: torch.Tensor, keys, domains) -> torch.Tensor:
         else:
             flag = (valid if nf else torch.logical_not(valid)).to(torch.int64)
         fields += [(flag, 1), (_code(data, asc, dom, w), w)]
-    perm = None
-    for group in reversed(sort_layout(widths)):
-        if fields[group[0]][1] is None:  # a 64-bit pass
-            key = fields[group[0]][0]
-        else:
-            key, bits = None, 0
-            for f in reversed(group):
-                code, w = fields[f]
-                key = code if key is None else key + (code << bits)
-                bits += w
-            key = _narrow(key, bits)
-        if perm is None:
-            perm = torch.sort(key, stable=True).indices
-        else:
-            perm = perm[torch.sort(key[perm], stable=True).indices]
-    return perm
+    return packed_order(fields)[0]
 
 
 # ---------------------------------------------------------------------------

@@ -11,7 +11,10 @@ ShardedBatch (exec/compiler.py):
   * GROUP BY, in the JAX package's order: dense per shard (K2 dense) and
     a psum / pmin / pmax merge; the fused exchange + fold (K6); or partial
     aggregates per shard and a merge of their all_gather; ungrouped
-    aggregates merge their per-shard scalars
+    aggregates merge their per-shard scalars. Holistic aggregates
+    (DISTINCT, MEDIAN / percentiles, VAR / STDDEV) hash-repartition the
+    rows by the group keys through K5 and aggregate per shard, or, without
+    GROUP BY, gather the rows and aggregate once
   * ORDER BY: a sample sort whose range exchange is K5
     (parallel/shuffle.py); ORDER BY one key LIMIT k <= 4096: per-shard
     top-k and a top-k of the gathered candidates
@@ -482,9 +485,20 @@ class DistCompiler(PlanCompiler):
 
     # -- aggregate -----------------------------------------------------------
     def _aggregate_over(self, plan: L.Aggregate, child: Lowered) -> Lowered:
+        """The JAX mesh's aggregate routes (its dist.py:1391-1416). A
+        holistic aggregate (DISTINCT, MEDIAN / percentiles, the two-pass
+        VAR / STDDEV: no partial of a shard merges) needs each group's rows
+        on one shard: grouped, the rows hash-repartition by the group keys
+        (`_aggregate_repartition`); ungrouped, they gather to replicated.
+        Otherwise: dense per shard and a merge, the K6 fold, or partials
+        and an all_gather merge; ungrouped, per-shard scalars merged."""
         if child.layout == "replicated":
             return self._per_shard(child, lambda c: PlanCompiler._aggregate_over(self, plan, c))
         group_c, agg_meta, out_dicts = self._aggregate_meta(plan, child)
+        holistic = [name.upper() for name, _, _, _ in agg_meta if name in agg_ops.HOLISTIC_FUNCS]
+        if holistic and not group_c:
+            self.notes.append(f"aggregate: gather to replicated, local evaluation ({holistic[0]} partials do not merge)")
+            return self._per_shard(self._gather_batch(child), lambda c: PlanCompiler._aggregate_over(self, plan, c))
         child_d = self._as_dist(child)
         if not group_c:
             return self._ungrouped_dist(plan, child_d, agg_meta, out_dicts)
@@ -495,17 +509,18 @@ class DistCompiler(PlanCompiler):
             prod = 1
             for d in doms:
                 prod *= d + 1  # +1 radix per key covers a NULL slot
+        if holistic:
+            self.note_decline(f"aggregate: dense per shard and exchange-fold declined ({holistic[0]} needs each "
+                              "group's rows on one shard)")
+            packed = 1 <= prod <= agg_ops.PACKED_MAX_GROUPS
+            return self._aggregate_repartition(plan, child_d, group_c, agg_meta, out_dicts,
+                                               doms if packed else None, offs, notes)
         n = self.n_dev
         dev = self.device
 
         def shards_of(sb: ShardedBatch):
             return [
-                (
-                    [broadcast_col(c.fn(b.cols), b.capacity) for c in group_c],
-                    [agg_ops.AggSpec(name, broadcast_col(arg.fn(b.cols), b.capacity), rt)
-                     for (name, arg, rt) in agg_meta],
-                    b.sel,
-                )
+                ([broadcast_col(c.fn(b.cols), b.capacity) for c in group_c], self._specs_of(agg_meta, b), b.sel)
                 for b in sb.shards
             ]
 
@@ -549,6 +564,42 @@ class DistCompiler(PlanCompiler):
         return self._merge_aggregate(plan, child_d, agg_meta, out_dicts, shards_of, batch,
                                      doms if 1 <= prod <= agg_ops.PACKED_MAX_GROUPS else None, offs, notes)
 
+    def _aggregate_repartition(self, plan, child, group_c, agg_meta, out_dicts, doms, offs, notes) -> Lowered:
+        """The JAX mesh's repartition aggregate (its dist.py:916-1001):
+        every row goes to the shard of its group keys' hash
+        (`hash_keys_to_device`, the data under a NULL key zeroed so that
+        NULL keys hash alike) through K5 (`repartition`), and each shard
+        aggregates what it received (`grouped_aggregate`, on the packed id
+        of the global probed domains where every key has one). A group
+        lives on one shard, so every aggregate is local there. The result
+        is partitioned: groups come shard by shard."""
+        n, dev = self.n_dev, self.device
+        how = f"packed-gid co-sort ({' x '.join(notes)})" if doms is not None else "co-sort"
+        self.notes.append(f"aggregate: hash-repartition by group keys over K5 (ragged exchange, {n} shards), then "
+                          f"the local {how} + segmented reduce per shard{self._sorted_route_notes(plan)}")
+
+        def fn(envs) -> ShardedBatch:
+            sb = child.fn(envs)
+            dsts = []
+            for b in sb.shards:
+                keys = []
+                for c in group_c:
+                    d, v = broadcast_col(c.fn(b.cols), b.capacity)
+                    keys.append(d if v is None else torch.where(v, d, torch.zeros((), dtype=d.dtype, device=d.device)))
+                dsts.append(hash_keys_to_device(keys, n))
+            cols, sels = repartition([b.cols for b in sb.shards], dsts, [b.sel for b in sb.shards], n)
+            out = []
+            for c, sel in zip(cols, sels):
+                b = Batch(c, sel)
+                keys = [broadcast_col(gc.fn(b.cols), b.capacity) for gc in group_c]
+                okeys, oaggs, ng = agg_ops.grouped_aggregate(keys, self._specs_of(agg_meta, b), sel,
+                                                             dense_domain=doms, dense_offset=offs)
+                out.append(Batch(list(okeys) + list(oaggs), torch.ones(ng, dtype=torch.bool, device=dev)))
+            return ShardedBatch(out, "partitioned")
+
+        groups = self.DEFAULT_GROUP_CAPACITY if doms is None else math.prod(d + 1 for d in doms) + 1
+        return Lowered(plan.schema, out_dicts, fn, None, "partitioned", min(child.capacity, groups))
+
     def _fold_ok(self, plan: L.Aggregate, prod: int) -> bool:
         """The fold's gate: every key probed (`prod` > 0), at most WINDOW
         slots per shard, and the op list within K6's shared memory; both
@@ -576,7 +627,7 @@ class DistCompiler(PlanCompiler):
         how = f"packed-gid co-sort ({' x '.join(notes)})" if doms is not None else "co-sort"
         self.notes.append(f"aggregate: per-shard partial aggregate ({how}) + all_gather merge")
         layout = []  # per aggregate: (kind, its partial specs' functions and types)
-        for name, _arg, rt in agg_meta:
+        for name, _arg, rt, _q in agg_meta:
             if name in ("min", "max", "sum"):
                 layout.append((name, [(name, rt), ("count", DataType.Int64)]))
             elif name == "count":
@@ -601,7 +652,7 @@ class DistCompiler(PlanCompiler):
                     i += 1
             mk, ma, ng = agg_ops.grouped_aggregate(gkeys, specs2, g.sel, dense_domain=doms, dense_offset=offs)
             out, i = [], 0
-            for (name, parts), (_, _, rt) in zip(layout, agg_meta):
+            for (name, parts), (_, _, rt, _) in zip(layout, agg_meta):
                 out_t = torch_dtype(rt)
                 if name == "count":
                     out.append((ma[i][0].to(out_t), None))
@@ -626,7 +677,7 @@ class DistCompiler(PlanCompiler):
         def fn(envs) -> ShardedBatch:
             sb = child.fn(envs)
             cols = []
-            for name, arg, rt in agg_meta:
+            for name, arg, rt, _ in agg_meta:
                 part_t = _float_partial(rt) if name == "avg" else rt
                 per = []
                 for b in sb.shards:

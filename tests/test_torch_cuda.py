@@ -516,3 +516,38 @@ def test_window_queries_match_the_cpu(cuda, name):
         assert ca == cb and ma == mb and abs(float(sa) - float(sb)) <= 1e-6, (a, b)
     else:
         assert a == b and len(a) == 3000
+
+
+@pytest.mark.parametrize("name", ["a1", "a2", "a3"])
+def test_aggregate_family_matches_the_cpu(cuda, name):
+    """chip_smoke.py's a1 (dense STDDEV / VARIANCE: two K2 dense launches),
+    a2 (MEDIAN and percentiles riding the co-sort: one K2 sorted launch)
+    and a3 (COUNT / SUM / AVG(DISTINCT): one K2 sorted launch) at 2^20
+    rows: the card against the CPU, keys and counts exact, floats within
+    rel 1e-9 (sums in atomic order)."""
+    smoke = _chip_smoke()
+    n = 1 << 20
+    rng = np.random.default_rng(9)
+    P = port.DataType
+    big = port.Table.from_arrays(
+        port.Schema([port.Field(c, t, False) for c, t in (("k", P.Int32), ("d", P.Int32), ("lat", P.Float64),
+                                                           ("lng", P.Float64), ("g", P.Int32))]),
+        [rng.integers(0, 65536, n).astype(np.int32), rng.integers(0, 1000, n).astype(np.int32),
+         rng.random(n) * 10 + 48, rng.random(n) * 12 - 9, rng.integers(1, 10_001, n).astype(np.int32)],
+        device="cpu",
+    )
+    gpu, cpu = port.ExecutionContext(device=cuda), port.ExecutionContext(device="cpu")
+    gpu.register_table("big", big)
+    cpu.register_table("big", big)
+    sql = {q[0]: q[1] for q in smoke.AGG_QUERIES}[name]
+    sorted0, dense0 = sr.segmented_reduce.sorted_launches, sr.segmented_reduce.dense_launches
+    a, b = gpu.sql(sql), cpu.sql(sql)
+    made = (sr.segmented_reduce.sorted_launches - sorted0, sr.segmented_reduce.dense_launches - dense0)
+    assert made == {"a1": (0, 2), "a2": (1, 0), "a3": (1, 0)}[name], made
+    assert a.num_rows == b.num_rows
+    for (ca, va), (cb, vb) in zip(a.cols, b.cols):
+        assert (va is None) == (vb is None) and (va is None or np.array_equal(va, vb))
+        if ca.dtype.kind == "f":
+            assert np.allclose(ca, cb, rtol=1e-9, atol=0), name
+        else:
+            assert np.array_equal(ca, cb), name
