@@ -95,11 +95,28 @@ Phases, each printed on its own line:
      route, launches, warm wall and profile
      (chiprun_out/profile_aggregates.txt); a1's and a3's K2 calls held to
      K2's plain version
+  10. the date and timestamp functions at 2^25 rows over bigd (big + dt,
+     Date32 days over 1900-2099, + ts, Timestamp seconds over the same span
+     with 5% NULLs; DATE_QUERIES): d1 every EXTRACT field on K1 (one
+     launch), d2 / d2t DATE_TRUNC of every unit, INTERVAL months and hours,
+     CAST(ts AS DATE) and a WHERE on dt + 1 MONTH on K1, d3 GROUP BY
+     YEAR(dt), QUARTER(dt) (co-sort + K2 sorted), m19 = d1 over 8 shards
+     (K1 per shard, equal to one card); each against Python's calendar
+     (datetime / isocalendar, once per distinct day) exactly; K1's date
+     programs (K1_DATES) over the calendar's edges (date_edge_table:
+     INT_MIN / INT_MAX days, +-2^62 seconds, leap days, ISO years of 53
+     weeks) against the plain version bit for bit, and d1's program timed
+     against its bound. Then TPC-H: the 22 shapes of benchmarks/tpch.py
+     over gen_tables(1.0) (6M lineitem rows) on the card, t1-t22, each
+     held to the same query through the port on the CPU over the same
+     tables (floats at rtol 1e-9, all else exact), and m20 = q1 over 8
+     shards against one card; each query's route, launches, warm wall and
+     device busy share (chiprun_out/profile_dates_tpch.txt)
 Every kernel's kernel-only time comes from torch.profiler (kernel_only_ms),
 its wrapper's host time from host_only_ms (`host_ms` in the kernels' line).
 The reduce kernels' `library_ms` is one PyTorch call per op of the
 kernel's op list, summed (LIBRARY). Then one JSON line per kernel set (times, bounds, launches on the main
-paths, the joins, the windows and the aggregates) and, last,
+paths, the joins, the windows, the aggregates, the dates and TPC-H) and, last,
 {"ok": true, "device": {...}}. Any failed check raises and exits non-zero.
 There is no CPU path: without CUDA the script exits with an error.
 """
@@ -681,6 +698,65 @@ def limits_inputs(prog, n, dev, rng):
              fs.T_U8: np.uint8, fs.T_U16: np.uint16, fs.T_U32: np.uint32, fs.T_F32: np.float32, fs.T_F64: np.float64}
     data = [torch.from_numpy(edge_column(rng, np_of[t], n)).to(dev).to(fs._storage(t)) for t in prog.input_types]
     return data, [torch.from_numpy(rng.random(n) > 0.1).to(dev) for _ in data]
+
+
+# K1's date opcodes over the calendar's edges (phase 10; also
+# tests/test_torch_kernel_emu.py and tests/test_torch_cuda.py): the int32
+# extremes of days, the day before and of the epoch, year 0's March 1 and
+# year 1's January 1 (-719468, -719469, -719162), leap days and their
+# neighbours, month ends, ISO years of 53 weeks and the days around their
+# ends; seconds at the int64 extremes, +-2^62, around 0 and around these
+# days' midnights
+I32, I64 = np.iinfo(np.int32), np.iinfo(np.int64)
+DAY_1900, DAY_2100 = -25567, 47482  # 1900-01-01 and 2100-01-01, days since the epoch
+DAY_1905, DAY_1925, DAY_2095 = -23741, -16436, 45656  # 1905-01-01, 1925-01-01, 2095-01-01
+EDGE_DAYS = (I32.min, I32.min + 1, I32.max - 1, I32.max, -1, 0, 1, -719468, -719469, -719162) + tuple(
+    int(np.datetime64(s_, "D").astype(np.int64)) for s_ in (
+        "1900-02-28", "1900-03-01", "2000-02-29", "2000-03-01", "2024-02-29", "2100-02-28", "2100-03-01",
+        "2021-01-31", "2021-02-28", "2004-12-31", "2005-01-02", "2009-12-31", "2010-01-03", "2015-12-31",
+        "2016-01-03", "2020-12-31", "2021-01-03", "2021-01-04", "2026-12-31", "2027-01-03", "1908-12-31",
+        "1909-01-03", "1969-12-29", "1999-12-31", "1900-01-01", "2099-12-31"))
+EDGE_SECONDS = (I64.min, I64.min + 1, I64.max - 1, I64.max, -(1 << 62), 1 << 62, -1, 0, 1, -59, -60, -61, -3599,
+                -3600, -86399, -86400, -86401, 86399, 86400) + tuple(
+    d_ * 86400 + o for d_ in EDGE_DAYS[4:] for o in (-1, 0, 3599))
+# three programs (at most 12 computed columns each) over every field, unit
+# and INTERVAL function; t holds dt (Date32) and ts (Timestamp)
+K1_DATES = (
+    "SELECT YEAR(dt), MONTH(dt), DAY(dt), EXTRACT(DOW FROM dt), EXTRACT(DOY FROM dt), EXTRACT(QUARTER FROM dt), "
+    "EXTRACT(WEEK FROM dt), EXTRACT(EPOCH FROM dt), DATE_TRUNC('year', dt), DATE_TRUNC('quarter', dt), "
+    "DATE_TRUNC('month', dt), DATE_TRUNC('week', dt) FROM t WHERE dt + INTERVAL '1' MONTH > DATE '1950-01-01' "
+    "OR ts IS NULL",
+    "SELECT YEAR(ts), MONTH(ts), DAY(ts), HOUR(ts), MINUTE(ts), SECOND(ts), EXTRACT(DOW FROM ts), "
+    "EXTRACT(DOY FROM ts), EXTRACT(QUARTER FROM ts), EXTRACT(WEEK FROM ts), EXTRACT(EPOCH FROM ts), "
+    "CAST(ts AS DATE) FROM t WHERE ts IS NOT NULL OR dt > DATE '2000-01-01'",
+    "SELECT DATE_TRUNC('year', ts), DATE_TRUNC('quarter', ts), DATE_TRUNC('month', ts), DATE_TRUNC('week', ts), "
+    "DATE_TRUNC('day', ts), DATE_TRUNC('hour', ts), DATE_TRUNC('minute', ts), DATE_TRUNC('second', ts), "
+    "dt + INTERVAL '1' MONTH, ts - INTERVAL '13' MONTH, ts + INTERVAL '3' HOUR, dt - INTERVAL '2' WEEK "
+    "FROM t WHERE DATE_TRUNC('day', dt) <> DATE '2000-01-01'",
+)
+
+
+def date_edge_table(port, n, seed, device=None):
+    """Table `t` of K1_DATES: dt (Date32 days) and ts (Timestamp seconds),
+    a quarter of each over its whole integer range and the rest within
+    1900-2099, every edge at the start and every 97th row after it, 5%
+    NULLs each."""
+    rng = np.random.default_rng(seed)
+    wide = rng.random(n) < 0.25
+    dt = np.where(wide, rng.integers(I32.min, I32.max, n, endpoint=True), rng.integers(DAY_1900, DAY_2100, n))
+    ts = np.where(wide, rng.integers(I64.min, I64.max, n, dtype=np.int64, endpoint=True),
+                  rng.integers(DAY_1900 * 86400, DAY_2100 * 86400, n))
+    cols = []
+    for a, edges, dtype in ((dt, EDGE_DAYS, np.int32), (ts, EDGE_SECONDS, np.int64)):
+        a = a.astype(dtype)
+        e = np.asarray(edges, dtype)
+        a[: len(e)] = e[:n]
+        at = np.arange(len(e), n, 97)
+        a[at] = e[np.arange(at.size) % len(e)]
+        cols.append(a)
+    P = port.DataType
+    return port.Table.from_arrays(port.Schema([port.Field("dt", P.Date32, True), port.Field("ts", P.Timestamp, True)]),
+                                  cols, validity=[rng.random(n) > 0.05, rng.random(n) > 0.05], device=device)
 
 
 def phase_k1(dev):
@@ -2051,9 +2127,6 @@ def phase_aggregates(dev, big, arrays, kernel_stats):
     the mesh."""
     import datafusion_tpu_torch as port
     from datafusion_tpu_torch.ops import aggregate as agg_ops
-    from datafusion_tpu_torch.ops.pallas import fused_stage as fs
-    from datafusion_tpu_torch.ops.pallas import partition as pt
-    from datafusion_tpu_torch.ops.pallas import ragged_shuffle as rs
     from datafusion_tpu_torch.ops.pallas import segreduce as sr
 
     t0 = time.perf_counter()
@@ -2076,29 +2149,8 @@ def phase_aggregates(dev, big, arrays, kernel_stats):
                                                         finalize=lambda s, n: torch.exp(s / n)))
     queries = [(n, single, q16_sql if n == "a6" else q, notes) for n, q, notes in AGG_QUERIES] + [
         (n, mesh, q, notes) for n, q, notes in MESH_AGG_QUERIES]
-    routes = {}
-    for name, c_, q, notes in queries:
-        txt = c_.sql(f"EXPLAIN VERBOSE {q}").result_str()
-        for note in notes:
-            check(note in txt, f"{name} does not route to {note}")
-        routes[name] = [ln[len("physical: "):] for ln in txt.splitlines() if ln.startswith("physical: ")]
-
-    counters = {"fused_stage": (fs.run_fused, "launches"), "segreduce_sorted": (sr.segmented_reduce, "sorted_launches"),
-                "segreduce_dense": (sr.segmented_reduce, "dense_launches"),
-                "slab_partition": (pt.slab_partition, "launches"), "windowed_reduce": (pt.windowed_reduce, "launches"),
-                "ragged_exchange": (rs.ragged_exchange, "launches"),
-                "ragged_exchange_fold": (rs.ragged_exchange_fold, "launches")}
-    for f, attr in counters.values():
-        setattr(f, attr, 0)
-    results, walls, per_query = {}, {}, {}
-    for name, c_, q, _ in queries:
-        before = {c: getattr(f, a) for c, (f, a) in counters.items()}
-        t = time.perf_counter()
-        results[name] = c_.sql(q)
-        torch.cuda.synchronize()
-        walls[name] = (time.perf_counter() - t) * 1e3
-        per_query[name] = {c: getattr(f, a) - before[c] for c, (f, a) in counters.items()}
-    launches = {c: getattr(f, a) for c, (f, a) in counters.items()}
+    routes = explain_routes(queries)
+    results, walls, per_query, launches = run_counted([q[:3] for q in queries])
     for name in ("segreduce_sorted", "segreduce_dense", "ragged_exchange", "ragged_exchange_fold"):
         check(launches[name] > 0, f"{name} was not launched on phase 9's path")
     expect = {("a1", "segreduce_dense"): 2, ("a2", "segreduce_sorted"): 1, ("a3", "segreduce_sorted"): 1,
@@ -2132,6 +2184,316 @@ def phase_aggregates(dev, big, arrays, kernel_stats):
     for name, s_ in kernel_stats.items():
         s_["aggregate_launches"] = launches[name]
     return {"warm_ms": warm, "launches": per_query}
+
+
+# phase 10's queries: (name, SQL, what EXPLAIN VERBOSE must show); d1-d3
+# on one card, m19 = d1 over 8 shards. bigd is big with dt (Date32 days
+# over 1900-2099) and ts (Timestamp seconds over the same span, 5% NULLs)
+DATE_PRED = "WHERE dt < DATE '1925-01-01' OR dt >= DATE '2095-01-01'"
+MONTH_PRED = "WHERE dt + INTERVAL '1' MONTH < DATE '1905-01-01' OR dt + INTERVAL '1' MONTH >= DATE '2095-01-01'"
+DATE_QUERIES = (
+    ("d1", "SELECT YEAR(dt), MONTH(dt), DAY(dt), EXTRACT(DOW FROM dt), EXTRACT(DOY FROM dt), EXTRACT(QUARTER FROM dt), "
+           f"EXTRACT(WEEK FROM dt), HOUR(ts), MINUTE(ts), SECOND(ts), EXTRACT(EPOCH FROM ts) FROM bigd {DATE_PRED}",
+     ("fused CUDA stage (11 computed expr(s), predicate",)),
+    ("d2", "SELECT DATE_TRUNC('year', dt), DATE_TRUNC('quarter', dt), DATE_TRUNC('month', dt), DATE_TRUNC('week', dt), "
+           "DATE_TRUNC('day', dt), dt + INTERVAL '1' MONTH, ts + INTERVAL '3' HOUR, CAST(ts AS DATE) FROM bigd "
+           + MONTH_PRED, ("fused CUDA stage (8 computed expr(s), predicate",)),
+    ("d2t", "SELECT " + ", ".join(f"DATE_TRUNC('{u}', ts)" for u in ("year", "quarter", "month", "week", "day", "hour",
+                                                                     "minute", "second")) + f" FROM bigd {MONTH_PRED}",
+     ("fused CUDA stage (8 computed expr(s), predicate",)),
+    ("d3", "SELECT YEAR(dt), QUARTER(dt), SUM(lat), COUNT(*) FROM bigd GROUP BY YEAR(dt), QUARTER(dt)",
+     ("co-sort + segmented reduce",)),
+)
+
+
+def date_arrays():
+    """Phase 10's columns from the seed: dt, days uniform over 1900-01-01
+    .. 2099-12-31 (so before the epoch too); ts, seconds over the same
+    span; ts's validity (5% NULLs)."""
+    rng = np.random.default_rng(SEED + 10)
+    dt = rng.integers(DAY_1900, DAY_2100, N).astype(np.int32)
+    ts = rng.integers(DAY_1900 * 86400, DAY_2100 * 86400, N)
+    return dt, ts, rng.random(N) > 0.05
+
+
+def dates_table(port, big, dt, ts, ts_valid):
+    """bigd: big's columns (no copy) with dt and ts on the card."""
+    P = port.DataType
+    dev = big.columns[0].data.device
+    cols = (port.Column(P.Date32, torch.from_numpy(dt).to(dev)),
+            port.Column(P.Timestamp, torch.from_numpy(ts).to(dev), torch.from_numpy(ts_valid).to(dev)))
+    return port.Table(port.Schema(list(big.schema.fields) + [port.Field("dt", P.Date32, False),
+                                                            port.Field("ts", P.Timestamp, True)]),
+                      big.columns + cols, big.num_rows)
+
+
+def calendar_oracle(days):
+    """Python datetime's answers for each of `days` (days since the epoch,
+    in datetime's range), as int64 arrays: the fields, DATE_TRUNC's first
+    days (year, quarter, month, ISO week) and the day one month later,
+    clamped to that month's length."""
+    import calendar
+    import datetime
+
+    keys = ("year", "month", "day", "dow", "doy", "quarter", "week", "t_year", "t_quarter", "t_month", "t_week",
+            "plus_month")
+    out = {k_: np.empty(len(days), np.int64) for k_ in keys}
+    epoch = datetime.date(1970, 1, 1)
+    for i, x in enumerate(days.tolist()):
+        day = epoch + datetime.timedelta(days=x)
+        y, m = day.year, day.month
+        y2, m2 = divmod(y * 12 + m, 12)  # the month after (y, m), m2 counted from 0
+        row = (y, m, day.day, day.isoweekday() % 7, day.timetuple().tm_yday, (m - 1) // 3 + 1, day.isocalendar()[1],
+               (datetime.date(y, 1, 1) - epoch).days, (datetime.date(y, (m - 1) // 3 * 3 + 1, 1) - epoch).days,
+               (datetime.date(y, m, 1) - epoch).days, x - day.weekday(),
+               (datetime.date(y2, m2 + 1, min(day.day, calendar.monthrange(y2, m2 + 1)[1])) - epoch).days)
+        for k_, v in zip(keys, row):
+            out[k_][i] = v
+    return out
+
+
+def by_day(days):
+    """The oracle's answers for each of `days`: evaluated once per
+    distinct day and scattered back."""
+    uniq, inv = np.unique(days, return_inverse=True)
+    return {k_: v[inv] for k_, v in calendar_oracle(uniq).items()}
+
+
+def dates_oracle(arrays, dt, ts, ts_valid):
+    """Phase 10's answers from numpy and Python's datetime: (columns,
+    validity of the ts columns or None) per query, over its selected
+    rows; d3 (year, quarter, SUM(lat), COUNT(*)) by key."""
+    lat = arrays[2]
+    out = {}
+    m1 = (dt < DAY_1925) | (dt >= DAY_2095)
+    c = by_day(dt[m1])
+    sec = ts[m1]
+    sod = sec - np.floor_divide(sec, 86400) * 86400
+    out["d1"] = ([c[k_] for k_ in ("year", "month", "day", "dow", "doy", "quarter", "week")]
+                 + [sod // 3600, sod // 60 % 60, sod % 60, sec], ts_valid[m1])
+    c = by_day(dt)
+    plus = c["plus_month"]
+    m2 = (plus < DAY_1905) | (plus >= DAY_2095)
+    sec = ts[m2]
+    sec_days = np.floor_divide(sec, 86400)
+    out["d2"] = ([c[k_][m2] for k_ in ("t_year", "t_quarter", "t_month", "t_week")]
+                 + [dt[m2], plus[m2], sec + 10800, sec_days], ts_valid[m2])
+    t = by_day(sec_days)
+    out["d2t"] = ([t[k_] * 86400 for k_ in ("t_year", "t_quarter", "t_month", "t_week")]
+                  + [sec_days * 86400, sec - sec % 3600, sec - sec % 60, sec], ts_valid[m2])
+    key = (c["year"] - 1900) * 4 + c["quarter"] - 1
+    cnt = np.bincount(key, minlength=800)
+    out["d3"] = [1900 + np.arange(800) // 4, np.arange(800) % 4 + 1, np.bincount(key, weights=lat, minlength=800), cnt]
+    return out
+
+
+def check_date_results(name, res, want):
+    """d1-d2t against the oracle exactly (data where valid; the ts
+    columns' validity equal to ts's); d3 by key, SUM(lat) at rel 1e-9."""
+    if name == "d3":
+        cols = [c for c, _ in res.cols]
+        order = np.lexsort((cols[1], cols[0]))
+        got = [c[order] for c in cols]
+        check(len(got[0]) == 800, f"d3: {len(got[0])} groups")
+        for j, (a, b) in enumerate(zip(got, want)):
+            ok = np.allclose(a, b, rtol=1e-9, atol=0) if j == 2 else np.array_equal(a.astype(np.int64), b)
+            check(ok, f"d3: column {j} differs from the oracle")
+        return
+    cols, ts_valid = want
+    first_ts = {"d1": 7, "d2": 6, "d2t": 0}[name]  # the columns past it read ts
+    check(len(res.cols) == len(cols), f"{name}: column count")
+    for j, ((a, v), b) in enumerate(zip(res.cols, cols)):
+        live = np.ones(len(b), bool)
+        if j >= first_ts:
+            check(v is not None and np.array_equal(v, ts_valid), f"{name}: column {j}'s validity")
+            live = ts_valid
+        check(a.shape == b.shape and np.array_equal(a[live].astype(np.int64), b[live]),
+              f"{name}: column {j} differs from the oracle")
+
+
+def kernel_counters():
+    """Each kernel's launch counter: name -> (function, attribute)."""
+    from datafusion_tpu_torch.ops.pallas import fused_stage as fs
+    from datafusion_tpu_torch.ops.pallas import partition as pt
+    from datafusion_tpu_torch.ops.pallas import ragged_shuffle as rs
+    from datafusion_tpu_torch.ops.pallas import segreduce as sr
+
+    return {"fused_stage": (fs.run_fused, "launches"), "segreduce_sorted": (sr.segmented_reduce, "sorted_launches"),
+            "segreduce_dense": (sr.segmented_reduce, "dense_launches"),
+            "slab_partition": (pt.slab_partition, "launches"), "windowed_reduce": (pt.windowed_reduce, "launches"),
+            "ragged_exchange": (rs.ragged_exchange, "launches"),
+            "ragged_exchange_fold": (rs.ragged_exchange_fold, "launches")}
+
+
+def run_counted(queries):
+    """Run each (name, context, SQL) once with every launch counter set to
+    0 first: (results, first walls in ms, each kernel's launches per
+    query, launches in all)."""
+    counters = kernel_counters()
+    for f, attr in counters.values():
+        setattr(f, attr, 0)
+    results, walls, per_query = {}, {}, {}
+    for name, c_, q in queries:
+        before = {c: getattr(f, a) for c, (f, a) in counters.items()}
+        t = time.perf_counter()
+        results[name] = c_.sql(q)
+        torch.cuda.synchronize()
+        walls[name] = (time.perf_counter() - t) * 1e3
+        per_query[name] = {c: getattr(f, a) - before[c] for c, (f, a) in counters.items()}
+    return results, walls, per_query, {c: getattr(f, a) for c, (f, a) in counters.items()}
+
+
+def launched(counts):
+    """The kernels a query launched, with their launch counts."""
+    return {c: n for c, n in counts.items() if n}
+
+
+def explain_routes(queries):
+    """The physical lines of EXPLAIN VERBOSE for each (name, context, SQL,
+    notes), checked to contain each of its notes."""
+    routes = {}
+    for name, c_, q, notes in queries:
+        txt = c_.sql(f"EXPLAIN VERBOSE {q}").result_str()
+        for note in notes:
+            check(note in txt, f"{name} does not route to {note}")
+        routes[name] = [ln[len("physical: "):] for ln in txt.splitlines() if ln.startswith("physical: ")]
+    return routes
+
+
+def phase_dates(dev, big, arrays, kernel_stats):
+    """Phase 10a: the date and timestamp functions at 2^25 rows, d1-d3 on
+    one card and m19 over 8 shards, against Python's calendar; K1's date
+    programs over the calendar's edges against evaluate_plain bit for
+    bit. Returns the runs to profile."""
+    import datafusion_tpu_torch as port
+    from datafusion_tpu_torch.ops.pallas import fused_stage as fs
+
+    t0 = time.perf_counter()
+    dt, ts, ts_valid = date_arrays()
+    bigd = dates_table(port, big, dt, ts, ts_valid)
+    want = dates_oracle(arrays, dt, ts, ts_valid)
+    torch.cuda.synchronize()
+    log(f"phase 10 tables: bigd (big + dt + ts, {N} rows); calendar oracle in {time.perf_counter() - t0:.2f} s")
+    single, mesh = port.ExecutionContext(), port.ExecutionContext(mesh=port.make_mesh(8))
+    single.register_table("bigd", bigd)
+    mesh.register_table("bigd", bigd)
+    queries = [(n, single, q, note) for n, q, note in DATE_QUERIES] + [
+        ("m19", mesh, DATE_QUERIES[0][1], DATE_QUERIES[0][2])]
+    routes = explain_routes(queries)
+    results, walls, per_query, launches = run_counted([q[:3] for q in queries])
+    per_query = {name: launched(counts) for name, counts in per_query.items()}
+    for name in ("d1", "d2", "d2t"):
+        check(per_query[name] == {"fused_stage": 1}, f"{name} made launches {per_query[name]}, not one K1")
+    check(per_query["m19"] == {"fused_stage": 8}, f"m19 made launches {per_query['m19']}, not 8 K1")
+    check(per_query["d3"].get("segreduce_sorted", 0) >= 1, "d3 did not launch K2 sorted")
+    for name in ("d1", "d2", "d2t", "d3"):
+        check_date_results(name, results[name], want[name])
+    for (a, va), (b, vb) in zip(results["m19"].cols, results["d1"].cols):
+        check(np.array_equal(a, b) and (va is None) == (vb is None) and (va is None or np.array_equal(va, vb)),
+              "m19 differs from one card's d1")
+
+    # K1's date programs over the calendar's edges, and d1's own program
+    t = date_edge_table(port, N, SEED + 11, dev)
+    edge_ctx = port.ExecutionContext()
+    edge_ctx.register_table("t", t)
+    err, rows = 0.0, []
+    for i, sql in enumerate(K1_DATES):
+        prog, ins = fused_program(edge_ctx, "t", sql)
+        err = max(err, compare_k1(prog, ins, N, dev))
+        rows.append(f"program {i}: {len(prog.code)} instructions over {prog.n_regs} registers, kernel "
+                    f"{time_ms(lambda: fs.run_fused(prog, *ins, N, dev)):.3f} ms, plain "
+                    f"{time_ms(lambda: fs.evaluate_plain(prog, *ins, N), reps=3):.3f} ms, bound "
+                    f"{program_bytes(prog, ins, N) / HBM_BYTES_PER_S * 1e3:.3f} ms")
+    log(f"phase 10 K1 date programs over the calendar's edges at {N} rows: kernel == plain bit for bit; "
+        + "; ".join(rows))
+    prog, ins = fused_program(single, "bigd", DATE_QUERIES[0][1])
+    call = lambda: fs.run_fused(prog, *ins, N, dev)  # noqa: E731
+    err = max(err, compare_k1(prog, ins, N, dev))
+    d1 = {"dates_ms": time_ms(call), "dates_kernel_ms": kernel_only_ms(call, "fused_stage_kernel"),
+          "dates_plain_ms": time_ms(lambda: fs.evaluate_plain(prog, *ins, N), reps=3),
+          "dates_bound_ms": program_bytes(prog, ins, N) / HBM_BYTES_PER_S * 1e3}
+    kernel_stats["fused_stage"].update(d1)
+    kernel_stats["fused_stage"]["max_abs_err"] = max(kernel_stats["fused_stage"]["max_abs_err"], err)
+    log(f"phase 10 K1 on d1's program ({len(prog.code)} instructions over {prog.n_regs} registers, "
+        f"{fs.tile_rows(prog.n_regs)} rows a thread): kernel == plain; event {d1['dates_ms']:.3f} ms, kernel only "
+        f"{d1['dates_kernel_ms']:.3f} ms, plain {d1['dates_plain_ms']:.3f} ms, bound {d1['dates_bound_ms']:.3f} ms "
+        "(bytes)")
+
+    runs = [(name, c_, q) for name, c_, q, _ in queries]
+    warm = {name: warm_wall_ms(c_, q) for name, c_, q in runs}
+    log("phase 10 dates: d1-d3 and m19 match the calendar oracle (m19 equals one card); EXPLAIN routes "
+        + json.dumps(routes) + "; wall ms first " + json.dumps({n: round(v, 3) for n, v in walls.items()})
+        + " warm (median of 5) " + json.dumps({n: round(v, 3) for n, v in warm.items()})
+        + f"; launches per query {json.dumps(per_query)}")
+    for name, s_ in kernel_stats.items():
+        s_["dates_launches"] = launches[name]
+    return runs
+
+
+TPCH_SCALE = 1.0  # 6M lineitem rows, TPC-H SF1's size
+
+
+def same_result(name, got, want, rtol=1e-9):
+    """Row count and order, strings, integers, dates and validity exact;
+    floats at `rtol`."""
+    check(got.num_rows == want.num_rows and got.num_columns == want.num_columns,
+          f"{name}: {got.num_rows} x {got.num_columns} against {want.num_rows} x {want.num_columns}")
+    for j, ((a, va), (b, vb)) in enumerate(zip(got.cols, want.cols)):
+        live = np.ones(len(a), bool) if va is None else va
+        check(np.array_equal(live, np.ones(len(b), bool) if vb is None else vb), f"{name}: column {j}'s validity")
+        check(got.schema.field(j).dtype is want.schema.field(j).dtype, f"{name}: column {j}'s type")
+        if np.asarray(a).dtype.kind == "f":
+            ok = np.allclose(a[live], b[live], rtol=rtol, atol=0, equal_nan=True)
+        else:
+            ok = got.column_values(j) == want.column_values(j)
+        check(ok, f"{name}: column {j} differs")
+
+
+def phase_tpch(dev, kernel_stats, date_runs):
+    """Phase 10b: the 22 shapes of benchmarks/tpch.py over gen_tables(1.0)
+    on the card (t1-t22), each held to the same query through the port on
+    the CPU over the same tables; m20, q1 over 8 shards, to one card."""
+    import datafusion_tpu_torch as port
+
+    sys.path.insert(0, os.path.join(ROOT, "benchmarks"))
+    from tpch import QUERIES, gen_tables
+
+    t0 = time.perf_counter()
+    tables = gen_tables(TPCH_SCALE)
+    cpu, card, mesh = port.ExecutionContext(device="cpu"), port.ExecutionContext(), port.ExecutionContext(
+        mesh=port.make_mesh(8))
+    for name, cols in zip(("lineitem", "orders", "customer", "part"), tables):
+        t = port.Table.from_pydict(cols, device="cpu")
+        cpu.register_table(name, t)
+        card.register_table(name, t)
+        mesh.register_table(name, card.table(name))
+    torch.cuda.synchronize()
+    log(f"phase 10 TPC-H tables: scale {TPCH_SCALE}, lineitem {len(tables[0]['l_orderkey'])} rows, orders "
+        f"{len(tables[1]['o_orderkey'])}, customer {len(tables[2]['c_custkey'])}, part {len(tables[3]['p_partkey'])}; "
+        f"made and loaded in {time.perf_counter() - t0:.2f} s")
+    names = {f"t{i + 1}": q for i, q in enumerate(QUERIES)}
+    queries = [(t_, card, QUERIES[q], ()) for t_, q in names.items()] + [("m20", mesh, QUERIES["q1"], ("per shard",))]
+    routes = explain_routes(queries)
+    results, walls, per_query, launches = run_counted([q[:3] for q in queries])
+    per_query = {name: launched(counts) for name, counts in per_query.items()}
+    for kern in ("fused_stage", "segreduce_sorted", "segreduce_dense"):
+        check(launches[kern] > 0, f"{kern} was not launched on TPC-H's path")
+    t0 = time.perf_counter()
+    for t_, q in names.items():
+        same_result(f"{t_} ({q})", results[t_], cpu.sql(QUERIES[q]))
+    cpu_s = time.perf_counter() - t0
+    same_result("m20", results["m20"], results["t1"])
+    runs = [(name, c_, q) for name, c_, q, _ in queries]
+    warm = {name: warm_wall_ms(c_, q) for name, c_, q in runs}
+    for name, _, _ in runs:
+        log(f"phase 10 {name} ({names.get(name, 'q1 on 8 shards')}): {results[name].num_rows} rows, wall first "
+            f"{walls[name]:.3f} ms, warm {warm[name]:.3f} ms (median of 5), launches {json.dumps(per_query[name])}, "
+            f"route {json.dumps(routes[name])}")
+    log(f"phase 10 TPC-H: t1-t22 equal the port on the CPU (floats at rtol 1e-9; the CPU took {cpu_s:.2f} s), m20 "
+        "equals one card's q1")
+    profile_queries(date_runs + runs, "phase 10", "profile_dates_tpch.txt")
+    for name, s_ in kernel_stats.items():
+        s_["tpch_launches"] = launches[name]
 
 
 def phase_csv(dev):
@@ -2264,6 +2626,7 @@ def main():
     joins = phase_joins(dev, big, arrays, kernel_stats)
     phase_windows(dev, big, arrays, joins["tables"], kernel_stats)
     phase_aggregates(dev, big, arrays, kernel_stats)
+    phase_tpch(dev, kernel_stats, phase_dates(dev, big, arrays, kernel_stats))
     kernels = []
     for name, s in kernel_stats.items():
         ops_bound = s.pop("ops_bound_ms")

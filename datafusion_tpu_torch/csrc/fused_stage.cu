@@ -39,6 +39,11 @@
 //     contracted into an FMA; float division stays IEEE-exact (no fast math)
 //   * AND/OR validity is the AND of both validities (no Kleene logic)
 //   * a NULL predicate drops the row
+//   * the date opcodes are utils/dates.py's functions: int32 arithmetic
+//     that wraps (as XLA's and torch's do; done in unsigned here, where
+//     signed overflow is undefined) and floor division and modulo, which
+//     C's `/` and `%` are not for negative values (OP_DIV / OP_MOD keep
+//     SQL's truncation)
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -66,7 +71,8 @@ enum {
   OP_EQ, OP_NE, OP_LT, OP_LE, OP_GT, OP_GE,
   OP_AND, OP_OR,
   OP_CAST, OP_ISNULL, OP_ISNOTNULL, OP_SELECT, OP_KEEPV,
-  OP_MATH1, OP_MATH2
+  OP_MATH1, OP_MATH2,
+  OP_DATE, OP_DTRUNC, OP_ADDMONTHS
 };
 
 // unary / binary math function ids (OP_MATH1 / OP_MATH2, in `c`)
@@ -75,6 +81,14 @@ enum {
   F_ASIN, F_ACOS, F_ATAN, F_FLOOR, F_CEIL, F_SIGN
 };
 enum { F_POW = 0, F_FMOD, F_ATAN2, F_ROUND, F_TRUNC };
+
+// OP_DATE's fields (in `c`; the source type, T_I32 days or T_I64 seconds,
+// in `b`) and OP_DTRUNC's units (in `c`); mirrored in fused_stage.py
+enum {
+  D_YEAR = 0, D_MONTH, D_DAY, D_HOUR, D_MINUTE, D_SECOND, D_DOW, D_DOY, D_QUARTER, D_WEEK, D_EPOCH, D_DAYS,
+  D_N_FIELDS
+};
+enum { U_YEAR = 0, U_QUARTER, U_MONTH, U_WEEK, U_DAY, U_HOUR, U_MINUTE, U_SECOND, U_N_UNITS };
 
 // imm: operand b is consts[b], valid on every row, not a register;
 // imm_ty is the constant's type, which only the plain version reads
@@ -156,6 +170,121 @@ __device__ __forceinline__ void int_bounds(int t, long long* lo, long long* hi) 
     case T_U32: *lo = 0; *hi = 4294967295LL; break;
     default: *lo = (long long)0x8000000000000000ULL; *hi = 0x7FFFFFFFFFFFFFFFLL; break;
   }
+}
+
+// --- the calendar (utils/dates.py), on int32 days and int64 seconds -------
+
+__host__ __device__ __forceinline__ int wadd(int a, int b) { return (int)((unsigned)a + (unsigned)b); }
+__host__ __device__ __forceinline__ int wsub(int a, int b) { return (int)((unsigned)a - (unsigned)b); }
+__host__ __device__ __forceinline__ int wmul(int a, int b) { return (int)((unsigned)a * (unsigned)b); }
+// floor division and modulo by a positive constant (jnp.floor_divide, jnp.remainder)
+__host__ __device__ __forceinline__ int floor_div(int a, int b) { return a / b - (a % b < 0); }
+__host__ __device__ __forceinline__ int floor_mod(int a, int b) { const int r = a % b; return r < 0 ? r + b : r; }
+__host__ __device__ __forceinline__ long long floor_div64(long long a, long long b) { return a / b - (a % b < 0); }
+__host__ __device__ __forceinline__ long long floor_mod64(long long a, long long b) {
+  const long long r = a % b;
+  return r < 0 ? r + b : r;
+}
+
+// Hinnant's civil_from_days as the JAX package writes it: the era offset
+// for negative days and then a floor division
+__device__ __forceinline__ void civil_from_days(int days, int& y, int& m, int& d) {
+  const int z = wadd(days, 719468);
+  const int era = floor_div(z >= 0 ? z : wsub(z, 146096), 146097);
+  const int doe = wsub(z, wmul(era, 146097));
+  const int yoe = floor_div(wadd(wsub(doe, floor_div(doe, 1460)), wsub(floor_div(doe, 36524), floor_div(doe, 146096))),
+                            365);
+  const int doy = wsub(doe, wadd(wmul(365, yoe), wsub(floor_div(yoe, 4), floor_div(yoe, 100))));
+  const int mp = floor_div(wadd(wmul(5, doy), 2), 153);
+  d = wadd(wsub(doy, floor_div(wadd(wmul(153, mp), 2), 5)), 1);
+  m = mp < 10 ? wadd(mp, 3) : wsub(mp, 9);
+  y = wadd(wadd(yoe, wmul(era, 400)), m <= 2);
+}
+
+__device__ __forceinline__ int days_from_civil(int y, int m, int d) {
+  y = wsub(y, m <= 2);
+  const int era = floor_div(y >= 0 ? y : wsub(y, 399), 400);
+  const int yoe = wsub(y, wmul(era, 400));
+  const int doy = wsub(wadd(floor_div(wadd(wmul(153, wadd(m, m > 2 ? -3 : 9)), 2), 5), d), 1);
+  const int doe = wadd(wadd(wmul(yoe, 365), wsub(floor_div(yoe, 4), floor_div(yoe, 100))), doy);
+  return wsub(wadd(wmul(era, 146097), doe), 719468);
+}
+
+__device__ __forceinline__ bool is_leap(int y) { return (y % 4 == 0 && y % 100 != 0) || y % 400 == 0; }
+
+// month m's length (m in 1..12): 30 or 31 by its parity, flipped from
+// August on; February 28 or 29. No table indexed by data.
+__device__ __forceinline__ int days_in_month(int y, int m) {
+  return m == 2 ? (is_leap(y) ? 29 : 28) : 30 + ((m + (m >> 3)) & 1);
+}
+
+__device__ __forceinline__ int iso_weekday(int days) { return floor_mod(wadd(days, 3), 7) + 1; }  // Monday = 1
+
+__device__ __forceinline__ int weeks_in(int y) {  // 52, or 53 in an ISO long year
+  const int wd = iso_weekday(days_from_civil(y, 1, 1));
+  return 52 + (wd == 4 || (is_leap(y) && wd == 3));
+}
+
+// the day of a Date32 (int32 days) or Timestamp (int64 seconds) value,
+// its int32 wrap as the JAX package's astype(int32)
+template <bool SECS>
+__device__ __forceinline__ int day_of(long long x) {
+  return SECS ? (int)(unsigned)(unsigned long long)floor_div64(x, 86400) : (int)x;
+}
+
+template <int F, bool SECS>
+__device__ __forceinline__ long long date_field(long long x) {
+  if (F == D_EPOCH) return SECS ? x : x * 86400;
+  if (F == D_HOUR || F == D_MINUTE || F == D_SECOND) {
+    const int sod = (int)floor_mod64(x, 86400);
+    return F == D_HOUR ? sod / 3600 : F == D_MINUTE ? sod / 60 % 60 : sod % 60;
+  }
+  const int days = day_of<SECS>(x);
+  if (F == D_DAYS) return days;
+  if (F == D_DOW) return floor_mod(wadd(days, 4), 7);  // Sunday = 0
+  int y, m, d;
+  civil_from_days(days, y, m, d);
+  if (F == D_YEAR) return y;
+  if (F == D_MONTH) return m;
+  if (F == D_DAY) return d;
+  if (F == D_QUARTER) return floor_div(wsub(m, 1), 3) + 1;
+  const int doy = wadd(wsub(days, days_from_civil(y, 1, 1)), 1);
+  if (F == D_DOY) return doy;
+  const int w = floor_div(wadd(wsub(doy, iso_weekday(days)), 10), 7);  // D_WEEK: ISO 8601
+  return w < 1 ? weeks_in(wsub(y, 1)) : (w > weeks_in(y) ? 1 : w);
+}
+
+template <int U>
+__device__ __forceinline__ int trunc_days(int days) {
+  if (U == U_DAY) return days;
+  if (U == U_WEEK) return wsub(days, iso_weekday(days) - 1);
+  int y, m, d;
+  civil_from_days(days, y, m, d);
+  return days_from_civil(y, U == U_YEAR ? 1 : U == U_QUARTER ? wadd(wmul(floor_div(wsub(m, 1), 3), 3), 1) : m, 1);
+}
+
+template <int U, bool SECS>
+__device__ __forceinline__ long long date_trunc(long long x) {
+  if (!SECS) return trunc_days<U>((int)x);
+  if (U == U_SECOND) return x;
+  if (U == U_MINUTE || U == U_HOUR)
+    return (long long)((unsigned long long)x - (unsigned long long)floor_mod64(x, U == U_HOUR ? 3600 : 60));
+  return (long long)trunc_days<U>(day_of<true>(x)) * 86400;
+}
+
+// days (or seconds) plus n calendar months, the day clamped to the
+// target month's length, seconds keeping their time of day
+template <bool SECS>
+__device__ __forceinline__ long long add_months(long long x, int n) {
+  int y, m, d;
+  civil_from_days(day_of<SECS>(x), y, m, d);
+  const int total = wadd(wadd(wmul(y, 12), wsub(m, 1)), n);
+  const int y2 = floor_div(total, 12);
+  const int m2 = wadd(wsub(total, wmul(y2, 12)), 1);
+  const int dim = days_in_month(y2, m2);
+  const int d2 = d < dim ? d : dim;
+  const int days = days_from_civil(y2, m2, d2);
+  return SECS ? (long long)days * 86400 + floor_mod64(x, 86400) : days;
 }
 
 // One tile: rows [base, base + R * FS_THREADS) of n. Thread t's slot r of
@@ -296,6 +425,15 @@ __device__ __forceinline__ void store_f64(void* p, const Tile<R>& t, const Reg* 
   case F: { FS_ROWS { const double x = AR(r).f; DR(r).f = (E); } } break;
 #define FS_MATH2(F, E) \
   case F: { FS_ROWS { const double x = AR(r).f, y = BR(r).f; DR(r).f = (E); } } break;
+// a date opcode's per-row function F<K, SECS>, SECS from the source type
+#define FS_DATE(K, F)                                                      \
+  case K:                                                                  \
+    if (secs) {                                                            \
+      FS_ROWS DR(r).i = F<K, true>(AR(r).i);                               \
+    } else {                                                               \
+      FS_ROWS DR(r).i = F<K, false>(AR(r).i);                              \
+    }                                                                      \
+    break;
 
 // One instruction over the thread's R rows of the tile: decoded once,
 // then one loop per (opcode, type) with no switch inside. A destination
@@ -518,6 +656,49 @@ __device__ __forceinline__ void run_instr(const Program& P, const Instr in, cons
       }
       FS_ROWS SETV(r, VA(r) & VB(r));
       break;
+    case OP_DATE: {  // field c of a Date32 (b == T_I32) or Timestamp (b == T_I64)
+      const bool secs = in.b == T_I64;
+      switch (c) {
+        FS_DATE(D_YEAR, date_field)
+        FS_DATE(D_MONTH, date_field)
+        FS_DATE(D_DAY, date_field)
+        FS_DATE(D_HOUR, date_field)
+        FS_DATE(D_MINUTE, date_field)
+        FS_DATE(D_SECOND, date_field)
+        FS_DATE(D_DOW, date_field)
+        FS_DATE(D_DOY, date_field)
+        FS_DATE(D_QUARTER, date_field)
+        FS_DATE(D_WEEK, date_field)
+        FS_DATE(D_EPOCH, date_field)
+        FS_DATE(D_DAYS, date_field)
+      }
+      FS_ROWS SETV(r, VA(r));
+      break;
+    }
+    case OP_DTRUNC: {  // DATE_TRUNC to unit c, keeping the type ty
+      const bool secs = ty == T_I64;
+      switch (c) {
+        FS_DATE(U_YEAR, date_trunc)
+        FS_DATE(U_QUARTER, date_trunc)
+        FS_DATE(U_MONTH, date_trunc)
+        FS_DATE(U_WEEK, date_trunc)
+        FS_DATE(U_DAY, date_trunc)
+        FS_DATE(U_HOUR, date_trunc)
+        FS_DATE(U_MINUTE, date_trunc)
+        FS_DATE(U_SECOND, date_trunc)
+      }
+      FS_ROWS SETV(r, VA(r));
+      break;
+    }
+    case OP_ADDMONTHS: {  // a + b calendar months, b an int32
+      if (ty == T_I64) {
+        FS_ROWS DR(r).i = add_months<true>(AR(r).i, (int)(unsigned)(unsigned long long)BR(r).i);
+      } else {
+        FS_ROWS DR(r).i = add_months<false>(AR(r).i, (int)(unsigned)(unsigned long long)BR(r).i);
+      }
+      FS_ROWS SETV(r, VA(r) & VB(r));
+      break;
+    }
     default:
       break;
   }
@@ -589,9 +770,12 @@ static bool fs_valid(const Program* p, int n_regs) {
     return false;
   for (int i = 0; i < p->n_instr; ++i) {
     const Instr& in = p->code[i];
-    if (in.dst >= n_regs || in.op > OP_MATH2) return false;
+    if (in.dst >= n_regs || in.op > OP_ADDMONTHS) return false;
     const bool reads_a = in.op >= OP_ADD, reads_b = (in.op >= OP_ADD && in.op <= OP_OR) || in.op == OP_SELECT ||
-                         in.op == OP_KEEPV || in.op == OP_MATH2;
+                         in.op == OP_KEEPV || in.op == OP_MATH2 || in.op == OP_ADDMONTHS;
+    const bool dated = in.op == OP_DATE ? (in.b == T_I32 || in.b == T_I64) && in.c < D_N_FIELDS
+                                        : (in.ty == T_I32 || in.ty == T_I64) && (in.op != OP_DTRUNC || in.c < U_N_UNITS);
+    if (in.op >= OP_DATE && !dated) return false;
     if (in.op == OP_LOAD ? in.a >= p->n_in : in.op == OP_CONST ? in.a >= DFT_MAX_CONST : reads_a && in.a >= n_regs)
       return false;
     if (reads_b && in.b >= (in.imm ? DFT_MAX_CONST : n_regs)) return false;

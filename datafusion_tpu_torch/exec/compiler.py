@@ -35,7 +35,13 @@ from datafusion_tpu_torch.ops import aggregate as agg_ops
 from datafusion_tpu_torch.ops import join as join_ops
 from datafusion_tpu_torch.ops import sort as sort_ops
 from datafusion_tpu_torch.ops import window as window_ops
-from datafusion_tpu_torch.ops.expr_eval import SCALAR_FUNCTIONS, ColVal, broadcast_col, compile_expr
+from datafusion_tpu_torch.ops.expr_eval import (
+    SCALAR_FUNCTIONS,
+    ColVal,
+    broadcast_col,
+    compile_expr,
+    is_date_function,
+)
 from datafusion_tpu_torch.ops.pallas import fused_stage as fs
 from datafusion_tpu_torch.ops.pallas import partition as part
 from datafusion_tpu_torch.plan import logical as L
@@ -550,8 +556,8 @@ class PlanCompiler:
                 ok = ok and PlanCompiler._elementwise_safe(e.else_expr)
             return ok
         if isinstance(e, L.ScalarFunction):
-            if e.name.lower() not in SCALAR_FUNCTIONS:
-                return False  # date functions are not in K1's opcode set yet
+            if e.name.lower() not in SCALAR_FUNCTIONS and not is_date_function(e.name):
+                return False
             return all(PlanCompiler._elementwise_safe(a) for a in e.args)
         return False
 

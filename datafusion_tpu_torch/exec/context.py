@@ -5,17 +5,22 @@ src/execution/context.rs: register_datasource :100, sql :44, execute
 :104): tables registered on one device, SQL parsed and planned by the
 port's copies of the JAX package's host layers, plans compiled to eager
 torch pipelines (exec/compiler.py) with a per-(plan, tables) compile
-cache. `CREATE EXTERNAL TABLE ... STORED AS CSV` executes. The context
-runs on the card unless the caller asks for the CPU. With a mesh
+cache. `CREATE EXTERNAL TABLE ... STORED AS CSV` executes, and so do the
+catalog statements and DML: CREATE TABLE AS SELECT, INSERT INTO, DROP
+TABLE [IF EXISTS], SHOW TABLES and DESCRIBE. The context runs on the card
+unless the caller asks for the CPU. With a mesh
 (parallel/mesh.py) every query runs over the tables' row blocks, one per
 logical shard, through the distributed compiler (parallel/dist.py).
 """
 
 from __future__ import annotations
 
+import datetime
 import os
 from dataclasses import dataclass
 from typing import Callable, Optional, Union
+
+import numpy as np
 
 from datafusion_tpu_torch.columnar.csv import CsvDataSource, read_csv
 from datafusion_tpu_torch.columnar.table import Table, resolve_device
@@ -25,7 +30,7 @@ from datafusion_tpu_torch.exec.result import ResultTable
 from datafusion_tpu_torch.ops.functions import AggregateUDF
 from datafusion_tpu_torch.parallel.dist import DistCompiler, compile_plan_distributed
 from datafusion_tpu_torch.parallel.mesh import Mesh
-from datafusion_tpu_torch.plan.logical import LogicalPlan
+from datafusion_tpu_torch.plan.logical import Column, LogicalPlan, Projection, TableScan
 from datafusion_tpu_torch.plan.optimizer import push_down_filters, push_down_projection
 from datafusion_tpu_torch.plan.planner import FunctionMeta, FunctionType, SqlToRel, convert_data_type
 from datafusion_tpu_torch.schema import Field, Schema
@@ -41,6 +46,32 @@ _DDL_NODES = (
     A.SQLDescribeTable,
     A.SQLInsert,
 )
+
+
+def _table_from_results(schema: Schema, rts, device) -> Table:
+    """Concatenate host ResultTables of one schema into a table on
+    `device` (INSERT's old rows + new rows); NULL slots hold a fill."""
+    arrays, validity = [], []
+    for j, f in enumerate(schema.fields):
+        vals = [v for rt in rts for v in rt.column_values(j)]
+        mask = np.array([v is not None for v in vals], dtype=bool)
+        if f.dtype is DataType.Utf8:
+            arrays.append(["" if v is None else str(v) for v in vals])
+        elif f.dtype is DataType.Date32:
+            arrays.append([datetime.date(1970, 1, 1) if v is None else v for v in vals])
+        elif f.dtype is DataType.Timestamp:
+            arrays.append([datetime.datetime(1970, 1, 1) if v is None else v for v in vals])
+        else:
+            arrays.append(np.array([0 if v is None else v for v in vals], f.dtype.to_np()))
+        validity.append(None if mask.all() else mask)
+    return Table.from_arrays(schema, arrays, validity=validity, device=device)
+
+
+def _text_result(names: tuple[str, ...], rows: list[tuple[str, ...]]) -> ResultTable:
+    """A host result of Utf8 columns (SHOW TABLES, DESCRIBE)."""
+    schema = Schema([Field(n, DataType.Utf8) for n in names])
+    cols = [(np.array([r[j] for r in rows], dtype=object), None) for j in range(len(names))]
+    return ResultTable(schema, cols, [None] * len(names))
 
 
 @dataclass
@@ -190,11 +221,8 @@ class ExecutionContext:
                 for note in pc.notes + pc.sticky_notes:
                     text += f"physical: {note}\n"
             return ResultTable(Schema.empty(), [], [], raw_text=text)
-        if isinstance(node, A.SQLCreateExternalTable):
-            self._execute_ddl(node)
-            return ResultTable(Schema.empty(), [], [])
         if isinstance(node, _DDL_NODES):
-            raise NotImplementedError_(f"{type(node).__name__} is not part of the torch port yet")
+            return self._execute_statement(node)
         return self.execute(SqlToRel(self._catalog).sql_to_rel(node))
 
     def execute(self, plan: LogicalPlan) -> ResultTable:
@@ -213,6 +241,63 @@ class ExecutionContext:
         return compiled.run()
 
     # ------------------------------------------------------------------
+    def _execute_statement(self, node) -> ResultTable:
+        """The catalog statements and DML (the JAX package's
+        exec/context.py:281-330): tables are immutable on the device, so
+        CTAS registers its query's result and INSERT rebuilds the table."""
+        done = ResultTable(Schema.empty(), [], [])
+        if isinstance(node, A.SQLCreateExternalTable):
+            self._execute_ddl(node)
+        elif isinstance(node, A.SQLCreateTableAs):
+            result = self.execute(SqlToRel(self._catalog).sql_to_rel(node.select))
+            self.register_table(node.name, result.to_table(self.device))
+        elif isinstance(node, A.SQLInsert):
+            self._execute_insert(node)
+        elif isinstance(node, A.SQLDropTable):
+            if node.name not in self._tables:
+                if not node.if_exists:
+                    raise PlanError(f"no table named {node.name} to drop")
+            else:
+                del self._tables[node.name]
+        elif isinstance(node, A.SQLShowTables):
+            return _text_result(("table",), [(n,) for n in sorted(self._tables)])
+        elif isinstance(node, A.SQLDescribeTable):
+            t = self._tables.get(node.name)
+            if t is None:
+                raise PlanError(f"no table named {node.name}")
+            return _text_result(("column_name", "data_type", "nullable"),
+                                [(f.name, f.dtype.value, "YES" if f.nullable else "NO") for f in t.schema.fields])
+        return done
+
+    def _execute_insert(self, node: A.SQLInsert) -> None:
+        """INSERT INTO: run the source query, cast each column to the
+        target's type (a column list reorders and must name every column),
+        and rebuild the table as its rows followed by the new ones."""
+        target = self._tables.get(node.table)
+        if target is None:
+            raise PlanError(f"no table named {node.table} to insert into")
+        tschema = target.schema
+        src_plan = SqlToRel(self._catalog).sql_to_rel(node.source)
+        sschema = src_plan.schema
+        order = list(range(len(tschema)))
+        if node.columns is not None:
+            if sorted(node.columns) != sorted(tschema.names()):
+                raise PlanError(
+                    "INSERT column list must name every target column "
+                    f"exactly once (target: {tschema.names()})"
+                )
+            pos = {c: i for i, c in enumerate(node.columns)}
+            order = [pos[f.name] for f in tschema.fields]
+        if len(sschema) != len(tschema):
+            raise PlanError(f"INSERT source has {len(sschema)} columns, table {node.table} has {len(tschema)}")
+        casts = []
+        for f, i in zip(tschema.fields, order):
+            col = Column(i)
+            casts.append(col if sschema.field(i).dtype is f.dtype else col.cast_to(f.dtype, sschema))
+        new_rt = self.execute(Projection(tuple(casts), src_plan, tschema))
+        old_rt = self.execute(TableScan("default", node.table, tschema, None))
+        self.register_table(node.table, _table_from_results(tschema, [old_rt, new_rt], self.device))
+
     def _execute_ddl(self, node: A.SQLCreateExternalTable) -> None:
         schema = Schema(
             [Field(c.name, convert_data_type(c.type_name), c.allow_null) for c in node.columns]

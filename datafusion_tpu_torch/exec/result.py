@@ -101,9 +101,10 @@ class ResultTable:
             lines.append("\t".join(cells))
         return "".join(line + "\n" for line in lines)
 
-    def to_table(self):
-        """Re-materialize this host result as a device Table (used by
-        CREATE TABLE ... AS SELECT; beyond the reference)."""
+    def to_table(self, device=None):
+        """Re-materialize this host result as a table on `device` (the
+        card unless the caller names another; CREATE TABLE ... AS SELECT,
+        beyond the reference)."""
         from datafusion_tpu_torch.columnar.table import Table
         from datafusion_tpu_torch.types import DataType as _DT
 
@@ -119,7 +120,7 @@ class ResultTable:
             else:
                 arrays.append(np.asarray(data))
             validity.append(None if valid is None else np.asarray(valid, bool))
-        return Table.from_arrays(self.schema, arrays, validity=validity)
+        return Table.from_arrays(self.schema, arrays, validity=validity, device=device)
 
     def to_csv(self, path: str, *, header: bool = True) -> None:
         """Write the result as CSV — realizes the reference's never-executed

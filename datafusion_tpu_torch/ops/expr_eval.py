@@ -46,6 +46,7 @@ from datafusion_tpu_torch.plan.logical import (
 )
 from datafusion_tpu_torch.schema import Schema
 from datafusion_tpu_torch.types import DataType, physical_np, torch_dtype
+from datafusion_tpu_torch.utils import dates
 
 ColVal = tuple[torch.Tensor, Optional[torch.Tensor]]
 
@@ -115,14 +116,14 @@ _STRING_INT_PYFNS: dict[str, Callable[..., int]] = {
 }
 _STRING_FN_NAMES = set(_STRING_PYFNS) | set(_STRING_INT_PYFNS) | {"substring", "concat"}
 
-# date/timestamp device functions of the JAX package, not ported yet
-DATE_FN_NAMES = frozenset(
-    {
-        "year", "month", "day", "hour", "minute", "second", "dow", "doy",
-        "quarter", "week", "epoch", "date_add_days", "ts_add_seconds",
-        "add_months_days", "add_months_seconds",
-    }
-)
+# the date and timestamp functions (utils/dates.py): EXTRACT fields and
+# INTERVAL arithmetic; DATE_TRUNC is date_trunc_<unit>
+DATE_FN_NAMES = frozenset(dates.EXTRACT_FIELDS + dates.INTERVAL_FUNCTIONS)
+
+
+def is_date_function(name: str) -> bool:
+    low = name.lower()
+    return low in DATE_FN_NAMES or low.startswith("date_trunc_")
 
 
 def sql_sign(x: torch.Tensor) -> torch.Tensor:
@@ -392,10 +393,8 @@ class _Compiler:
 
         if isinstance(expr, ScalarFunction):
             low = expr.name.lower()
-            if low in DATE_FN_NAMES or low.startswith("date_trunc_"):
-                raise NotImplementedError_(
-                    f"date function '{expr.name}' is not part of the torch port yet"
-                )
+            if is_date_function(low):
+                return self.date_fn(expr)
             if low in _STRING_FN_NAMES:
                 return self.string_fn(expr)
             from datafusion_tpu_torch.ops.functions import HostFunction
@@ -433,6 +432,26 @@ class _Compiler:
             )
         raise NotImplementedError_(f"cannot compile expression {expr!r}")
 
+    def date_fn(self, expr: ScalarFunction) -> CompiledExpr:
+        """EXTRACT / EPOCH / DATE_TRUNC over a Date32 or Timestamp, and the
+        planner's INTERVAL functions with their literal count; validity
+        passes through."""
+        low = expr.name.lower()
+        inner = self.compile(expr.args[0])
+        if low in dates.INTERVAL_FUNCTIONS:
+            assert isinstance(expr.args[1], Literal)
+            op = dates.interval_function(low, int(expr.args[1].value.value), self.device)
+        elif low.startswith("date_trunc_"):
+            op = dates.trunc_function(low[len("date_trunc_"):], inner.dtype is DataType.Timestamp)
+        else:
+            op = dates.extract_function(low, inner.dtype is DataType.Timestamp)
+
+        def date_fn(cols, inner=inner, op=op):
+            d, v = inner.fn(cols)
+            return op(d), v
+
+        return CompiledExpr(date_fn, expr.return_type)
+
     # ------------------------------------------------------------------
     def cast(self, expr: Cast) -> CompiledExpr:
         inner = self.compile(expr.expr)
@@ -461,7 +480,7 @@ class _Compiler:
         if inner.dtype is DataType.Timestamp and target is DataType.Date32:
             def ts2d_fn(cols, inner=inner):
                 d, v = inner.fn(cols)
-                return torch.div(d, 86400, rounding_mode="floor").to(torch.int32), v
+                return dates.ts_to_date(d), v
 
             return CompiledExpr(ts2d_fn, target)
 

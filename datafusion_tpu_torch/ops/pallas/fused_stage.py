@@ -39,6 +39,7 @@ from datafusion_tpu_torch.ops.expr_eval import (
     cast_tensor,
     dict_literal_bounds,
     int_div,
+    is_date_function,
     is_string_comparison,
     sql_sign,
     strip_utf8_cast,
@@ -59,6 +60,7 @@ from datafusion_tpu_torch.plan.logical import (
     SortExpr,
 )
 from datafusion_tpu_torch.types import DataType, torch_dtype
+from datafusion_tpu_torch.utils import dates
 
 # capacities of the kernel's Program struct (csrc/fused_stage.cu)
 MAX_INSTR, MAX_REGS, MAX_IN, MAX_OUT, MAX_CONST = 64, 32, 12, 12, 32
@@ -73,7 +75,8 @@ MAX_INSTR, MAX_REGS, MAX_IN, MAX_OUT, MAX_CONST = 64, 32, 12, 12, 32
     OP_AND, OP_OR,
     OP_CAST, OP_ISNULL, OP_ISNOTNULL, OP_SELECT, OP_KEEPV,
     OP_MATH1, OP_MATH2,
-) = range(23)
+    OP_DATE, OP_DTRUNC, OP_ADDMONTHS,
+) = range(26)
 
 MATH1 = {
     "sqrt": 0, "abs": 1, "exp": 2, "log": 3, "ln": 3, "log10": 4, "log2": 5,
@@ -81,6 +84,13 @@ MATH1 = {
     "floor": 12, "ceil": 13, "sign": 14,
 }
 MATH2 = {"power": 0, "pow": 0, "mod": 1, "atan2": 2, "round": 3, "trunc": 4}
+# OP_DATE's fields (in `c`): EXTRACT's, then "days", Timestamp -> Date32;
+# its source is a Date32 (b = T_I32, days) or a Timestamp (b = T_I64,
+# seconds). OP_DTRUNC's units (in `c`) keep the source type, `ty`.
+# OP_ADDMONTHS adds operand b (an int32 immediate) months to `ty`'s value.
+_DATE_FIELD_NAMES = dates.EXTRACT_FIELDS + ("days",)
+DATE_FIELDS = {f: i for i, f in enumerate(_DATE_FIELD_NAMES)}
+TRUNC_UNITS = {u: i for i, u in enumerate(dates.DATE_TRUNC_UNITS)}
 
 _TYPE_OF = {
     DataType.Boolean: T_BOOL, DataType.Int8: T_I8, DataType.Int16: T_I16,
@@ -243,7 +253,7 @@ class ProgramBuilder:
             wide = self.emit(OP_CAST, T_I64, a=r, c=T_I32, nullable=self.nullable[r])
             return self.emit(OP_MUL, T_I64, a=wide, b=self.const(86400, T_I64), nullable=self.nullable[r])
         if src_dt is DataType.Timestamp and target is DataType.Date32:
-            raise Unsupported("Timestamp -> Date32 (floor division)")
+            return self.emit(OP_DATE, T_I32, a=r, b=T_I64, c=DATE_FIELDS["days"], nullable=self.nullable[r])
         return self.emit(OP_CAST, value_type(target), a=r, c=value_type(src_dt), nullable=self.nullable[r])
 
     def binary(self, e: BinaryExpr) -> int:
@@ -328,6 +338,8 @@ class ProgramBuilder:
 
     def function(self, e: ScalarFunction) -> int:
         low = e.name.lower()
+        if is_date_function(low):
+            return self.date_function(e)
         args = [self.lower(a) for a in e.args]
         if any(a.get_type(self.schema) is not DataType.Float64 for a in e.args):
             raise Unsupported(f"{e.name} on non-Float64 arguments")
@@ -342,6 +354,30 @@ class ProgramBuilder:
         if low in MATH2 and len(args) == 2:
             return self.emit(OP_MATH2, T_F64, a=args[0], b=args[1], c=MATH2[low], nullable=nl)
         raise Unsupported(f"function {e.name}")
+
+    def date_function(self, e: ScalarFunction) -> int:
+        """EXTRACT fields, DATE_TRUNC and the planner's INTERVAL functions
+        over a Date32 (int32 days) or Timestamp (int64 seconds) operand:
+        one opcode each; adding days or seconds is an integer ADD that
+        wraps at the operand's width."""
+        low = e.name.lower()
+        src = e.args[0].get_type(self.schema)
+        if src not in (DataType.Date32, DataType.Timestamp):
+            raise Unsupported(f"{e.name} of {src}")
+        st = value_type(src)
+        r = self.lower(e.args[0])
+        nl = self.nullable[r]
+        if low in dates.INTERVAL_FUNCTIONS:
+            n = int(e.args[1].value.value)
+            kt = T_I64 if low == "ts_add_seconds" else T_I32
+            bits = 64 if kt == T_I64 else 32
+            if not -(1 << (bits - 1)) <= n < 1 << (bits - 1):
+                raise Unsupported(f"{e.name} by {n}, past int{bits}")
+            op = OP_ADDMONTHS if low.startswith("add_months") else OP_ADD
+            return self.emit(op, st, a=r, b=self.const(n, kt), nullable=nl)
+        if low.startswith("date_trunc_"):
+            return self.emit(OP_DTRUNC, st, a=r, c=TRUNC_UNITS[low[len("date_trunc_"):]], nullable=nl)
+        return self.emit(OP_DATE, T_I64 if low == "epoch" else T_I32, a=r, b=st, c=DATE_FIELDS[low], nullable=nl)
 
 
 def build_program(
@@ -380,8 +416,8 @@ def compile_program(
 
 
 # registers each opcode reads: operand a, b (unless an immediate), c
-_READS_A = frozenset(range(OP_ADD, OP_MATH2 + 1))
-_READS_B = frozenset(range(OP_ADD, OP_OR + 1)) | {OP_SELECT, OP_KEEPV, OP_MATH2}
+_READS_A = frozenset(range(OP_ADD, OP_ADDMONTHS + 1))
+_READS_B = frozenset(range(OP_ADD, OP_OR + 1)) | {OP_SELECT, OP_KEEPV, OP_MATH2, OP_ADDMONTHS}
 _IMM_B = _READS_B - {OP_KEEPV}  # KEEPV reads b's validity only
 
 
@@ -481,6 +517,11 @@ def _math2(f: int, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return torch.trunc(v) / m
 
 
+def _date_field(f: int, timestamp: bool):
+    field = _DATE_FIELD_NAMES[f]
+    return dates.ts_to_date if field == "days" else dates.extract_function(field, timestamp)
+
+
 def _const_tensor(bits: int, t: int, dev) -> torch.Tensor:
     """A constant's 64-bit pattern as a 0-d tensor of its type's storage."""
     bits = np.array(bits, np.int64)
@@ -565,6 +606,13 @@ def evaluate_plain(
             out, vd = _math1(c, vals[a]), valid[a]
         elif op == OP_MATH2:
             out, vd = _math2(c, vals[a], y), both(valid[a], vy)
+        elif op == OP_DATE:
+            out, vd = _date_field(c, b == T_I64)(vals[a]), valid[a]
+        elif op == OP_DTRUNC:
+            out, vd = dates.trunc_function(dates.DATE_TRUNC_UNITS[c], t == T_I64)(vals[a]), valid[a]
+        elif op == OP_ADDMONTHS:
+            add = dates.add_months_seconds if t == T_I64 else dates.add_months_days
+            out, vd = add(vals[a], y), both(valid[a], vy)
         else:
             raise ValueError(f"bad opcode {op}")
         vals[d], valid[d] = out, vd

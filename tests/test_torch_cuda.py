@@ -551,3 +551,64 @@ def test_aggregate_family_matches_the_cpu(cuda, name):
             assert np.allclose(ca, cb, rtol=1e-9, atol=0), name
         else:
             assert np.array_equal(ca, cb), name
+
+
+@pytest.mark.parametrize("name", ["d1", "d2", "d2t", "edges"])
+def test_dates_match_the_cpu(cuda, name):
+    """chip_smoke.py's d1 (every EXTRACT field of a Date32 and a
+    Timestamp), d2 / d2t (DATE_TRUNC of every unit, INTERVAL months and
+    hours, CAST(ts AS DATE), a WHERE on dt + 1 MONTH) at 2^20 rows, each one
+    K1 launch: the card against the CPU, exact; and its K1_DATES programs
+    over the calendar's edges (INT_MIN / INT_MAX days, +-2^62 seconds) bit
+    for bit against the plain version."""
+    smoke = _chip_smoke()
+    n = 1 << 20
+    if name == "edges":
+        ctx = port.ExecutionContext(device=cuda)
+        ctx.register_table("t", smoke.date_edge_table(port, n, 21, cuda))
+        for sql in smoke.K1_DATES:
+            prog, ins = smoke.fused_program(ctx, "t", sql)
+            assert smoke.compare_k1(prog, ins, n, cuda) == 0.0
+        return
+    rng = np.random.default_rng(10)
+    P = port.DataType
+    bigd = port.Table.from_arrays(
+        port.Schema([port.Field("lat", P.Float64, False), port.Field("dt", P.Date32, False),
+                     port.Field("ts", P.Timestamp, True)]),
+        [rng.random(n), rng.integers(smoke.DAY_1900, smoke.DAY_2100, n).astype(np.int32),
+         rng.integers(smoke.DAY_1900 * 86400, smoke.DAY_2100 * 86400, n)],
+        validity=[None, None, rng.random(n) > 0.05], device="cpu")
+    gpu, cpu = port.ExecutionContext(device=cuda), port.ExecutionContext(device="cpu")
+    gpu.register_table("bigd", bigd)
+    cpu.register_table("bigd", bigd)
+    sql = {q[0]: q[1] for q in smoke.DATE_QUERIES}[name]
+    before = fs.run_fused.launches
+    got = gpu.sql(sql)
+    assert fs.run_fused.launches - before == 1
+    smoke.same_result(name, got, cpu.sql(sql), rtol=0.0)
+
+
+@pytest.fixture(scope="module")
+def tpch_contexts():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    sys.path.insert(0, str(ROOT / "benchmarks"))
+    import tpch
+
+    gpu, cpu = port.ExecutionContext(), port.ExecutionContext(device="cpu")
+    for name, cols in zip(("lineitem", "orders", "customer", "part"), tpch.gen_tables(0.05)):
+        t = port.Table.from_pydict(cols, device="cpu")
+        gpu.register_table(name, t)
+        cpu.register_table(name, t)
+    return tpch.QUERIES, gpu, cpu
+
+
+@pytest.mark.parametrize("name", ["q1", "q2ish", "q3", "q4ish", "q5ish", "q6", "q7ish", "q8ish", "q9ish", "q10ish",
+                                  "q11ish", "q12ish", "q13ish", "q14ish", "q15ish", "q16ish", "q17ish", "q18ish",
+                                  "q19ish", "q20ish", "q21ish", "q22ish"])
+def test_tpch_matches_the_cpu(tpch_contexts, name):
+    """benchmarks/tpch.py's 22 shapes at scale 0.05 (300K lineitem rows):
+    the card against the CPU, row count and order, strings, integers and
+    dates exact, floats at rtol 1e-9 (sums in atomic order)."""
+    queries, gpu, cpu = tpch_contexts
+    _chip_smoke().same_result(name, gpu.sql(queries[name]), cpu.sql(queries[name]))

@@ -438,22 +438,30 @@ K1_SQL = {
 
 @pytest.mark.parametrize("case,n", [("all types", 4099), ("ints", 5003), ("floats", 5003), ("compares", 5003),
                                     ("case", 100), ("one register", 3 * 2048), ("transcendental", 2049),
-                                    ("limits", 3001), ("limits", 200), ("limits", 0)])
+                                    ("limits", 3001), ("limits", 200), ("limits", 0), ("dates", 3001)])
 def test_fused_stage_kernel_matches_plain(emu, monkeypatch, case, n):
     """K1 on programs the compiler builds over every value type (NULLs,
     integer /0 and INT_MIN / -1, NaN, +-inf, -0.0), tiles of 8, 4, 2 and 1
-    rows a thread, and smoke.limits_program() at the kernel's capacity;
-    `n` below one tile, not a multiple of it, and 0. The emulated card has
-    2 SMs, so each block walks several tiles."""
+    rows a thread, smoke.limits_program() at the kernel's capacity, and
+    smoke.K1_DATES (every date opcode) over the calendar's edges
+    (smoke.date_edge_table: INT_MIN / INT_MAX days, +-2^62 seconds, leap
+    days, ISO years of 53 weeks); `n` below one tile, not a multiple of
+    it, and 0. The emulated card has 2 SMs, so each block walks several
+    tiles."""
     monkeypatch.setenv("EMU_SMS", "2")
     if case == "limits":
         prog, ins = _limits_inputs(n, 7)
         assert (len(prog.code), prog.n_regs, len(prog.inputs), len(prog.outputs), len(prog.consts)) == (
             fs.MAX_INSTR, fs.MAX_REGS, fs.MAX_IN, fs.MAX_OUT, fs.MAX_CONST)
+        programs = [(prog, ins)]
+    elif case == "dates":
+        t = smoke.date_edge_table(port, n, 11, "cpu")
+        programs = [_sql_program(t, sql) for sql in smoke.K1_DATES]
     else:
-        prog, ins = _sql_program(_typed_table(n, len(case)), K1_SQL[case])
-    got = run_k1(emu, prog, ins, n)
-    assert_k1(got, fs.evaluate_plain(prog, *ins, n), ulps=1 if case == "transcendental" else 0)
+        programs = [_sql_program(_typed_table(n, len(case)), K1_SQL[case])]
+    for prog, ins in programs:
+        got = run_k1(emu, prog, ins, n)
+        assert_k1(got, fs.evaluate_plain(prog, *ins, n), ulps=1 if case == "transcendental" else 0)
 
 
 def test_fused_stage_tiles_and_checks(emu):
