@@ -112,15 +112,36 @@ Phases, each printed on its own line:
      tables (floats at rtol 1e-9, all else exact), and m20 = q1 over 8
      shards against one card; each query's route, launches, warm wall and
      device busy share (chiprun_out/profile_dates_tpch.txt)
+  11. ingest and the session API (run right after phase 5): a CSV of
+     big's five columns at 2^23 rows (floats as `repr`) through the native
+     C++ loader (built with g++ on first use; its count pass must give
+     2^23 rows and an eager register_csv columns equal to the source bit
+     for bit, with the parse rate), then a default (lazy) register_csv
+     that parses nothing until i1 (K1, one launch; parses k, d, lat, lng
+     only), i2 (K2 dense, one launch) and i3 (K2 sorted, one launch; parses
+     g), each equal to the eager table's result_str and a numpy oracle, with
+     its first wall (its parse included; the parses are also timed alone),
+     warm wall, last_stats and profile (chiprun_out/profile_ingest.txt); i2's
+     serialized plan run in a fresh context; an NDJSON file of 2^20 rows
+     (a Utf8 mode with 5% NULLs) through STORED AS NDJSON, GROUP BY mode on
+     K2 dense against a numpy oracle; `python -m datafusion_tpu_torch.console
+     --script smoketest.sql --ref-output` on one card and with --mesh 8,
+     stdout equal to tests/data/smoketest-expected.txt; and, where pyarrow
+     imports (a line says which of pyarrow and pandas do), the CSV's rows
+     written as Parquet and read by register_parquet, i1-i3 over it equal
+     to the lazy CSV scan
 Every kernel's kernel-only time comes from torch.profiler (kernel_only_ms),
 its wrapper's host time from host_only_ms (`host_ms` in the kernels' line).
 The reduce kernels' `library_ms` is one PyTorch call per op of the
 kernel's op list, summed (LIBRARY). Then one JSON line per kernel set (times, bounds, launches on the main
-paths, the joins, the windows, the aggregates, the dates and TPC-H) and, last,
+paths, the joins, the windows, the aggregates, the dates and TPC-H, and
+ingest) and, last,
 {"ok": true, "device": {...}}. Any failed check raises and exits non-zero.
 There is no CPU path: without CUDA the script exits with an error.
 """
 
+import importlib
+import importlib.util
 import json
 import os
 import statistics
@@ -2585,6 +2606,293 @@ def phase_csv(dev):
     log(f"phase 5 CSV: {len(goldens)} golden files + {len(sqlrs) + 1} sql.rs goldens byte-exact on the card")
 
 
+# phase 11: the CSV export of big's five columns, larger than TPC-H SF1's
+# 6M-row lineitem, and an NDJSON file of k, d, lat and a Utf8 mode with
+# 5% NULLs; (name, SQL, what EXPLAIN VERBOSE must show, the kernel that
+# must launch once)
+INGEST_ROWS = 1 << 23
+NDJSON_ROWS = 1 << 20
+INGEST_QUERIES = (
+    ("i1", "SELECT k, lat + lng FROM c WHERE d < 150", "fused CUDA stage", "fused_stage"),
+    ("i2", "SELECT d, SUM(lat), COUNT(*) FROM c GROUP BY d ORDER BY d LIMIT 10", "dense sort-free",
+     "segreduce_dense"),
+    ("i3", "SELECT k, MIN(lng), MAX(g) FROM c GROUP BY k", "packed-gid co-sort", "segreduce_sorted"),
+)
+
+
+def write_csv(path, cols, names):
+    """A header line, then one line per row: integers as written, floats
+    as `repr` (the shortest text that reads back to the same double)."""
+    with open(path, "w") as f:
+        f.write(",".join(names) + "\n")
+        step = 1 << 18
+        for lo in range(0, len(cols[0]), step):
+            rows = zip(*(c[lo:lo + step].tolist() for c in cols))
+            f.write("".join(",".join(map(repr, r)) + "\n" for r in rows))
+
+
+def write_ndjson(path, k, d, lat, mode, valid):
+    with open(path, "w") as f:
+        step = 1 << 18
+        for lo in range(0, len(k), step):
+            sl = slice(lo, lo + step)
+            f.write("".join(
+                f'{{"k": {a}, "d": {b}, "lat": {c!r}, "mode": ' + (f'"{SHIPMODES[m]}"}}\n' if v else "null}\n")
+                for a, b, c, m, v in zip(k[sl].tolist(), d[sl].tolist(), lat[sl].tolist(), mode[sl].tolist(),
+                                         valid[sl].tolist())))
+
+
+def ingest_oracle(k, d, lat, lng, g):
+    """i1-i3 over the CSV's rows in numpy: i1's rows in file order, i2's
+    first 10 groups of d, i3's per-k MIN(lng) and MAX(g)."""
+    m = d < 150
+    i1 = (k[m], lat[m] + lng[m])
+    keys = np.arange(10)
+    i2 = (keys, np.array([lat[d == x].sum() for x in keys]), np.bincount(d, minlength=10)[:10])
+    order = np.argsort(k, kind="stable")
+    ks = k[order]
+    starts = np.flatnonzero(np.r_[True, ks[1:] != ks[:-1]])
+    i3 = (ks[starts], np.minimum.reduceat(lng[order], starts), np.maximum.reduceat(g[order], starts))
+    return {"i1": i1, "i2": i2, "i3": i3}
+
+
+def check_ingest_result(name, res, want):
+    cols = [c for c, _ in res.cols]
+    check(all(v is None or v.all() for _, v in res.cols), f"{name}: NULLs in the result")
+    if name == "i3":  # GROUP BY without ORDER BY: compare by key
+        order = np.argsort(cols[0], kind="stable")
+        cols = [c[order] for c in cols]
+    check(len(cols[0]) == len(want[0]), f"{name}: {len(cols[0])} rows, the oracle {len(want[0])}")
+    for j, (a, b) in enumerate(zip(cols, want)):
+        if name == "i2" and j == 1:  # f64 sums: the order of the additions differs
+            check(np.allclose(a, b, rtol=1e-9, atol=0), f"{name}: column {j} differs from the oracle")
+        else:
+            check(np.array_equal(a, b), f"{name}: column {j} differs from the oracle")
+
+
+def phase_ingest(dev, arrays, kernel_stats):
+    """Phase 11: ingest and the session API on the card. A CSV of big's
+    first 2^23 rows through the native C++ loader, eager (bit for bit
+    against the source arrays) and lazy (a column parsed when a query
+    first scans it); i1-i3 launch K1, K2 dense and K2 sorted once each and
+    equal the eager table and a numpy oracle; a shipped plan runs in a
+    fresh context; an NDJSON file through STORED AS NDJSON; the console
+    on one card and on 8 shards against the reference smoketest golden."""
+    import tempfile
+
+    import datafusion_tpu_torch as port
+    from datafusion_tpu_torch.columnar.csv import LazyCsvTable
+    from datafusion_tpu_torch.io.native import count_csv_rows_native, get_lib, parse_csv_native
+
+    P = port.DataType
+    n = INGEST_ROWS
+    k, d, lat, lng, g = (a[:n] for a in arrays[:5])
+    names = ("k", "d", "lat", "lng", "g")
+    schema = port.Schema([port.Field(c, t, False) for c, t in zip(names, (P.Int32, P.Int32, P.Float64, P.Float64,
+                                                                          P.Int32))])
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        path = os.path.join(tmp.name, "big.csv")
+        t0 = time.perf_counter()
+        write_csv(path, (k, d, lat, lng, g), names)
+        mb = os.path.getsize(path) / 1e6
+        log(f"phase 11 CSV: {n} rows, {mb:.1f} MB written in {time.perf_counter() - t0:.2f} s")
+
+        # the native loader: built with g++ on first use, and used here
+        check(get_lib() is not None, "the native CSV loader did not build on this machine")
+        t0 = time.perf_counter()
+        rows = count_csv_rows_native(path, True)
+        t_count = time.perf_counter() - t0
+        check(rows == n, f"count_csv_rows_native gave {rows} rows, the file has {n}")
+        t0 = time.perf_counter()
+        parsed, validity = parse_csv_native(path, schema, True)
+        t_parse = time.perf_counter() - t0
+        check(validity is None, "the native parse found NULLs")
+        for name, a, b in zip(names, parsed, (k, d, lat, lng, g)):
+            check(a.dtype == b.dtype and same_bits(torch.from_numpy(a), torch.from_numpy(b)),
+                  f"native parse of {name} is not the source bit for bit")
+        del parsed
+        eager = port.ExecutionContext()
+        t0 = time.perf_counter()
+        eager.register_csv("c", path, schema, lazy=False)
+        torch.cuda.synchronize()
+        t_eager = time.perf_counter() - t0
+        et = eager.table("c")
+        check(not isinstance(et, LazyCsvTable) and et.device.type == "cuda", "the eager table is not on the card")
+        for name, col, b in zip(names, et.columns, (k, d, lat, lng, g)):
+            check(col.validity is None and same_bits(col.data, torch.from_numpy(b).to(col.data.device)),
+                  f"eager column {name} on the card is not the source bit for bit")
+        log(f"phase 11 native loader: count pass {t_count * 1e3:.1f} ms, parse {t_parse:.3f} s "
+            f"({mb / t_parse:.0f} MB/s), eager register_csv (parse + copy to the card) {t_eager:.3f} s "
+            f"({mb / t_eager:.0f} MB/s); columns equal the source bit for bit")
+
+        # the lazy scan: registration parses nothing, each query its new columns
+        lazy = port.ExecutionContext()
+        t0 = time.perf_counter()
+        lazy.register_csv("c", path, schema)
+        t_lazy = time.perf_counter() - t0
+        lt = lazy.table("c")
+        check(isinstance(lt, LazyCsvTable) and lt.materialized_columns() == [] and lt.num_rows == n,
+              "a default register_csv on the card is not a lazy table with nothing parsed")
+        oracle = ingest_oracle(k, d, lat, lng, g)
+        # run_counted's loop, reading the parsed columns after each query
+        results, walls, per_query, materialized = {}, {}, {}, {}
+        counters = kernel_counters()
+        for f, attr in counters.values():
+            setattr(f, attr, 0)
+        for name, q, _, _ in INGEST_QUERIES:
+            before = {c: getattr(f, a) for c, (f, a) in counters.items()}
+            t = time.perf_counter()
+            results[name] = lazy.sql(q)
+            torch.cuda.synchronize()
+            walls[name] = (time.perf_counter() - t) * 1e3
+            per_query[name] = {c: getattr(f, a) - before[c] for c, (f, a) in counters.items()}
+            materialized[name] = lt.materialized_columns()
+        totals = {c: getattr(f, a) for c, (f, a) in counters.items()}
+        for name, cols in (("i1", [0, 1, 2, 3]), ("i2", [0, 1, 2, 3]), ("i3", [0, 1, 2, 3, 4])):
+            check(materialized[name] == cols, f"after {name} the parsed columns are {materialized[name]}, not {cols}")
+        for name, _, _, kernel in INGEST_QUERIES:
+            check(per_query[name][kernel] == 1, f"{name} launched {kernel} {per_query[name][kernel]} times, not once")
+            check_ingest_result(name, results[name], oracle[name])
+        for name, q, _, _ in INGEST_QUERIES:
+            if name == "i2":  # K2 dense adds f64 in atomic order, which varies from run to run
+                same_result(name, results[name], eager.sql(q))
+            else:
+                check(results[name].result_str() == eager.sql(q).result_str(), f"{name}: lazy differs from eager")
+        routes = explain_routes([(name, lazy, q, [note]) for name, q, note, _ in INGEST_QUERIES])
+        for name, q, _, _ in INGEST_QUERIES:
+            warm = warm_wall_ms(lazy, q)
+            stats = {key: (round(v * 1e3, 3) if key.endswith("_s") else v) for key, v in lazy.last_stats.items()}
+            log(f"phase 11 {name}: {results[name].num_rows} rows; wall first {walls[name]:.3f} ms (with its parse), "
+                f"warm {warm:.3f} ms; last_stats (ms) {json.dumps(stats)}; launched {launched(per_query[name])}; "
+                f"parsed columns after it {materialized[name]}; route {routes[name]}")
+        # what the first walls hold: a lazy table of its own parses i1's
+        # columns, then g, onto the card
+        split = LazyCsvTable(path, schema, device=dev)
+        parse_ms = {}
+        for label, cols in (("k, d, lat, lng", [0, 1, 2, 3]), ("g", [4])):
+            t0 = time.perf_counter()
+            split.ensure_columns(cols)
+            torch.cuda.synchronize()
+            parse_ms[label] = (time.perf_counter() - t0) * 1e3
+        del split
+        log(f"phase 11 lazy parse onto the card, alone: {json.dumps({c: round(v, 3) for c, v in parse_ms.items()})} ms "
+            f"(i1's first wall {walls['i1']:.3f} ms, i3's {walls['i3']:.3f} ms)")
+        profile_queries([(name, lazy, q) for name, q, _, _ in INGEST_QUERIES], "phase 11", "profile_ingest.txt")
+        log(f"phase 11 lazy: register_csv {t_lazy * 1e3:.1f} ms (the count pass only); i1 and i3 equal the eager "
+            f"table's result_str, i2 its rows (sums at rtol 1e-9: atomic order), all three the numpy oracle; "
+            f"g parsed first by i3")
+        for name, s_ in kernel_stats.items():
+            s_["ingest_launches"] = totals[name]
+
+        # plan shipping: i2's plan runs in a fresh context on the card
+        q2 = INGEST_QUERIES[1][1]
+        shipped = lazy.serialize_plan(q2)
+        fresh = port.ExecutionContext()
+        t0 = time.perf_counter()
+        got = fresh.execute_plan_json(shipped)
+        torch.cuda.synchronize()
+        same_result("i2 shipped", got, results["i2"])
+        log(f"phase 11 plan shipping: i2 serialized ({len(shipped)} bytes of JSON) and run in a fresh context in "
+            f"{(time.perf_counter() - t0) * 1e3:.1f} ms, parsing columns {fresh.table('c').materialized_columns()}")
+        del eager, lazy, fresh, et, lt
+
+        # NDJSON: STORED AS NDJSON, GROUP BY mode on K2 dense
+        rng = np.random.default_rng(SEED + 11)
+        m = NDJSON_ROWS
+        mode = rng.integers(0, len(SHIPMODES), m).astype(np.int32)
+        mvalid = rng.random(m) >= 0.05
+        jpath = os.path.join(tmp.name, "big.ndjson")
+        t0 = time.perf_counter()
+        write_ndjson(jpath, k[:m], d[:m], lat[:m], mode, mvalid)
+        t_write = time.perf_counter() - t0
+        nctx = port.ExecutionContext()
+        t0 = time.perf_counter()
+        nctx.sql(f"CREATE EXTERNAL TABLE n (k INT NOT NULL, d INT NOT NULL, lat DOUBLE NOT NULL, mode VARCHAR(10)) "
+                 f"STORED AS NDJSON LOCATION '{jpath}'")
+        t_read = time.perf_counter() - t0
+        nq = "SELECT mode, COUNT(*), COUNT(mode), SUM(lat), MIN(k), MAX(d) FROM n GROUP BY mode"
+        nres, nwalls, nper, _ = run_counted([("n1", nctx, nq)])
+        check(nper["n1"]["segreduce_dense"] == 1, f"n1 launched K2 dense {nper['n1']['segreduce_dense']} times")
+        for name, s_ in kernel_stats.items():
+            s_["ingest_launches"] += nper["n1"][name]
+        res = nres["n1"]
+        got = {row[0]: row[1:] for row in zip(*(res.column_values(j) for j in range(res.num_columns)))}
+        check(len(got) == len(SHIPMODES) + 1, f"n1 gave {len(got)} groups")
+        for code in range(-1, len(SHIPMODES)):
+            sel = ~mvalid if code < 0 else mvalid & (mode == code)
+            key = None if code < 0 else SHIPMODES[code]
+            rows_, nonnull, total, kmin, dmax = got[key]
+            check(rows_ == int(sel.sum()) and nonnull == (0 if code < 0 else int(sel.sum()))
+                  and np.isclose(total, lat[:m][sel].sum(), rtol=1e-9, atol=0)
+                  and kmin == int(k[:m][sel].min()) and dmax == int(d[:m][sel].max()),
+                  f"n1's group {key} differs from the oracle")
+        log(f"phase 11 NDJSON: {m} rows written in {t_write:.2f} s, STORED AS NDJSON read onto the card in "
+            f"{t_read:.2f} s; n1 (GROUP BY mode, 5% NULL) equals the numpy oracle, wall {nwalls['n1']:.3f} ms, "
+            f"launched {launched(nper['n1'])}")
+
+        # the console, on one card and on 8 shards, as two processes at once
+        sql = open(os.path.join(ROOT, "tests", "data", "smoketest.sql")).read()
+        spath = os.path.join(tmp.name, "smoketest.sql")
+        with open(spath, "w") as f:
+            f.write(sql.replace("/test/data/uk_cities.csv", os.path.join(ROOT, "tests", "data", "uk_cities.csv")))
+        with open(os.path.join(ROOT, "tests", "data", "smoketest-expected.txt")) as f:
+            expected = f.read()
+        t0 = time.perf_counter()
+        procs = {label: subprocess.Popen([sys.executable, "-m", "datafusion_tpu_torch.console", "--script", spath,
+                                          "--ref-output", *extra], cwd=ROOT, stdout=subprocess.PIPE,
+                                         stderr=subprocess.PIPE, text=True)
+                 for label, extra in (("one card", []), ("--mesh 8", ["--mesh", "8"]))}
+        try:
+            outs = {label: p.communicate(timeout=300) for label, p in procs.items()}
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for label, (out, err) in outs.items():
+            check(procs[label].returncode == 0, f"the console ({label}) exited {procs[label].returncode}: {err[-2000:]}")
+            check(out == expected, f"the console's stdout ({label}) differs from smoketest-expected.txt")
+        log(f"phase 11 console: python -m datafusion_tpu_torch.console --script smoketest.sql --ref-output on one "
+            f"card and with --mesh 8 equal tests/data/smoketest-expected.txt byte for byte "
+            f"({time.perf_counter() - t0:.2f} s for both processes)")
+
+        # Parquet: read by pyarrow (pandas reads Parquet through pyarrow too)
+        versions = {lib: importlib.import_module(lib).__version__ for lib in ("pyarrow", "pandas")
+                    if importlib.util.find_spec(lib) is not None}
+        if "pyarrow" in versions:
+            import pyarrow as pa
+            import pyarrow.parquet as pq
+
+            ppath = os.path.join(tmp.name, "big.parquet")
+            t0 = time.perf_counter()
+            pq.write_table(pa.table(dict(zip(names, (k, d, lat, lng, g)))), ppath)
+            t_write = time.perf_counter() - t0
+            pctx = port.ExecutionContext()
+            t0 = time.perf_counter()
+            pctx.register_parquet("c", ppath)
+            torch.cuda.synchronize()
+            t_read = time.perf_counter() - t0
+            check([f.dtype for f in pctx.table("c").schema.fields] == [f.dtype for f in schema.fields],
+                  "the Parquet table's inferred types")
+            for name, q, _, _ in INGEST_QUERIES:
+                got = pctx.sql(q)
+                if name == "i2":
+                    same_result(f"{name} over Parquet", got, results[name])
+                else:
+                    check(all(np.array_equal(a, b) for (a, _), (b, _) in zip(got.cols, results[name].cols)),
+                          f"{name} over Parquet differs from the CSV scan")
+            log(f"phase 11 Parquet: {json.dumps(versions)} import here; {n} rows written by pyarrow in "
+                f"{t_write:.2f} s ({os.path.getsize(ppath) / 1e6:.1f} MB), register_parquet onto the card "
+                f"{t_read:.2f} s; i1-i3 over it equal the lazy CSV scan's rows")
+            del pctx
+        else:
+            log(f"phase 11 Parquet: pyarrow does not import on this machine ({json.dumps(versions)}), so Parquet "
+                f"is not run here; the CPU tests hold it to the JAX package")
+    finally:
+        tmp.cleanup()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -2622,6 +2930,9 @@ def main():
     arrays = main_arrays()
     big = phase_main_path(dev, kernel_stats, arrays)
     phase_csv(dev)
+    t11 = time.perf_counter()
+    phase_ingest(dev, arrays, kernel_stats)
+    log(f"phase 11 ingest and session API: {time.perf_counter() - t11:.1f} s")
     phase_mesh(dev, big, arrays, kernel_stats)
     joins = phase_joins(dev, big, arrays, kernel_stats)
     phase_windows(dev, big, arrays, joins["tables"], kernel_stats)

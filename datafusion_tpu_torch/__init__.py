@@ -3,19 +3,28 @@
 The same SQL engine (SQL parsing and planning, projection, selection,
 CAST, MIN/MAX/SUM/COUNT/AVG, STDDEV/VARIANCE, MEDIAN and percentiles,
 the DISTINCT aggregates and aggregate UDFs with GROUP BY, ORDER BY,
-LIMIT, joins, windows, UNION, CREATE EXTERNAL TABLE over CSV) running
-eagerly in PyTorch on an NVIDIA GPU, with hand-written Hopper (sm_90a)
-CUDA kernels where the JAX package had Pallas kernels: the fused
-scan/filter/project stage, the segmented reduce, the slab partition and
-windowed reduce, and the ragged exchange with and without its fold.
-The JAX package `datafusion_tpu` is the reference this package is tested
-against; this package imports nothing from it, and never imports jax.
+LIMIT, joins, windows, UNION, the date functions, the catalog statements
+and DML) running eagerly in PyTorch on an NVIDIA GPU, with hand-written
+Hopper (sm_90a) CUDA kernels where the JAX package had Pallas kernels:
+the fused scan/filter/project stage, the segmented reduce, the slab
+partition and windowed reduce, and the ragged exchange with and without
+its fold. The JAX package `datafusion_tpu` is the reference this package
+is tested against; this package imports nothing from it, and never
+imports jax.
+
+Tables come from memory, CSV (`register_csv`: lazy on one device, a
+column parsed by the native C++ loader when a query first scans it),
+NDJSON and Parquet (`CREATE EXTERNAL TABLE ... STORED AS CSV | NDJSON |
+PARQUET`, `register_parquet`). `serialize_plan` / `execute_plan_json`
+ship a plan with its tables' sources; `last_stats` times the last query;
+`python -m datafusion_tpu_torch.console` is the SQL console.
 
 Entry points run on the card: `ExecutionContext()` means
 `device="cuda"` and raises on a machine without one unless the caller
-passes `device="cpu"`. `ExecutionContext(mesh=make_mesh(8))` runs every
-query over 8 logical shards of its tables on one device, with the
-distributed engine's shuffle kernels (ragged exchange, exchange + fold).
+passes `device="cpu"` (the console: `--device cpu`).
+`ExecutionContext(mesh=make_mesh(8))` runs every query over 8 logical
+shards of its tables on one device, with the distributed engine's
+shuffle kernels (ragged exchange, exchange + fold).
 """
 
 from datafusion_tpu_torch.columnar.csv import CsvDataSource, read_csv

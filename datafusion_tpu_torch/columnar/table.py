@@ -135,6 +135,20 @@ class Column:
             self.dictionary,
         )
 
+    def to_numpy(self, num_rows: int) -> np.ndarray:
+        """The first `num_rows` values on the host, dictionaries decoded;
+        NULLs become None (an object array then)."""
+        data = self.data[:num_rows].cpu().numpy()
+        if self.dtype is DataType.Utf8:
+            vocab = np.asarray(self.dictionary, dtype=object)
+            out = vocab[np.clip(data, 0, len(vocab) - 1)]
+        else:
+            out = data
+        if self.validity is not None:
+            out = np.asarray(out, dtype=object)
+            out[~self.validity[:num_rows].cpu().numpy()] = None
+        return out
+
 
 @dataclass(frozen=True)
 class Table:

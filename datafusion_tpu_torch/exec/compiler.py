@@ -161,6 +161,10 @@ class CompiledQuery:
     notes: tuple[str, ...] = ()
     _mesh: Optional[object] = None  # parallel.mesh.Mesh of a distributed plan
     _routes: Optional[list] = None  # filled by the stages that choose a route at run time (joins)
+    # per scan slot, the table columns the pipeline reads; the others go
+    # into a one-card env as (None, None), so a lazy table never parses
+    # them. None: every column.
+    _used_cols: Optional[list[set]] = None
 
     def run(self):
         """Execute and materialize the selected rows on the host. A
@@ -177,7 +181,9 @@ class CompiledQuery:
         from datafusion_tpu_torch.exec.result import ResultTable
 
         if self._mesh is None:
-            env = [[(c.data, c.validity) for c in t.columns] for t in self._scan_tables]
+            used = self._used_cols or [None] * len(self._scan_tables)
+            env = [[(c.data, c.validity) if u is None or i in u else (None, None) for i, c in enumerate(t.columns)]
+                   for t, u in zip(self._scan_tables, used)]
             b = self._fn(env)
         else:
             from datafusion_tpu_torch.parallel.mesh import partition_table
@@ -427,6 +433,7 @@ class PlanCompiler:
         self.device = resolve_device(device)
         self.bigdense = bigdense
         self.scan_tables: list[Table] = []
+        self.scan_used: list[set] = []  # per scan slot: the table columns the plan reads
         self.notes: list[str] = []  # physical choices, for EXPLAIN VERBOSE
         self.routes: list[str] = []  # run-time choices of the last run (CompiledQuery.run)
         # decline diagnostics survive speculative rollbacks
@@ -447,6 +454,7 @@ class PlanCompiler:
         if res is None:
             del self.notes[marks[0]:]
             del self.scan_tables[marks[1]:]
+            del self.scan_used[marks[1]:]
         return res
 
     # ------------------------------------------------------------------
@@ -487,11 +495,17 @@ class PlanCompiler:
         slot = len(self.scan_tables)
         self.scan_tables.append(table)
         indices = list(range(len(table.schema))) if plan.projection is None else list(plan.projection)
+        # a lazy file-backed table (columnar/csv.py LazyCsvTable) parses
+        # the scanned columns, in one pass, before any dictionary is read
+        ensure = getattr(table, "ensure_columns", None)
+        if ensure is not None:
+            ensure(indices)
+        self.scan_used.append(set(indices))
         n, dev = table.num_rows, self.device
 
         def fn(env) -> Batch:
             # a shard's env holds its row block only
-            rows = env[slot][0][0].shape[0] if env[slot] else n
+            rows = next((d.shape[0] for d, _ in env[slot] if d is not None), n)
             return Batch([env[slot][i] for i in indices], torch.ones(rows, dtype=torch.bool, device=dev))
 
         return Lowered(
@@ -1346,4 +1360,5 @@ def compile_plan(
         _host_post=host_post,
         notes=tuple(pc.notes + pc.sticky_notes),
         _routes=pc.routes,
+        _used_cols=pc.scan_used,
     )

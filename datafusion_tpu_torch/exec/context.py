@@ -1,36 +1,46 @@
 """ExecutionContext — the session/API layer of the torch port.
 
-Port of datafusion_tpu/exec/context.py for the main path (reference:
+Port of datafusion_tpu/exec/context.py (reference:
 src/execution/context.rs: register_datasource :100, sql :44, execute
 :104): tables registered on one device, SQL parsed and planned by the
 port's copies of the JAX package's host layers, plans compiled to eager
 torch pipelines (exec/compiler.py) with a per-(plan, tables) compile
-cache. `CREATE EXTERNAL TABLE ... STORED AS CSV` executes, and so do the
-catalog statements and DML: CREATE TABLE AS SELECT, INSERT INTO, DROP
-TABLE [IF EXISTS], SHOW TABLES and DESCRIBE. The context runs on the card
-unless the caller asks for the CPU. With a mesh
+cache. Tables come from memory, CSV (lazy on one device: a column is
+parsed when a query first scans it), NDJSON and Parquet files, and
+`CREATE EXTERNAL TABLE ... STORED AS CSV | NDJSON | PARQUET` registers
+them. The catalog statements and DML execute: CREATE TABLE AS SELECT,
+INSERT INTO, DROP TABLE [IF EXISTS], SHOW TABLES and DESCRIBE. A plan
+serializes with its file-backed tables' sources (`serialize_plan`) and
+runs in a fresh context (`execute_plan_json`); `last_stats` holds the
+parse, plan and execute seconds of the last query. The context runs on
+the card unless the caller asks for the CPU. With a mesh
 (parallel/mesh.py) every query runs over the tables' row blocks, one per
 logical shard, through the distributed compiler (parallel/dist.py).
 """
 
 from __future__ import annotations
 
-import datetime
+import copy
+import json
 import os
+import time
 from dataclasses import dataclass
 from typing import Callable, Optional, Union
 
 import numpy as np
+import torch
 
-from datafusion_tpu_torch.columnar.csv import CsvDataSource, read_csv
-from datafusion_tpu_torch.columnar.table import Table, resolve_device
+from datafusion_tpu_torch.columnar.csv import CsvDataSource, LazyCsvTable, read_csv
+from datafusion_tpu_torch.columnar.ndjson import read_ndjson
+from datafusion_tpu_torch.columnar.parquet import read_parquet
+from datafusion_tpu_torch.columnar.table import Column as TableColumn, Table, resolve_device
 from datafusion_tpu_torch.errors import ExecutionError, NotImplementedError_, PlanError
 from datafusion_tpu_torch.exec.compiler import PlanCompiler, compile_plan, split_host_projection
 from datafusion_tpu_torch.exec.result import ResultTable
 from datafusion_tpu_torch.ops.functions import AggregateUDF
 from datafusion_tpu_torch.parallel.dist import DistCompiler, compile_plan_distributed
 from datafusion_tpu_torch.parallel.mesh import Mesh
-from datafusion_tpu_torch.plan.logical import Column, LogicalPlan, Projection, TableScan
+from datafusion_tpu_torch.plan.logical import Column, LogicalPlan, Projection, TableScan, plan_from_json, plan_to_json
 from datafusion_tpu_torch.plan.optimizer import push_down_filters, push_down_projection
 from datafusion_tpu_torch.plan.planner import FunctionMeta, FunctionType, SqlToRel, convert_data_type
 from datafusion_tpu_torch.schema import Field, Schema
@@ -48,23 +58,35 @@ _DDL_NODES = (
 )
 
 
-def _table_from_results(schema: Schema, rts, device) -> Table:
-    """Concatenate host ResultTables of one schema into a table on
-    `device` (INSERT's old rows + new rows); NULL slots hold a fill."""
-    arrays, validity = [], []
-    for j, f in enumerate(schema.fields):
-        vals = [v for rt in rts for v in rt.column_values(j)]
-        mask = np.array([v is not None for v in vals], dtype=bool)
+def _concat_tables(old: Table, new: Table) -> Table:
+    """`old`'s rows followed by `new`'s (INSERT), concatenated on the
+    device with no decode, so every value the types hold survives (days
+    and seconds outside Python's `datetime` range too). Utf8 codes map
+    onto the merged sorted vocabulary. NULL slots hold the fill the JAX
+    package gives them (0, or the code of "")."""
+    cols = []
+    for f, a, b in zip(old.schema.fields, old.columns, new.columns):
+        parts = [(c.data, c.validity) for c in (a, b)]
+        valid = None
+        if any(v is not None for _, v in parts):
+            valid = torch.cat([torch.ones_like(d, dtype=torch.bool) if v is None else v for d, v in parts])
+        vocab = None
         if f.dtype is DataType.Utf8:
-            arrays.append(["" if v is None else str(v) for v in vals])
-        elif f.dtype is DataType.Date32:
-            arrays.append([datetime.date(1970, 1, 1) if v is None else v for v in vals])
-        elif f.dtype is DataType.Timestamp:
-            arrays.append([datetime.datetime(1970, 1, 1) if v is None else v for v in vals])
-        else:
-            arrays.append(np.array([0 if v is None else v for v in vals], f.dtype.to_np()))
-        validity.append(None if mask.all() else mask)
-    return Table.from_arrays(schema, arrays, validity=validity, device=device)
+            words = set(a.dictionary) | set(b.dictionary)
+            if valid is not None and not bool(valid.all()):
+                words.add("")
+            vocab = tuple(sorted(words))
+            parts = [(torch.as_tensor(np.searchsorted(vocab, np.asarray(c.dictionary, dtype=object).astype(str)),
+                                      dtype=torch.int32, device=d.device)[d.long()] if d.numel() else d, v)
+                     for c, (d, v) in zip((a, b), parts)]
+        data = torch.cat([d for d, _ in parts])
+        if valid is not None:
+            fill = vocab.index("") if vocab is not None else 0
+            data = torch.where(valid, data, torch.full_like(data, fill))
+            if bool(valid.all()):
+                valid = None
+        cols.append(TableColumn(f.dtype, data, valid, vocab))
+    return Table(old.schema, tuple(cols), old.num_rows + new.num_rows)
 
 
 def _text_result(names: tuple[str, ...], rows: list[tuple[str, ...]]) -> ResultTable:
@@ -125,6 +147,10 @@ class ExecutionContext:
             bigdense = os.environ.get("DFTPU_BIGDENSE", "0") not in ("", "0")
         self.bigdense = bigdense
         self._tables: dict[str, Table] = {}
+        # table name -> {file_type, path, has_header} of a file-backed
+        # table: serialize_plan stamps it onto the plan's scans
+        self._table_sources: dict[str, dict] = {}
+        self.last_stats: dict = {}
         self._functions: dict[str, tuple[FunctionMeta, Optional[Callable]]] = {}
         self._compile_cache: dict = {}
         self._catalog = _Catalog(self)
@@ -155,9 +181,34 @@ class ExecutionContext:
             table = table.to(self.device)
         self._tables[name] = table
 
-    def register_csv(self, name: str, path: str, schema: Schema, *, has_header: bool = True) -> None:
-        """Read a CSV file onto this context's device and register it."""
-        self.register_table(name, read_csv(path, schema, has_header=has_header, device=self.device))
+    def register_csv(
+        self, name: str, path: str, schema: Schema, *, has_header: bool = True, lazy: Optional[bool] = None
+    ) -> None:
+        """Register a CSV file. `lazy` (default: on for a one-device
+        context, off on a mesh, where partitioning reads every column)
+        defers parsing: registration only counts the rows, and each query
+        parses the columns it scans that are not parsed yet, onto this
+        context's device. Eager reads the whole file now."""
+        if lazy is None:
+            lazy = self.mesh is None
+        if lazy and self.mesh is None:
+            table = LazyCsvTable(path, schema, has_header, device=self.device)
+        else:
+            table = read_csv(path, schema, has_header=has_header, device=self.device)
+        self.register_table(name, table)
+        self._table_sources[name] = {"file_type": "csv", "path": path, "has_header": has_header}
+
+    def register_parquet(self, name: str, path: str, schema: Optional[Schema] = None) -> None:
+        """Read a Parquet file onto this context's device and register it;
+        without `schema` the types are inferred from the file's."""
+        self.register_table(name, read_parquet(path, schema, device=self.device))
+        self._table_sources[name] = {"file_type": "parquet", "path": path, "has_header": True}
+
+    def _register_ndjson(self, name: str, path: str, schema: Schema) -> None:
+        """Read an NDJSON file (one JSON object per line) onto this
+        context's device and register it (STORED AS NDJSON)."""
+        self.register_table(name, read_ndjson(path, schema, device=self.device))
+        self._table_sources[name] = {"file_type": "ndjson", "path": path, "has_header": False}
 
     def register_function(self, meta: FunctionMeta, fn: Optional[Callable] = None) -> None:
         """Register a UDF. Scalar: `fn` maps torch tensors to a tensor, or
@@ -201,8 +252,13 @@ class ExecutionContext:
 
     def sql(self, sql: str) -> ResultTable:
         """Parse, plan, compile, and execute a SQL statement
-        (reference: context.rs:44-98)."""
+        (reference: context.rs:44-98). A query (not EXPLAIN, DDL or DML)
+        sets `last_stats`: its parse, plan and execute seconds and its
+        row count. On a CUDA device the execute time ends with a
+        `torch.cuda.synchronize()`, so it holds the device's work too."""
+        t0 = time.perf_counter()
         node = parse_sql(sql)
+        t_parse = time.perf_counter()
         if isinstance(node, A.SQLExplain):
             inner = node.stmt
             if isinstance(inner, _DDL_NODES):
@@ -223,7 +279,55 @@ class ExecutionContext:
             return ResultTable(Schema.empty(), [], [], raw_text=text)
         if isinstance(node, _DDL_NODES):
             return self._execute_statement(node)
-        return self.execute(SqlToRel(self._catalog).sql_to_rel(node))
+        plan = SqlToRel(self._catalog).sql_to_rel(node)
+        t_plan = time.perf_counter()
+        result = self.execute(plan)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.last_stats = {"parse_s": t_parse - t0, "plan_s": t_plan - t_parse,
+                           "execute_s": time.perf_counter() - t_plan, "rows": result.num_rows}
+        return result
+
+    def serialize_plan(self, sql_or_plan: Union[str, LogicalPlan]) -> str:
+        """The plan as JSON, with each scan of a file-backed table stamped
+        with its source ({file_type, path, has_header}), so a context with
+        no tables registered can run it (`execute_plan_json`). The
+        reference's serializable DataSourceMeta and PhysicalPlan were never
+        constructed (datasource.rs:78-93, physicalplan.rs:18-34)."""
+        plan = self.plan(sql_or_plan) if isinstance(sql_or_plan, str) else copy.deepcopy(sql_or_plan)
+
+        def stamp(p) -> None:
+            if isinstance(p, TableScan) and p.source is None:
+                p.source = self._table_sources.get(p.table_name)
+            for c in p.children():
+                stamp(c)
+
+        stamp(plan)
+        return json.dumps(plan_to_json(plan))
+
+    def execute_plan_json(self, text: str) -> ResultTable:
+        """Run a serialized plan. A scan of a table this context lacks is
+        registered first from the source stamped on it."""
+        plan = plan_from_json(json.loads(text))
+        loaders = {
+            "csv": lambda name, src, schema: self.register_csv(
+                name, src["path"], schema, has_header=bool(src.get("has_header", True))),
+            "parquet": lambda name, src, schema: self.register_parquet(name, src["path"], schema),
+            "ndjson": lambda name, src, schema: self._register_ndjson(name, src["path"], schema),
+        }
+
+        def load(p) -> None:
+            if isinstance(p, TableScan) and p.table_name not in self._tables and p.source is not None:
+                kind = p.source.get("file_type")
+                if kind not in loaders:
+                    raise ExecutionError(
+                        f"serialized TableScan of '{p.table_name}' has unknown source file_type {kind!r}")
+                loaders[kind](p.table_name, p.source, p.schema)
+            for c in p.children():
+                load(c)
+
+        load(plan)
+        return self.execute(plan)
 
     def execute(self, plan: LogicalPlan) -> ResultTable:
         """Compile (with caching) and run a logical plan. The filter and
@@ -259,6 +363,7 @@ class ExecutionContext:
                     raise PlanError(f"no table named {node.name} to drop")
             else:
                 del self._tables[node.name]
+                self._table_sources.pop(node.name, None)
         elif isinstance(node, A.SQLShowTables):
             return _text_result(("table",), [(n,) for n in sorted(self._tables)])
         elif isinstance(node, A.SQLDescribeTable):
@@ -294,16 +399,18 @@ class ExecutionContext:
         for f, i in zip(tschema.fields, order):
             col = Column(i)
             casts.append(col if sschema.field(i).dtype is f.dtype else col.cast_to(f.dtype, sschema))
-        new_rt = self.execute(Projection(tuple(casts), src_plan, tschema))
-        old_rt = self.execute(TableScan("default", node.table, tschema, None))
-        self.register_table(node.table, _table_from_results(tschema, [old_rt, new_rt], self.device))
+        new = self.execute(Projection(tuple(casts), src_plan, tschema)).to_table(self.device)
+        self.register_table(node.table, _concat_tables(target, new))
 
     def _execute_ddl(self, node: A.SQLCreateExternalTable) -> None:
         schema = Schema(
             [Field(c.name, convert_data_type(c.type_name), c.allow_null) for c in node.columns]
         )
-        if node.file_type is not A.FileType.CSV:
-            raise NotImplementedError_(
-                f"STORED AS {node.file_type.value} is not part of the torch port yet"
-            )
-        self.register_csv(node.name, node.location, schema, has_header=node.header_row)
+        if node.file_type is A.FileType.CSV:
+            self.register_csv(node.name, node.location, schema, has_header=node.header_row)
+        elif node.file_type is A.FileType.NdJson:
+            self._register_ndjson(node.name, node.location, schema)
+        elif node.file_type is A.FileType.Parquet:
+            self.register_parquet(node.name, node.location, schema if node.columns else None)
+        else:
+            raise NotImplementedError_(f"STORED AS {node.file_type.value} is not supported")
