@@ -130,6 +130,22 @@ Phases, each printed on its own line:
      imports (a line says which of pyarrow and pandas do), the CSV's rows
      written as Parquet and read by register_parquet, i1-i3 over it equal
      to the lazy CSV scan
+  12. two processes on the card as one mesh (run last, about 60 s):
+     `python3 chip_smoke.py --rank R PORT DIR` twice, joined by
+     torch.distributed (Gloo: NCCL refuses two processes on one card),
+     each with ExecutionContext(mesh=global_mesh(4)) and its own 2^23
+     rows of big (k, d, lat, lng, g, mode, o; register_table_shards) and
+     its blocks of orders on the card, and its own 2^21-row CSV file with
+     a Utf8 vocabulary the other's lacks (register_csv_shards); m1-m8,
+     m10, m11, m15 and tests/multiproc_driver.py's five shard queries,
+     each equal on both ranks to the same query on one card over the
+     whole tables (floats at rtol 1e-9), with equal routes and EXPLAIN on
+     both ranks, K6 launched by m3 / m4 and K5 by m6, m7, m10, m11, m15 on
+     each rank, the backend, the bytes that crossed processes, and each
+     query's warm wall on both ranks (chiprun_out/phase12_rank*.txt hold
+     the processes' output); then q1's and d1's results materialized by
+     `to_host` (pinned) against the old per-column pageable `.cpu()`,
+     first and warm, in ms and GB/s, equal bit for bit
 Every kernel's kernel-only time comes from torch.profiler (kernel_only_ms),
 its wrapper's host time from host_only_ms (`host_ms` in the kernels' line).
 The reduce kernels' `library_ms` is one PyTorch call per op of the
@@ -154,7 +170,6 @@ import torch
 
 N = 1 << 25  # the repo's c1/c2 scale
 SEED = 20260
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_OPS_PER_S = 67e12  # H100 SXM non-tensor f32 peak (no f64 rate in the guide's table)
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SHIPMODES = ("AIR", "FOB", "MAIL", "RAIL", "REG AIR", "SHIP", "TRUCK")  # TPC-H l_shipmode
@@ -169,20 +184,21 @@ def check(cond, what):
         raise AssertionError(what)
 
 
+def hbm_bytes_per_s():
+    """The card's memory rate, from the port's roofline table
+    (utils/roofline.py): NVIDIA's published HBM figure for its name."""
+    from datafusion_tpu_torch.utils.roofline import chip_hbm_gbps
+
+    return chip_hbm_gbps() * 1e9
+
+
 def time_ms(fn, reps=5):
-    """Median CUDA-event time of `fn` over `reps` runs after one warm-up.
-    Inputs are hundreds of MB, far past the 50 MB L2, so each run reads
-    them cold."""
-    fn()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    """Median CUDA-event time of `fn` over `reps` runs after a warm-up
+    (utils/benchtime.py, one call a batch). Inputs are hundreds of MB, far
+    past the 50 MB L2, so each run reads them cold."""
+    from datafusion_tpu_torch.utils.benchtime import time_pipeline
+
+    return time_pipeline(lambda _: fn(), None, depths=(1,), repeats=reps, trials=1, device="cuda") * 1e3
 
 
 def fused_program(ctx, table_name, sql, build=None):
@@ -346,23 +362,12 @@ def kernel_only_ms(fn, name, per_call=1, reps=5):
 
 
 def queued_ms(fn, reps=20):
-    """Device time of one call of `fn` without the tracer: the calls are
-    enqueued while the card runs a sleep kernel, then timed by CUDA events
-    around them, so the card runs them back to back and no host time
-    enters. Fails if the sleep ended before the last call was enqueued."""
-    fn()
-    torch.cuda.synchronize()
-    slept = torch.cuda.Event()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(100_000_000)  # about 50 ms at the H100's clock
-    slept.record()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    check(not slept.query(), "the card finished its sleep before the timed calls were enqueued")
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    """Device time of one call of `fn` without the tracer or host time
+    (utils/benchtime.py `time_queued`: the calls enqueued behind a sleep
+    kernel, timed by CUDA events)."""
+    from datafusion_tpu_torch.utils.benchtime import time_queued
+
+    return time_queued(lambda _: fn(), None, reps=reps) * 1e3
 
 
 def host_copies(fn):
@@ -817,7 +822,7 @@ def phase_k1(dev):
         log(f"phase 2 K1 {name}: kernel == plain at {N} rows (max_abs_err {err}), "
             f"{len(prog.code)} instructions over {prog.n_regs} registers ({fs.tile_rows(prog.n_regs)} rows a "
             f"thread), kernel {ms:.3f} ms, plain {plain:.3f} ms, "
-            f"bound {program_bytes(prog, ins, N) / HBM_BYTES_PER_S * 1e3:.3f} ms")
+            f"bound {program_bytes(prog, ins, N) / hbm_bytes_per_s() * 1e3:.3f} ms")
         res[name] = err
     return res
 
@@ -1044,16 +1049,16 @@ def phase_k5k6(dev):
     return k5_err, k6_err
 
 
-def main_arrays():
+def main_arrays(n=N):
     """The main path's table as numpy columns, from the seed: k, d, lat,
-    lng, g (phase 4), then the codes of `mode` (phase 6)."""
+    lng, g (phase 4), then the codes of `mode` (phase 6); `n` rows."""
     rng = np.random.default_rng(SEED + 2)
-    k = rng.integers(0, 65536, N).astype(np.int32)
-    d = rng.integers(0, 1000, N).astype(np.int32)
-    lat = rng.random(N) * 10 + 48
-    lng = rng.random(N) * 12 - 9
-    g = rng.integers(1, 10_001, N).astype(np.int32)  # TPC-H l_suppkey's domain at SF1
-    mode = rng.integers(0, len(SHIPMODES), N).astype(np.int32)
+    k = rng.integers(0, 65536, n).astype(np.int32)
+    d = rng.integers(0, 1000, n).astype(np.int32)
+    lat = rng.random(n) * 10 + 48
+    lng = rng.random(n) * 12 - 9
+    g = rng.integers(1, 10_001, n).astype(np.int32)  # TPC-H l_suppkey's domain at SF1
+    mode = rng.integers(0, len(SHIPMODES), n).astype(np.int32)
     return k, d, lat, lng, g, mode
 
 
@@ -1214,7 +1219,7 @@ def phase_main_path(dev, kernel_stats, arrays):
         kernel_ms=kernel_only_ms(lambda: fs.run_fused(prog, *ins, N, dev), "fused_stage_kernel"),
         host_ms=host_only_ms(lambda: fs.run_fused(prog, *ins, N, dev)),
         plain_ms=time_ms(lambda: fs.evaluate_plain(prog, *ins, N), reps=3),
-        bound_ms=program_bytes(prog, ins, N) / HBM_BYTES_PER_S * 1e3,
+        bound_ms=program_bytes(prog, ins, N) / hbm_bytes_per_s() * 1e3,
         ops_bound_ms=sum(op > fs.OP_NULL for op, *_ in prog.code) * N / F32_OPS_PER_S * 1e3,
         library_ms=None,
     )
@@ -1242,7 +1247,7 @@ def phase_main_path(dev, kernel_stats, arrays):
                                      len(sr.fold_launches(len(ops), g) if dense else sr.sorted_launch_ops(len(ops)))),
             host_ms=host_only_ms(call),
             plain_ms=time_ms(lambda: sr.segmented_reduce_plain(gid, vals, masks, ops=ops, num_groups=g), reps=3),
-            bound_ms=k2_bytes(gid, vals, masks, g, ops) / HBM_BYTES_PER_S * 1e3,
+            bound_ms=k2_bytes(gid, vals, masks, g, ops) / hbm_bytes_per_s() * 1e3,
             ops_bound_ms=len(ops) * N / F32_OPS_PER_S * 1e3,
             library_ms=library_ms(fold_rows(gid, vals, masks, g), ops, g, dev),
             library=LIBRARY,
@@ -1261,7 +1266,7 @@ def phase_main_path(dev, kernel_stats, arrays):
                                  "slab_partition_kernel"),
         host_ms=host_only_ms(lambda: pt.slab_partition(gid4, cols, n_buckets=nb, id_mod=id_mod)),
         plain_ms=time_ms(lambda: pt.slab_partition_plain(gid4, cols, n_buckets=nb, id_mod=id_mod), reps=3),
-        bound_ms=slab_bytes(N, rows, cols) / HBM_BYTES_PER_S * 1e3,
+        bound_ms=slab_bytes(N, rows, cols) / hbm_bytes_per_s() * 1e3,
         # per row: the bucket (and, shift), the histogram add, the rank add
         ops_bound_ms=4 * N / F32_OPS_PER_S * 1e3,
         library_ms=None,  # no one PyTorch call makes a gap-aligned per-block partition
@@ -1279,7 +1284,7 @@ def phase_main_path(dev, kernel_stats, arrays):
                                  "windowed_reduce_kernel"),
         host_ms=host_only_ms(lambda: pt.windowed_reduce(gid_k, vals4, masks4, ops=ops4, num_groups=nslots)),
         plain_ms=time_ms(lambda: pt.windowed_reduce_plain(gid_k, vals4, masks4, ops=ops4, num_groups=nslots), reps=3),
-        bound_ms=(rows * 4 + live * (8 + 8) + nslots * 8 * len(ops4)) / HBM_BYTES_PER_S * 1e3,
+        bound_ms=(rows * 4 + live * (8 + 8) + nslots * 8 * len(ops4)) / hbm_bytes_per_s() * 1e3,
         ops_bound_ms=len(ops4) * live / F32_OPS_PER_S * 1e3,
         library_ms=library_ms(fold_rows(gid4, [None, lng_t, lat_t], masks4, nslots), ops4, nslots, dev),
         library=LIBRARY,
@@ -1461,7 +1466,7 @@ def phase_mesh(dev, big, arrays, kernel_stats):
     for (prog1, ind, inv, n1, dev1), _ in calls:
         call1 = lambda: fs.run_fused(prog1, ind, inv, n1, dev1)  # noqa: E731
         rows.append((n1, time_ms(call1), kernel_only_ms(call1, "fused_stage_kernel"), host_only_ms(call1),
-                     program_bytes(prog1, (ind, inv), n1) / HBM_BYTES_PER_S * 1e3))
+                     program_bytes(prog1, (ind, inv), n1) / hbm_bytes_per_s() * 1e3))
     log(f"phase 6 K1 at m1's shard shape, {len(rows)} launches, {len(prog1.code)} instructions over "
         f"{prog1.n_regs} registers: " + "; ".join(
             f"{n1} rows: event {ms:.3f} / kernel {km:.3f} / host {hm:.3f} ms, bound {bd:.3f}"
@@ -1480,7 +1485,7 @@ def phase_mesh(dev, big, arrays, kernel_stats):
         kernel_ms=kernel_only_ms(lambda: rs.ragged_exchange(sends, sizes, **kw5), "ragged_exchange_kernel"),
         host_ms=host_only_ms(lambda: rs.ragged_exchange(sends, sizes, **kw5)),
         plain_ms=time_ms(lambda: rs.ragged_exchange_plain(sends, sizes, **kw5), reps=3),
-        bound_ms=k5_bytes(sends, sizes, chunk) / HBM_BYTES_PER_S * 1e3,
+        bound_ms=k5_bytes(sends, sizes, chunk) / hbm_bytes_per_s() * 1e3,
         ops_bound_ms=0.0,
         # the fixed-slab all-to-all of the padded send buffers
         library_ms=time_ms(lambda: [x.view(n_dev, n_dev, split_cap).transpose(0, 1).contiguous() for x in stacked]),
@@ -1515,7 +1520,7 @@ def phase_mesh(dev, big, arrays, kernel_stats):
         kernel_ms=kernel_only_ms(call6, "ragged_exchange_fold_kernel"),
         host_ms=host_only_ms(call6),
         plain_ms=time_ms(lambda: rs.ragged_exchange_fold_plain(gids, vals, masks, sizes6, **kw6), reps=3),
-        bound_ms=k6_bytes(gids, vals, masks, sizes6, L_, len(ops6)) / HBM_BYTES_PER_S * 1e3,
+        bound_ms=k6_bytes(gids, vals, masks, sizes6, L_, len(ops6)) / hbm_bytes_per_s() * 1e3,
         ops_bound_ms=len(ops6) * int(sizes6.sum()) / F32_OPS_PER_S * 1e3,
         library_ms=library_ms(rows6, ops6, n_dev * L_, dev),
         library=LIBRARY + ", over the routed rows by global slot",
@@ -1533,7 +1538,7 @@ def phase_mesh(dev, big, arrays, kernel_stats):
     call2 = lambda: sr.segmented_reduce(gid2, vals2, masks2, **kw2)  # noqa: E731
     ms2, kms2 = time_ms(call2), kernel_only_ms(call2, "seg_dense")
     lib2 = library_ms(fold_rows(gid2, vals2, masks2, kw2["num_groups"]), kw2["ops"], kw2["num_groups"], dev)
-    bound2 = k2_bytes(gid2, vals2, masks2, kw2["num_groups"], kw2["ops"]) / HBM_BYTES_PER_S * 1e3
+    bound2 = k2_bytes(gid2, vals2, masks2, kw2["num_groups"], kw2["ops"]) / hbm_bytes_per_s() * 1e3
     log(f"phase 6 K2 dense at m2's shard shape: {gid2.numel()} rows, {kw2['num_groups']} slots, ops {kw2['ops']}, "
         f"{len(sr.fold_launches(len(kw2['ops']), kw2['num_groups']))} launch(es): event {ms2:.3f} ms, kernel only "
         f"{kms2:.3f} ms, bound {bound2:.3f} ms, library {lib2:.3f} ms ({LIBRARY}); m2 launched it "
@@ -2424,7 +2429,7 @@ def phase_dates(dev, big, arrays, kernel_stats):
         rows.append(f"program {i}: {len(prog.code)} instructions over {prog.n_regs} registers, kernel "
                     f"{time_ms(lambda: fs.run_fused(prog, *ins, N, dev)):.3f} ms, plain "
                     f"{time_ms(lambda: fs.evaluate_plain(prog, *ins, N), reps=3):.3f} ms, bound "
-                    f"{program_bytes(prog, ins, N) / HBM_BYTES_PER_S * 1e3:.3f} ms")
+                    f"{program_bytes(prog, ins, N) / hbm_bytes_per_s() * 1e3:.3f} ms")
     log(f"phase 10 K1 date programs over the calendar's edges at {N} rows: kernel == plain bit for bit; "
         + "; ".join(rows))
     prog, ins = fused_program(single, "bigd", DATE_QUERIES[0][1])
@@ -2432,7 +2437,7 @@ def phase_dates(dev, big, arrays, kernel_stats):
     err = max(err, compare_k1(prog, ins, N, dev))
     d1 = {"dates_ms": time_ms(call), "dates_kernel_ms": kernel_only_ms(call, "fused_stage_kernel"),
           "dates_plain_ms": time_ms(lambda: fs.evaluate_plain(prog, *ins, N), reps=3),
-          "dates_bound_ms": program_bytes(prog, ins, N) / HBM_BYTES_PER_S * 1e3}
+          "dates_bound_ms": program_bytes(prog, ins, N) / hbm_bytes_per_s() * 1e3}
     kernel_stats["fused_stage"].update(d1)
     kernel_stats["fused_stage"]["max_abs_err"] = max(kernel_stats["fused_stage"]["max_abs_err"], err)
     log(f"phase 10 K1 on d1's program ({len(prog.code)} instructions over {prog.n_regs} registers, "
@@ -2893,11 +2898,291 @@ def phase_ingest(dev, arrays, kernel_stats):
         tmp.cleanup()
 
 
+# --- phase 12: two processes on the card as one mesh --------------------------------
+
+MULTI_ROWS = 1 << 24  # big's rows over both processes: 2^23 each
+MULTI_CSV_ROWS = 1 << 21  # rows of each process's CSV file
+MULTI_WORLD, MULTI_LOCAL = 2, 4
+MULTI_QUERIES = MESH_QUERIES + (MESH_JOIN_QUERIES[1], MESH_WINDOW_QUERIES[0], MESH_AGG_QUERIES[0])
+SHARD_QUERIES = (  # tests/multiproc_driver.py's queries over the per-process CSV files
+    ("s1", "SELECT tag, COUNT(v) FROM s GROUP BY tag ORDER BY tag", ()),
+    ("s2", "SELECT tag, k FROM s ORDER BY tag, k, v LIMIT 20", ()),
+    ("s3", "SELECT MIN(tag), MAX(tag) FROM s", ()),
+    ("s4", "SELECT COUNT(tag) FROM s WHERE tag = 'host1_3'", ()),
+    ("s5", "SELECT s.tag, w, COUNT(v) FROM s JOIN d ON s.tag = d.tag GROUP BY s.tag, w ORDER BY 1", ()),
+)
+MULTI_K5 = ("m6", "m7", "m10", "m11", "m15")  # the routes that exchange over K5
+MULTI_K6 = ("m3", "m4")  # the fold
+
+
+def multi_tables(port, dev, rank=None):
+    """Phase 12's tables from the seed: big (k, d, lat, lng, g, mode, o)
+    at MULTI_ROWS rows and orders. With `rank`, big holds that process's
+    half of the rows; orders stays whole (each process keeps its blocks
+    when it registers it)."""
+    P = port.DataType
+    k, d, lat, lng, g, mode = main_arrays(MULTI_ROWS)
+    ja = join_arrays(MULTI_ROWS)
+    cols = [k, d, lat, lng, g, (mode, SHIPMODES), ja["o"]]
+    if rank is not None:
+        lo, hi = rank * MULTI_ROWS // MULTI_WORLD, (rank + 1) * MULTI_ROWS // MULTI_WORLD
+        cols = [(c[0][lo:hi], c[1]) if isinstance(c, tuple) else c[lo:hi] for c in cols]
+    big = port.Table.from_arrays(port.Schema([port.Field(n, t, False) for n, t in (
+        ("k", P.Int32), ("d", P.Int32), ("lat", P.Float64), ("lng", P.Float64), ("g", P.Int32), ("mode", P.Utf8),
+        ("o", P.Int32))]), cols, device=dev)
+    orders = port.Table.from_arrays(port.Schema([port.Field("o_orderkey", P.Int32, False),
+                                                 port.Field("o_totalprice", P.Float64, False),
+                                                 port.Field("o_orderpriority", P.Utf8, False)]),
+                                    [ja["o_orderkey"], ja["o_totalprice"], (ja["o_orderpriority"], PRIORITIES)],
+                                    device="cpu")
+    return big, orders
+
+
+def shard_arrays():
+    """Each process's CSV rows (tag codes into that process's own
+    vocabulary host<p>_0 .. host<p>_6, k, v), as tests/multiproc_driver.py
+    makes them, at MULTI_CSV_ROWS rows a process."""
+    rng = np.random.default_rng(SEED + 12)
+    out = []
+    for p in range(MULTI_WORLD):
+        vocab = tuple(f"host{p}_{i}" for i in range(7))
+        out.append((vocab, rng.integers(0, 7, MULTI_CSV_ROWS).astype(np.int32),
+                    rng.integers(0, 25, MULTI_CSV_ROWS).astype(np.int64), np.round(rng.normal(size=MULTI_CSV_ROWS), 6)))
+    return out
+
+
+def write_shard_csvs(tmp):
+    """The per-process CSV files s<p>.csv (tag, k, v) and d<p>.csv (tag, w)
+    without header rows."""
+    for p, (vocab, tag, k, v) in enumerate(shard_arrays()):
+        words = np.asarray(vocab, dtype=object)[tag]
+        with open(os.path.join(tmp, f"s{p}.csv"), "w") as f:
+            f.write("".join(f"{t},{a},{b!r}\n" for t, a, b in zip(words.tolist(), k.tolist(), v.tolist())))
+        with open(os.path.join(tmp, f"d{p}.csv"), "w") as f:
+            f.write("".join(f"{t},{p * 100 + i}\n" for i, t in enumerate(vocab)))
+
+
+def shard_schemas(port):
+    P = port.DataType
+    return (port.Schema([port.Field("tag", P.Utf8, False), port.Field("k", P.Int64, False),
+                         port.Field("v", P.Float64, False)]),
+            port.Schema([port.Field("tag", P.Utf8, False), port.Field("w", P.Int64, False)]))
+
+
+def multi_worker(rank, port_no, tmp):
+    """One process of phase 12: join the group, hold its half of big and
+    its blocks of orders on the card, read its own CSV files, run every
+    query of MULTI_QUERIES and SHARD_QUERIES over the 8-shard mesh, and
+    write each result, route, EXPLAIN, launch count and warm wall to
+    `tmp`/rank<rank>.*."""
+    import torch.distributed as dist
+
+    import datafusion_tpu_torch as port
+    from datafusion_tpu_torch.parallel import collectives as C
+
+    backend = port.initialize_multihost(f"127.0.0.1:{port_no}", MULTI_WORLD, rank)
+    mesh = port.global_mesh(MULTI_LOCAL)
+    ctx = port.ExecutionContext(mesh=mesh)
+    t0 = time.perf_counter()
+    big, orders = multi_tables(port, ctx.device, rank)
+    port.register_table_shards(ctx, "big", big)
+    ctx.register_table("orders", orders)
+    s_schema, d_schema = shard_schemas(port)
+    port.register_csv_shards(ctx, "s", os.path.join(tmp, f"s{rank}.csv"), s_schema, has_header=False)
+    port.register_csv_shards(ctx, "d", os.path.join(tmp, f"d{rank}.csv"), d_schema, has_header=False)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    queries = [(n, q) for n, q, _ in MULTI_QUERIES + SHARD_QUERIES]
+    explain = {n: [ln for ln in ctx.sql(f"EXPLAIN VERBOSE {q}").result_str().splitlines()
+                   if ln.startswith("physical: ")] for n, q in queries}
+    bytes0, live0 = C.transport.bytes, C.transport.live_bytes
+    results, walls, per_query, _ = run_counted([(n, ctx, q) for n, q in queries])
+    run_bytes, run_live = C.transport.bytes - bytes0, C.transport.live_bytes - live0
+    warm = {n: warm_wall_ms(ctx, q) for n, q in queries}
+    arrays, meta = {}, {}
+    for n, res in results.items():
+        for j, (d, v) in enumerate(res.cols):
+            arrays[f"{n}_d{j}"] = d
+            if v is not None:
+                arrays[f"{n}_v{j}"] = v
+        meta[n] = {"dicts": res.dicts, "routes": list(res.routes), "explain": explain[n],
+                   "launches": per_query[n], "first_ms": walls[n], "warm_ms": warm[n], "columns": len(res.cols)}
+    np.savez(os.path.join(tmp, f"rank{rank}.npz"), **arrays)
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump({"backend": backend, "transport": "pinned host staging" if backend == "gloo" else "device",
+                   "rows_on_card": big.num_rows, "setup_s": setup_s, "cross_bytes": run_bytes,
+                   "live_bytes": run_live,
+                   "calls": C.transport.calls, "queries": meta}, f)
+    dist.destroy_process_group()
+
+
+def rank_result(res_like, arrays, meta, name):
+    """A rank's result of `name` as a ResultTable with the schema of the
+    one-card result `res_like`."""
+    from datafusion_tpu_torch.exec.result import ResultTable
+
+    cols = [(arrays[f"{name}_d{j}"], arrays.get(f"{name}_v{j}")) for j in range(meta["columns"])]
+    return ResultTable(res_like.schema, cols, [None if d is None else tuple(d) for d in meta["dicts"]])
+
+
+def rows_by_keys(res):
+    """`res` with its rows ordered by its non-float columns (a GROUP BY on
+    the mesh returns its groups shard by shard, in no order one card
+    shares)."""
+    from datafusion_tpu_torch.exec.result import ResultTable
+
+    keys = [d for d, _ in res.cols if d.dtype.kind != "f"]
+    order = np.lexsort(keys[::-1]) if keys else np.arange(res.num_rows)
+    return ResultTable(res.schema, [(d[order], None if v is None else v[order]) for d, v in res.cols], res.dicts)
+
+
+def materialize_ms(cq, out, reps=5):
+    """(first ms, warm median ms, bytes) of `to_host` (cq.host_columns) on
+    the device result `out`, and the same for the old path, one pageable
+    `.cpu()` per column after a boolean-mask index; the two results must
+    be equal bit for bit."""
+    from datafusion_tpu_torch.ops.expr_eval import broadcast_col
+
+    def pageable():
+        cols = [broadcast_col(c, out.capacity) for c in out.cols]
+        return [(d[out.sel].cpu().numpy(), None if v is None else v[out.sel].cpu().numpy()) for d, v in cols]
+
+    stats = {}
+    for name, fn in (("to_host", lambda: cq.host_columns(out)), ("pageable", pageable)):
+        times = []
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            cols = fn()
+            times.append((time.perf_counter() - t) * 1e3)
+        nbytes = sum(d.nbytes + (0 if v is None else v.nbytes) for d, v in cols)
+        stats[name] = (times[0], statistics.median(times[1:]), nbytes, cols)
+    def bits(x):
+        return x.dtype, x.shape, x.view(np.uint8).tobytes()
+
+    a, b = stats["to_host"][3], stats["pageable"][3]
+    check(all(bits(x) == bits(y) and (vx is None) == (vy is None) and (vx is None or np.array_equal(vx, vy))
+              for (x, vx), (y, vy) in zip(a, b)), "to_host differs from the per-column .cpu() copy")
+    return {k: v[:3] for k, v in stats.items()}
+
+
+def phase_multiprocess(dev, big, arrays):
+    """Phase 12: m1-m8, m10, m11, m15 and the JAX driver's five CSV-shard
+    queries over ExecutionContext(mesh=global_mesh(4)) in two processes
+    on the one card (2 x 4 shards; Gloo, since NCCL refuses two processes
+    on one card), each equal to the same query on one card over the whole
+    tables; then q1's and d1's materialization through `to_host` against
+    the old per-column pageable `.cpu()`."""
+    import socket
+    import tempfile
+
+    import datafusion_tpu_torch as port
+    from datafusion_tpu_torch.exec.compiler import compile_plan
+    from datafusion_tpu_torch.plan.optimizer import push_down_filters, push_down_projection
+
+    t12 = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        write_shard_csvs(tmp.name)
+        one = port.ExecutionContext()
+        mbig, orders = multi_tables(port, dev)
+        one.register_table("big", mbig)
+        one.register_table("orders", orders)
+        s_schema, d_schema = shard_schemas(port)
+        sh = shard_arrays()
+        vocab = tuple(sorted(w for v, _, _, _ in sh for w in v))
+        remap = [np.searchsorted(vocab, v).astype(np.int32) for v, _, _, _ in sh]
+        one.register_table("s", port.Table.from_arrays(s_schema, [
+            (np.concatenate([r[t] for r, (_, t, _, _) in zip(remap, sh)]), vocab),
+            np.concatenate([k for _, _, k, _ in sh]), np.concatenate([v for _, _, _, v in sh])], device=dev))
+        one.register_table("d", port.Table.from_arrays(d_schema, [
+            (np.arange(len(vocab), dtype=np.int32), vocab),
+            np.array([p * 100 + i for p in range(MULTI_WORLD) for i in range(7)], np.int64)], device=dev))
+        want = {n: one.sql(q) for n, q, _ in MULTI_QUERIES + SHARD_QUERIES}
+        del mbig
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port_no = sock.getsockname()[1]
+        logs = [open(os.path.join(ROOT, "chiprun_out", f"phase12_rank{r}.txt"), "w") for r in range(MULTI_WORLD)]
+        t_run = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank", str(r), str(port_no), tmp.name],
+                                  stdout=logs[r], stderr=subprocess.STDOUT) for r in range(MULTI_WORLD)]
+        try:
+            for p in procs:
+                p.wait(timeout=240)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs:
+                f.close()
+        run_s = time.perf_counter() - t_run
+        for r, p in enumerate(procs):
+            if p.returncode != 0:
+                with open(os.path.join(ROOT, "chiprun_out", f"phase12_rank{r}.txt")) as f:
+                    log(f.read()[-3000:])
+            check(p.returncode == 0, f"phase 12 rank {r} exited with {p.returncode}")
+        ranks = []
+        for r in range(MULTI_WORLD):
+            with open(os.path.join(tmp.name, f"rank{r}.json")) as f:
+                info = json.load(f)
+            ranks.append((info, dict(np.load(os.path.join(tmp.name, f"rank{r}.npz")))))
+        info0 = ranks[0][0]
+        log(f"phase 12: {MULTI_WORLD} processes x {MULTI_LOCAL} shards on one card, backend {info0['backend']} "
+            f"(CUDA tensors cross processes by {info0['transport']}), {info0['rows_on_card']} of big's "
+            f"{MULTI_ROWS} rows on the card in each; setup {[round(i['setup_s'], 2) for i, _ in ranks]} s, "
+            f"processes ran {run_s:.1f} s; cross-process bytes sent in the counted run "
+            f"{[i['cross_bytes'] for i, _ in ranks]} over {[i['calls'] for i, _ in ranks]} collectives, of which "
+            f"{[i['live_bytes'] for i, _ in ranks]} carry rows (padding share "
+            f"{[1 - i['live_bytes'] / max(i['cross_bytes'], 1) for i, _ in ranks]})")
+        for n, q, _ in MULTI_QUERIES + SHARD_QUERIES:
+            metas = [info["queries"][n] for info, _ in ranks]
+            ordered = "ORDER BY" in q  # else the mesh returns its groups shard by shard
+            for r, (info, arrs) in enumerate(ranks):
+                got = rank_result(want[n], arrs, metas[r], n)
+                same_result(f"phase 12 {n} rank {r}", got if ordered else rows_by_keys(got),
+                            want[n] if ordered else rows_by_keys(want[n]))
+            check(metas[0]["routes"] == metas[1]["routes"], f"phase 12 {n}: the ranks took different routes")
+            check(metas[0]["explain"] == metas[1]["explain"], f"phase 12 {n}: the ranks' EXPLAIN differs")
+            for r, m in enumerate(metas):
+                if n in MULTI_K5:
+                    check(m["launches"]["ragged_exchange"] > 0, f"phase 12 {n} rank {r} launched no K5")
+                if n in MULTI_K6:
+                    check(m["launches"]["ragged_exchange_fold"] > 0, f"phase 12 {n} rank {r} launched no K6")
+            log(f"phase 12 {n}: {want[n].num_rows} rows == one card on both ranks; routes {metas[0]['routes']}; "
+                f"launches {[launched(m['launches']) for m in metas]}; first wall "
+                f"{[round(m['first_ms'], 3) for m in metas]} ms, warm {[round(m['warm_ms'], 3) for m in metas]} ms "
+                f"(median of 5; one card {warm_wall_ms(one, q):.3f} ms)")
+        del one, want
+    finally:
+        tmp.cleanup()
+
+    dt, ts, ts_valid = date_arrays()
+    tables = {"big": big, "bigd": dates_table(port, big, dt, ts, ts_valid)}
+    for name, q, tname in (("q1", MAIN_QUERIES[0][1], "big"), ("d1", DATE_QUERIES[0][1], "bigd")):
+        ctx = port.ExecutionContext()
+        ctx.register_table(tname, tables[tname])
+        cq = compile_plan(push_down_projection(push_down_filters(ctx.plan(q))), {tname: tables[tname]}, device=dev)
+        out = cq.device_result()
+        st = materialize_ms(cq, out)
+        nbytes = st["to_host"][2]
+        log(f"phase 12 materialization {name}: {nbytes / 1e6:.1f} MB of {out.capacity} rows' selected cells; "
+            f"to_host first {st['to_host'][0]:.3f} ms, warm {st['to_host'][1]:.3f} ms "
+            f"({nbytes / st['to_host'][1] / 1e6:.2f} GB/s); pageable .cpu() per column first "
+            f"{st['pageable'][0]:.3f} ms, warm {st['pageable'][1]:.3f} ms ({nbytes / st['pageable'][1] / 1e6:.2f} GB/s)")
+    log(f"phase 12 two processes and materialization: {time.perf_counter() - t12:.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
         sys.exit(1)
     import datafusion_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
+
+    if sys.argv[1:2] == ["--rank"]:  # one process of phase 12, started by phase_multiprocess
+        multi_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        return
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
@@ -2938,6 +3223,7 @@ def main():
     phase_windows(dev, big, arrays, joins["tables"], kernel_stats)
     phase_aggregates(dev, big, arrays, kernel_stats)
     phase_tpch(dev, kernel_stats, phase_dates(dev, big, arrays, kernel_stats))
+    phase_multiprocess(dev, big, arrays)
     kernels = []
     for name, s in kernel_stats.items():
         ops_bound = s.pop("ops_bound_ms")

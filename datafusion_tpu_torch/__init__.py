@@ -24,7 +24,11 @@ Entry points run on the card: `ExecutionContext()` means
 passes `device="cpu"` (the console: `--device cpu`).
 `ExecutionContext(mesh=make_mesh(8))` runs every query over 8 logical
 shards of its tables on one device, with the distributed engine's
-shuffle kernels (ragged exchange, exchange + fold).
+shuffle kernels (ragged exchange, exchange + fold). Over several
+processes, each calls `initialize_multihost(address, world, rank)` and
+runs the same statements in `ExecutionContext(mesh=global_mesh())`: each
+process holds its block of the shards on its own device, and
+`register_csv_shards` reads one CSV file per process into one table.
 """
 
 from datafusion_tpu_torch.columnar.csv import CsvDataSource, read_csv
@@ -39,6 +43,13 @@ from datafusion_tpu_torch.errors import (
 from datafusion_tpu_torch.exec.context import ExecutionContext
 from datafusion_tpu_torch.ops.functions import AggregateUDF, HostFunction
 from datafusion_tpu_torch.parallel.mesh import Mesh, make_mesh
+from datafusion_tpu_torch.parallel.multihost import (
+    global_mesh,
+    initialize_multihost,
+    register_csv_shards,
+    register_table_shards,
+    to_host,
+)
 from datafusion_tpu_torch.plan.logical import Expr, LogicalPlan
 from datafusion_tpu_torch.plan.planner import FunctionMeta, FunctionType
 from datafusion_tpu_torch.schema import Field, Schema
@@ -67,6 +78,11 @@ __all__ = [
     "Table",
     "can_coerce_from",
     "get_supertype",
+    "global_mesh",
+    "initialize_multihost",
     "make_mesh",
     "read_csv",
+    "register_csv_shards",
+    "register_table_shards",
+    "to_host",
 ]

@@ -138,15 +138,17 @@ class Column:
     def to_numpy(self, num_rows: int) -> np.ndarray:
         """The first `num_rows` values on the host, dictionaries decoded;
         NULLs become None (an object array then)."""
-        data = self.data[:num_rows].cpu().numpy()
+        from datafusion_tpu_torch.parallel.multihost import to_host
+
+        data, valid = to_host([self.data[:num_rows], None if self.validity is None else self.validity[:num_rows]])
         if self.dtype is DataType.Utf8:
             vocab = np.asarray(self.dictionary, dtype=object)
             out = vocab[np.clip(data, 0, len(vocab) - 1)]
         else:
             out = data
-        if self.validity is not None:
+        if valid is not None:
             out = np.asarray(out, dtype=object)
-            out[~self.validity[:num_rows].cpu().numpy()] = None
+            out[~valid] = None
         return out
 
 

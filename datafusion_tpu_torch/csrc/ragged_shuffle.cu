@@ -14,12 +14,19 @@
 // buffer: K5 is plain copies, and K6 reads each routed row
 // straight from its sender's send buffer, so exchange and fold are one pass.
 //
-// Layout (both kernels): every array is a sender's [n_dev * split_cap]
-// region layout; region i holds the rows for receiver i, valid prefix
-// sizes[j, i] (sizes is the [n_dev, n_dev] int32 count matrix, row j =
-// sender j). K5 takes its pointers in its launch parameters (ExchangeArgs,
-// below), so its wrapper copies nothing to the device; K6 takes one packed
-// table (below).
+// Layout (both kernels): n_send senders and n_recv receivers; every array
+// is a sender's [n_recv * split_cap] region layout, region i holding the
+// rows for receiver i, valid prefix sizes[j, i] (sizes is the [n_send,
+// n_recv] int32 count matrix, row j = sender j). On a mesh of one process
+// both are its n_dev shards. On a mesh that spans processes the receivers
+// are this process's shards and the senders every shard of the mesh: a
+// local sender's pointers point into its own send buffers (at this
+// process's first region), a remote sender's into the buffer that
+// torch.distributed filled (parallel/collectives.py exchange_regions), so
+// one launch places or folds the local and the remote rows alike. K5
+// takes its pointers in its launch parameters (ExchangeArgs, below), so
+// its wrapper copies nothing to the device; K6 takes one packed table
+// (below).
 //
 // What bounds both on this card: bytes. K5 reads and writes each live
 // chunk once (a region's last chunk copies up to chunk - 1 rows of its
@@ -35,15 +42,15 @@
 //   and each thread loads K5_UNROLL words of it before it stores them, so
 //   a thread keeps that many loads in flight whatever the arrays' widths.
 //   An array whose addresses are not 16-byte aligned is copied byte by
-//   byte. Array a's receivers share one buffer, [n_dev][n_dev *
-//   split_cap]: receiver i's view starts at i * n_dev * split_cap, so the
+//   byte. Array a's receivers share one buffer, [n_recv][n_send *
+//   split_cap]: receiver i's view starts at i * n_send * split_cap, so the
 //   launch needs one receive base per array. Tails past sizes[j, i] are
 //   not written: the receive validity is slot % split_cap < sizes[j, i],
 //   so no validity rides the exchange. The parameter space holds
 //   K5_MAX_SEND sender pointers; the wrapper splits a larger array list
 //   over several launches.
-// * K6: a grid of (B, n_dev receivers) blocks of DFT_FOLD_TPB threads;
-//   B x n_dev blocks fill the SMs at the occupancy the tables' shared
+// * K6: a grid of (B, n_recv receivers) blocks of DFT_FOLD_TPB threads;
+//   B x n_recv blocks fill the SMs at the occupancy the tables' shared
 //   memory allows. Block b of receiver i walks every sender's region i,
 //   sender by sender, taking the DFT_TILE_ROWS-row tiles b, b + B, ... of
 //   their concatenation, so the blocks of a receiver share its rows evenly
@@ -66,38 +73,38 @@
 #define K5_THREADS 256
 #define K5_UNROLL 4      // 16-byte loads a thread keeps in flight
 #define K5_MAX_ARRS 16   // arrays per launch
-#define K5_MAX_SEND 384  // sender pointers per launch: n_arrs * n_dev
-#define DFT_MAX_DEV 255  // n_dev * n_dev pairs must fit gridDim.y
+#define K5_MAX_SEND 384  // sender pointers per launch: n_arrs * n_send
+#define DFT_MAX_DEV 255  // n_send * n_recv pairs must fit gridDim.y
 
 // K5's pointers, passed by value in the kernel's parameter space (3,272
 // bytes, inside the classic 4 KB limit); mirrored in ragged_shuffle.py.
 struct ExchangeArgs {
-  const void* send[K5_MAX_SEND];  // array-major: array a of sender j at a * n_dev + j
-  void* recv[K5_MAX_ARRS];        // array a's receive buffer, [n_dev][n_dev * split_cap]
+  const void* send[K5_MAX_SEND];  // array-major: array a of sender j at a * n_send + j
+  void* recv[K5_MAX_ARRS];        // array a's receive buffer, [n_recv][n_send * split_cap]
   int esize[K5_MAX_ARRS];         // element widths: 1, 2, 4 or 8 bytes
   int n_arrs;
 };
 
 // --- K5 ragged exchange --------------------------------------------------------
 __global__ void __launch_bounds__(K5_THREADS)
-ragged_exchange_kernel(const ExchangeArgs X, const int* __restrict__ sizes, int n_dev, long long split_cap,
-                       int chunk) {
+ragged_exchange_kernel(const ExchangeArgs X, const int* __restrict__ sizes, int n_send, int n_recv,
+                       long long split_cap, int chunk) {
   __shared__ const uint4* s_src[K5_MAX_ARRS];
   __shared__ uint4* s_dst[K5_MAX_ARRS];
   __shared__ long long s_end[K5_MAX_ARRS];  // running sum of the aligned arrays' words
   __shared__ int s_n;
   const long long k = blockIdx.x;
-  const int pair = blockIdx.y;  // j * n_dev + i
-  const int j = pair / n_dev, i = pair % n_dev;
+  const int pair = blockIdx.y;  // j * n_recv + i
+  const int j = pair / n_recv, i = pair % n_recv;
   if (k * chunk >= (long long)sizes[pair]) return;  // block-uniform: a dead chunk
   const long long src_row = (long long)i * split_cap + k * chunk;
-  const long long dst_row = ((long long)i * n_dev + j) * split_cap + k * chunk;
+  const long long dst_row = ((long long)i * n_send + j) * split_cap + k * chunk;
   if (threadIdx.x == 0) {
     long long end = 0;
     int m = 0;
     for (int a = 0; a < X.n_arrs; ++a) {
       const long long es = X.esize[a];
-      const unsigned char* src = (const unsigned char*)X.send[a * n_dev + j] + src_row * es;
+      const unsigned char* src = (const unsigned char*)X.send[a * n_send + j] + src_row * es;
       unsigned char* dst = (unsigned char*)X.recv[a] + dst_row * es;
       if ((((uintptr_t)src | (uintptr_t)dst) & 15) != 0) continue;  // the byte loop below
       end += chunk * es / 16;  // chunk >= 128 rows: whole words
@@ -131,7 +138,7 @@ ragged_exchange_kernel(const ExchangeArgs X, const int* __restrict__ sizes, int 
   }
   for (int a = 0; a < X.n_arrs; ++a) {  // unaligned arrays, byte by byte
     const long long es = X.esize[a];
-    const unsigned char* src = (const unsigned char*)X.send[a * n_dev + j] + src_row * es;
+    const unsigned char* src = (const unsigned char*)X.send[a * n_send + j] + src_row * es;
     unsigned char* dst = (unsigned char*)X.recv[a] + dst_row * es;
     if ((((uintptr_t)src | (uintptr_t)dst) & 15) == 0) continue;
     for (long long b = threadIdx.x; b < chunk * es; b += K5_THREADS) dst[b] = src[b];
@@ -146,8 +153,8 @@ struct FoldOps {
 };
 
 __global__ void __launch_bounds__(DFT_FOLD_TPB)
-ragged_exchange_fold_kernel(const long long* __restrict__ ptrs, const int* __restrict__ sizes, int n_dev,
-                            long long split_cap, int num_groups, int reps, FoldOps ops, unsigned int* done) {
+ragged_exchange_fold_kernel(const long long* __restrict__ ptrs, const int* __restrict__ sizes, int n_send,
+                            int n_recv, long long split_cap, int num_groups, int reps, FoldOps ops, unsigned int* done) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ FoldShared s;
   const int i = blockIdx.y;  // the receiver
@@ -160,13 +167,13 @@ ragged_exchange_fold_kernel(const long long* __restrict__ ptrs, const int* __res
   fold_init(smem, k * tbl_bytes);
   const long long B = gridDim.x, b = blockIdx.x;
   long long toff = 0;  // tiles of the senders before j
-  for (int j = 0; j < n_dev; ++j) {
-    const long long cnt = sizes[(long long)j * n_dev + i];
+  for (int j = 0; j < n_send; ++j) {
+    const long long cnt = sizes[(long long)j * n_recv + i];
     if (cnt == 0) continue;  // block-uniform
     __syncthreads();  // the previous sender's pointers are no longer read
     if (threadIdx.x < k) {  // sender j's values and masks, from the packed table
-      s.val[threadIdx.x] = (const void*)ptrs[n_dev + (long long)threadIdx.x * n_dev + j];
-      s.mask[threadIdx.x] = (const uint8_t*)ptrs[(long long)(1 + k + threadIdx.x) * n_dev + j];
+      s.val[threadIdx.x] = (const void*)ptrs[n_send + (long long)threadIdx.x * n_send + j];
+      s.mask[threadIdx.x] = (const uint8_t*)ptrs[(long long)(1 + k + threadIdx.x) * n_send + j];
     }
     __syncthreads();
     const long long first = ((b - toff) % B + B) % B;  // this block's first tile of sender j
@@ -175,49 +182,49 @@ ragged_exchange_fold_kernel(const long long* __restrict__ ptrs, const int* __res
     toff += (cnt + DFT_TILE_ROWS - 1) / DFT_TILE_ROWS;
   }
   __syncthreads();
-  fold_flush(smem, tbl_bytes, k, s, (long long)i * num_groups, num_groups, reps, (long long)n_dev * num_groups,
+  fold_flush(smem, tbl_bytes, k, s, (long long)i * num_groups, num_groups, reps, (long long)n_recv * num_groups,
              done);
 }
 
 // --- C entries -------------------------------------------------------------------
 
-// K5. x: the launch's pointers (ExchangeArgs; x->n_arrs * n_dev <=
-// K5_MAX_SEND); sizes: [n_dev, n_dev] device int32 counts, each at most
+// K5. x: the launch's pointers (ExchangeArgs; x->n_arrs * n_send <=
+// K5_MAX_SEND); sizes: [n_send, n_recv] device int32 counts, each at most
 // split_cap (the caller's contract). chunk is a power of two in
 // [128, 1024] dividing split_cap.
-extern "C" int dft_ragged_exchange(const ExchangeArgs* x, const int* sizes, int n_dev, long long split_cap, int chunk,
-                                   void* stream) {
+extern "C" int dft_ragged_exchange(const ExchangeArgs* x, const int* sizes, int n_send, int n_recv,
+                                   long long split_cap, int chunk, void* stream) {
   if (x->n_arrs == 0 || split_cap == 0) return 0;
-  if (n_dev < 1 || n_dev > DFT_MAX_DEV || x->n_arrs < 0 || x->n_arrs > K5_MAX_ARRS ||
-      x->n_arrs * n_dev > K5_MAX_SEND || chunk < 128 || chunk > 1024 || (chunk & (chunk - 1)) != 0 || split_cap < 0 ||
-      split_cap % chunk != 0 || split_cap / chunk > 0x7fffffffLL)
+  if (n_send < 1 || n_recv < 1 || (long long)n_send * n_recv > (long long)DFT_MAX_DEV * DFT_MAX_DEV ||
+      x->n_arrs < 0 || x->n_arrs > K5_MAX_ARRS || x->n_arrs * n_send > K5_MAX_SEND || chunk < 128 || chunk > 1024 ||
+      (chunk & (chunk - 1)) != 0 || split_cap < 0 || split_cap % chunk != 0 || split_cap / chunk > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   for (int a = 0; a < x->n_arrs; ++a) {
     const int es = x->esize[a];
     if (es != 1 && es != 2 && es != 4 && es != 8) return (int)cudaErrorInvalidValue;
   }
-  const dim3 grid((unsigned int)(split_cap / chunk), (unsigned int)(n_dev * n_dev));
-  ragged_exchange_kernel<<<grid, K5_THREADS, 0, (cudaStream_t)stream>>>(*x, sizes, n_dev, split_cap, chunk);
+  const dim3 grid((unsigned int)(split_cap / chunk), (unsigned int)(n_send * n_recv));
+  ragged_exchange_kernel<<<grid, K5_THREADS, 0, (cudaStream_t)stream>>>(*x, sizes, n_send, n_recv, split_cap, chunk);
   return (int)cudaGetLastError();
 }
 
 extern "C" int dft_ragged_exchange_args_size() { return (int)sizeof(ExchangeArgs); }
 
-// K6. ptrs: one packed device table of (1 + 2 * n_ops) * n_dev pointers:
+// K6. ptrs: one packed device table of (1 + 2 * n_ops) * n_send pointers:
 // the senders' int32 window ids, then op a's values by sender (at
-// (1 + a) * n_dev), then op a's masks by sender (at (1 + n_ops + a) *
-// n_dev); values and masks may be 0. kinds: host array of op kinds
-// (reduce_common.cuh); outs: host array of op a's [n_dev, num_groups]
+// (1 + a) * n_send), then op a's masks by sender (at (1 + n_ops + a) *
+// n_send); values and masks may be 0. kinds: host array of op kinds
+// (reduce_common.cuh); outs: host array of op a's [n_recv, num_groups]
 // device table (receiver i's row at i * num_groups) and `done` a device
 // counter, all zeroed (reduce_common.cuh, the fold tile): op a's table
 // ends as the op's output, as for K2 dense mode. Each slot is held `reps`
 // times in shared memory. sizes as for K5.
-extern "C" int dft_ragged_exchange_fold(const long long* ptrs, const int* sizes, int n_dev, long long split_cap,
-                                        int num_groups, int reps, int n_ops, const int* kinds, void* const* outs,
-                                        unsigned int* done, void* stream) {
+extern "C" int dft_ragged_exchange_fold(const long long* ptrs, const int* sizes, int n_send, int n_recv,
+                                        long long split_cap, int num_groups, int reps, int n_ops, const int* kinds,
+                                        void* const* outs, unsigned int* done, void* stream) {
   if (n_ops == 0 || split_cap == 0 || num_groups == 0) return 0;
-  if (n_dev < 1 || n_dev > DFT_MAX_DEV || n_ops < 0 || n_ops > DFT_MAX_OPS || num_groups < 0 ||
-      num_groups > DFT_WINDOW || split_cap < 0 || !dft_valid_reps(reps))
+  if (n_send < 1 || n_send > DFT_MAX_DEV || n_recv < 1 || n_recv > DFT_MAX_DEV || n_ops < 0 ||
+      n_ops > DFT_MAX_OPS || num_groups < 0 || num_groups > DFT_WINDOW || split_cap < 0 || !dft_valid_reps(reps))
     return (int)cudaErrorInvalidValue;
   FoldOps o;
   o.n = n_ops;
@@ -231,13 +238,14 @@ extern "C" int dft_ragged_exchange_fold(const long long* ptrs, const int* sizes,
   const long long fill = fold_blocks(ragged_exchange_fold_kernel, smem, &err);
   if (err != cudaSuccess) return (int)err;
   // blocks per receiver: the card's share, and no more than its rows' tiles
-  long long per = fill / n_dev;
-  const long long most = ((long long)n_dev * split_cap + DFT_TILE_ROWS - 1) / DFT_TILE_ROWS;
+  long long per = fill / n_recv;
+  const long long most = ((long long)n_send * split_cap + DFT_TILE_ROWS - 1) / DFT_TILE_ROWS;
   if (per > most) per = most;
-  const long long rows = (long long)n_dev * split_cap;  // the most one receiver gets
+  const long long rows = (long long)n_send * split_cap;  // the most one receiver gets
   if (per < rows / DFT_BLOCK_MAX_ROWS + 1) per = rows / DFT_BLOCK_MAX_ROWS + 1;
-  const dim3 grid((unsigned int)per, (unsigned int)n_dev);
-  ragged_exchange_fold_kernel<<<grid, DFT_FOLD_TPB, smem, (cudaStream_t)stream>>>(ptrs, sizes, n_dev, split_cap,
-                                                                                   num_groups, reps, o, done);
+  const dim3 grid((unsigned int)per, (unsigned int)n_recv);
+  ragged_exchange_fold_kernel<<<grid, DFT_FOLD_TPB, smem, (cudaStream_t)stream>>>(ptrs, sizes, n_send, n_recv,
+                                                                                   split_cap, num_groups, reps, o,
+                                                                                   done);
   return (int)cudaGetLastError();
 }

@@ -64,15 +64,18 @@ class Batch:
 @dataclass
 class ShardedBatch:
     """A batch over a mesh's logical shards (parallel/): one Batch per
-    shard. "partitioned": the shards' rows together, in shard order, are
-    the result; "replicated": every shard holds the whole result."""
+    shard of this process. "partitioned": the shards' rows together, in
+    shard order, are the result; "replicated": every shard holds the
+    whole result."""
 
     shards: list[Batch]
     layout: str
 
-    def merged(self) -> Batch:
+    def merged(self, mesh=None) -> Batch:
         """The result as one Batch: the shards concatenated in shard order
-        (partitioned), or shard 0 (replicated)."""
+        (partitioned), or shard 0 (replicated). On a `mesh` that spans
+        processes the partitioned rows of every process meet, in rank
+        order (an all_gather), and every process gets the same Batch."""
         if self.layout == "replicated":
             return self.shards[0]
         caps = [b.capacity for b in self.shards]
@@ -85,7 +88,20 @@ class ShardedBatch:
             else:
                 cols.append((data, torch.cat([torch.ones_like(d, dtype=torch.bool) if v is None else v
                                               for d, v in parts])))
-        return Batch(cols, torch.cat([b.sel for b in self.shards]))
+        local = Batch(cols, torch.cat([b.sel for b in self.shards]))
+        return local if mesh is None or not mesh.spans else gather_batch(local, mesh)
+
+
+def gather_batch(b: Batch, mesh) -> Batch:
+    """Every process's Batch `b`, in rank order (parallel/collectives.py
+    `gather_rows`: one exchange of lengths, one of bytes); a column has a
+    validity where some process's has one."""
+    from datafusion_tpu_torch.parallel.collectives import gather_rows
+
+    cols = [broadcast_col(c, b.capacity) for c in b.cols]
+    g = gather_rows(mesh, [b.sel] + [d for d, _ in cols] + [v for _, v in cols])
+    n = len(cols)
+    return Batch(list(zip(g[1:1 + n], g[1 + n:])), g[0])
 
 
 @dataclass
@@ -177,31 +193,50 @@ class CompiledQuery:
         res.routes = tuple(routes)
         return res
 
-    def _run(self):
-        from datafusion_tpu_torch.exec.result import ResultTable
-
+    def device_result(self):
+        """Run the pipeline and return its result on the device, before
+        materialization: a Batch, or on a mesh this process's
+        ShardedBatch."""
         if self._mesh is None:
             used = self._used_cols or [None] * len(self._scan_tables)
             env = [[(c.data, c.validity) if u is None or i in u else (None, None) for i, c in enumerate(t.columns)]
                    for t, u in zip(self._scan_tables, used)]
-            b = self._fn(env)
-        else:
-            from datafusion_tpu_torch.parallel.mesh import partition_table
+            return self._fn(env)
+        from datafusion_tpu_torch.parallel.mesh import partition_table
 
-            per_table = [partition_table(t, self._mesh) for t in self._scan_tables]
-            envs = [[[(c.data, c.validity) for c in shards[i].columns] for shards in per_table]
-                    for i in range(self._mesh.n_dev)]
-            b = self._fn(envs).merged()
-        n = b.capacity
+        per_table = [partition_table(t, self._mesh) for t in self._scan_tables]
+        envs = [[[(c.data, c.validity) for c in shards[i].columns] for shards in per_table]
+                for i in range(self._mesh.n_local)]
+        return self._fn(envs)
+
+    def host_columns(self, out) -> list[tuple]:
+        """`device_result`'s selected rows on the host, one (data,
+        validity) pair of numpy arrays per column, through
+        parallel/multihost.py `to_host`: one compaction and one
+        synchronize for the whole result. A partitioned result on a mesh
+        that spans processes gathers every process's rows, in rank order,
+        so every process materializes the same rows."""
+        from datafusion_tpu_torch.parallel.multihost import to_host
+
+        mesh = None
+        if isinstance(out, ShardedBatch):
+            mesh = self._mesh if out.layout == "partitioned" else None
+            out = out.merged()
+        cols = [broadcast_col(c, out.capacity) for c in out.cols]
+        host = to_host([d for d, _ in cols] + [v for _, v in cols], out.sel, mesh=mesh)
+        n = len(cols)
         host_cols = []
-        for (d, v), f in zip(b.cols, self.schema.fields):
-            d, v = broadcast_col((d, v), n)
-            dd = d[b.sel].cpu().numpy()
+        for j, f in enumerate(self.schema.fields):
+            dd = host[j]
             if f.dtype in _WIDENED:
                 dd = dd.astype(f.dtype.to_np())  # back to the logical unsigned dtype
-            vv = None if v is None else v[b.sel].cpu().numpy()
-            host_cols.append((dd, vv))
-        inner = ResultTable(self.schema, host_cols, self.dicts)
+            host_cols.append((dd, host[n + j]))
+        return host_cols
+
+    def _run(self):
+        from datafusion_tpu_torch.exec.result import ResultTable
+
+        inner = ResultTable(self.schema, self.host_columns(self.device_result()), self.dicts)
         if self._host_post is None:
             return inner
         return apply_host_post(inner, self._host_post)
@@ -874,13 +909,24 @@ class PlanCompiler:
         tbl = self.scan_tables[src[0]]
         if tbl.num_rows <= 0:
             return None
-        data = tbl.columns[src[1]].data
-        kmin, kmax = int(data.min()), int(data.max())
+        kmin, kmax = self._column_range(tbl, src[1])
         if bound is not None:
             kmin, kmax = max(kmin, bound[0]), min(kmax, bound[1])
             if kmax < kmin:
                 return None
         return kmin, kmax
+
+    def _column_range(self, tbl, ci: int) -> tuple[int, int]:
+        """min and max of column `ci` of a scanned table with rows (two
+        host reads); the distributed compiler takes them over every
+        process's rows."""
+        data = tbl.columns[ci].data
+        return int(data.min()), int(data.max())
+
+    def _agreed(self, value: int) -> int:
+        """A run-time host decision's value; on a mesh that spans
+        processes, the one every process agrees on (parallel/dist.py)."""
+        return value
 
     # ------------------------------------------------------------------
     def _lower_sort(self, plan: L.Sort) -> Lowered:
@@ -1270,7 +1316,7 @@ class PlanCompiler:
             + (", unmatched build rows appended" if is_full else "") + ")"
         )
         self.notes.append("join: " + how + "; if build keys repeat, ".join(ladder))
-        dev, routes = self.device, self.routes
+        dev, routes, agreed = self.device, self.routes, self._agreed
 
         def keys(b: Batch, side: int) -> list:
             out = []
@@ -1288,14 +1334,14 @@ class PlanCompiler:
                 bcols, matched, dups = join_ops.direct_index_join(
                     lk[0], lb.sel, rk[0], rb.sel, rb.cols, *dom_u, matched_validity=keep_unmatched
                 )
-                if not dups:
+                if not agreed(dups):
                     routes.append("join: direct")
                     return Batch(list(lb.cols) + bcols, lb.sel if keep_unmatched else lb.sel & matched)
             if dom_s is not None:
                 lcols, matched, dups = join_ops.direct_index_join(
                     rk[0], rb.sel, lk[0], lb.sel, lb.cols, *dom_s, matched_validity=False
                 )
-                if not dups:
+                if not agreed(dups):
                     routes.append("join: direct (swapped: build=left side)")
                     return Batch(lcols + list(rb.cols), rb.sel & matched)
             if cross:  # one shared constant key: every pair matches

@@ -15,7 +15,10 @@ runs in a fresh context (`execute_plan_json`); `last_stats` holds the
 parse, plan and execute seconds of the last query. The context runs on
 the card unless the caller asks for the CPU. With a mesh
 (parallel/mesh.py) every query runs over the tables' row blocks, one per
-logical shard, through the distributed compiler (parallel/dist.py).
+logical shard, through the distributed compiler (parallel/dist.py). A
+mesh may span processes (parallel/multihost.py `global_mesh`): each
+process then keeps its own shards' rows of every table, and every process
+runs the same statements in the same order.
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ from datafusion_tpu_torch.exec.compiler import PlanCompiler, compile_plan, split
 from datafusion_tpu_torch.exec.result import ResultTable
 from datafusion_tpu_torch.ops.functions import AggregateUDF
 from datafusion_tpu_torch.parallel.dist import DistCompiler, compile_plan_distributed
-from datafusion_tpu_torch.parallel.mesh import Mesh
+from datafusion_tpu_torch.parallel.mesh import Mesh, RankTable, local_blocks
 from datafusion_tpu_torch.plan.logical import Column, LogicalPlan, Projection, TableScan, plan_from_json, plan_to_json
 from datafusion_tpu_torch.plan.optimizer import push_down_filters, push_down_projection
 from datafusion_tpu_torch.plan.planner import FunctionMeta, FunctionType, SqlToRel, convert_data_type
@@ -131,8 +134,9 @@ class ExecutionContext:
         DFTPU_BIGDENSE once, here: unset or "0" is off, any other value
         on. Every plan of this context, executed or EXPLAINed, uses it.
         `mesh`: run every query over the mesh's logical shards
-        (`make_mesh`); its device is the context's, and a `device` that
-        names another raises. The mesh does not route to bigdense."""
+        (`make_mesh`, or `global_mesh` over several processes); its device
+        is the context's, and a `device` that names another raises. The
+        mesh does not route to bigdense."""
         self.mesh = mesh
         if mesh is not None:
             if device is not None and resolve_device(device) != mesh.device:
@@ -176,7 +180,12 @@ class ExecutionContext:
     def register_table(self, name: str, table: Table) -> None:
         """Register a table, moving it to this context's device. With a
         mesh, each query partitions it into row-block views, one per
-        shard (`partition_table`)."""
+        shard (`partition_table`). On a mesh that spans processes, where
+        every process registers the same table, this process keeps only
+        its shards' row blocks (`local_blocks`); a RankTable
+        (`register_table_shards`) is kept as it is."""
+        if self.mesh is not None and self.mesh.spans and not isinstance(table, RankTable):
+            table = local_blocks(table, self.mesh)
         if table.columns and table.device != self.device:
             table = table.to(self.device)
         self._tables[name] = table
@@ -381,6 +390,8 @@ class ExecutionContext:
         target = self._tables.get(node.table)
         if target is None:
             raise PlanError(f"no table named {node.table} to insert into")
+        if isinstance(target, RankTable):
+            raise NotImplementedError_("INSERT into a table of a mesh that spans processes is not supported")
         tschema = target.schema
         src_plan = SqlToRel(self._catalog).sql_to_rel(node.source)
         sschema = src_plan.schema

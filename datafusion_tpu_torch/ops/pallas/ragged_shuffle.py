@@ -7,7 +7,11 @@ holds the rows for shard `i`, and a receiver's region `j` the rows shard
 `j` sent it. `sizes[j, i]` is the number of rows shard j sends shard i
 (an int32 `[n_dev, n_dev]` matrix, parallel/collectives.size_matrix), so
 region j of receiver i is valid in its first `sizes[j, i]` rows and no
-validity rides the exchange. Each count must be at most `split_cap`: the
+validity rides the exchange. The senders may outnumber the receivers:
+on a mesh that spans processes the receivers are this process's
+`n_dev` shards, every shard of the mesh is a sender, and `sizes` is the
+`[n_send, n_dev]` block of the mesh's matrix whose columns are this
+process's shards (parallel/shuffle.py). Each count must be at most `split_cap`: the
 caller sizes `split_cap` from the counts (parallel/shuffle.py), so no row
 is ever dropped and the JAX package's overflow retry has no counterpart.
 
@@ -15,7 +19,7 @@ is ever dropped and the JAX package's overflow retry has no counterpart.
     region-layout arrays (any dtype of 1, 2, 4 or 8 bytes); returns each
     receiver's list. Only `ceil(sizes[j, i] / chunk)` chunks move per
     pair; tails stay unwritten. On the card, array a's receivers are
-    views of one `[n_dev * n_dev * split_cap]` buffer, and the pointers
+    views of one `[n_dev * n_send * split_cap]` buffer, and the pointers
     ride in the kernel's launch parameters (`exchange_args`), so a call
     makes `n_arrs` allocations and no host-to-device copy.
   * K6 `ragged_exchange_fold`: routed rows carry a receiver-local window
@@ -65,13 +69,13 @@ def pick_chunk(split_cap: int) -> Optional[int]:
     return None
 
 
-def _check_sizes(sizes: torch.Tensor, n_dev: int, split_cap: int, device) -> None:
-    if not 1 <= n_dev <= MAX_DEV:
-        raise ValueError(f"n_dev must be in [1, {MAX_DEV}]")
+def _check_sizes(sizes: torch.Tensor, n_send: int, n_dev: int, split_cap: int, device) -> None:
+    if not (1 <= n_dev <= MAX_DEV and 1 <= n_send <= MAX_DEV):
+        raise ValueError(f"n_dev and the senders must be in [1, {MAX_DEV}]")
     if split_cap < 0:
         raise ValueError("split_cap must not be negative")
-    if sizes.dtype != torch.int32 or tuple(sizes.shape) != (n_dev, n_dev) or not sizes.is_contiguous():
-        raise ValueError("sizes must be a contiguous [n_dev, n_dev] int32 tensor")
+    if sizes.dtype != torch.int32 or tuple(sizes.shape) != (n_send, n_dev) or not sizes.is_contiguous():
+        raise ValueError("sizes must be a contiguous [n_send, n_dev] int32 tensor")
     if sizes.device != device:
         raise ValueError("sizes must lie on the arrays' device")
 
@@ -87,12 +91,12 @@ def _check_region(t: torch.Tensor, n_dev: int, split_cap: int, device) -> None:
 def _check_exchange(sends, sizes, n_dev, split_cap, chunk):
     """Every check in one pass: sender 0's arrays in full, every other
     sender's against sender 0's (dtype, shape, contiguity, device)."""
-    if len(sends) != n_dev:
+    if len(sends) != sizes.shape[0]:
         raise ValueError("one list of arrays per sender")
     if chunk not in CHUNKS or split_cap % chunk:
         raise ValueError(f"chunk must be one of {CHUNKS} and divide split_cap")
     dev = sends[0][0].device if sends and sends[0] else sizes.device
-    _check_sizes(sizes, n_dev, split_cap, dev)
+    _check_sizes(sizes, len(sends), n_dev, split_cap, dev)
     for t in sends[0]:
         _check_region(t, n_dev, split_cap, dev)
         if t.element_size() not in (1, 2, 4, 8):
@@ -116,27 +120,28 @@ class ExchangeArgs(ctypes.Structure):
     ]
 
 
-def exchange_args(sends, bufs, n_dev: int) -> list[ExchangeArgs]:
+def exchange_args(sends, bufs) -> list[ExchangeArgs]:
     """K5's launch parameters: the arrays split into launches of at most
     K5_MAX_ARRS arrays and K5_MAX_SEND sender pointers, each with its
     senders' pointers (array-major), its receive buffers and widths."""
-    per = min(K5_MAX_ARRS, K5_MAX_SEND // n_dev)
+    n_send = len(sends)
+    per = min(K5_MAX_ARRS, K5_MAX_SEND // n_send)
     out = []
     for lo in range(0, len(bufs), per):
         hi = min(lo + per, len(bufs))
         x = ExchangeArgs()
         x.n_arrs = hi - lo
-        x.send[: x.n_arrs * n_dev] = [sends[j][a].data_ptr() for a in range(lo, hi) for j in range(n_dev)]
+        x.send[: x.n_arrs * n_send] = [sends[j][a].data_ptr() for a in range(lo, hi) for j in range(n_send)]
         x.recv[: x.n_arrs] = [b.data_ptr() for b in bufs[lo:hi]]
         x.esize[: x.n_arrs] = [b.element_size() for b in bufs[lo:hi]]
         out.append(x)
     return out
 
 
-def receivers(bufs, n_dev: int, split_cap: int) -> list[list[torch.Tensor]]:
-    """Each receiver's arrays: views of the per-array buffers, receiver
-    i's `[n_dev * split_cap]` at i * n_dev * split_cap."""
-    views = [b.view(n_dev, n_dev * split_cap).unbind(0) for b in bufs]
+def receivers(bufs, n_dev: int, n_send: int, split_cap: int) -> list[list[torch.Tensor]]:
+    """Each of the `n_dev` receivers' arrays: views of the per-array
+    buffers, receiver i's `[n_send * split_cap]` at i * n_send * split_cap."""
+    views = [b.view(n_dev, n_send * split_cap).unbind(0) for b in bufs]
     return [[v[i] for v in views] for i in range(n_dev)]
 
 
@@ -153,8 +158,9 @@ def ragged_exchange_plain(
     sz = sizes.tolist()
     if max(max(r) for r in sz) > split_cap:
         raise ValueError("a count exceeds split_cap")
-    recvs = [[torch.empty_like(t) for t in sends[0]] for _ in range(n_dev)]
-    for j in range(n_dev):
+    n_send = len(sends)
+    recvs = [[t.new_empty(n_send * split_cap) for t in sends[0]] for _ in range(n_dev)]
+    for j in range(n_send):
         for i in range(n_dev):
             c = sz[j][i]
             for a, t in enumerate(sends[j]):
@@ -170,10 +176,11 @@ def ragged_exchange(
     split_cap: int,
     chunk: int,
 ) -> list[list[torch.Tensor]]:
-    """All-to-all of region-layout arrays (K5, module doc): returns each
-    receiver's arrays, valid in region j's first `sizes[j, i]` rows. On
-    the card they are read-only views of one buffer per array; one
-    launch per `exchange_args` entry."""
+    """All-to-all of region-layout arrays (K5, module doc): `sends[j]` are
+    sender j's `[n_dev * split_cap]` arrays; returns each of the `n_dev`
+    receivers' `[len(sends) * split_cap]` arrays, valid in region j's
+    first `sizes[j, i]` rows. On the card they are read-only views of one
+    buffer per array; one launch per `exchange_args` entry."""
     sends = [list(s) for s in sends]
     _check_exchange(sends, sizes, n_dev, split_cap, chunk)
     dev = sizes.device
@@ -184,22 +191,25 @@ def ragged_exchange(
     from datafusion_tpu_torch.ops.pallas.cuda_lib import check, load_library
 
     lib = load_library()
-    bufs = [torch.empty(n_dev * n_dev * split_cap, dtype=t.dtype, device=dev) for t in sends[0]]
+    n_send = len(sends)
+    bufs = [torch.empty(n_dev * n_send * split_cap, dtype=t.dtype, device=dev) for t in sends[0]]
     if bufs and split_cap:
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            for x in exchange_args(sends, bufs, n_dev):
-                check(lib.dft_ragged_exchange(ctypes.byref(x), sizes.data_ptr(), n_dev, split_cap, chunk, stream),
+            for x in exchange_args(sends, bufs):
+                check(lib.dft_ragged_exchange(ctypes.byref(x), sizes.data_ptr(), n_send, n_dev, split_cap, chunk,
+                                              stream),
                       "ragged_exchange kernel")
                 ragged_exchange.launches += 1
-    return receivers(bufs, n_dev, split_cap)
+    return receivers(bufs, n_dev, n_send, split_cap)
 
 
 # --- K6 ---------------------------------------------------------------------
 
 
 def _check_fold(gids, vals, masks, sizes, ops, mask_map, n_dev, split_cap, num_groups):
-    if not (len(gids) == len(vals) == len(masks) == n_dev):
+    n_send = len(gids)
+    if not (len(vals) == len(masks) == n_send == sizes.shape[0]):
         raise ValueError("one gid, one value list and one mask list per sender")
     if not 0 <= num_groups <= WINDOW:
         raise ValueError(f"num_groups must be in [0, {WINDOW}]: one shared-memory window per op")
@@ -210,12 +220,12 @@ def _check_fold(gids, vals, masks, sizes, ops, mask_map, n_dev, split_cap, num_g
     if any(not 0 <= u <= len(masks[0]) for u in mask_map):
         raise ValueError("mask_map entries index the masks from 1 (0 = every routed row)")
     dev = gids[0].device
-    _check_sizes(sizes, n_dev, split_cap, dev)
+    _check_sizes(sizes, n_send, n_dev, split_cap, dev)
     # the ops and value dtypes once; the kernel takes each op's kind from sender 0
     _validate(gids[0], vals[0], [None] * len(ops), ops, num_groups, dense=False)
     dtypes = [None if v is None else v.dtype for v in vals[0]]
     seen = set()
-    for j in range(n_dev):
+    for j in range(n_send):
         if len(vals[j]) != len(ops) or len(masks[j]) != len(masks[0]):
             raise ValueError("every sender sends one value per op and the same masks")
         if gids[j].dtype != torch.int32 or [None if v is None else v.dtype for v in vals[j]] != dtypes:
@@ -236,13 +246,13 @@ def fold_pointer_table(gids, vals, op_masks) -> list[int]:
     """K6's packed pointer table (csrc/ragged_shuffle.cu): the senders'
     window ids, then op a's values by sender, then op a's masks by sender
     (`op_masks[j][a]`); 0 where there is none."""
-    n_dev, k = len(gids), len(vals[0])
+    n_send, k = len(gids), len(vals[0])
 
     def ptr(t):
         return 0 if t is None else t.data_ptr()
 
-    return ([ptr(g) for g in gids] + [ptr(vals[j][a]) for a in range(k) for j in range(n_dev)]
-            + [ptr(op_masks[j][a]) for a in range(k) for j in range(n_dev)])
+    return ([ptr(g) for g in gids] + [ptr(vals[j][a]) for a in range(k) for j in range(n_send)]
+            + [ptr(op_masks[j][a]) for a in range(k) for j in range(n_send)])
 
 
 def ragged_exchange_fold_plain(
@@ -260,16 +270,17 @@ def ragged_exchange_fold_plain(
     """The kernel's function in plain PyTorch: each receiver's routed rows
     gathered sender by sender, then K2's plain reduce."""
     sz = sizes.tolist()
+    n_send = len(gids)
     out = []
     for i in range(n_dev):
-        spans = [(j, i * split_cap, i * split_cap + sz[j][i]) for j in range(n_dev)]
+        spans = [(j, i * split_cap, i * split_cap + sz[j][i]) for j in range(n_send)]
 
         def cat(ts):
             return torch.cat([ts[j][lo:hi] for j, lo, hi in spans])
 
         gid = cat(gids)
-        v = [None if vals[0][a] is None else cat([vals[j][a] for j in range(n_dev)]) for a in range(len(ops))]
-        m = [None if u == 0 else cat([masks[j][u - 1] for j in range(n_dev)]) for u in mask_map]
+        v = [None if vals[0][a] is None else cat([vals[j][a] for j in range(n_send)]) for a in range(len(ops))]
+        m = [None if u == 0 else cat([masks[j][u - 1] for j in range(n_send)]) for u in mask_map]
         out.append(segmented_reduce_plain(gid, v, m, ops=ops, num_groups=num_groups))
     return out
 
@@ -288,9 +299,10 @@ def ragged_exchange_fold(
 ) -> list[tuple[torch.Tensor, ...]]:
     """Exchange fused with a dense fold (K6, module doc). `gids[j]`,
     `vals[j][a]` (None for a COUNT) and `masks[j][u]` are sender j's
-    region-layout window ids, per-op values and deduplicated bool masks;
-    `mask_map[a]` is 0 (every routed row) or 1 + the index of op a's
-    mask. Returns, per receiver, one `[num_groups]` table per op."""
+    region-layout window ids, per-op values and deduplicated bool masks,
+    `[n_dev * split_cap]` each; `mask_map[a]` is 0 (every routed row) or
+    1 + the index of op a's mask. Returns, per each of the `n_dev`
+    receivers, one `[num_groups]` table per op."""
     ops, mask_map = tuple(ops), tuple(mask_map)
     _check_fold(gids, vals, masks, sizes, ops, mask_map, n_dev, split_cap, num_groups)
     dev = gids[0].device
@@ -308,15 +320,15 @@ def ragged_exchange_fold(
         return [tuple(t[i] for t in tables) for i in range(n_dev)]
     [(_, _, reps)] = fold_launches(k, num_groups)  # MAX_OPS tables of WINDOW slots fit one launch
     tables, [done] = fold_tables(ops, vals[0], num_groups, dev, lead=(n_dev,))
-    per_op = [_op_masks(masks[j], mask_map) for j in range(n_dev)]
+    per_op = [_op_masks(masks[j], mask_map) for j in range(len(gids))]
     ptrs = torch.tensor(fold_pointer_table(gids, vals, per_op), dtype=torch.int64).pin_memory()
     kinds = (ctypes.c_int * k)(*[_KIND[(op, None if v is None else v.dtype)] for op, v in zip(ops, vals[0])])
     outs = (ctypes.c_void_p * k)(*[t.data_ptr() for t in tables])
     with torch.cuda.device(dev):
         ptrs = ptrs.to(dev, non_blocking=True)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.dft_ragged_exchange_fold(ptrs.data_ptr(), sizes.data_ptr(), n_dev, split_cap, num_groups, reps, k,
-                                          kinds, outs, done, stream)
+        rc = lib.dft_ragged_exchange_fold(ptrs.data_ptr(), sizes.data_ptr(), len(gids), n_dev, split_cap, num_groups,
+                                          reps, k, kinds, outs, done, stream)
     check(rc, "ragged_exchange_fold kernel")
     ragged_exchange_fold.launches += 1
     return list(zip(*[t.unbind(0) for t in tables]))

@@ -35,11 +35,22 @@ A stage over a local child (a lowering of the base compiler, one env to
 one Batch) stays local until a distributed stage needs its shards; a
 stage over a distributed child runs once per shard, and once in all for
 a replicated child.
+
+On a mesh that spans processes (parallel/multihost.py) each process runs
+every stage over its own shards, and a ShardedBatch holds those. The
+collectives take the mesh and meet in global shard order, the exchanges
+cross the processes (parallel/shuffle.py), and a replicated batch holds
+the same rows on every process. Every host read that chooses a route
+reads a value all processes agree on: the domain probes take min / max
+over every process's rows (`_column_range`), the join ladder's count of
+repeated build keys is the largest any process saw (`_agreed`), and the
+shuffle's skew salt and region capacity come from the mesh's whole count
+matrix. So every process takes the same route and enters the same
+collectives.
 """
 
 from __future__ import annotations
 
-import functools
 import math
 from typing import Optional
 
@@ -82,13 +93,13 @@ def _sort_operands(kd: torch.Tensor, kv, asc: bool, nf: bool) -> list[torch.Tens
     return out
 
 
-def _merge_dense(op: str, tables: list[torch.Tensor]) -> torch.Tensor:
+def _merge_dense(op: str, tables: list[torch.Tensor], mesh: Mesh) -> torch.Tensor:
     """Per-shard K2 dense tables into the mesh's: sums and counts add;
     MIN / MAX combine on the order-preserving image, as K2 reduces."""
     if op in ("sum", "count"):
-        return C.psum(tables)
+        return C.psum(tables, mesh)
     img = [to_sortable_int(t) for t in tables]
-    return from_sortable_int(C.pmin(img) if op == "min" else C.pmax(img), tables[0].dtype)
+    return from_sortable_int(C.pmin(img, mesh) if op == "min" else C.pmax(img, mesh), tables[0].dtype)
 
 
 def _float_partial(rt: DataType) -> DataType:
@@ -102,7 +113,26 @@ class DistCompiler(PlanCompiler):
     def __init__(self, tables, mesh: Mesh, fn_registry=None):
         super().__init__(tables, fn_registry, mesh.device)
         self.mesh = mesh
-        self.n_dev = mesh.n_dev
+        self.n_dev = mesh.n_dev  # shards of the mesh
+        self.n_local = mesh.n_local  # shards of this process
+
+    def _column_range(self, tbl, ci: int) -> tuple[int, int]:
+        """min and max of a scanned column over every process's rows (one
+        all_gather of each process's pair; a process without rows sends
+        the identities)."""
+        if not self.mesh.spans:
+            return super()._column_range(tbl, ci)
+        data = tbl.columns[ci].data
+        i64 = torch.iinfo(torch.int64)
+        if data.numel():
+            pair = torch.stack([data.min().to(torch.int64), data.max().to(torch.int64)])
+        else:
+            pair = torch.tensor([i64.max, i64.min], dtype=torch.int64, device=data.device)
+        every = C.all_gather([pair], self.mesh).reshape(-1, 2)
+        return int(every[:, 0].min()), int(every[:, 1].max())
+
+    def _agreed(self, value: int) -> int:
+        return C.agreed_max(value, self.mesh)
 
     # -- helpers --------------------------------------------------------
     def _as_dist(self, low: Lowered) -> Lowered:
@@ -118,12 +148,12 @@ class DistCompiler(PlanCompiler):
     def _map(self, child: Lowered, local: Lowered) -> Lowered:
         """`local` (lowered over a stand-in for `child`'s shards) run on
         each shard of `child`; on a replicated child, once."""
-        layout, n = child.layout, self.n_dev
+        layout = child.layout
 
         def fn(envs) -> ShardedBatch:
             sb = child.fn(envs)
             if layout == "replicated":
-                return ShardedBatch([local.fn(sb.shards[0])] * n, layout)
+                return ShardedBatch([local.fn(sb.shards[0])] * len(sb.shards), layout)
             return ShardedBatch([local.fn(b) for b in sb.shards], layout)
 
         return Lowered(local.schema, local.dicts, fn, local.sources, layout, local.capacity, local.bounds)
@@ -143,16 +173,16 @@ class DistCompiler(PlanCompiler):
         if child.layout == "replicated":
             return child
         child = self._as_dist(child)
-        n = self.n_dev
+        n, mesh = self.n_local, self.mesh
 
         def fn(envs) -> ShardedBatch:
-            return ShardedBatch([child.fn(envs).merged()] * n, "replicated")
+            return ShardedBatch([child.fn(envs).merged(mesh)] * n, "replicated")
 
         return Lowered(child.schema, child.dicts, fn, None, "replicated", child.capacity)
 
     # -- local stages ----------------------------------------------------
     def _lower_empty(self, plan: L.EmptyRelation) -> Lowered:
-        local, n = super()._lower_empty(plan), self.n_dev
+        local, n = super()._lower_empty(plan), self.n_local
         return Lowered(local.schema, local.dicts, lambda envs: ShardedBatch([local.fn(None)] * n, "replicated"),
                        None, "replicated", local.capacity)
 
@@ -210,7 +240,7 @@ class DistCompiler(PlanCompiler):
                     # an empty shard samples the largest tuple
                     samples[t].append(o[pos] if n_sel else torch.full((OVERSAMPLE,), torch.iinfo(o.dtype).max,
                                                                       dtype=o.dtype, device=o.device))
-            gathered = [C.all_gather(s) for s in samples]
+            gathered = [C.all_gather(s, self.mesh) for s in samples]
             order = sort_ops.lexsort(gathered)
             ranks = (torch.arange(1, n, device=self.device) * (n * OVERSAMPLE)) // n
             splitters = [g[order][ranks] for g in gathered]
@@ -229,7 +259,7 @@ class DistCompiler(PlanCompiler):
                     dst += less | eq
                 dsts.append(dst)
             sels = [torch.ones(c[0][0].shape[0], dtype=torch.bool, device=self.device) for c in local]
-            recv, recv_sel = repartition(local, dsts, sels, n)
+            recv, recv_sel = repartition(local, dsts, sels, n, mesh=self.mesh)
             out = []
             for cols, sel in zip(recv, recv_sel):
                 res = sort_ops.sort_batch([(cv, True) for cv in cols[n_cols:]], cols[:n_cols], sel)
@@ -273,13 +303,15 @@ class DistCompiler(PlanCompiler):
         shard's ranks start after the selected rows of the shards before
         it."""
 
+        mesh = self.mesh
+
         def fn(envs) -> ShardedBatch:
             sb = child.fn(envs)
-            counts = C.all_gather([b.sel.sum().reshape(1) for b in sb.shards])
+            counts = C.all_gather([b.sel.sum().reshape(1) for b in sb.shards], mesh)
             bases = torch.cumsum(counts, 0) - counts
             out = []
             for d, b in enumerate(sb.shards):
-                rank = bases[d] + torch.cumsum(b.sel.to(torch.int64), 0)
+                rank = bases[mesh.first + d] + torch.cumsum(b.sel.to(torch.int64), 0)
                 keep = b.sel
                 if k is not None:
                     keep = keep & (rank <= off + k)
@@ -323,7 +355,7 @@ class DistCompiler(PlanCompiler):
                     d, v = broadcast_col(c.fn(b.cols), b.capacity)
                     keys.append(d if v is None else torch.where(v, d, torch.zeros((), dtype=d.dtype, device=d.device)))
                 dsts.append(hash_keys_to_device(keys, n))
-            cols, sels = repartition([b.cols for b in sb.shards], dsts, [b.sel for b in sb.shards], n)
+            cols, sels = repartition([b.cols for b in sb.shards], dsts, [b.sel for b in sb.shards], n, mesh=self.mesh)
             return ShardedBatch([Batch(c, s) for c, s in zip(cols, sels)], "partitioned")
 
         reparted = Lowered(child.schema, child.dicts, fn, child.sources, "partitioned", child.capacity, child.bounds)
@@ -346,7 +378,7 @@ class DistCompiler(PlanCompiler):
         rep = all(c.layout == "replicated" for c in children)
         children = [c if rep else self._as_dist(c) for c in children]
         dicts, concat = self._union_parts(plan, children)
-        n = self.n_dev
+        n = self.n_local
 
         def fn(envs) -> ShardedBatch:
             sbs = [c.fn(envs) for c in children]
@@ -383,7 +415,7 @@ class DistCompiler(PlanCompiler):
         FULL join ORs the build rows' matched marks over the shards and
         appends the unmatched ones after the last shard's rows, where one
         card puts them (the JAX mesh spreads them over its chips)."""
-        n, dev, nl = self.n_dev, self.device, len(left.schema)
+        n, dev, nl, mesh = self.n_local, self.device, len(left.schema), self.mesh
         right_g = self._gather_batch(right)
         run, meta = self._join_runner(plan, left, right, swap_ok=False,
                                       how="broadcast (build side all_gathered to every shard), local ")
@@ -402,12 +434,18 @@ class DistCompiler(PlanCompiler):
             if not is_full:
                 return ShardedBatch([run(b, rb) for b in shards], "partitioned")
             heads = [run(b, rb, tail=False) for b in shards]
-            hit = functools.reduce(torch.logical_or, [bm for _, _, bm in heads])
-            last, matched, _ = heads[-1]
-            pcols, bcols, rows = join_ops.full_merge_tail(last.cols[:nl], last.cols[nl:], matched, rb.cols,
-                                                          rb.sel & ~hit)
-            tail = Batch(pcols + bcols, torch.ones(rows, dtype=torch.bool, device=dev))
-            return ShardedBatch([h for h, _, _ in heads[:-1]] + [tail], "partitioned")
+            hit = C.por([bm for _, _, bm in heads], mesh)
+            # the tail's probe columns are NULL; every other shard's get an
+            # all-true validity too, so every shard (and every process)
+            # holds the same columns and later stages run the same ops
+            out = [Batch([(d, torch.ones_like(h.sel) if v is None else v) for d, v in h.cols[:nl]] + h.cols[nl:],
+                         h.sel) for h, _, _ in heads]
+            if mesh.rank == mesh.world - 1:  # the tail follows the mesh's last shard
+                last, matched, _ = heads[-1]
+                pcols, bcols, rows = join_ops.full_merge_tail(last.cols[:nl], last.cols[nl:], matched, rb.cols,
+                                                              rb.sel & ~hit)
+                out[-1] = Batch(pcols + bcols, torch.ones(rows, dtype=torch.bool, device=dev))
+            return ShardedBatch(out, "partitioned")
 
         return Lowered(plan.schema, dicts, fn, layout="partitioned", **meta)
 
@@ -423,7 +461,7 @@ class DistCompiler(PlanCompiler):
         copies' marks meet by global row index (the JAX mesh reads only
         the first copy's, ROADMAP Queue 3). The rows come shard by shard,
         in an order the JAX mesh does not specify either."""
-        n, dev, nl = self.n_dev, self.device, len(left.schema)
+        n, dev, nl, mesh = self.n_dev, self.device, len(left.schema), self.mesh
         run, meta = self._join_runner(
             plan, left, right, direct_ok=False,
             how="shuffle (both sides hash-repartitioned over K5, skew salt from the probe side's send counts), "
@@ -440,13 +478,17 @@ class DistCompiler(PlanCompiler):
             lsel = [b.sel for b in lsb]
             ldst = [hash_keys_to_device(k, n) for k in lkeys]
             lroutes = [route(d, s, n) for d, s in zip(ldst, lsel)]
-            salt_r = skew_salt(C.size_matrix([c for _, c in lroutes]), n)
+            salt_r = skew_salt(C.size_matrix([c for _, c in lroutes], mesh), n)
             if salt_r > 1:
                 ldst = [hash_keys_to_device(k, n, salt_r=salt_r, salt=torch.arange(b.capacity, device=dev) % salt_r)
                         for k, b in zip(lkeys, lsb)]
                 lroutes = None
-            lrecv, lrsel = repartition([b.cols for b in lsb], ldst, lsel, n, lroutes)
-            rcols, rsel, rdst, base = [], [], [], 0
+            lrecv, lrsel = repartition([b.cols for b in lsb], ldst, lsel, n, lroutes, mesh=mesh)
+            rcols, rsel, rdst = [], [], []
+            base, total = 0, sum(b.capacity for b in rsb)
+            if is_full and mesh.spans:  # global build row indices: earlier processes' rows come first
+                caps = C.all_gather([torch.tensor([total], device=dev)], mesh).tolist()
+                base, total = sum(caps[:mesh.rank]), sum(caps)
             for b in rsb:
                 m = b.capacity
                 keys = [d for d, _ in run.keys(b, 1)]
@@ -461,7 +503,7 @@ class DistCompiler(PlanCompiler):
                     cols += [(base + torch.arange(m, device=dev).repeat(salt_r), None), (replica == 0, None)]
                 rcols.append(cols)
                 base += m
-            rrecv, rrsel = repartition(rcols, rdst, rsel, n)
+            rrecv, rrsel = repartition(rcols, rdst, rsel, n, mesh=mesh)
             if not is_full:
                 out = [run(Batch(lc, ls), Batch(rc, rs)) for lc, ls, rc, rs in zip(lrecv, lrsel, rrecv, rrsel)]
             else:
@@ -469,9 +511,10 @@ class DistCompiler(PlanCompiler):
                 # matched if any copy is, so the marks meet by global row
                 heads = [run(Batch(lc, ls), Batch(rc[:-2], rs), tail=False)
                          for lc, ls, rc, rs in zip(lrecv, lrsel, rrecv, rrsel)]
-                hit = torch.zeros(max(base, 1), dtype=torch.bool, device=dev)
+                hit = torch.zeros(max(total, 1), dtype=torch.bool, device=dev)
                 for (_, _, bm), rc in zip(heads, rrecv):
                     hit[rc[-2][0][bm]] = True
+                hit = C.por([hit], mesh)
                 out = []
                 for (head, matched, _), rc, rs in zip(heads, rrecv, rrsel):
                     un = rs & rc[-1][0] & ~hit[torch.where(rs, rc[-2][0], 0)]
@@ -515,7 +558,7 @@ class DistCompiler(PlanCompiler):
             packed = 1 <= prod <= agg_ops.PACKED_MAX_GROUPS
             return self._aggregate_repartition(plan, child_d, group_c, agg_meta, out_dicts,
                                                doms if packed else None, offs, notes)
-        n = self.n_dev
+        n, n_local, mesh = self.n_dev, self.n_local, self.mesh
         dev = self.device
 
         def shards_of(sb: ShardedBatch):
@@ -535,11 +578,11 @@ class DistCompiler(PlanCompiler):
             def dense_reduce(gids, vals, masks, *, ops, num_groups):
                 per = [segmented_reduce(g, v, m, ops=ops, num_groups=num_groups, dense=True)
                        for g, v, m in zip(gids, vals, masks)]
-                return [tuple(_merge_dense(op, [p[a] for p in per]) for a, op in enumerate(ops))]
+                return [tuple(_merge_dense(op, [p[a] for p in per], mesh) for a, op in enumerate(ops))]
 
             def fn_dense(envs) -> ShardedBatch:
                 (res,) = agg_ops._dense_window_aggregate(shards_of(child_d.fn(envs)), doms, offs, dense_reduce)
-                return ShardedBatch([batch(*res)] * n, "replicated")
+                return ShardedBatch([batch(*res)] * n_local, "replicated")
 
             return Lowered(plan.schema, out_dicts, fn_dense, None, "replicated", min(child.capacity, prod + 1))
 
@@ -550,10 +593,10 @@ class DistCompiler(PlanCompiler):
             )
 
             def fold_reduce(gids, vals, masks, *, ops, num_groups):
-                return exchange_fold(gids, vals, masks, ops=ops, num_groups=num_groups, n_dev=n)
+                return exchange_fold(gids, vals, masks, ops=ops, num_groups=num_groups, n_dev=n, mesh=mesh)
 
-            def slot_gid(d, size):
-                return torch.arange(size, device=dev) * n + d
+            def slot_gid(d, size):  # local receiver d is the mesh's shard first + d
+                return torch.arange(size, device=dev) * n + mesh.first + d
 
             def fn_fold(envs) -> ShardedBatch:
                 res = agg_ops._dense_window_aggregate(shards_of(child_d.fn(envs)), doms, offs, fold_reduce, slot_gid)
@@ -587,7 +630,7 @@ class DistCompiler(PlanCompiler):
                     d, v = broadcast_col(c.fn(b.cols), b.capacity)
                     keys.append(d if v is None else torch.where(v, d, torch.zeros((), dtype=d.dtype, device=d.device)))
                 dsts.append(hash_keys_to_device(keys, n))
-            cols, sels = repartition([b.cols for b in sb.shards], dsts, [b.sel for b in sb.shards], n)
+            cols, sels = repartition([b.cols for b in sb.shards], dsts, [b.sel for b in sb.shards], n, mesh=self.mesh)
             out = []
             for c, sel in zip(cols, sels):
                 b = Batch(c, sel)
@@ -643,7 +686,7 @@ class DistCompiler(PlanCompiler):
                 specs1 = [agg_ops.AggSpec(f, spec.arg, t) for spec, (_, parts) in zip(specs, layout) for f, t in parts]
                 pk, pa, ng = agg_ops.grouped_aggregate(keys, specs1, sel, dense_domain=doms, dense_offset=offs)
                 partials.append(batch(pk, pa, ng))
-            g = ShardedBatch(partials, "partitioned").merged()  # all_gather
+            g = ShardedBatch(partials, "partitioned").merged(self.mesh)  # all_gather
             gkeys, gaggs = g.cols[:n_keys], g.cols[n_keys:]
             specs2, i = [], 0
             for name, parts in layout:
@@ -662,7 +705,7 @@ class DistCompiler(PlanCompiler):
                         val = val / cnt.clamp(min=1).to(val.dtype)
                     out.append((val.to(out_t), cnt > 0))
                 i += len(parts)
-            return ShardedBatch([Batch(list(mk) + out, torch.ones(ng, dtype=torch.bool, device=dev))] * self.n_dev,
+            return ShardedBatch([Batch(list(mk) + out, torch.ones(ng, dtype=torch.bool, device=dev))] * self.n_local,
                                 "replicated")
 
         groups = self.DEFAULT_GROUP_CAPACITY if doms is None else math.prod(d + 1 for d in doms) + 1
@@ -672,7 +715,7 @@ class DistCompiler(PlanCompiler):
         """Whole-table aggregates: per-shard scalars merged by psum / pmin /
         pmax. A shard with no counted row joins a MIN / MAX as the
         identity."""
-        dev, n = self.device, self.n_dev
+        dev, n, mesh = self.device, self.n_local, self.mesh
 
         def fn(envs) -> ShardedBatch:
             sb = child.fn(envs)
@@ -686,7 +729,7 @@ class DistCompiler(PlanCompiler):
                     if name != "count":
                         specs.append(agg_ops.AggSpec("sum" if name == "avg" else name, argv, part_t))
                     per.append(agg_ops.ungrouped_aggregate(specs, b.sel))
-                cnt = C.psum([p[0][0] for p in per])
+                cnt = C.psum([p[0][0] for p in per], mesh)
                 out_t = torch_dtype(rt)
                 if name == "count":
                     cols.append((cnt.to(out_t).reshape(1), None))
@@ -695,9 +738,9 @@ class DistCompiler(PlanCompiler):
                 if name in ("min", "max"):
                     ident = agg_ops._sentinel(vals[0].dtype, name == "max")
                     vals = [torch.where(p[0][0] > 0, v, ident) for p, v in zip(per, vals)]
-                    r = C.pmin(vals) if name == "min" else C.pmax(vals)
+                    r = C.pmin(vals, mesh) if name == "min" else C.pmax(vals, mesh)
                 else:
-                    r = C.psum(vals)
+                    r = C.psum(vals, mesh)
                     if name == "avg":
                         r = r / cnt.clamp(min=1).to(r.dtype)
                 cols.append((r.to(out_t).reshape(1), (cnt > 0).reshape(1)))

@@ -17,6 +17,18 @@ Port of datafusion_tpu/parallel/shuffle.py. Rows move to shard
 The JAX package's default exchange, a `lax.all_to_all` of the padded
 slabs, would be a transpose copy on one card that moves more bytes for
 the same rows, so K5 is the only exchange and DFTPU_SHUFFLE is not read.
+
+On a mesh that spans processes the exchange has two levels. The count
+matrix is the whole mesh's (every process agrees on `split_cap`), and
+each process lays out its own shards' rows. The regions bound for other
+processes' shards cross in one `all_to_all_single` of their padded
+regions (parallel/collectives.py `exchange_regions`), the counterpart of
+the `lax.all_to_all` across hosts of the JAX package's default exchange.
+Then one K5 launch (or K6, for the fold) takes every shard of the mesh as
+a sender, the local ones from their own buffers and the remote ones from
+what arrived, and fills this process's receivers: region j of a receiver
+still holds global sender j's rows, so rows arrive in the single card's
+order.
 """
 
 from __future__ import annotations
@@ -25,9 +37,10 @@ from typing import Sequence
 
 import torch
 
+from datafusion_tpu_torch.errors import ExecutionError
 from datafusion_tpu_torch.ops.expr_eval import ColVal, broadcast_col
 from datafusion_tpu_torch.ops.pallas.ragged_shuffle import CHUNKS, pick_chunk, ragged_exchange, ragged_exchange_fold
-from datafusion_tpu_torch.parallel.collectives import size_matrix
+from datafusion_tpu_torch.parallel.collectives import exchange_regions, size_matrix
 
 REGION_ALIGN = CHUNKS[0]  # split_cap is a multiple of the largest chunk, so K5 copies 1024-row chunks
 
@@ -122,21 +135,35 @@ def receive_selection(sizes: torch.Tensor, i: int, split_cap: int) -> torch.Tens
     return slot - dest * split_cap < sizes[:, i].to(torch.int64)[dest]
 
 
+def _local_exchange(regions, sizes: torch.Tensor, split_cap: int, mesh):
+    """(senders' arrays, their count matrix, receivers) for the kernels on
+    this process: every shard as on one process, or, on a spanning mesh,
+    every shard of the mesh as a sender (`exchange_regions`) and this
+    process's shards as the receivers."""
+    if mesh is None or not mesh.spans:
+        return regions, sizes, sizes.shape[0]
+    lo = mesh.first
+    local_sizes = sizes[:, lo:lo + mesh.n_local].contiguous()
+    return exchange_regions(mesh, regions, sizes, split_cap), local_sizes, mesh.n_local
+
+
 def repartition(
     cols: Sequence[Sequence[ColVal]],
     dsts: Sequence[torch.Tensor],
     sels: Sequence[torch.Tensor],
     n_dev: int,
     routes=None,
+    mesh=None,
 ) -> tuple[list[list[ColVal]], list[torch.Tensor]]:
     """Move every selected row of shard j to shard `dsts[j][row]`.
-    `cols[j]` are shard j's columns; returns each receiver's columns and
-    selection over its `n_dev * split_cap` received slots. Rows arrive
-    sender by sender, in each sender's order. `routes`: the senders'
-    `route` results, where the caller has them already."""
+    `cols[j]` are this process's shard j's columns; returns each of its
+    receivers' columns and selection over its `n_dev * split_cap` received
+    slots. Rows arrive sender by sender, in each sender's order. `routes`:
+    the senders' `route` results, where the caller has them already.
+    `mesh`: the mesh, where it spans processes."""
     if routes is None:
         routes = [route(d, s, n_dev) for d, s in zip(dsts, sels)]
-    sizes = size_matrix([c for _, c in routes])
+    sizes = size_matrix([c for _, c in routes], mesh)
     split_cap, chunk = region_capacity(sizes)
     sends, spec = [], None
     for shard_cols, sel, (rows, counts) in zip(cols, sels, routes):
@@ -149,7 +176,13 @@ def repartition(
             if v is not None:
                 flat.append(v.view(torch.uint8))
         sends.append(build_regions(flat, rows, counts, n_dev, split_cap))
-    recvs = ragged_exchange(sends, sizes, n_dev=n_dev, split_cap=split_cap, chunk=chunk)
+    first = 0 if mesh is None else mesh.first
+    if sends[0]:
+        senders, local_sizes, n_recv = _local_exchange(sends, sizes, split_cap, mesh)
+        recvs = ragged_exchange(senders, local_sizes, n_dev=n_recv, split_cap=split_cap, chunk=chunk)
+    else:  # no arrays to move: only the selections
+        n_recv = len(cols)
+        recvs = [[] for _ in range(n_recv)]
     out_cols = []
     for arrs in recvs:
         it = iter(arrs)
@@ -158,33 +191,38 @@ def repartition(
             d = next(it)
             shard.append((d != 0 if is_bool else d, next(it) != 0 if has_valid else None))
         out_cols.append(shard)
-    return out_cols, [receive_selection(sizes, i, split_cap) for i in range(n_dev)]
+    return out_cols, [receive_selection(sizes, first + i, split_cap) for i in range(n_recv)]
 
 
-def exchange_fold(gids, vals, masks, *, ops, num_groups, n_dev):
+def exchange_fold(gids, vals, masks, *, ops, num_groups, n_dev, mesh=None):
     """The distributed fold as a mesh-wide reduce
     (ops/aggregate.py `_dense_window_aggregate`): shard j's rows with a
     packed id below `num_groups` go to shard `id % n_dev` as window
     `id // n_dev`, each distinct value and mask once, and K6 folds them
     into each receiver's `ceil(num_groups / n_dev)` slots. `vals[j][a]` /
-    `masks[j][a]` are op a's value (None for COUNT) and mask (None: every
-    routed row). Returns each receiver's per-op tables."""
-    routes, arrays = [], []
+    `masks[j][a]` are this process's shard j's op a value (None for
+    COUNT) and mask (None: every routed row). Returns each of this
+    process's receivers' per-op tables; on a spanning mesh the remote
+    senders' regions arrive first (`exchange_regions`) and the same K6
+    launch folds them."""
+    routes, arrays, layouts = [], [], []
     for gid, v, m in zip(gids, vals, masks):
         g = gid.to(torch.int64)
         routes.append(route(g % n_dev, gid < num_groups, n_dev))
         distinct = list({id(t): t for t in list(v) + list(m) if t is not None}.values())
         arrays.append([(g // n_dev).to(torch.int32)] + distinct)
-    sizes = size_matrix([c for _, c in routes])
+        at = {id(t): k for k, t in enumerate(distinct, 1)}
+        uniq = list(dict.fromkeys(id(t) for t in m if t is not None))
+        layouts.append(([None if t is None else at[id(t)] for t in v],
+                        [at[u] for u in uniq],
+                        [0 if t is None else 1 + uniq.index(id(t)) for t in m]))
+    if any(lay != layouts[0] for lay in layouts):
+        raise ExecutionError("the shards built different fold operands")
+    val_at, mask_at, mask_map = layouts[0]
+    sizes = size_matrix([c for _, c in routes], mesh)
     split_cap, _ = region_capacity(sizes)
-    r_gids, r_vals, r_masks, mask_map = [], [], [], None
-    for v, m, arrs, (rows, counts) in zip(vals, masks, arrays, routes):
-        regions = build_regions(arrs, rows, counts, n_dev, split_cap)
-        at = {id(t): r for t, r in zip(arrs[1:], regions[1:])}
-        uniq = list({id(t): at[id(t)] for t in m if t is not None}.items())
-        mask_map = [0 if t is None else 1 + [k for k, _ in uniq].index(id(t)) for t in m]
-        r_gids.append(regions[0])
-        r_vals.append([None if t is None else at[id(t)] for t in v])
-        r_masks.append([r for _, r in uniq])
-    return ragged_exchange_fold(r_gids, r_vals, r_masks, sizes, ops=ops, mask_map=mask_map, n_dev=n_dev,
-                                split_cap=split_cap, num_groups=-(-num_groups // n_dev))
+    regions = [build_regions(arrs, rows, counts, n_dev, split_cap) for arrs, (rows, counts) in zip(arrays, routes)]
+    senders, local_sizes, n_recv = _local_exchange(regions, sizes, split_cap, mesh)
+    return ragged_exchange_fold([r[0] for r in senders], [[None if k is None else r[k] for k in val_at] for r in senders],
+                                [[r[k] for k in mask_at] for r in senders], local_sizes, ops=ops, mask_map=mask_map,
+                                n_dev=n_recv, split_cap=split_cap, num_groups=-(-num_groups // n_dev))

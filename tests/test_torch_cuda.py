@@ -612,3 +612,38 @@ def test_tpch_matches_the_cpu(tpch_contexts, name):
     dates exact, floats at rtol 1e-9 (sums in atomic order)."""
     queries, gpu, cpu = tpch_contexts
     _chip_smoke().same_result(name, gpu.sql(queries[name]), cpu.sql(queries[name]))
+
+
+def test_to_host_reads_through_pinned_memory(cuda):
+    """`to_host` on the card: the arrays are views of pinned host tensors
+    and equal a mask index and `.cpu()` bit for bit."""
+    from datafusion_tpu_torch.parallel.multihost import to_host
+
+    rng = np.random.default_rng(12)
+    n = 1 << 20
+    xs = [torch.from_numpy(rng.normal(size=n)).to(cuda), torch.from_numpy(rng.random(n) > 0.1).to(cuda),
+          torch.from_numpy(rng.integers(0, 9, n).astype(np.int32)).to(cuda)]
+    sel = torch.from_numpy(rng.random(n) > 0.4).to(cuda)
+    got = to_host(xs, sel)
+    for g, x in zip(got, xs):
+        assert isinstance(g.base, torch.Tensor) and g.base.is_pinned()
+        want = x[sel].cpu().numpy()
+        assert g.dtype == want.dtype and g.view(np.uint8).tobytes() == want.view(np.uint8).tobytes()
+
+
+def test_time_pipeline_times_the_card_with_events(cuda, monkeypatch):
+    """A pipeline whose output lies on the card is timed by CUDA events."""
+    from datafusion_tpu_torch.utils import benchtime
+
+    made = []
+    real = torch.cuda.Event
+
+    def event(*a, **k):
+        made.append(1)
+        return real(*a, **k)
+
+    monkeypatch.setattr(torch.cuda, "Event", event)
+    x = torch.ones(1 << 22, device=cuda)
+    t = benchtime.time_pipeline(lambda e: e * 2.0, x, depths=(4,), trials=2)
+    assert t > 0 and made
+    assert benchtime.time_queued(lambda e: e * 2.0, x, reps=5) > 0

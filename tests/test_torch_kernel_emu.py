@@ -210,9 +210,10 @@ def emu(tmp_path_factory):
     lib.dft_segreduce_dense.argtypes = [vp, i64, i32, i32, i32, vp, vp, vp, vp, vp, vp]
     lib.dft_windowed_reduce.argtypes = [vp, i64, i32, i32, vp, vp, vp, vp, vp, vp]
     lib.dft_fused_stage.argtypes = [vp, i64, i32, i32, vp]
-    lib.dft_ragged_exchange.argtypes = [vp, vp, i32, i64, i32, vp]
+    lib.dft_ragged_exchange.argtypes = [vp, vp, i32, i32, i64, i32, vp]
+    lib.dft_ragged_exchange_fold.argtypes = [vp, vp, i32, i32, i64, i32, i32, i32, vp, vp, vp, vp]
     for f in (lib.dft_segreduce, lib.dft_segreduce_dense, lib.dft_windowed_reduce, lib.dft_fused_stage,
-              lib.dft_ragged_exchange):
+              lib.dft_ragged_exchange, lib.dft_ragged_exchange_fold):
         f.restype = i32
     assert lib.dft_fused_stage_program_size() == ctypes.sizeof(fs._CProgram)
     assert lib.dft_ragged_exchange_args_size() == ctypes.sizeof(rs.ExchangeArgs)
@@ -483,13 +484,15 @@ def test_fused_stage_tiles_and_checks(emu):
 
 # --- K5: the ragged exchange ---------------------------------------------------
 
-K5_CASES = {  # n_dev, split_cap, chunk, dtypes, which senders' arrays sit one element off alignment
-    "widths": (4, 512, 128, (torch.uint8, torch.int16, torch.int32, torch.float64, torch.int64, torch.float32), ()),
-    "chunk 1024": (3, 2048, 1024, (torch.float64, torch.uint8, torch.int32), ()),
-    "empty pairs": (4, 256, 128, (torch.int32, torch.float64), ()),
-    "one shard": (1, 384, 128, (torch.int64, torch.uint8), ()),
-    "batched": (2, 256, 128, (torch.uint8, torch.int16, torch.int32, torch.float64) * 4 + (torch.int64,), ()),
-    "unaligned": (4, 256, 128, (torch.int16, torch.float64, torch.int32), (1, 2)),
+K5_CASES = {  # senders, receivers, split_cap, chunk, dtypes, which senders' arrays sit one element off alignment
+    "widths": (4, 4, 512, 128, (torch.uint8, torch.int16, torch.int32, torch.float64, torch.int64, torch.float32), ()),
+    "chunk 1024": (3, 3, 2048, 1024, (torch.float64, torch.uint8, torch.int32), ()),
+    "empty pairs": (4, 4, 256, 128, (torch.int32, torch.float64), ()),
+    "one shard": (1, 1, 384, 128, (torch.int64, torch.uint8), ()),
+    "batched": (2, 2, 256, 128, (torch.uint8, torch.int16, torch.int32, torch.float64) * 4 + (torch.int64,), ()),
+    "unaligned": (4, 4, 256, 128, (torch.int16, torch.float64, torch.int32), (1, 2)),
+    # a mesh spanning processes: every shard sends to this process's two
+    "senders past receivers": (6, 2, 256, 128, (torch.int32, torch.uint8, torch.float64), (3,)),
 }
 
 
@@ -498,9 +501,9 @@ def test_ragged_exchange_kernel_matches_plain(emu, case):
     """K5 through `exchange_args` and `receivers`, as the wrapper calls it:
     every valid prefix bit-equal to the plain version; nothing written past
     a pair's live chunks; one launch per 16 arrays (17 arrays: two)."""
-    n_dev, split_cap, chunk, dtypes, off = K5_CASES[case]
+    n_send, n_dev, split_cap, chunk, dtypes, off = K5_CASES[case]
     rng = np.random.default_rng(len(case))
-    sizes = rng.integers(0, split_cap + 1, (n_dev, n_dev))
+    sizes = rng.integers(0, split_cap + 1, (n_send, n_dev))
     sizes[0, -1] = split_cap
     if case == "empty pairs":
         sizes[1, :], sizes[:, 2] = 0, 0
@@ -512,22 +515,66 @@ def test_ragged_exchange_kernel_matches_plain(emu, case):
         x = raw.view(dt)[: width + 1]
         return x[1:] if j in off else x[:width]
 
-    sends = [[region(dt, j) for dt in dtypes] for j in range(n_dev)]
-    bufs = [torch.full((n_dev * width,), 0x5A, dtype=torch.uint8).view(torch.uint8).to(dt) for dt in dtypes]
+    sends = [[region(dt, j) for dt in dtypes] for j in range(n_send)]
+    recv_width = n_send * split_cap
+    bufs = [torch.full((n_dev * recv_width,), 0x5A, dtype=torch.uint8).view(torch.uint8).to(dt) for dt in dtypes]
     blank = [b.clone() for b in bufs]
-    launches = rs.exchange_args(sends, bufs, n_dev)
+    launches = rs.exchange_args(sends, bufs)
     assert len(launches) == (2 if len(dtypes) > rs.K5_MAX_ARRS else 1)
     for x in launches:
-        assert emu.dft_ragged_exchange(ctypes.byref(x), sizes.data_ptr(), n_dev, split_cap, chunk, None) == 0
-    got = rs.receivers(bufs, n_dev, split_cap)
+        assert emu.dft_ragged_exchange(ctypes.byref(x), sizes.data_ptr(), n_send, n_dev, split_cap, chunk, None) == 0
+    got = rs.receivers(bufs, n_dev, n_send, split_cap)
     want = rs.ragged_exchange_plain(sends, sizes, n_dev=n_dev, split_cap=split_cap, chunk=chunk)
     sz = sizes.tolist()
     for i in range(n_dev):
-        assert all(g.data_ptr() == b.data_ptr() + i * width * b.element_size() for g, b in zip(got[i], bufs))
+        assert all(g.data_ptr() == b.data_ptr() + i * recv_width * b.element_size() for g, b in zip(got[i], bufs))
         for a, (g, w) in enumerate(zip(got[i], want[i])):
-            for j in range(n_dev):
+            for j in range(n_send):
                 lo = j * split_cap
                 assert torch.equal(_bits(g[lo: lo + sz[j][i]]), _bits(w[lo: lo + sz[j][i]])), (i, a, j)
                 live = -(-sz[j][i] // chunk) * chunk
-                tail = slice(i * width + lo + live, i * width + lo + split_cap)
+                tail = slice(i * recv_width + lo + live, i * recv_width + lo + split_cap)
                 assert torch.equal(_bits(bufs[a][tail]), _bits(blank[a][tail])), (i, a, j)
+
+
+# --- K6: the ragged exchange + fold -------------------------------------------
+
+
+@pytest.mark.parametrize("n_send,n_recv", [(4, 4), (6, 2)], ids=["square", "senders past receivers"])
+def test_ragged_exchange_fold_kernel_matches_plain(emu, monkeypatch, n_send, n_recv):
+    """K6 through the wrapper's pointer table and zeroed tables, as the
+    wrapper calls it: every shard a sender, and on a mesh that spans
+    processes (6 x 2) only this process's shards as receivers. Counts and
+    MIN/MAX equal to the plain version, f64 sums to rtol 1e-12."""
+    monkeypatch.setenv("EMU_SMS", "3")
+    rng = np.random.default_rng(n_send * 10 + n_recv)
+    split_cap, num_groups = 1024, 300
+    width = n_recv * split_cap
+    sizes = rng.integers(0, split_cap + 1, (n_send, n_recv))
+    sizes[0, 0] = 0
+    sizes = torch.from_numpy(sizes.astype(np.int32))
+    ops = ("sum", "count", "min", "max", "sum", "min")
+    gids, vals, masks = [], [], []
+    for _ in range(n_send):
+        g = rng.integers(0, num_groups + 40, width).astype(np.int32)  # ids past num_groups are dropped
+        f = rng.standard_normal(width) * 100
+        f[::89], f[3::97] = np.nan, np.inf
+        i = rng.integers(-10**9, 10**9, width)
+        ft, it = torch.from_numpy(f), torch.from_numpy(i)
+        gids.append(torch.from_numpy(g))
+        vals.append([ft, None, ft, it, it, it])
+        masks.append([torch.from_numpy(rng.random(width) < 0.8)])
+    mask_map = (1, 0, 1, 0, 1, 0)
+    k = len(ops)
+    [(_, _, reps)] = sr.fold_launches(k, num_groups)
+    tables, [done] = sr.fold_tables(ops, vals[0], num_groups, "cpu", lead=(n_recv,))
+    per_op = [rs._op_masks(m, mask_map) for m in masks]
+    ptrs = torch.tensor(rs.fold_pointer_table(gids, vals, per_op), dtype=torch.int64)
+    kinds = (ctypes.c_int * k)(*[sr._KIND[(op, None if v is None else v.dtype)] for op, v in zip(ops, vals[0])])
+    outs = (ctypes.c_void_p * k)(*[t.data_ptr() for t in tables])
+    assert emu.dft_ragged_exchange_fold(ptrs.data_ptr(), sizes.data_ptr(), n_send, n_recv, split_cap, num_groups,
+                                        reps, k, kinds, outs, done, None) == 0
+    want = rs.ragged_exchange_fold_plain(gids, vals, masks, sizes, ops=ops, mask_map=mask_map, n_dev=n_recv,
+                                         split_cap=split_cap, num_groups=num_groups)
+    for i in range(n_recv):
+        _assert_tables(ops, [t[i] for t in tables], want[i])
