@@ -7,8 +7,8 @@ Phases, each printed on its own line:
   1. the card (nvidia-smi name and power limit), then the nvcc build of
      the kernels from datafusion_tpu_torch/csrc/ and its time, the
      `-Xptxas -v` report of K1's and K5's kernels (registers, stack frame,
-     spills), and the shared and global atomics the fold kernels compile
-     to (cuobjdump)
+     spills), and the shared and global atomics the fold kernels and the
+     fixed-point float SUM's first passes compile to (cuobjdump)
   2. K1 (fused scan/filter/project) against its plain version on the card
      at 2^25 rows, bit for bit: random f64/i32 columns with NULLs for the
      c1 program and a CASE / CAST / integer-divide-by-zero program, a
@@ -23,15 +23,21 @@ Phases, each printed on its own line:
      launches; every other sorted call one) over f64 / i32 / f32 / i64;
      dense mode with 1,000 groups, 8 groups with 80% of the rows on one,
      2,048 groups, and 15 ops over 2,048 groups (two launches; every other
-     dense call one)
+     dense call one). Each case runs a second launch that must give the
+     same bits, float SUMs included: sorted mode on the same input, dense
+     mode on the rows in a random order; dense mode's float SUMs must also
+     equal the plain fixed-point function (segreduce.fixed_sum_plain) bit
+     for bit
   3b. K3 (slab partition) and K4 (windowed reduce) against their plain
      versions on the card: 10,001 slots uniform at 2^25 rows, K4 also over
      the slab's rows shuffled; 16,383 slots with 80% of the rows on one gid
      and 14 ops at 2^25 - 1000 rows (a ragged last block); 16,001 slots
      with 80% on one gid; masks packed into the gid, NaN / +-inf payloads.
      K3's slabs must be equal element for element; K4's counts and MIN/MAX
-     exact, its sums within rtol 1e-9 (atomic order), one launch a call;
-     K4's kernel-only time per case
+     exact, its sums within rtol 1e-9 of the row-order sums and bit-equal
+     to the plain fixed-point function, one launch per fold_launches entry
+     (a float SUM takes three windows); K4 again over the slab's rows in a
+     random order, every output bit-equal; K4's kernel-only time per case
   3c. K5 (ragged exchange) and K6 (ragged exchange + fold) against their
      plain versions on the card, 2^25 rows over 8 shards laid out by the
      shuffle (parallel/shuffle.py): K5 moving i32, f64 and u8 arrays with
@@ -41,7 +47,10 @@ Phases, each printed on its own line:
      slots (1,251 per shard) with SUM f64, COUNT, MIN f64, MAX i32, two
      masks and NaN / +-inf, for uniform gids and 80% of the rows on one
      gid, then 2,048 slots per shard with 14 ops, and a mesh of one shard
-     (one launch each; counts and MIN/MAX exact, f64 sums within rtol 1e-9)
+     (one launch per fold_launches entry; counts and MIN/MAX exact, f64
+     sums within rtol 1e-9 and bit-equal to the plain fixed-point
+     function), then K6 again over each region's routed rows in a random
+     order, every output bit-equal
   4. the main path at 2^25 rows, in a context made with bigdense on:
      scan -> filter/project (K1), GROUP BY over a wide key (packed co-sort
      + K2 sorted), GROUP BY over a small key (K2 dense) + ORDER BY + LIMIT,
@@ -109,9 +118,10 @@ Phases, each printed on its own line:
      against its bound. Then TPC-H: the 22 shapes of benchmarks/tpch.py
      over gen_tables(1.0) (6M lineitem rows) on the card, t1-t22, each
      held to the same query through the port on the CPU over the same
-     tables (floats at rtol 1e-9, all else exact), and m20 = q1 over 8
-     shards against one card; each query's route, launches, warm wall and
-     device busy share (chiprun_out/profile_dates_tpch.txt)
+     tables (floats at rtol 1e-9, all else exact) and to a second
+     evaluation of itself byte for byte, and m20 = q1 over 8 shards
+     against one card; each query's route, launches, warm wall and device
+     busy share (chiprun_out/profile_dates_tpch.txt)
   11. ingest and the session API (run right after phase 5): a CSV of
      big's five columns at 2^23 rows (floats as `repr`) through the native
      C++ loader (built with g++ on first use; its count pass must give
@@ -130,6 +140,12 @@ Phases, each printed on its own line:
      imports (a line says which of pyarrow and pandas do), the CSV's rows
      written as Parquet and read by register_parquet, i1-i3 over it equal
      to the lazy CSV scan
+  13. determinism (run after phase 10): TPC-H q15ish, which compares its
+     revenue view with that view's own MAX, 30 times at scale 0.05 on the
+     card, each equal to the CPU's rows, and the revenue view's f64 sums
+     bit-equal in 5 runs; then q1-q5 and TPC-H's 22 shapes once under
+     torch.use_deterministic_algorithms(True, warn_only=True), every
+     nondeterminism warning logged (chiprun_out/determinism_warnings.txt)
   12. two processes on the card as one mesh (run last, about 60 s):
      `python3 chip_smoke.py --rank R PORT DIR` twice, joined by
      torch.distributed (Gloo: NCCL refuses two processes on one card),
@@ -270,10 +286,43 @@ def compare_k1(prog, ins, n, dev, run=None):
     return err
 
 
+def permuted(perm, tensors):
+    """Each tensor (None stays None) with its rows in `perm`'s order; a
+    tensor given twice is permuted once."""
+    done = {}
+    for t in tensors:
+        if t is not None and id(t) not in done:
+            done[id(t)] = t[perm].contiguous()
+    return [None if t is None else done[id(t)] for t in tensors]
+
+
+def check_same_bits(name, got, again):
+    """A second launch's outputs against the first's, every one bit for
+    bit (float SUMs included: the contract of csrc/reduce_common.cuh)."""
+    for a, (x, y) in enumerate(zip(got, again)):
+        check(x.dtype == y.dtype and torch.equal(x.view(torch.int64 if x.element_size() == 8 else torch.int32),
+                                                 y.view(torch.int64 if y.element_size() == 8 else torch.int32)),
+              f"{name}: output {a} differs between two launches")
+
+
+def check_fixed(name, got, want):
+    """The fold tile's float SUMs against the plain fixed-point function, bit for bit."""
+    for a, w in want.items():
+        check(torch.equal(got[a].view(torch.int64), w.view(torch.int64)),
+              f"{name}: float SUM {a} differs from segreduce.fixed_sum_plain")
+
+
 def compare_k2(gid, vals, masks, ops, g, dense):
+    """K2 against its plain version (counts and MIN/MAX exact, f64 sums
+    within rtol 1e-9 of its row-order sums), then a second launch with the
+    same bits: dense mode over the rows in a random order, its float SUMs
+    also bit-equal to the plain fixed-point function; sorted mode over the
+    same rows. Returns (the sums' max_abs_err, the first call's launches)."""
     from datafusion_tpu_torch.ops.pallas import segreduce as sr
 
+    before = sr.segmented_reduce.dense_launches + sr.segmented_reduce.sorted_launches
     k = sr.segmented_reduce(gid, vals, masks, ops=ops, num_groups=g, dense=dense)
+    launches = sr.segmented_reduce.dense_launches + sr.segmented_reduce.sorted_launches - before
     p = sr.segmented_reduce_plain(gid, vals, masks, ops=ops, num_groups=g)
     torch.cuda.synchronize()
     err = 0.0
@@ -286,7 +335,47 @@ def compare_k2(gid, vals, masks, ops, g, dense):
             check(torch.equal(torch.isnan(a), torch.isnan(b)), "K2 NaN sums differ")
         else:
             check(torch.equal(a.nan_to_num(0.5), b.nan_to_num(0.5)), f"K2 {op} differs from the plain version")
-    return err
+    del p
+    if dense:
+        check_fixed("K2 dense", k, fixed_sums(gid, vals, masks, ops, g))
+        perm = torch.randperm(gid.numel(), device=gid.device)
+        again = sr.segmented_reduce(gid[perm].contiguous(), permuted(perm, vals), permuted(perm, masks), ops=ops,
+                                    num_groups=g, dense=True)
+    else:
+        again = sr.segmented_reduce(gid, vals, masks, ops=ops, num_groups=g)
+    check_same_bits(f"K2 {'dense, rows permuted' if dense else 'sorted'}", k, again)
+    return err, launches
+
+
+def fixed_sums(gid, vals, masks, ops, num_groups):
+    """{op index: the fold tile's f64 sum of each float SUM op} by the plain
+    fixed-point function (segreduce.fixed_sum_plain), which the fold-tile
+    kernels (K2 dense, K4, K6) equal bit for bit."""
+    from datafusion_tpu_torch.ops.pallas import segreduce as sr
+
+    return {a: sr.fixed_sum_plain(gid, v, m, num_groups) for a, (op, v, m) in enumerate(zip(ops, vals, masks))
+            if sr.float_sum(op, v)}
+
+
+def k6_fixed_sums(args, kw):
+    """fixed_sums over K6's launch: every receiver's routed rows as one
+    flat fold, receiver i's windows at slots i * num_groups + w (the
+    scale is the launch's, over every receiver); each float SUM's
+    [n_dev, num_groups] sums."""
+    gids, vals, masks, sizes = args
+    n_dev, cap, g = kw["n_dev"], kw["split_cap"], kw["num_groups"]
+    sz = sizes.tolist()
+    spans = [(i, j, i * cap, i * cap + sz[j][i]) for i in range(n_dev) for j in range(len(gids))]
+
+    def cat(ts):
+        return torch.cat([ts[j][lo:hi] for _, j, lo, hi in spans])
+
+    w = torch.cat([gids[j][lo:hi] for _, j, lo, hi in spans])
+    recv = torch.cat([torch.full((hi - lo,), i, dtype=torch.int32, device=w.device) for i, _, lo, hi in spans])
+    flat = torch.where((w >= 0) & (w < g), recv * g + w, -1).int()
+    v = [None if vals[0][a] is None else cat([x[a] for x in vals]) for a in range(len(kw["ops"]))]
+    m = [None if u == 0 else cat([x[u - 1] for x in masks]) for u in kw["mask_map"]]
+    return {a: t.view(n_dev, g) for a, t in fixed_sums(flat, v, m, kw["ops"], n_dev * g).items()}
 
 
 def k2_bytes(gid, vals, masks, outs_groups, ops):
@@ -361,6 +450,19 @@ def kernel_only_ms(fn, name, per_call=1, reps=5):
     return ms
 
 
+def fold_kernel_ms(fn, name, launches, scale_name, ops, vals):
+    """Kernel-only ms of a call of a fold-tile kernel (K2 dense, K4, K6)
+    over `ops` of `vals`, in `launches` (segreduce.fold_launches) of the
+    kernel `name`: theirs, plus the first pass's (`scale_name`) in each
+    launch that holds a float SUM. Returns (total, first pass)."""
+    from datafusion_tpu_torch.ops.pallas import segreduce as sr
+
+    ms = kernel_only_ms(fn, name, len(launches))
+    scaled = sum(any(sr.float_sum(op, v) for op, v in zip(ops[lo:hi], vals[lo:hi])) for lo, hi, _ in launches)
+    first = kernel_only_ms(fn, scale_name, scaled) if scaled else 0.0
+    return ms + first, first
+
+
 def queued_ms(fn, reps=20):
     """Device time of one call of `fn` without the tracer or host time
     (utils/benchtime.py `time_queued`: the calls enqueued behind a sleep
@@ -425,14 +527,17 @@ def slab_bytes(n, slab_rows, cols):
     return (n + slab_rows) * width
 
 
-def compare_k4(gid, vals, masks, ops, num_groups):
-    """K4 against its plain version, one launch: counts and MIN/MAX exact,
-    f64 sums within rtol 1e-9 (atomic order). Returns the sums' max_abs_err."""
+def compare_k4(gid, vals, masks, ops, num_groups, want_launches):
+    """K4 against its plain version in `want_launches` launches (a float
+    SUM takes three of a block's 14 windows): counts and MIN/MAX exact,
+    f64 sums within rtol 1e-9 of the row-order sums and bit-equal to the
+    plain fixed-point function. Returns the sums' max_abs_err."""
     from datafusion_tpu_torch.ops.pallas import partition as pt
 
     before = pt.windowed_reduce.launches
     k = pt.windowed_reduce(gid, vals, masks, ops=ops, num_groups=num_groups)
-    check(pt.windowed_reduce.launches - before == 1, "K4 did not make exactly one launch")
+    launches = pt.windowed_reduce.launches - before
+    check(launches == want_launches, f"K4 made {launches} launch(es), not {want_launches}")
     p = pt.windowed_reduce_plain(gid, vals, masks, ops=ops, num_groups=num_groups)
     torch.cuda.synchronize()
     err = 0.0
@@ -445,18 +550,20 @@ def compare_k4(gid, vals, masks, ops, num_groups):
                 err = max(err, float((a[fin] - b[fin]).abs().max()))
         else:
             check(torch.equal(a.nan_to_num(0.5), b.nan_to_num(0.5)), f"K4 {op} differs from the plain version")
-    return err
+    check_fixed("K4", k, fixed_sums(gid, vals, masks, ops, num_groups))
+    return err, k
 
 
-def compare_k3k4(gid, cols, id_mod, n_buckets, num_groups, mask_bits, ops, value_of, shuffle=False):
+def compare_k3k4(gid, cols, id_mod, n_buckets, num_groups, mask_bits, ops, value_of, want_launches):
     """K3 against its plain version (every slab equal, bit for bit), then
-    K4 over the kernel's slab against its plain version, and with
-    `shuffle` over the slab's rows in a random order too (any row order
-    gives the same result). `value_of[a]` is the payload index of op a
+    K4 over the kernel's slab against its plain version, and over the
+    slab's rows in a random order too: the same bits, float SUMs included
+    (any row order gives the same result). `value_of[a]` is the payload index of op a
     (None for COUNT); op a's mask is gid bit `mask_bits[a]` (None: no
-    mask). Returns (K3's max_abs_err over every slab, with NaN against NaN
+    mask); K4 makes `want_launches` launches. Returns (K3's max_abs_err over every slab, with NaN against NaN
     as 0; K4's sum max_abs_err; K4's kernel-only ms over the slab)."""
     from datafusion_tpu_torch.ops.pallas import partition as pt
+    from datafusion_tpu_torch.ops.pallas import segreduce as sr
 
     ks = pt.slab_partition(gid, cols, n_buckets=n_buckets, id_mod=id_mod)
     ps = pt.slab_partition_plain(gid, cols, n_buckets=n_buckets, id_mod=id_mod)
@@ -474,14 +581,16 @@ def compare_k3k4(gid, cols, id_mod, n_buckets, num_groups, mask_bits, ops, value
     gid_k = torch.where(pg >= pt.SENTINEL, pg, pg & (id_mod - 1))
     vals = [None if i is None else ks[1 + i] for i in value_of]
     masks = [None if b is None else ((pg >> b) & 1).bool() for b in mask_bits]
-    err = compare_k4(gid_k, vals, masks, ops, num_groups)
-    ms = kernel_only_ms(lambda: pt.windowed_reduce(gid_k, vals, masks, ops=ops, num_groups=num_groups),
-                        "windowed_reduce_kernel")
-    if shuffle:
-        perm = torch.randperm(pg.numel(), device=pg.device)
-        err = max(err, compare_k4(gid_k[perm].contiguous(), [None if v is None else v[perm].contiguous() for v in vals],
-                                  [None if m is None else m[perm].contiguous() for m in masks], ops, num_groups))
-    return k3_err, err, ms
+    err, k = compare_k4(gid_k, vals, masks, ops, num_groups, want_launches)
+    ms, _ = fold_kernel_ms(lambda: pt.windowed_reduce(gid_k, vals, masks, ops=ops, num_groups=num_groups),
+                           "windowed_reduce_kernel", sr.fold_launches(sr.fold_widths(ops, vals), pt.WINDOW),
+                           "fold_scale_kernel", ops, vals)
+    # the same bits for the slab's rows in a random order
+    perm = torch.randperm(pg.numel(), device=pg.device)
+    e2, again = compare_k4(gid_k[perm].contiguous(), permuted(perm, vals), permuted(perm, masks), ops, num_groups,
+                           want_launches)
+    check_same_bits("K4, rows permuted", k, again)
+    return k3_err, max(err, e2), ms
 
 
 def shard_regions(arrays, dst, sel, n_dev=8):
@@ -538,10 +647,15 @@ def compare_k5(sends, sizes, split_cap, chunk):
 
 def compare_k6(args, kw):
     """K6 against its plain version: counts and MIN/MAX exact, f64 sums
-    within rtol 1e-9 (atomic order). Returns the sums' max_abs_err."""
+    within rtol 1e-9 of the row-order sums and bit-equal to the plain
+    fixed-point function; then a second call over every region's routed
+    rows in a random order, every output bit-equal. Returns (the sums'
+    max_abs_err, the first call's launches)."""
     from datafusion_tpu_torch.ops.pallas import ragged_shuffle as rs
 
+    before = rs.ragged_exchange_fold.launches
     k = rs.ragged_exchange_fold(*args, **kw)
+    launches = rs.ragged_exchange_fold.launches - before
     p = rs.ragged_exchange_fold_plain(*args, **kw)
     torch.cuda.synchronize()
     err = 0.0
@@ -555,7 +669,24 @@ def compare_k6(args, kw):
                     err = max(err, float((a[fin] - b[fin]).abs().max()))
             else:
                 check(torch.equal(a.nan_to_num(0.5), b.nan_to_num(0.5)), f"K6 {op} differs from the plain version")
-    return err
+    del p
+    tables = [torch.stack([ki[a] for ki in k]) for a in range(len(kw["ops"]))]
+    check_fixed("K6", tables, k6_fixed_sums(args, kw))
+    gids, vals, masks, sizes = args
+    cap, sz = kw["split_cap"], sizes.tolist()
+    perms = []
+    for j in range(len(gids)):  # each region's valid prefix shuffled in place
+        perm = torch.arange(gids[j].numel(), device=gids[j].device)
+        for i in range(kw["n_dev"]):
+            c = sz[j][i]
+            perm[i * cap: i * cap + c] = i * cap + torch.randperm(c, device=perm.device)
+        perms.append(perm)
+    again = rs.ragged_exchange_fold([permuted(q, [g])[0] for g, q in zip(gids, perms)],
+                                    [permuted(q, v) for v, q in zip(vals, perms)],
+                                    [permuted(q, m) for m, q in zip(masks, perms)], sizes, **kw)
+    check_same_bits("K6, routed rows permuted", tables, [torch.stack([ki[a] for ki in again])
+                                                         for a in range(len(kw["ops"]))])
+    return err, launches
 
 
 def phase_build():
@@ -596,7 +727,8 @@ def ptxas_reports(log_text, kernels):
 
 
 def log_shared_atomics(cuda_lib):
-    """Which shared-memory atomics (ATOMS) the fold kernels compile to, from
+    """Which shared-memory atomics (ATOMS) and global atomics and
+    reductions (ATOM, ATOMG, RED, REDG) the fold kernels compile to, from
     `cuobjdump -sass` of the built library: a native op shows as
     ATOMS.<op>, a CAS loop as ATOMS.CAS / ATOMS.CAST. Full list per kernel
     in chiprun_out/sass_atoms.txt."""
@@ -609,11 +741,12 @@ def log_shared_atomics(cuda_lib):
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-        for op in re.findall(r"\b(ATOMS(?:\.[A-Z0-9_]+)*|ATOMG?(?:\.[A-Z0-9_]+)+|RED(?:\.[A-Z0-9_]+)+)", line):
+        for op in re.findall(r"\b(ATOMS(?:\.[A-Z0-9_]+)*|ATOMG?(?:\.[A-Z0-9_]+)+|REDG?(?:\.[A-Z0-9_]+)+)", line):
             found.setdefault(fn, set()).add(op)
     with open(os.path.join(ROOT, "chiprun_out", "sass_atoms.txt"), "w") as f:
         f.writelines(f"{k}: {' '.join(sorted(v))}\n" for k, v in sorted(found.items()))
-    for kernel in ("seg_sorted_kernel", "seg_dense_kernel", "ragged_exchange_fold_kernel", "windowed_reduce_kernel"):
+    for kernel in ("seg_sorted_kernel", "seg_dense_kernel", "ragged_exchange_fold_kernel", "windowed_reduce_kernel",
+                   "fold_scale_kernel", "ragged_scale_kernel"):
         ops = set().union(*[v for k, v in found.items() if kernel in k])
         log(f"phase 1 SASS {kernel}: shared atomics {sorted(o for o in ops if o.startswith('ATOMS'))}; "
             f"global {sorted(o for o in ops if not o.startswith('ATOMS'))}")
@@ -841,8 +974,6 @@ def edge_streams(ops, f, i, m1, m2):
 
 
 def phase_k2(dev):
-    from datafusion_tpu_torch.ops.pallas import segreduce as sr
-
     rng = np.random.default_rng(SEED + 1)
     out = {"sorted": 0.0, "dense": 0.0}
     # (mode, slots, ops, share of rows on one slot)
@@ -865,15 +996,15 @@ def phase_k2(dev):
         else:
             ops = edge_ops
             vals, masks = edge_streams(ops, f, i, m, torch.from_numpy(rng.random(N) < 0.4).to(dev))
-        before = sr.segmented_reduce.dense_launches
-        err = compare_k2(gid, vals, masks, ops, g, mode == "dense")
-        launches = sr.segmented_reduce.dense_launches - before
+        err, launches = compare_k2(gid, vals, masks, ops, g, mode == "dense")
         if mode == "dense":
-            check(launches == len(sr.fold_launches(len(ops), g)) and launches == (2 if len(ops) > 14 else 1),
+            check(launches == (2 if len(ops) > 14 else 1),
                   f"K2 dense made {launches} launches for {len(ops)} ops over {g} slots")
         log(f"phase 3 K2 {mode}: kernel == plain at {N} rows, {g} groups, {len(ops)} ops"
             f"{f', {skew:.0%} of rows on one slot' if skew else ''}, masks + NaN/inf"
-            f"{f', {launches} launch(es)' if mode == 'dense' else ''} (sum max_abs_err {err})")
+            f"{f', {launches} launch(es)' if mode == 'dense' else ''} (sum max_abs_err {err}); "
+            + ("float SUMs == fixed_sum_plain bit for bit, and bit-equal over the rows permuted" if mode == "dense"
+               else "bit-equal in a second launch"))
         out[mode] = max(out[mode], err)
     return out
 
@@ -915,14 +1046,12 @@ def phase_k2_sorted(dev):
         ops = tuple(EDGE_OPS[a % len(EDGE_OPS)] for a in range(n_ops))
         vals = [None if op == "count" else pool[a % 4] for a, op in enumerate(ops)]
         masks = [(m1, None, m2)[a % 3] for a in range(n_ops)]
-        before = sr.segmented_reduce.sorted_launches
-        e = compare_k2(gid, vals, masks, ops, g, False)
-        launches = sr.segmented_reduce.sorted_launches - before
+        e, launches = compare_k2(gid, vals, masks, ops, g, False)
         check(launches == len(sr.sorted_launch_ops(n_ops)) == (2 if n_ops > 32 else 1),
               f"K2 sorted made {launches} launches for {n_ops} ops")
         err = max(err, e)
         log(f"phase 3 K2 sorted: kernel == plain at {N} rows, {case} ({g} groups), {n_ops} ops, masks, "
-            f"f64/i32/f32/i64 + NaN/inf, {launches} launch(es) (sum max_abs_err {e})")
+            f"f64/i32/f32/i64 + NaN/inf, {launches} launch(es) (sum max_abs_err {e}); bit-equal in a second launch")
         del gid
     return err
 
@@ -938,13 +1067,14 @@ K4_OPS14 = tuple(x + y for x, y in zip(K4_OPS8, (("sum", "max", "min", "count", 
 def phase_k3k4(dev):
     rng = np.random.default_rng(SEED + 3)
     k3_err, k4_err = 0.0, 0.0
-    # (rows, slots, 80% of the rows on one gid, op list, K4 also over the
-    # shuffled slab): 2,048-slot windows of 5 buckets; the widest op list
-    # (one block's shared memory) over 16,383 slots with a ragged last
-    # block; one bucket taking most rows
-    for n, nslots, skew, (ops, value_of, mask_off), shuffle in ((N, 10_001, False, K4_OPS8, True),
-                                                                (N - 1000, 16_383, True, K4_OPS14, False),
-                                                                (N, 16_001, True, K4_OPS8, False)):
+    # (rows, slots, 80% of the rows on one gid, op list, launches): 2,048-slot
+    # windows of 5 buckets; the widest op list (one block's shared memory
+    # before float SUMs took three windows; its three float SUMs make 20
+    # windows, two launches) over 16,383 slots with a ragged last block;
+    # one bucket taking most rows
+    for n, nslots, skew, (ops, value_of, mask_off), want in ((N, 10_001, False, K4_OPS8, 1),
+                                                             (N - 1000, 16_383, True, K4_OPS14, 2),
+                                                             (N, 16_001, True, K4_OPS8, 1)):
         # ids in [0, nslots]; nslots is the unselected rows' slot
         ids = rng.integers(0, nslots + 1, n)
         if skew:
@@ -964,11 +1094,12 @@ def phase_k3k4(dev):
         flag = torch.from_numpy(rng.random(n) < 0.3).to(dev)
         mask_bits = tuple(None if o is None else b0 + o for o in mask_off)
         nb = -(-(nslots + 1) // 2048)
-        e3, e4, ms = compare_k3k4(gid, [f, i, f32, flag], id_mod, nb, nslots, mask_bits, ops, value_of, shuffle)
+        e3, e4, ms = compare_k3k4(gid, [f, i, f32, flag], id_mod, nb, nslots, mask_bits, ops, value_of, want)
         k3_err, k4_err = max(k3_err, e3), max(k4_err, e4)
         log(f"phase 3b K3/K4: {n} rows, {nslots} slots ({nb} buckets{', 80% on one gid' if skew else ''}), "
-            f"{len(ops)} ops: K3 slab == plain (max_abs_err {e3}), K4 == plain{' (also shuffled)' if shuffle else ''}, "
-            f"one launch (sum max_abs_err {e4}); K4 kernel only {ms:.3f} ms")
+            f"{len(ops)} ops: K3 slab == plain (max_abs_err {e3}), K4 == plain, {want} launch(es) (sum max_abs_err "
+            f"{e4}), float SUMs == fixed_sum_plain bit for bit and bit-equal over the slab's rows permuted; "
+            f"K4 kernel only {ms:.3f} ms")
     return k3_err, k4_err
 
 
@@ -1009,10 +1140,11 @@ def phase_k5k6(dev):
             f"chunk {chunk}, {launches} launch(es): kernel == plain on every valid prefix (max_abs_err {e})")
         del sends, arrays
     k6_err = 0.0
-    # (shards, slots over all shards, 80% of rows on one gid, ops): m3's
-    # shape uniform and skewed, 2048 slots per shard with 14 ops, one shard
-    for n_dev, slots, skew, n_ops in ((8, 10_001, False, 5), (8, 10_001, True, 5), (8, 8 * 2048, False, 14),
-                                      (1, 1251, False, 5)):
+    # (shards, slots over all shards, 80% of rows on one gid, ops,
+    # launches): m3's shape uniform and skewed, 2048 slots per shard with
+    # 14 ops (three float SUMs: 20 tables, two launches), one shard
+    for n_dev, slots, skew, n_ops, want in ((8, 10_001, False, 5, 1), (8, 10_001, True, 5, 1),
+                                            (8, 8 * 2048, False, 14, 2), (1, 1251, False, 5, 1)):
         n = N // 8
         dst, sel, arrays = [], [], []
         for j in range(n_dev):
@@ -1038,13 +1170,13 @@ def phase_k5k6(dev):
             vals = [edge_streams(ops, s[1], s[2], None, None)[0] for s in sends]
         args = ([s[0] for s in sends], vals, [[s[3], s[4]] for s in sends], sizes)
         kw = dict(ops=ops, mask_map=mask_map, n_dev=n_dev, split_cap=split_cap, num_groups=-(-slots // n_dev))
-        before = rs.ragged_exchange_fold.launches
-        e = compare_k6(args, kw)
-        check(rs.ragged_exchange_fold.launches - before == 1, "K6 did not make exactly one launch")
+        e, launches = compare_k6(args, kw)
+        check(launches == want, f"K6 made {launches} launches, not {want}")
         k6_err = max(k6_err, e)
         log(f"phase 3c K6: {n * n_dev} rows over {n_dev} shard(s), {slots} slots ({kw['num_groups']}/shard"
-            f"{', 80% on one gid' if skew else ''}), {n_ops} ops, split_cap {split_cap}: counts and MIN/MAX == "
-            f"plain, f64 sum max_abs_err {e}")
+            f"{', 80% on one gid' if skew else ''}), {n_ops} ops, split_cap {split_cap}, {launches} launch(es): "
+            f"counts and MIN/MAX == plain, f64 sum max_abs_err {e}, float SUMs == fixed_sum_plain bit for bit and "
+            "bit-equal over the routed rows permuted")
         del sends, arrays, args, vals
     return k5_err, k6_err
 
@@ -1240,11 +1372,16 @@ def phase_main_path(dev, kernel_stats, arrays):
     ):
         masks = [None] * len(ops)
         call = lambda: sr.segmented_reduce(gid, vals, masks, ops=ops, num_groups=g, dense=dense)  # noqa: E731
+        if dense:
+            kms, first = fold_kernel_ms(call, "seg_dense", sr.fold_launches(sr.fold_widths(ops, vals), g),
+                                        "fold_scale_kernel", ops, vals)
+            kernel_stats[name]["first_pass_ms"] = first
+        else:
+            kms = kernel_only_ms(call, "seg_sorted", len(sr.sorted_launch_ops(len(ops))))
         kernel_stats[name].update(
             launches=launches[name],
             ms=time_ms(call),
-            kernel_ms=kernel_only_ms(call, "seg_dense" if dense else "seg_sorted",
-                                     len(sr.fold_launches(len(ops), g) if dense else sr.sorted_launch_ops(len(ops)))),
+            kernel_ms=kms,
             host_ms=host_only_ms(call),
             plain_ms=time_ms(lambda: sr.segmented_reduce_plain(gid, vals, masks, ops=ops, num_groups=g), reps=3),
             bound_ms=k2_bytes(gid, vals, masks, g, ops) / hbm_bytes_per_s() * 1e3,
@@ -1277,11 +1414,14 @@ def phase_main_path(dev, kernel_stats, arrays):
     # K4 must read every slab row's gid, but a payload only where the row
     # is live: a SENTINEL gap is never reduced
     live = int((pg < pt.SENTINEL).sum())
+    kms4, first4 = fold_kernel_ms(lambda: pt.windowed_reduce(gid_k, vals4, masks4, ops=ops4, num_groups=nslots),
+                                  "windowed_reduce_kernel", sr.fold_launches(sr.fold_widths(ops4, vals4), pt.WINDOW),
+                                  "fold_scale_kernel", ops4, vals4)
     kernel_stats["windowed_reduce"].update(
         launches=launches["windowed_reduce"],
         ms=time_ms(lambda: pt.windowed_reduce(gid_k, vals4, masks4, ops=ops4, num_groups=nslots)),
-        kernel_ms=kernel_only_ms(lambda: pt.windowed_reduce(gid_k, vals4, masks4, ops=ops4, num_groups=nslots),
-                                 "windowed_reduce_kernel"),
+        kernel_ms=kms4,
+        first_pass_ms=first4,
         host_ms=host_only_ms(lambda: pt.windowed_reduce(gid_k, vals4, masks4, ops=ops4, num_groups=nslots)),
         plain_ms=time_ms(lambda: pt.windowed_reduce_plain(gid_k, vals4, masks4, ops=ops4, num_groups=nslots), reps=3),
         bound_ms=(rows * 4 + live * (8 + 8) + nslots * 8 * len(ops4)) / hbm_bytes_per_s() * 1e3,
@@ -1514,10 +1654,14 @@ def phase_mesh(dev, big, arrays, kernel_stats):
              for a in range(len(ops6))]
     del parts
     call6 = lambda: rs.ragged_exchange_fold(gids, vals, masks, sizes6, **kw6)  # noqa: E731
+    kms6, first6 = fold_kernel_ms(call6, "ragged_exchange_fold_kernel",
+                                  sr.fold_launches(sr.fold_widths(ops6, vals[0]), L_), "ragged_scale_kernel", ops6,
+                                  vals[0])
     kernel_stats["ragged_exchange_fold"].update(
         launches=launches["ragged_exchange_fold"],
         ms=time_ms(call6),
-        kernel_ms=kernel_only_ms(call6, "ragged_exchange_fold_kernel"),
+        kernel_ms=kms6,
+        first_pass_ms=first6,
         host_ms=host_only_ms(call6),
         plain_ms=time_ms(lambda: rs.ragged_exchange_fold_plain(gids, vals, masks, sizes6, **kw6), reps=3),
         bound_ms=k6_bytes(gids, vals, masks, sizes6, L_, len(ops6)) / hbm_bytes_per_s() * 1e3,
@@ -1528,7 +1672,8 @@ def phase_mesh(dev, big, arrays, kernel_stats):
     del rows6
     s6 = kernel_stats["ragged_exchange_fold"]
     log(f"phase 6 K6 at m3's shape: {int(sizes6.sum())} routed rows, {L_} slots x {n_dev} receivers, ops {ops6}: "
-        f"event {s6['ms']:.3f} ms, kernel only {s6['kernel_ms']:.3f} ms (torch.profiler)")
+        f"event {s6['ms']:.3f} ms, kernel only {s6['kernel_ms']:.3f} ms (torch.profiler; the first pass "
+        f"{s6['first_pass_ms']:.3f})")
 
     # K2 dense at m2's per-shard shape: the last shard's call
     from datafusion_tpu_torch.parallel import dist
@@ -1536,12 +1681,16 @@ def phase_mesh(dev, big, arrays, kernel_stats):
     a2, kw2 = capture(dist, "segmented_reduce", lambda: ctx.sql(queries[1][1]))[-1]
     gid2, vals2, masks2 = a2
     call2 = lambda: sr.segmented_reduce(gid2, vals2, masks2, **kw2)  # noqa: E731
-    ms2, kms2 = time_ms(call2), kernel_only_ms(call2, "seg_dense")
+    ms2 = time_ms(call2)
+    kms2, first2 = fold_kernel_ms(call2, "seg_dense", sr.fold_launches(sr.fold_widths(kw2["ops"], vals2),
+                                                                       kw2["num_groups"]),
+                                  "fold_scale_kernel", kw2["ops"], vals2)
     lib2 = library_ms(fold_rows(gid2, vals2, masks2, kw2["num_groups"]), kw2["ops"], kw2["num_groups"], dev)
     bound2 = k2_bytes(gid2, vals2, masks2, kw2["num_groups"], kw2["ops"]) / hbm_bytes_per_s() * 1e3
     log(f"phase 6 K2 dense at m2's shard shape: {gid2.numel()} rows, {kw2['num_groups']} slots, ops {kw2['ops']}, "
-        f"{len(sr.fold_launches(len(kw2['ops']), kw2['num_groups']))} launch(es): event {ms2:.3f} ms, kernel only "
-        f"{kms2:.3f} ms, bound {bound2:.3f} ms, library {lib2:.3f} ms ({LIBRARY}); m2 launched it "
+        f"{len(sr.fold_launches(sr.fold_widths(kw2['ops'], vals2), kw2['num_groups']))} launch(es): event "
+        f"{ms2:.3f} ms, kernel only {kms2:.3f} ms (the first pass {first2:.3f}), bound {bound2:.3f} ms, library "
+        f"{lib2:.3f} ms ({LIBRARY}); m2 launched it "
         f"{per_query['m2']['segreduce_dense']} times")
 
 
@@ -2509,17 +2658,99 @@ def phase_tpch(dev, kernel_stats, date_runs):
         same_result(f"{t_} ({q})", results[t_], cpu.sql(QUERIES[q]))
     cpu_s = time.perf_counter() - t0
     same_result("m20", results["m20"], results["t1"])
+    for t_, q in names.items():  # a second evaluation: the same bytes (float SUMs are the same bits in every run)
+        check(card.sql(QUERIES[q]).result_str() == results[t_].result_str(), f"{t_} ({q}): a second run differs")
     runs = [(name, c_, q) for name, c_, q, _ in queries]
     warm = {name: warm_wall_ms(c_, q) for name, c_, q in runs}
     for name, _, _ in runs:
         log(f"phase 10 {name} ({names.get(name, 'q1 on 8 shards')}): {results[name].num_rows} rows, wall first "
             f"{walls[name]:.3f} ms, warm {warm[name]:.3f} ms (median of 5), launches {json.dumps(per_query[name])}, "
             f"route {json.dumps(routes[name])}")
-    log(f"phase 10 TPC-H: t1-t22 equal the port on the CPU (floats at rtol 1e-9; the CPU took {cpu_s:.2f} s), m20 "
-        "equals one card's q1")
+    log(f"phase 10 TPC-H: t1-t22 equal the port on the CPU (floats at rtol 1e-9; the CPU took {cpu_s:.2f} s) and "
+        "their own second evaluation byte for byte, m20 equals one card's q1")
     profile_queries(date_runs + runs, "phase 10", "profile_dates_tpch.txt")
     for name, s_ in kernel_stats.items():
         s_["tpch_launches"] = launches[name]
+
+
+# phase 13: q15ish compares its revenue view with the view's own MAX, two
+# evaluations of one float SUM (scripts/tpch_repeat.py repeats the same
+# query and view, for one checkout or two side by side)
+REPEAT_SCALE = 0.05  # 300K lineitem rows: tests/test_torch_cuda.py's TPC-H scale
+REPEAT_RUNS = 30
+Q15_REVENUE = ("SELECT l_suppkey, SUM(l_extendedprice * (1 - l_discount)) AS r FROM lineitem "
+               "WHERE l_shipdate >= DATE '1996-01-01' AND l_shipdate < DATE '1996-04-01' "
+               "GROUP BY l_suppkey ORDER BY l_suppkey")
+
+
+def phase_determinism(dev, big):
+    """Phase 13: q15ish REPEAT_RUNS times at REPEAT_SCALE on the card, each
+    equal to the CPU's rows, and its revenue view bit-equal in 5 runs; then
+    the phase-4 queries and TPC-H's 22 shapes once under
+    torch.use_deterministic_algorithms(True, warn_only=True), every
+    nondeterminism warning torch raises logged
+    (chiprun_out/determinism_warnings.txt)."""
+    import warnings
+
+    import datafusion_tpu_torch as port
+
+    sys.path.insert(0, os.path.join(ROOT, "benchmarks"))
+    from tpch import QUERIES, gen_tables
+
+    t0 = time.perf_counter()
+    gpu, cpu = port.ExecutionContext(), port.ExecutionContext(device="cpu")
+    for name, cols in zip(("lineitem", "orders", "customer", "part"), gen_tables(REPEAT_SCALE)):
+        t = port.Table.from_pydict(cols, device="cpu")
+        gpu.register_table(name, t)
+        cpu.register_table(name, t)
+    q = QUERIES["q15ish"]
+    want = cpu.sql(q)
+    runs = [gpu.sql(q) for _ in range(REPEAT_RUNS)]
+    for r in runs:  # the CPU's rows; the revenue within rtol 1e-9 (row order on the CPU, fixed point on the card)
+        same_result("phase 13 q15ish", r, want)
+    strs = {r.result_str() for r in runs}
+    sums = [gpu.sql(Q15_REVENUE).cols[1][0].copy() for _ in range(5)]
+    same = [bool(np.array_equal(x.view(np.uint64), sums[0].view(np.uint64))) for x in sums]
+    as_cpu = sum(r.result_str() == want.result_str() for r in runs)
+    log(f"phase 13 q15ish at scale {REPEAT_SCALE}: {REPEAT_RUNS} of {REPEAT_RUNS} runs give the CPU's "
+        f"{want.num_rows} row(s); {len(strs)} distinct result_str over the runs ({as_cpu} byte-equal to the CPU's); "
+        f"its revenue view ({len(sums[0])} suppliers' f64 sums) bit-equal in 5 runs: {same}")
+    check(len(strs) == 1, "q15ish's result differs between runs")
+    check(all(same), "q15ish's revenue view differs between runs")
+
+    # torch's own float reductions on the path: a sum (ungrouped aggregates,
+    # VAR's mean) should repeat its bits; a float cumsum need not, which is
+    # why the windows' sums are integer prefix sums (ops/window.py)
+    x = torch.randn(N, generator=torch.Generator(device=dev).manual_seed(SEED + 13), device=dev,
+                    dtype=torch.float64) * 100
+    sums = {int(x.sum().view(torch.int64)) for _ in range(20)}
+    scans = {int(torch.cumsum(x, 0)[-1].view(torch.int64)) for _ in range(20)}
+    log(f"phase 13 torch on the card at {N} f64 values: x.sum() gave {len(sums)} distinct bit pattern(s) in 20 runs, "
+        f"torch.cumsum(x)[-1] {len(scans)}")
+    check(len(sums) == 1, "torch.sum of f64 on the card differs between runs")
+    del x
+
+    ctx = port.ExecutionContext(bigdense=True)
+    ctx.register_table("big", big)
+    runs = [(n, ctx, q_) for n, q_, _ in MAIN_QUERIES] + [(n, gpu, q_) for n, q_ in QUERIES.items()]
+    found = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for name, c_, q_ in runs:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                c_.sql(q_)
+                torch.cuda.synchronize()
+            for w in caught:
+                found.setdefault(str(w.message).splitlines()[0][:300], []).append(name)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    with open(os.path.join(ROOT, "chiprun_out", "determinism_warnings.txt"), "w") as f:
+        f.writelines(f"{msg}\t{sorted(set(names))}\n" for msg, names in found.items())
+    log(f"phase 13 torch.use_deterministic_algorithms(True, warn_only=True) over {len(runs)} queries (q1-q5, TPC-H "
+        f"at scale {REPEAT_SCALE}): {len(found)} distinct nondeterminism warning(s) "
+        + json.dumps({m[:160]: sorted(set(n)) for m, n in found.items()}) + f"; phase 13 took "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 def phase_csv(dev):
@@ -2759,11 +2990,8 @@ def phase_ingest(dev, arrays, kernel_stats):
         for name, _, _, kernel in INGEST_QUERIES:
             check(per_query[name][kernel] == 1, f"{name} launched {kernel} {per_query[name][kernel]} times, not once")
             check_ingest_result(name, results[name], oracle[name])
-        for name, q, _, _ in INGEST_QUERIES:
-            if name == "i2":  # K2 dense adds f64 in atomic order, which varies from run to run
-                same_result(name, results[name], eager.sql(q))
-            else:
-                check(results[name].result_str() == eager.sql(q).result_str(), f"{name}: lazy differs from eager")
+        for name, q, _, _ in INGEST_QUERIES:  # the same rows: the same bytes, float SUMs included
+            check(results[name].result_str() == eager.sql(q).result_str(), f"{name}: lazy differs from eager")
         routes = explain_routes([(name, lazy, q, [note]) for name, q, note, _ in INGEST_QUERIES])
         for name, q, _, _ in INGEST_QUERIES:
             warm = warm_wall_ms(lazy, q)
@@ -2784,9 +3012,8 @@ def phase_ingest(dev, arrays, kernel_stats):
         log(f"phase 11 lazy parse onto the card, alone: {json.dumps({c: round(v, 3) for c, v in parse_ms.items()})} ms "
             f"(i1's first wall {walls['i1']:.3f} ms, i3's {walls['i3']:.3f} ms)")
         profile_queries([(name, lazy, q) for name, q, _, _ in INGEST_QUERIES], "phase 11", "profile_ingest.txt")
-        log(f"phase 11 lazy: register_csv {t_lazy * 1e3:.1f} ms (the count pass only); i1 and i3 equal the eager "
-            f"table's result_str, i2 its rows (sums at rtol 1e-9: atomic order), all three the numpy oracle; "
-            f"g parsed first by i3")
+        log(f"phase 11 lazy: register_csv {t_lazy * 1e3:.1f} ms (the count pass only); i1-i3 equal the eager "
+            f"table's result_str byte for byte and the numpy oracle; g parsed first by i3")
         for name, s_ in kernel_stats.items():
             s_["ingest_launches"] = totals[name]
 
@@ -3223,6 +3450,7 @@ def main():
     phase_windows(dev, big, arrays, joins["tables"], kernel_stats)
     phase_aggregates(dev, big, arrays, kernel_stats)
     phase_tpch(dev, kernel_stats, phase_dates(dev, big, arrays, kernel_stats))
+    phase_determinism(dev, big)
     phase_multiprocess(dev, big, arrays)
     kernels = []
     for name, s in kernel_stats.items():

@@ -29,12 +29,15 @@
 //   the slab is deterministic: equal, element for element, to the plain
 //   version's. Gaps hold SENTINEL in the gid and zero bytes in payloads.
 // * K4: a grid of (part, bucket) blocks of 512 threads. Block (p, b) holds
-//   bucket b's DFT_WINDOW-slot window of every op in shared memory, in the
-//   fold tile's zero-identity form (reduce_common.cuh: 32-bit COUNT, f64 /
-//   i64 SUM, MIN/MAX on the unsigned order-preserving image), and folds
+//   bucket b's DFT_WINDOW-slot window of every op in shared memory, in
+//   the fold tile's zero-identity form (reduce_common.cuh: 32-bit COUNT,
+//   i64 SUM, a float SUM's three int64 digits and its flags, MIN/MAX on
+//   the unsigned order-preserving image), and folds
 //   every chunk of bucket b in part p, a run of consecutive SLAB_CHUNK-row
 //   chunks; then it flushes the window to the device table once, and the
-//   last block decodes MIN/MAX in place. A chunk belongs to the bucket of
+//   last block decodes MIN/MAX and the float SUMs in place (a float SUM
+//   is three windows in fixed point, after a first pass over the rows for
+//   its scale: reduce_common.cuh). A chunk belongs to the bucket of
 //   its first row's id (id / WINDOW, when that lies in [0, buckets x
 //   WINDOW)), and to bucket 0 otherwise (a SENTINEL gap, a negative id).
 //   A pass reads 512 chunk heads, one a thread, lists the bucket's chunks in
@@ -179,9 +182,11 @@ __device__ __forceinline__ int chunk_bucket(int g, int n_buckets) {
   return g >= 0 && g < n_buckets * DFT_WINDOW ? g / DFT_WINDOW : 0;
 }
 
-// three blocks an SM where the windows fit (at most 40 registers): more
-// warps' loads in flight
-__global__ void __launch_bounds__(DFT_FOLD_TPB, 3)
+// MINB blocks an SM, as many as the windows' shared memory lets fit
+// (three: at most 40 registers, more warps' loads in flight; two or one
+// for a launch whose float SUMs take three windows each)
+template <int MINB>
+__global__ void __launch_bounds__(DFT_FOLD_TPB, MINB)
 windowed_reduce_kernel(const int* __restrict__ gid, long long n, int num_groups, long long part_chunks, FoldArgs ops,
                        unsigned int* done) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -192,7 +197,7 @@ windowed_reduce_kernel(const int* __restrict__ gid, long long n, int num_groups,
   const int base = b * DFT_WINDOW;
   const int tbl_bytes = DFT_WINDOW * 8;
   load_fold_shared(s, ops);
-  fold_init(smem, ops.n * tbl_bytes);
+  fold_init(smem, ops.ntbl * tbl_bytes);
   const long long chunks = (n + DFT_SLAB_CHUNK - 1) / DFT_SLAB_CHUNK;
   const long long c0 = (long long)blockIdx.x * part_chunks;
   const long long c1 = c0 + part_chunks < chunks ? c0 + part_chunks : chunks;
@@ -246,21 +251,26 @@ extern "C" int dft_slab_partition(const int* gid, int* out_gid, long long n, int
   return (int)cudaGetLastError();
 }
 
-// K4. kinds, vals and masks as for dft_segreduce; outs[a] is op a's
-// [num_groups] device table and `done` a device counter, all zeroed
-// (reduce_common.cuh, the fold tile): op a's table ends as the op's
-// output, as for K2.
+// K4. kinds, vals, masks and aux as for dft_segreduce_dense; outs[a] is
+// op a's [num_groups] device table (a float SUM's four, one after
+// another) and `done` a device counter, all
+// zeroed (reduce_common.cuh, the fold tile): op a's table ends as the op's
+// output, as for K2. With a float SUM, the first pass for its scale runs
+// before the fold.
 extern "C" int dft_windowed_reduce(const int* gid, long long n, int num_groups, int n_ops, const int* kinds,
                                    const void* const* vals, const uint8_t* const* masks, void* const* outs,
-                                   unsigned int* done, void* stream) {
+                                   void* const* aux, unsigned int* done, void* stream) {
   if (n <= 0 || num_groups <= 0 || n_ops == 0) return 0;
   FoldArgs o;
-  if (n_ops > DFT_MAX_OPS || num_groups > 65535 * DFT_WINDOW || !fold_args(&o, n_ops, kinds, vals, masks, outs))
+  if (num_groups > 65535 * DFT_WINDOW || !fold_args(&o, n_ops, kinds, vals, masks, outs, aux, num_groups, true) ||
+      o.ntbl > DFT_MAX_OPS || (fold_has_fix(o) && n > DFT_FIX_MAX_ROWS))
     return (int)cudaErrorInvalidValue;
   const int n_buckets = (num_groups + DFT_WINDOW - 1) / DFT_WINDOW;
-  const int smem = n_ops * DFT_WINDOW * 8;
+  const int smem = o.ntbl * DFT_WINDOW * 8;
+  void (*kernel)(const int*, long long, int, long long, FoldArgs, unsigned int*) =
+      o.ntbl <= 4 ? windowed_reduce_kernel<3> : o.ntbl <= 7 ? windowed_reduce_kernel<2> : windowed_reduce_kernel<1>;
   cudaError_t err;
-  const long long fill = fold_blocks(windowed_reduce_kernel, smem, &err);
+  const long long fill = fold_blocks(kernel, smem, &err);
   if (err != cudaSuccess) return (int)err;
   // parts per bucket: as many as the card holds blocks at once, so that a
   // bucket that takes most rows (skew) is still folded by the whole card;
@@ -273,7 +283,14 @@ extern "C" int dft_windowed_reduce(const int* gid, long long n, int num_groups, 
   if (parts < least) parts = least;
   const long long part_chunks = (chunks + parts - 1) / parts;
   parts = (chunks + part_chunks - 1) / part_chunks;
+  if (fold_has_fix(o)) {
+    const long long tiles = (n + DFT_TILE_ROWS - 1) / DFT_TILE_ROWS;
+    long long sblocks = fold_blocks(fold_scale_kernel, 0, &err);
+    if (err != cudaSuccess) return (int)err;
+    if (sblocks > tiles) sblocks = tiles;
+    fold_scale_kernel<<<(unsigned int)sblocks, DFT_FOLD_TPB, 0, (cudaStream_t)stream>>>(gid, n, num_groups, o);
+  }
   const dim3 grid((unsigned int)parts, (unsigned int)n_buckets);
-  windowed_reduce_kernel<<<grid, DFT_FOLD_TPB, smem, (cudaStream_t)stream>>>(gid, n, num_groups, part_chunks, o, done);
+  kernel<<<grid, DFT_FOLD_TPB, smem, (cudaStream_t)stream>>>(gid, n, num_groups, part_chunks, o, done);
   return (int)cudaGetLastError();
 }

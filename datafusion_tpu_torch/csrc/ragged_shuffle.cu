@@ -61,8 +61,10 @@
 //   kind switch per tile and op, equal neighbours combined in registers),
 //   and each block inits its tables once and flushes each touched slot
 //   into the receiver's row of the device tables by one global atomic at
-//   the end; the last block decodes MIN/MAX in place. Op traits are K2's:
-//   f64 / i64 sums (IEEE NaN and +-inf), i64 counts, MIN/MAX on the
+//   the end; the last block decodes MIN/MAX and the float SUMs in place.
+//   Op traits are K2 dense mode's: a float SUM in fixed point (three
+//   shared tables, after a first pass over the launch's routed rows for its
+//   scale: reduce_common.cuh), i64 sums, i64 counts, MIN/MAX on the
 //   order-preserving image. Rows with a window id outside [0, num_groups)
 //   are dropped; an op's mask pointer may be null (every routed row).
 
@@ -146,25 +148,25 @@ ragged_exchange_kernel(const ExchangeArgs X, const int* __restrict__ sizes, int 
 }
 
 // --- K6 ragged exchange + fold -------------------------------------------------
-struct FoldOps {
-  int n;
-  int kinds[DFT_MAX_OPS];
-  void* outs[DFT_MAX_OPS];
-};
+// sender j's window ids, and op a's values and mask, in the packed table
+__device__ __forceinline__ const int* sender_gid(const long long* ptrs, int j) { return (const int*)ptrs[j]; }
+__device__ __forceinline__ const void* sender_val(const long long* ptrs, int n_send, int a, int j) {
+  return (const void*)ptrs[n_send + (long long)a * n_send + j];
+}
+__device__ __forceinline__ const uint8_t* sender_mask(const long long* ptrs, int n_send, int k, int a, int j) {
+  return (const uint8_t*)ptrs[(long long)(1 + k + a) * n_send + j];
+}
 
 __global__ void __launch_bounds__(DFT_FOLD_TPB)
 ragged_exchange_fold_kernel(const long long* __restrict__ ptrs, const int* __restrict__ sizes, int n_send,
-                            int n_recv, long long split_cap, int num_groups, int reps, FoldOps ops, unsigned int* done) {
+                            int n_recv, long long split_cap, int num_groups, int reps, FoldArgs ops, unsigned int* done) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ FoldShared s;
   const int i = blockIdx.y;  // the receiver
   const int k = ops.n;
-  if (threadIdx.x < k) {
-    s.kind[threadIdx.x] = ops.kinds[threadIdx.x];
-    s.out[threadIdx.x] = ops.outs[threadIdx.x];
-  }
+  load_fold_shared(s, ops, false);
   const int tbl_bytes = num_groups * reps * 8;
-  fold_init(smem, k * tbl_bytes);
+  fold_init(smem, ops.ntbl * tbl_bytes);
   const long long B = gridDim.x, b = blockIdx.x;
   long long toff = 0;  // tiles of the senders before j
   for (int j = 0; j < n_send; ++j) {
@@ -172,18 +174,54 @@ ragged_exchange_fold_kernel(const long long* __restrict__ ptrs, const int* __res
     if (cnt == 0) continue;  // block-uniform
     __syncthreads();  // the previous sender's pointers are no longer read
     if (threadIdx.x < k) {  // sender j's values and masks, from the packed table
-      s.val[threadIdx.x] = (const void*)ptrs[n_send + (long long)threadIdx.x * n_send + j];
-      s.mask[threadIdx.x] = (const uint8_t*)ptrs[(long long)(1 + k + threadIdx.x) * n_send + j];
+      s.val[threadIdx.x] = sender_val(ptrs, n_send, threadIdx.x, j);
+      s.mask[threadIdx.x] = sender_mask(ptrs, n_send, k, threadIdx.x, j);
     }
     __syncthreads();
     const long long first = ((b - toff) % B + B) % B;  // this block's first tile of sender j
-    fold_range(smem, tbl_bytes, k, s, (const int*)ptrs[j], (long long)i * split_cap, cnt, first, B, num_groups,
-               reps);
+    fold_range(smem, tbl_bytes, k, s, sender_gid(ptrs, j), (long long)i * split_cap, cnt, first, B, num_groups,
+               reps, (long long)i * num_groups);
     toff += (cnt + DFT_TILE_ROWS - 1) / DFT_TILE_ROWS;
   }
   __syncthreads();
   fold_flush(smem, tbl_bytes, k, s, (long long)i * num_groups, num_groups, reps, (long long)n_recv * num_groups,
              done);
+}
+
+// K6's first pass: each fixed-point float SUM's largest finite |value|
+// among the launch's routed rows (every receiver's) with a window id in
+// [0, num_groups) and its mask set, into its scale word; the grid and the
+// walk over the senders' regions are the fold's, the ids read once.
+__global__ void __launch_bounds__(DFT_FOLD_TPB)
+ragged_scale_kernel(const long long* __restrict__ ptrs, const int* __restrict__ sizes, int n_send, int n_recv,
+                    long long split_cap, int num_groups, FoldArgs ops) {
+  __shared__ FoldShared s;
+  const int i = blockIdx.y;
+  const int k = ops.n;
+  load_fold_shared(s, ops, false, false);
+  const long long B = gridDim.x, b = blockIdx.x;
+  unsigned long long best[DFT_MAX_FIX] = {};
+  long long toff = 0;
+  for (int j = 0; j < n_send; ++j) {
+    const long long cnt = sizes[(long long)j * n_recv + i];
+    if (cnt == 0) continue;  // block-uniform
+    __syncthreads();  // the previous sender's pointers are no longer read
+    if (threadIdx.x < k) {
+      s.val[threadIdx.x] = sender_val(ptrs, n_send, threadIdx.x, j);
+      s.mask[threadIdx.x] = sender_mask(ptrs, n_send, k, threadIdx.x, j);
+    }
+    __syncthreads();
+    const long long tiles = (cnt + DFT_TILE_ROWS - 1) / DFT_TILE_ROWS;
+    for (long long t = ((b - toff) % B + B) % B; t < tiles; t += B) {
+      long long r;
+      int c, w[DFT_TILE];
+      if (tile_slots(sender_gid(ptrs, j), (long long)i * split_cap, cnt, t, num_groups, r, c, w))
+        tile_scales(s, ops.nfix, r, c, w, best);
+    }
+    toff += tiles;
+  }
+  __syncthreads();
+  scale_flush(s, ops.nfix, best);
 }
 
 // --- C entries -------------------------------------------------------------------
@@ -210,30 +248,35 @@ extern "C" int dft_ragged_exchange(const ExchangeArgs* x, const int* sizes, int 
 
 extern "C" int dft_ragged_exchange_args_size() { return (int)sizeof(ExchangeArgs); }
 
-// K6. ptrs: one packed device table of (1 + 2 * n_ops) * n_send pointers:
+// K6. n_ops ops (at most DFT_FOLD_MAX_OPS, whose tables fit shared
+// memory). ptrs: one packed device table of (1 + 2 * n_ops) * n_send pointers:
 // the senders' int32 window ids, then op a's values by sender (at
 // (1 + a) * n_send), then op a's masks by sender (at (1 + n_ops + a) *
 // n_send); values and masks may be 0. kinds: host array of op kinds
-// (reduce_common.cuh); outs: host array of op a's [n_recv, num_groups]
-// device table (receiver i's row at i * num_groups) and `done` a device
-// counter, all zeroed (reduce_common.cuh, the fold tile): op a's table
-// ends as the op's output, as for K2 dense mode. Each slot is held `reps`
-// times in shared memory. sizes as for K5.
+// (reduce_common.cuh, the fold tile's); outs: host array of op a's
+// [n_recv, num_groups] device table (receiver i's row at i * num_groups; a
+// float SUM's four such tables one after another);
+// aux: host array of each float SUM's 8-byte scale word (null for other
+// ops); `done` a device counter; all zeroed (reduce_common.cuh, the fold
+// tile): op a's table ends as the op's output, as for K2 dense mode. Each
+// slot is held `reps` times in shared memory. sizes as for K5. With a
+// float SUM, the first pass for its scale runs before the fold, on the
+// same grid.
 extern "C" int dft_ragged_exchange_fold(const long long* ptrs, const int* sizes, int n_send, int n_recv,
                                         long long split_cap, int num_groups, int reps, int n_ops, const int* kinds,
-                                        void* const* outs, unsigned int* done, void* stream) {
+                                        void* const* outs, void* const* aux, unsigned int* done, void* stream) {
   if (n_ops == 0 || split_cap == 0 || num_groups == 0) return 0;
   if (n_send < 1 || n_send > DFT_MAX_DEV || n_recv < 1 || n_recv > DFT_MAX_DEV || n_ops < 0 ||
-      n_ops > DFT_MAX_OPS || num_groups < 0 || num_groups > DFT_WINDOW || split_cap < 0 || !dft_valid_reps(reps))
+      n_ops > DFT_FOLD_MAX_OPS || num_groups < 0 || num_groups > DFT_WINDOW || split_cap < 0 ||
+      !dft_valid_reps(reps))
     return (int)cudaErrorInvalidValue;
-  FoldOps o;
-  o.n = n_ops;
-  for (int a = 0; a < n_ops; ++a) {
-    if (!dft_valid_kind(kinds[a])) return (int)cudaErrorInvalidValue;
-    o.kinds[a] = kinds[a];
-    o.outs[a] = outs[a];
-  }
-  const int smem = n_ops * num_groups * reps * 8;
+  FoldArgs o;
+  const void* none[DFT_FOLD_MAX_OPS] = {};
+  if (!fold_args(&o, n_ops, kinds, none, (const uint8_t* const*)none, outs, aux, (long long)n_recv * num_groups,
+                 true) ||
+      (fold_has_fix(o) && (long long)n_send * split_cap > DFT_FIX_MAX_ROWS))  // a receiver's rows
+    return (int)cudaErrorInvalidValue;
+  const int smem = o.ntbl * num_groups * reps * 8;
   cudaError_t err;
   const long long fill = fold_blocks(ragged_exchange_fold_kernel, smem, &err);
   if (err != cudaSuccess) return (int)err;
@@ -244,6 +287,9 @@ extern "C" int dft_ragged_exchange_fold(const long long* ptrs, const int* sizes,
   const long long rows = (long long)n_send * split_cap;  // the most one receiver gets
   if (per < rows / DFT_BLOCK_MAX_ROWS + 1) per = rows / DFT_BLOCK_MAX_ROWS + 1;
   const dim3 grid((unsigned int)per, (unsigned int)n_recv);
+  if (fold_has_fix(o))
+    ragged_scale_kernel<<<grid, DFT_FOLD_TPB, 0, (cudaStream_t)stream>>>(ptrs, sizes, n_send, n_recv, split_cap,
+                                                                         num_groups, o);
   ragged_exchange_fold_kernel<<<grid, DFT_FOLD_TPB, smem, (cudaStream_t)stream>>>(ptrs, sizes, n_send, n_recv,
                                                                                    split_cap, num_groups, reps, o,
                                                                                    done);

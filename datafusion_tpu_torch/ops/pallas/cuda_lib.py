@@ -106,19 +106,19 @@ def load_library() -> ctypes.CDLL:
     lib.dft_fused_stage.restype = i32
     lib.dft_fused_stage_program_size.argtypes = []
     lib.dft_fused_stage_program_size.restype = i32
-    lib.dft_segreduce.argtypes = [vp, i64, i32, i32, vp, vp, vp, vp, vp, vp]
+    lib.dft_segreduce.argtypes = [vp, i64, i32, i32, vp, vp, vp, vp, vp, vp, i32, vp]
     lib.dft_segreduce.restype = i32
-    lib.dft_segreduce_dense.argtypes = [vp, i64, i32, i32, i32, vp, vp, vp, vp, vp, vp]
+    lib.dft_segreduce_dense.argtypes = [vp, i64, i32, i32, i32, vp, vp, vp, vp, vp, vp, vp]
     lib.dft_segreduce_dense.restype = i32
     lib.dft_slab_partition.argtypes = [vp, vp, i64, i32, i32, i32, i32, i32, vp, vp, vp, vp]
     lib.dft_slab_partition.restype = i32
-    lib.dft_windowed_reduce.argtypes = [vp, i64, i32, i32, vp, vp, vp, vp, vp, vp]
+    lib.dft_windowed_reduce.argtypes = [vp, i64, i32, i32, vp, vp, vp, vp, vp, vp, vp]
     lib.dft_windowed_reduce.restype = i32
     lib.dft_ragged_exchange.argtypes = [vp, vp, i32, i32, i64, i32, vp]
     lib.dft_ragged_exchange.restype = i32
     lib.dft_ragged_exchange_args_size.argtypes = []
     lib.dft_ragged_exchange_args_size.restype = i32
-    lib.dft_ragged_exchange_fold.argtypes = [vp, vp, i32, i32, i64, i32, i32, i32, vp, vp, vp, vp]
+    lib.dft_ragged_exchange_fold.argtypes = [vp, vp, i32, i32, i64, i32, i32, i32, vp, vp, vp, vp, vp]
     lib.dft_ragged_exchange_fold.restype = i32
     for name, struct in (("dft_fused_stage_program_size", _CProgram), ("dft_ragged_exchange_args_size", ExchangeArgs)):
         if getattr(lib, name)() != ctypes.sizeof(struct):

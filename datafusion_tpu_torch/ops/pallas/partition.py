@@ -15,10 +15,13 @@ Port of datafusion_tpu/ops/pallas/partition.py.
     with K2's op contract and output types (ops/pallas/segreduce.py): f64
     / i64 sums, i64 counts, value-dtype MIN/MAX, +-inf for a float slot no
     row reached. Rows with a gid outside [0, num_groups) are dropped, the
-    SENTINEL gaps among them. Any row order gives the same result; the
-    slab layout is what makes the kernel fast (each chunk's rows lie in
-    the window of its first row's bucket, which one block folds from
-    many slabs).
+    SENTINEL gaps among them. Any row order gives the same result, float
+    SUMs included: they are K2 dense mode's fixed-point sums, bit for bit
+    (ops/pallas/segreduce.py `fixed_sum_plain`). The slab layout is what
+    makes the kernel fast (each chunk's rows lie in the window of its
+    first row's bucket, which one block folds from many slabs). A call
+    makes one launch per group of ops whose windows fit a block's shared
+    memory (`fold_launches`: a float SUM takes three windows).
 
 What was the TPU's is gone: payloads keep their own dtype (any 1-, 2-,
 4- or 8-byte type) instead of riding as f32, so there are no 16-bit
@@ -40,11 +43,15 @@ from typing import Optional, Sequence
 import torch
 
 from datafusion_tpu_torch.ops.pallas.segreduce import (
-    _KIND,
     _finish,
     _identity_tables,
     _validate,
+    c_entries,
+    c_streams,
+    check_fixed_rows,
+    fold_launches,
     fold_tables,
+    fold_widths,
     segmented_reduce_plain,
 )
 
@@ -56,7 +63,7 @@ SENTINEL = 1 << 23  # gid of the alignment gaps; above every packed id
 MAX_BUCKETS = 64  # csrc/partition.cu DFT_MAX_BUCKETS
 MAX_COLS = 16  # payload columns per K3 launch
 WINDOW_SMEM_BYTES = 232448  # shared memory one Hopper block may hold
-MAX_OPS = WINDOW_SMEM_BYTES // (WINDOW * 8)  # K4 windows of 8-byte slots per block: 14
+MAX_OPS = WINDOW_SMEM_BYTES // (WINDOW * 8)  # K4 windows of 8-byte slots per block (launch): 14
 
 
 def slab_capacity(pblock: int, n_buckets: int) -> int:
@@ -195,20 +202,20 @@ def windowed_reduce(
     n = gid.shape[0]
     if n == 0 or num_groups == 0 or not ops:  # nothing to launch
         return _finish(ops, values, _identity_tables(ops, values, num_groups, gid.device))
-    tables, (done,) = fold_tables(ops, values, num_groups, gid.device)
-    k = len(ops)
-    kinds = (ctypes.c_int * k)(*[_KIND[(op, None if v is None else v.dtype)] for op, v in zip(ops, values)])
-    vptr = (ctypes.c_void_p * k)(*[None if v is None else v.data_ptr() for v in values])
-    mptr = (ctypes.c_void_p * k)(*[None if m is None else m.data_ptr() for m in masks])
-    optr = (ctypes.c_void_p * k)(*[t.data_ptr() for t in tables])
+    check_fixed_rows(ops, values, n)
+    launches = fold_launches(fold_widths(ops, values), WINDOW)  # one replica: `reps` is K2's and K6's
+    ft = fold_tables(ops, values, num_groups, gid.device, counters=len(launches), fixed=True)
     with torch.cuda.device(gid.device):
         stream = torch.cuda.current_stream(gid.device).cuda_stream
-        rc = lib.dft_windowed_reduce(gid.data_ptr(), n, num_groups, k, kinds, vptr, mptr, optr, done, stream)
-    check(rc, "windowed_reduce kernel")
-    windowed_reduce.launches += 1
-    return tuple(tables)
+        for (lo, hi, _), done in zip(launches, ft.counters):
+            kinds, outs, aux = c_entries(ops, values, ft, lo, hi, fixed=True)
+            rc = lib.dft_windowed_reduce(gid.data_ptr(), n, num_groups, hi - lo, kinds,
+                                         *c_streams(values, masks, lo, hi), outs, aux, done, stream)
+            check(rc, "windowed_reduce kernel")
+            windowed_reduce.launches += 1
+    return tuple(ft.tables)
 
 
-# CUDA kernel launches (one per call that reached the card)
+# CUDA kernel launches (K3: one per call that reached the card)
 slab_partition.launches = 0
 windowed_reduce.launches = 0

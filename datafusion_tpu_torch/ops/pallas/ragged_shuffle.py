@@ -24,14 +24,18 @@ is ever dropped and the JAX package's overflow retry has no counterpart.
     makes `n_arrs` allocations and no host-to-device copy.
   * K6 `ragged_exchange_fold`: routed rows carry a receiver-local window
     id (< num_groups <= 2048), per-op values and deduplicated masks; each
-    receiver gets K2's per-op tables over its windows
-    (ops/pallas/segreduce.py: f64 / i64 sums with IEEE NaN and +-inf, i64
+    receiver gets K2 dense mode's per-op tables over its windows
+    (ops/pallas/segreduce.py: f64 sums in fixed point, the same bits for
+    any order of the routed rows, with IEEE NaN and +-inf; i64 sums and
     counts, value-dtype MIN/MAX, +-inf for an empty float MIN/MAX slot),
     with no post-exchange batch. The TPU kernel's f32-only values and its
-    zero-sanitized sums are gone. One launch per call: the wrapper zeroes
-    one buffer of `[n_dev, num_groups]` tables (segreduce.fold_tables),
-    copies one packed pointer table (`fold_pointer_table`) from pinned
-    host memory, and the kernel leaves the results in the tables.
+    zero-sanitized sums are gone. One launch per group of ops whose tables
+    fit a block's shared memory (`fold_launches`; a float SUM takes three
+    tables and one scale, found over every receiver's routed rows): the
+    wrapper zeroes one buffer of `[n_dev, num_groups]` tables
+    (segreduce.fold_tables), copies one packed pointer table per launch
+    (`fold_pointer_table`), all in one copy from pinned host memory, and
+    the kernel leaves the results in the tables.
 
 The senders' buffers are all on one device. CPU tensors take the plain
 versions; CUDA tensors launch csrc/ragged_shuffle.cu (or raise).
@@ -46,12 +50,14 @@ import torch
 
 from datafusion_tpu_torch.ops.pallas.partition import MAX_OPS, WINDOW
 from datafusion_tpu_torch.ops.pallas.segreduce import (
-    _KIND,
     _finish,
     _identity_tables,
     _validate,
+    c_entries,
+    check_fixed_rows,
     fold_launches,
     fold_tables,
+    fold_widths,
     segmented_reduce_plain,
 )
 
@@ -242,17 +248,18 @@ def _op_masks(masks, mask_map):
     return [None if u == 0 else masks[u - 1] for u in mask_map]
 
 
-def fold_pointer_table(gids, vals, op_masks) -> list[int]:
-    """K6's packed pointer table (csrc/ragged_shuffle.cu): the senders'
-    window ids, then op a's values by sender, then op a's masks by sender
-    (`op_masks[j][a]`); 0 where there is none."""
-    n_send, k = len(gids), len(vals[0])
+def fold_pointer_table(gids, vals, op_masks, launch_ops: Sequence[int]) -> list[int]:
+    """One K6 launch's packed pointer table (csrc/ragged_shuffle.cu): the
+    senders' window ids, then the values of each op of `launch_ops` by
+    sender, then its masks by sender (`op_masks[j][a]`); 0 where there is
+    none."""
+    n_send = len(gids)
 
     def ptr(t):
         return 0 if t is None else t.data_ptr()
 
-    return ([ptr(g) for g in gids] + [ptr(vals[j][a]) for a in range(k) for j in range(n_send)]
-            + [ptr(op_masks[j][a]) for a in range(k) for j in range(n_send)])
+    return ([ptr(g) for g in gids] + [ptr(vals[j][a]) for a in launch_ops for j in range(n_send)]
+            + [ptr(op_masks[j][a]) for a in launch_ops for j in range(n_send)])
 
 
 def ragged_exchange_fold_plain(
@@ -318,22 +325,25 @@ def ragged_exchange_fold(
     if not (k and split_cap and num_groups):  # nothing to launch
         tables = _finish(ops, vals[0], _identity_tables(ops, vals[0], num_groups, dev, lead=(n_dev,)))
         return [tuple(t[i] for t in tables) for i in range(n_dev)]
-    [(_, _, reps)] = fold_launches(k, num_groups)  # MAX_OPS tables of WINDOW slots fit one launch
-    tables, [done] = fold_tables(ops, vals[0], num_groups, dev, lead=(n_dev,))
+    check_fixed_rows(ops, vals[0], len(gids) * split_cap)  # the most rows one receiver's slots fold
+    launches = fold_launches(fold_widths(ops, vals[0]), num_groups)
+    ft = fold_tables(ops, vals[0], num_groups, dev, lead=(n_dev,), counters=len(launches), fixed=True)
     per_op = [_op_masks(masks[j], mask_map) for j in range(len(gids))]
-    ptrs = torch.tensor(fold_pointer_table(gids, vals, per_op), dtype=torch.int64).pin_memory()
-    kinds = (ctypes.c_int * k)(*[_KIND[(op, None if v is None else v.dtype)] for op, v in zip(ops, vals[0])])
-    outs = (ctypes.c_void_p * k)(*[t.data_ptr() for t in tables])
+    tables = [fold_pointer_table(gids, vals, per_op, range(lo, hi)) for lo, hi, _ in launches]
+    ptrs = torch.tensor([p for t in tables for p in t], dtype=torch.int64).pin_memory()
     with torch.cuda.device(dev):
         ptrs = ptrs.to(dev, non_blocking=True)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.dft_ragged_exchange_fold(ptrs.data_ptr(), sizes.data_ptr(), len(gids), n_dev, split_cap, num_groups,
-                                          reps, k, kinds, outs, done, stream)
-    check(rc, "ragged_exchange_fold kernel")
-    ragged_exchange_fold.launches += 1
-    return list(zip(*[t.unbind(0) for t in tables]))
+        at = ptrs.data_ptr()
+        for (lo, hi, reps), table, done in zip(launches, tables, ft.counters):
+            rc = lib.dft_ragged_exchange_fold(at, sizes.data_ptr(), len(gids), n_dev, split_cap, num_groups, reps,
+                                              hi - lo, *c_entries(ops, vals[0], ft, lo, hi, fixed=True), done, stream)
+            check(rc, "ragged_exchange_fold kernel")
+            ragged_exchange_fold.launches += 1
+            at += 8 * len(table)
+    return list(zip(*[t.unbind(0) for t in ft.tables]))
 
 
-# CUDA kernel launches (one per call that reached the card)
+# CUDA kernel launches (K5: one per `exchange_args` entry, K6: one per `fold_launches` entry)
 ragged_exchange.launches = 0
 ragged_exchange_fold.launches = 0

@@ -28,14 +28,19 @@ MIN and MAX). The design is the card's, not the TPU's:
     where the JAX package sorts a second time by row id. An aggregate whose
     argument has no NULLs, over a window that holds the current row, is
     valid on every selected row: its validity is None, one scatter less.
-  * **Sums are native f64 / i64 cumsums** (the JAX package's f32 limb
+  * **Sums are exact integer prefix sums** (the JAX package's f32 limb
     streams and its monotone pos/neg split were TPU workarounds), taken as
-    differences of prefixes. One f64 prefix stream loses the ulp of the
-    global prefix at every row, so a long window's error grows past
-    n * max|v| * 2^-52; each value is split exactly into a part on a grid
-    whose prefixes are exact and a small remainder (`_split_exact`), two
-    cumsums, and the window's sum is then within about an ulp. NaN and
-    +-inf are counted apart and restored, as in the JAX package.
+    differences of prefixes. One f64 prefix stream would lose the ulp of
+    the global prefix at every row, and a float cumsum on the card adds in
+    no fixed order (its scan combines blocks as they finish). So each
+    float value becomes the fold tile's fixed-point digits
+    (segreduce.fixed_digits: three int64 digits on the grid 2^(E-95) of
+    the column's largest |value|), each digit stream's int64 cumsum is
+    exact in any order, and the window's digit totals are rounded once to
+    f64 (segreduce.fixed_decode): within L * 2^(E-96) plus half an ulp of
+    the window's exact sum (L rows), the same bits on every run and
+    device. NaN and +-inf are counted apart and restored, as in the JAX
+    package.
   * **Whole-partition SUM / COUNT / AVG / MIN / MAX** (no ORDER BY, or
     the UNBOUNDED PRECEDING AND UNBOUNDED FOLLOWING frame) fold on kernel
     K2's sorted mode: in sorted space the partition ids are ascending, so
@@ -53,7 +58,6 @@ MIN and MAX). The design is the card's, not the TPU's:
 
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
@@ -61,7 +65,13 @@ import torch
 
 from datafusion_tpu_torch.errors import NotImplementedError_
 from datafusion_tpu_torch.ops.expr_eval import ColVal, full
-from datafusion_tpu_torch.ops.pallas.segreduce import from_sortable_int, segmented_reduce, to_sortable_int
+from datafusion_tpu_torch.ops.pallas.segreduce import (
+    fixed_decode,
+    fixed_digits,
+    from_sortable_int,
+    segmented_reduce,
+    to_sortable_int,
+)
 from datafusion_tpu_torch.ops.sort import pack_layout, packed_order
 
 SHIFTS = {"lag", "lead"}
@@ -187,24 +197,6 @@ def _prefix_before(csum: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """The inclusive prefix `csum` summed over rows [0, idx): exact, where
     `csum - x` would round."""
     return torch.where(idx > 0, _at(csum, idx - 1), torch.zeros((), dtype=csum.dtype, device=csum.device))
-
-
-def _split_exact(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """x = hi + lo exactly (finite f64 x). `hi` lies on the grid 2^e with
-    2^(e+52) > n * max|x|, so every prefix sum of `hi` over the n rows, and
-    every difference of two, is exact in f64; |lo| <= 2^(e-1), so the
-    rounding of `lo`'s prefixes is far below an ulp of the result. A
-    windowed sum taken as a difference of the two prefix streams is then
-    within about an ulp of the window's sum, where one f64 prefix stream
-    loses the ulp of the global prefix at every row, so that on a long
-    window its error grows past n * max|x| * 2^-52."""
-    n = x.shape[0]
-    m = float(x.abs().max()) if n else 0.0
-    if m == 0.0 or not math.isfinite(n * m):
-        return x, torch.zeros_like(x)
-    scale = math.ldexp(1.0, max(math.frexp(n * m)[1] - 52, -1074))
-    hi = torch.round(x / scale) * scale
-    return hi, x - hi
 
 
 def _running_extreme(img: torch.Tensor, starts: torch.Tensor, maximum: bool, max_len: int) -> torch.Tensor:
@@ -412,8 +404,8 @@ def window_spec(
             contrib = torch.where(ok, a.to(acc), torch.zeros((), dtype=acc, device=dev))
             if a.dtype.is_floating_point:
                 finite = torch.isfinite(contrib)
-                hi, lo = _split_exact(torch.where(finite, contrib, 0.0))
-                w_sum = windowed(torch.cumsum(hi, 0), c) + windowed(torch.cumsum(lo, 0), c)
+                *digits, e = fixed_digits(torch.where(finite, contrib, 0.0))
+                w_sum = fixed_decode(*(windowed(torch.cumsum(d, 0), c) for d in digits), torch.zeros_like(pstart), e)
                 if not bool(finite.all()):
                     # IEEE restore from the non-finite values in the window
                     cls = torch.stack([contrib.isnan(), contrib == float("inf"), contrib == float("-inf")])

@@ -42,10 +42,13 @@ EMU_RUNTIME = r"""
 #include <stdint.h>
 #include <stddef.h>
 #include <string.h>
+#include <algorithm>
 #include <barrier>
 #include <cstdlib>
 #include <mutex>
+#include <random>
 #include <thread>
+#include <utility>
 #include <vector>
 #define __device__
 #define __global__
@@ -130,6 +133,10 @@ template <typename T> T __ldg(const T* p) { return *p; }
 template <typename T> T __ldcg(const T* p) { std::lock_guard<std::mutex> g(emu_mu); return *p; }
 inline int __float_as_int(float x) { int b; memcpy(&b, &x, 4); return b; }
 inline long long __double_as_longlong(double x) { long long b; memcpy(&b, &x, 8); return b; }
+inline double __longlong_as_double(long long b) { double x; memcpy(&x, &b, 8); return x; }
+inline double __ll2double_rn(long long x) { return (double)x; }
+inline double __ull2double_rn(unsigned long long x) { return (double)x; }
+inline int __clzll(long long x) { return x ? __builtin_clzll((unsigned long long)x) : 64; }
 inline double __dadd_rn(double a, double b) { return a + b; }
 inline double __dsub_rn(double a, double b) { return a - b; }
 inline double __dmul_rn(double a, double b) { return a * b; }
@@ -149,6 +156,8 @@ EMU_ATOMIC(unsigned long long, atomicAdd, old + v)
 EMU_ATOMIC(double, atomicAdd, old + v)
 EMU_ATOMIC(unsigned int, atomicMax, v > old ? v : old)
 EMU_ATOMIC(unsigned long long, atomicMax, v > old ? v : old)
+EMU_ATOMIC(unsigned int, atomicOr, old | v)
+EMU_ATOMIC(unsigned long long, atomicOr, old | v)
 
 alignas(16) inline unsigned char emu_smem[232448];  // the running block's dynamic shared memory
 
@@ -157,21 +166,24 @@ void emu_launch(dim3 grid, dim3 block, size_t smem, cudaStream_t, F f) {
   if (smem > sizeof(emu_smem) || block.x > 1024) { emu_err = cudaErrorInvalidConfiguration; return; }
   gridDim = {grid.x, grid.y, grid.z};
   blockDim = {block.x, block.y, block.z};
+  std::vector<std::pair<unsigned, unsigned>> order;  // (bx, by): in grid order, or shuffled by EMU_BLOCK_SEED
   for (unsigned by = 0; by < grid.y; ++by)
-    for (unsigned bx = 0; bx < grid.x; ++bx) {
-      std::barrier<> bar(block.x);
-      EmuBlock b;
-      b.block = &bar;
-      for (unsigned w = 0; w < (block.x + 31) / 32; ++w) b.warp.push_back(new std::barrier<>(32));
-      emu_blk = &b;
-      memset(emu_smem, 0xab, sizeof(emu_smem));  // shared memory starts as garbage
-      std::vector<std::thread> th;
-      for (unsigned t = 0; t < block.x; ++t)
-        th.emplace_back([&, t] { threadIdx = {t, 0, 0}; blockIdx = {bx, by, 0}; f(); });
-      for (auto& x : th) x.join();
-      for (auto* w : b.warp) delete w;
-      emu_blk = nullptr;
-    }
+    for (unsigned bx = 0; bx < grid.x; ++bx) order.emplace_back(bx, by);
+  if (const int seed = emu_env("EMU_BLOCK_SEED", 0)) std::shuffle(order.begin(), order.end(), std::mt19937(seed));
+  for (const auto& [bx, by] : order) {
+    std::barrier<> bar(block.x);
+    EmuBlock b;
+    b.block = &bar;
+    for (unsigned w = 0; w < (block.x + 31) / 32; ++w) b.warp.push_back(new std::barrier<>(32));
+    emu_blk = &b;
+    memset(emu_smem, 0xab, sizeof(emu_smem));  // shared memory starts as garbage
+    std::vector<std::thread> th;
+    for (unsigned t = 0; t < block.x; ++t)
+      th.emplace_back([&, t] { threadIdx = {t, 0, 0}; blockIdx = {bx, by, 0}; f(); });
+    for (auto& x : th) x.join();
+    for (auto* w : b.warp) delete w;
+    emu_blk = nullptr;
+  }
 }
 """
 
@@ -206,12 +218,12 @@ def emu(tmp_path_factory):
                    check=True)
     lib = ctypes.CDLL(str(lib_path))
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.dft_segreduce.argtypes = [vp, i64, i32, i32, vp, vp, vp, vp, vp, vp]
-    lib.dft_segreduce_dense.argtypes = [vp, i64, i32, i32, i32, vp, vp, vp, vp, vp, vp]
-    lib.dft_windowed_reduce.argtypes = [vp, i64, i32, i32, vp, vp, vp, vp, vp, vp]
+    lib.dft_segreduce.argtypes = [vp, i64, i32, i32, vp, vp, vp, vp, vp, vp, i32, vp]
+    lib.dft_segreduce_dense.argtypes = [vp, i64, i32, i32, i32, vp, vp, vp, vp, vp, vp, vp]
+    lib.dft_windowed_reduce.argtypes = [vp, i64, i32, i32, vp, vp, vp, vp, vp, vp, vp]
     lib.dft_fused_stage.argtypes = [vp, i64, i32, i32, vp]
     lib.dft_ragged_exchange.argtypes = [vp, vp, i32, i32, i64, i32, vp]
-    lib.dft_ragged_exchange_fold.argtypes = [vp, vp, i32, i32, i64, i32, i32, i32, vp, vp, vp, vp]
+    lib.dft_ragged_exchange_fold.argtypes = [vp, vp, i32, i32, i64, i32, i32, i32, vp, vp, vp, vp, vp]
     for f in (lib.dft_segreduce, lib.dft_segreduce_dense, lib.dft_windowed_reduce, lib.dft_fused_stage,
               lib.dft_ragged_exchange, lib.dft_ragged_exchange_fold):
         f.restype = i32
@@ -222,29 +234,43 @@ def emu(tmp_path_factory):
 
 def _launch(lib, mode, gid, vals, masks, ops, g):
     """The wrappers' launches on CPU tensors: `fold_tables`, one C call per
-    launch of the mode's op split. Returns (tables, launches)."""
+    launch of the mode's op split, each with its ops' C arrays
+    (`c_entries`, `c_streams`). Returns (tables, launches)."""
+    n = gid.shape[0]
+    max_blocks = min(sr.SORTED_MAX_BLOCKS, -(-n // sr.SORTED_BLOCK_ROWS))
     if mode == "sorted":
         launches = [(lo, hi, 1) for lo, hi in sr.sorted_launch_ops(len(ops))]
-    elif mode == "dense":
-        launches = sr.fold_launches(len(ops), g)
+        ft = sr.fold_tables(ops, vals, g, "cpu", counters=len(launches), edge_blocks=max_blocks)
     else:
-        launches = [(0, len(ops), 1)]
-    tables, done = sr.fold_tables(ops, vals, g, "cpu", counters=len(launches))
-    kinds = [sr._KIND[(op, None if v is None else v.dtype)] for op, v in zip(ops, vals)]
-    for (lo, hi, reps), counter in zip(launches, done):
+        launches = sr.fold_launches(sr.fold_widths(ops, vals), g if mode == "dense" else pt.WINDOW)
+        ft = sr.fold_tables(ops, vals, g, "cpu", counters=len(launches), fixed=True)
+    for (lo, hi, reps), counter in zip(launches, ft.counters):
+        kinds, outs, aux = sr.c_entries(ops, vals, ft, lo, hi, fixed=mode != "sorted")
+        arrays = (kinds, *sr.c_streams(vals, masks, lo, hi), outs, aux)
         k = hi - lo
-        arrays = ((ctypes.c_int * k)(*kinds[lo:hi]),
-                  (ctypes.c_void_p * k)(*[None if v is None else v.data_ptr() for v in vals[lo:hi]]),
-                  (ctypes.c_void_p * k)(*[None if m is None else m.data_ptr() for m in masks[lo:hi]]),
-                  (ctypes.c_void_p * k)(*[t.data_ptr() for t in tables[lo:hi]]))
         if mode == "sorted":
-            rc = lib.dft_segreduce(gid.data_ptr(), gid.shape[0], g, k, *arrays, counter, None)
+            rc = lib.dft_segreduce(gid.data_ptr(), n, g, k, *arrays, counter, max_blocks, None)
         elif mode == "dense":
-            rc = lib.dft_segreduce_dense(gid.data_ptr(), gid.shape[0], g, reps, k, *arrays, counter, None)
+            rc = lib.dft_segreduce_dense(gid.data_ptr(), n, g, reps, k, *arrays, counter, None)
         else:
-            rc = lib.dft_windowed_reduce(gid.data_ptr(), gid.shape[0], g, k, *arrays, counter, None)
+            rc = lib.dft_windowed_reduce(gid.data_ptr(), n, g, k, *arrays, counter, None)
         assert rc == 0
-    return tables, len(launches)
+    return ft.tables, len(launches)
+
+
+def _launch_k6(lib, gids, vals, masks, sizes, ops, mask_map, n_recv, split_cap, num_groups):
+    """K6's launches as the wrapper makes them: the `[n_recv, num_groups]`
+    tables, one packed pointer table and one C call per `fold_launches`
+    entry. Returns (tables, launches)."""
+    launches = sr.fold_launches(sr.fold_widths(ops, vals[0]), num_groups)
+    ft = sr.fold_tables(ops, vals[0], num_groups, "cpu", lead=(n_recv,), counters=len(launches), fixed=True)
+    per_op = [rs._op_masks(m, mask_map) for m in masks]
+    for (lo, hi, reps), done in zip(launches, ft.counters):
+        ptrs = torch.tensor(rs.fold_pointer_table(gids, vals, per_op, range(lo, hi)), dtype=torch.int64)
+        assert lib.dft_ragged_exchange_fold(ptrs.data_ptr(), sizes.data_ptr(), len(gids), n_recv, split_cap,
+                                            num_groups, reps, hi - lo,
+                                            *sr.c_entries(ops, vals[0], ft, lo, hi, fixed=True), done, None) == 0
+    return ft.tables, len(launches)
 
 
 EDGE_OPS = ("sum", "count", "min", "max", "max", "min", "sum", "count", "sum", "max", "min", "count", "sum", "min",
@@ -299,15 +325,20 @@ def test_sorted_kernel_matches_plain(emu, monkeypatch, case, n_ops, sms):
     _assert_tables(ops, k, sr.segmented_reduce_plain(gid, vals, masks, ops=ops, num_groups=g))
 
 
-@pytest.mark.parametrize("case", ["slab", "shuffled", "widest", "skew", "unsorted ragged", "whole windows"])
+@pytest.mark.parametrize("case", ["slab", "shuffled", "widest", "skew", "unsorted ragged", "whole windows",
+                                  "four float sums", "three float sums and three ops"])
 def test_windowed_kernel_matches_plain(emu, monkeypatch, case):
     """K4 over K3's slab (10,001 slots, 5 buckets), the same slab shuffled
     (chunks mix buckets and windows: global atomics), 14 ops over 16,383
-    slots, 80% of the rows on one gid, unsorted ids with negatives and a
-    ragged last chunk, and a slot count that fills its last window."""
+    slots (two launches: four float SUMs take three windows each), 80% of
+    the rows on one gid, unsorted ids with negatives and a ragged last
+    chunk, a slot count that fills its last window; and over 5,000 slots
+    four f64 SUMs (12 windows) and three float SUMs beside a COUNT, a MIN
+    and a MAX (12 windows), one launch each."""
     monkeypatch.setenv("EMU_SMS", "6")
     rng = np.random.default_rng(len(case))
-    nslots = {"widest": 16_383, "whole windows": 4096}.get(case, 10_001)
+    nslots = {"widest": 16_383, "whole windows": 4096, "four float sums": 5000,
+              "three float sums and three ops": 5000}.get(case, 10_001)
     if case == "unsorted ragged":
         gid = torch.from_numpy(rng.integers(-10, nslots + 50, 30_001).astype(np.int32))
     else:
@@ -320,8 +351,39 @@ def test_windowed_kernel_matches_plain(emu, monkeypatch, case):
         if case == "shuffled":
             gid = gid[torch.from_numpy(rng.permutation(gid.shape[0]))].contiguous()
     ops, vals, masks = _streams(rng, gid.shape[0], pt.MAX_OPS if case == "widest" else 5)
-    k, _ = _launch(emu, "window", gid, vals, masks, ops, nslots)
+    if case == "four float sums":
+        ops, vals, masks = ("sum",) * 4, [vals[0]] * 4, [masks[0], None, masks[2], masks[0]]
+    if case == "three float sums and three ops":
+        f64, f32 = vals[0], vals[2]
+        ops, vals, masks = ("sum", "count", "sum", "min", "sum", "max"), [f64, None, f32, f64, f64, f32], masks + masks[:1]
+    k, launches = _launch(emu, "window", gid, vals, masks, ops, nslots)
+    assert launches == (2 if case == "widest" else 1)
     _assert_tables(ops, k, pt.windowed_reduce_plain(gid, vals, masks, ops=ops, num_groups=nslots))
+
+
+def test_windowed_entry_refuses_more_windows_than_a_block_holds(emu):
+    """csrc/partition.cu's C entry takes at most MAX_OPS (14) shared
+    windows a launch, a float SUM three: four f64 SUMs and two COUNTs (14
+    windows) launch, five f64 SUMs (15) are refused, as are four f64 SUMs
+    and three COUNTs. test_torch_partition.py holds the wrapper's launch
+    plan to the same limit."""
+    n, g = 4096, 5000
+    gid = torch.from_numpy(np.arange(n, dtype=np.int32) % g)
+    x = torch.ones(n, dtype=torch.float64)
+    for ops, ok in ((("sum",) * 4 + ("count",) * 2, True), (("sum",) * 5, False),
+                    (("sum",) * 4 + ("count",) * 3, False)):
+        vals = [x if op == "sum" else None for op in ops]
+        assert sum(sr.fold_widths(ops, vals)) == (14 if ok else 15)
+        ft = sr.fold_tables(ops, vals, g, "cpu", fixed=True)
+        kinds, outs, aux = sr.c_entries(ops, vals, ft, 0, len(ops), fixed=True)
+        rc = emu.dft_windowed_reduce(gid.data_ptr(), n, g, len(ops), kinds,
+                                     *sr.c_streams(vals, [None] * len(ops), 0, len(ops)), outs, aux, ft.counters[0],
+                                     None)
+        assert (rc == 0) == ok, ops
+        if ok:
+            want = sr.segmented_reduce_plain(gid, vals, [None] * len(ops), ops=ops, num_groups=g)
+            for a, b in zip(ft.tables, want):
+                assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("g,n_ops", [(7, 5), (2048, 15)])
@@ -565,16 +627,261 @@ def test_ragged_exchange_fold_kernel_matches_plain(emu, monkeypatch, n_send, n_r
         vals.append([ft, None, ft, it, it, it])
         masks.append([torch.from_numpy(rng.random(width) < 0.8)])
     mask_map = (1, 0, 1, 0, 1, 0)
-    k = len(ops)
-    [(_, _, reps)] = sr.fold_launches(k, num_groups)
-    tables, [done] = sr.fold_tables(ops, vals[0], num_groups, "cpu", lead=(n_recv,))
-    per_op = [rs._op_masks(m, mask_map) for m in masks]
-    ptrs = torch.tensor(rs.fold_pointer_table(gids, vals, per_op), dtype=torch.int64)
-    kinds = (ctypes.c_int * k)(*[sr._KIND[(op, None if v is None else v.dtype)] for op, v in zip(ops, vals[0])])
-    outs = (ctypes.c_void_p * k)(*[t.data_ptr() for t in tables])
-    assert emu.dft_ragged_exchange_fold(ptrs.data_ptr(), sizes.data_ptr(), n_send, n_recv, split_cap, num_groups,
-                                        reps, k, kinds, outs, done, None) == 0
+    tables, _ = _launch_k6(emu, gids, vals, masks, sizes, ops, mask_map, n_recv, split_cap, num_groups)
     want = rs.ragged_exchange_fold_plain(gids, vals, masks, sizes, ops=ops, mask_map=mask_map, n_dev=n_recv,
                                          split_cap=split_cap, num_groups=num_groups)
     for i in range(n_recv):
         _assert_tables(ops, [t[i] for t in tables], want[i])
+
+
+# --- float SUMs: the same bits in every run ----------------------------------
+
+
+def _wide(rng, n, lo=-40, hi=60):
+    """f64 values of magnitude 2^lo to 2^hi, either sign, every third one
+    the negation of the one before it (cancellation): their sums do not
+    associate in f64."""
+    x = 2.0 ** rng.uniform(lo, hi, n) * rng.choice([-1.0, 1.0], n)
+    x[1::3] = -x[0::3][: len(x[1::3])]
+    return x
+
+
+def _float_case(rng, n, g, sorted_ids):
+    """Ids over g slots plus a dropped one (sorted: runs of about 40
+    warp tiles' rows), and float SUMs of f64 and f32 wide values, one
+    masked, beside a COUNT and a MAX."""
+    ids = rng.integers(0, g + 1, n)
+    gid = torch.from_numpy((np.sort(ids) if sorted_ids else ids).astype(np.int32))
+    x = torch.from_numpy(_wide(rng, n))
+    m = torch.from_numpy(rng.random(n) < 0.7)
+    ops = ("sum", "count", "sum", "sum", "max")
+    return gid, [x, None, x.float(), x, x], [None, None, None, m, m], ops
+
+
+def _k6_case(rng, n_send, n_recv, split_cap, num_groups, values):
+    """K6's inputs: each sender's region-layout window ids (some past
+    num_groups), `values(rng, width)` per sender, two masks, and the count
+    matrix; ops and mask map as _float_case's."""
+    width = n_recv * split_cap
+    sizes = torch.from_numpy(rng.integers(16, split_cap + 1, (n_send, n_recv)).astype(np.int32))
+    gids, vals, masks = [], [], []
+    for _ in range(n_send):
+        x = torch.from_numpy(values(rng, width))
+        gids.append(torch.from_numpy(rng.integers(0, num_groups + 20, width).astype(np.int32)))
+        vals.append([x, None, x.float(), x, x])
+        masks.append([torch.from_numpy(rng.random(width) < 0.7)])
+    ops, mask_map = ("sum", "count", "sum", "sum", "max"), (0, 0, 0, 1, 1)
+    kw = dict(ops=ops, mask_map=mask_map, n_dev=n_recv, split_cap=split_cap, num_groups=num_groups)
+    return (gids, vals, masks, sizes), kw
+
+
+def _run(emu, kernel, case, monkeypatch, seed):
+    """One emulated launch of `kernel` on `case`, its blocks in the order
+    EMU_BLOCK_SEED=seed gives; the outputs (K6: receiver-major tables)."""
+    monkeypatch.setenv("EMU_BLOCK_SEED", str(seed))
+    if kernel == "k6":
+        (gids, vals, masks, sizes), kw = case
+        tables, _ = _launch_k6(emu, gids, vals, masks, sizes, kw["ops"], kw["mask_map"], kw["n_dev"],
+                               kw["split_cap"], kw["num_groups"])
+        return tables
+    gid, vals, masks, ops, g = case
+    return _launch(emu, {"dense": "dense", "window": "window", "sorted": "sorted"}[kernel], gid, vals, masks, ops, g)[0]
+
+
+def _permuted(case, rng):
+    """The same rows in another order: K2 dense's and K4's rows, or every
+    K6 sender's rows within each of its regions' valid prefixes."""
+    if len(case) == 2:
+        (gids, vals, masks, sizes), kw = case
+        cap = kw["split_cap"]
+        perms = []
+        for j in range(len(gids)):
+            p = torch.arange(gids[j].shape[0])
+            for i in range(kw["n_dev"]):
+                c = int(sizes[j, i])
+                p[i * cap: i * cap + c] = i * cap + torch.from_numpy(rng.permutation(c))
+            perms.append(p)
+        return ([g[p].contiguous() for g, p in zip(gids, perms)],
+                [[None if v is None else v[p].contiguous() for v in vs] for vs, p in zip(vals, perms)],
+                [[m[p].contiguous() for m in ms] for ms, p in zip(masks, perms)], sizes), kw
+    gid, vals, masks, ops, g = case
+    p = torch.from_numpy(rng.permutation(gid.shape[0]))
+    return (gid[p].contiguous(), [None if v is None else v[p].contiguous() for v in vals],
+            [None if m is None else m[p].contiguous() for m in masks], ops, g)
+
+
+def _bits_equal(a, b):
+    return a.dtype == b.dtype and torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.parametrize("kernel", ["dense", "window", "k6", "sorted"])
+def test_float_sums_are_the_same_in_every_block_order(emu, monkeypatch, kernel):
+    """Float SUMs of values from 2^-40 to 2^60 with cancellation (their
+    f64 sums do not associate), launched with two block orders
+    (EMU_BLOCK_SEED): every output bit-equal, float SUMs included. The
+    fold-tile kernels (K2 dense, K4 over 5,000 slots in 3 windows, K6 over
+    4 senders and 2 receivers) also give the same bits for the rows in
+    another order. K2 sorted runs on 4 blocks of 16 warps, each group
+    spanning about 12 warps' spans, so its float SUMs combine edge runs of
+    many warps and blocks. Each of these failed where float SUMs were f64
+    atomics."""
+    rng = np.random.default_rng({"dense": 1, "window": 2, "k6": 3, "sorted": 4}[kernel])
+    monkeypatch.setenv("EMU_SMS", "4")
+    if kernel == "k6":
+        case = _k6_case(rng, 4, 2, 1024, 300, _wide)
+    else:
+        n, g = {"dense": (6001, 300), "window": (6001, 5000), "sorted": (16_384, 5)}[kernel]
+        gid, vals, masks, ops = _float_case(rng, n, g, kernel == "sorted")
+        case = (gid, vals, masks, ops, g)
+    first = _run(emu, kernel, case, monkeypatch, 1)
+    runs = [_run(emu, kernel, case, monkeypatch, 2)]
+    if kernel != "sorted":
+        runs.append(_run(emu, kernel, _permuted(case, rng), monkeypatch, 3))
+    for other in runs:
+        for a, (x, y) in enumerate(zip(first, other)):
+            assert _bits_equal(x, y), a
+
+
+DBL_MAX = np.finfo(np.float64).max
+
+
+def _oracle(xs, e):
+    """One slot's float SUM as the contract defines it, from its kept
+    finite values `xs` and the launch's scale exponent e: the exact sum,
+    and the grid total (each value rounded to nearest even on 2^(e-95))
+    rounded once to f64 (+-inf past the largest double)."""
+    from fractions import Fraction
+
+    exact = sum((Fraction(x) for x in xs), Fraction(0))
+    q = sum(round(Fraction(x) * Fraction(2) ** (95 - e)) for x in xs)
+    try:
+        want = float(Fraction(q) * Fraction(2) ** (e - 95))
+    except OverflowError:
+        want = float("inf") if q > 0 else float("-inf")
+    return exact, want, len(xs)
+
+
+def _check_oracle(got, gid, x, mask, g):
+    """Every slot of `got` (one float SUM's f64 sums over `g` slots of the
+    rows gid, x, mask) against _oracle: the flags' outcome for a slot with
+    a NaN or an infinity, else the grid total rounded once, bit for bit,
+    and within n * 2^(e-96) plus half an ulp of the exact sum."""
+    keep = (gid >= 0) & (gid < g) & (True if mask is None else mask)
+    xk, gk = x[keep].double().numpy(), gid[keep].numpy()
+    fin = np.isfinite(xk)
+    e = max(int(np.abs(xk[fin]).view(np.int64).max()) >> 52, 1) - 1023 if fin.any() else -1022
+    for slot in range(g):
+        xs = xk[gk == slot]
+        r = float(got[slot])
+        nan, pinf, ninf = np.isnan(xs).any(), (xs == np.inf).any(), (xs == -np.inf).any()
+        if nan or (pinf and ninf):
+            assert np.isnan(r), slot
+        elif pinf or ninf:
+            assert r == (np.inf if pinf else -np.inf), slot
+        else:
+            exact, want, n = _oracle(xs.tolist(), e)
+            assert np.float64(r).view(np.int64) == np.float64(want).view(np.int64), (slot, r, want)
+            if np.isfinite(r):
+                from fractions import Fraction
+
+                assert abs(Fraction(r) - exact) <= n * Fraction(2) ** (e - 96) + Fraction(np.spacing(abs(r))) / 2
+
+
+@pytest.mark.parametrize("data", ["wide", "cancelling", "special"])
+@pytest.mark.parametrize("kernel", ["dense", "window", "k6"])
+def test_fixed_point_sums_are_exact(emu, monkeypatch, kernel, data):
+    """The fold-tile kernels' float SUMs (f64 and f32 values, masked and
+    not) equal segreduce.fixed_sum_plain bit for bit, and both equal the
+    contract's oracle: each value rounded to the grid 2^(E-95) of the
+    launch's largest kept finite |value|, the total rounded once, within
+    n * 2^(E-96) plus half an ulp of the exact sum. Data: magnitudes
+    2^-40..2^60; values that cancel to a small remainder; and slots of
+    NaN, +inf, -inf, both infinities, -0.0 only, finite values whose exact
+    sum overflows (E = 1023), a 1e300 outlier masked out (so it sets no
+    scale) and an empty slot."""
+    rng = np.random.default_rng(len(kernel) * 7 + len(data))
+    monkeypatch.setenv("EMU_SMS", "3")
+
+    def values(rng, n):
+        if data == "wide":
+            return _wide(rng, n)
+        if data == "cancelling":
+            x = rng.standard_normal(n) * 2.0**40
+            x[1::2] = -x[0::2][: len(x[1::2])] + rng.standard_normal(len(x[1::2]))
+            return x
+        x = _wide(rng, n, -20, 20)
+        x[0], x[1], x[2], x[3], x[4] = np.nan, np.inf, -np.inf, np.inf, -np.inf
+        x[5:9] = -0.0
+        x[9:12] = 1.5e308
+        x[12] = 1e300  # masked out below
+        return x
+
+    def specials(gid, mask):
+        gid[:12] = [0, 1, 2, 3, 3, 4, 4, 4, 4, 5, 5, 5]
+        gid[12] = 6
+        gid[13:] = np.where(gid[13:] <= 7, gid[13:] + 8, gid[13:])  # slots 0-7 hold only the rows above
+        mask[:12], mask[12] = True, False
+
+    if kernel == "k6":
+        case = _k6_case(rng, 3, 2, 512, 300, values)
+        (gids, vals, masks, sizes), kw = case
+        if data == "special":
+            for j in range(len(gids)):
+                g_, m_ = gids[j].numpy(), masks[j][0].numpy()
+                for i in range(kw["n_dev"]):
+                    lo = i * kw["split_cap"]
+                    specials(g_[lo: lo + int(sizes[j, i])], m_[lo: lo + int(sizes[j, i])])
+        got = _run(emu, kernel, case, monkeypatch, 5)
+        want = smoke.k6_fixed_sums(*case)
+        for a in want:
+            assert _bits_equal(got[a], want[a]), a
+        # the oracle over the launch's flat rows (smoke.k6_fixed_sums' layout)
+        n_dev, cap, g = kw["n_dev"], kw["split_cap"], kw["num_groups"]
+        spans = [(i, j, i * cap, i * cap + int(sizes[j, i])) for i in range(n_dev) for j in range(len(gids))]
+        w = torch.cat([gids[j][lo:hi] for _, j, lo, hi in spans])
+        recv = torch.cat([torch.full((hi - lo,), i, dtype=torch.int32) for i, _, lo, hi in spans])
+        flat = torch.where((w >= 0) & (w < g), recv * g + w, -1)
+        for a, u in ((0, 0), (2, 0), (3, 1)):
+            x = torch.cat([vals[j][a][lo:hi] for _, j, lo, hi in spans])
+            m = None if u == 0 else torch.cat([masks[j][0][lo:hi] for _, j, lo, hi in spans])
+            _check_oracle(got[a].reshape(-1), flat, x, m, n_dev * g)
+        return
+    n, g = (5003, 300) if kernel == "dense" else (5003, 4000)
+    gid, vals, masks, ops = _float_case(rng, n, g, False)
+    x = torch.from_numpy(values(rng, n))
+    vals = [x, None, x.float(), x, x]
+    if data == "special":
+        specials(gid.numpy(), masks[3].numpy())
+    got = _run(emu, kernel, (gid, vals, masks, ops, g), monkeypatch, 5)
+    want = smoke.fixed_sums(gid, vals, masks, ops, g)
+    assert sorted(want) == [0, 2, 3]
+    for a in want:
+        assert _bits_equal(got[a], want[a]), a
+        _check_oracle(got[a], gid, vals[a], masks[a], g)
+
+
+def test_fixed_point_spread_holds_the_jax_tolerance(emu, monkeypatch):
+    """The fold tile's scale is the launch's: a group whose values lie 2^40
+    below the launch's largest keeps about 55 bits of each (the grid
+    2^(E-95)). Emulated K2 dense mode and segreduce.fixed_sum_plain over
+    such a launch against the JAX package's SQL SUM on the CPU, at the
+    rtol 1e-12 the SQL parity tests hold: the documented bound n *
+    2^(E-96) is measured here, not assumed."""
+    import datafusion_tpu as ref
+
+    monkeypatch.setenv("EMU_SMS", "3")
+    rng = np.random.default_rng(40)
+    n, g = 4001, 6
+    gid = rng.integers(0, g, n).astype(np.int32)
+    x = rng.uniform(1.0, 2.0, n) * 2.0**40
+    small = gid == 0
+    x[small] = rng.uniform(1.0, 2.0, int(small.sum()))  # 2^40 below the rest
+    ctx = ref.ExecutionContext()
+    ctx.register_table("t", ref.Table.from_pydict({"g": gid, "x": x}))
+    rows = ctx.sql("SELECT g, SUM(x) AS s FROM t GROUP BY g ORDER BY g").to_pylist()
+    want = torch.tensor([r["s"] for r in rows], dtype=torch.float64)
+    assert [r["g"] for r in rows] == list(range(g))
+    gt, xt = torch.from_numpy(gid), torch.from_numpy(x)
+    got = _launch(emu, "dense", gt, [xt], [None], ("sum",), g)[0][0]
+    assert _bits_equal(got, sr.fixed_sum_plain(gt, xt, None, g))
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=0.0)

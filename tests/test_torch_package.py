@@ -137,6 +137,10 @@ def test_cuda_sources_match_the_python_tables():
         suffix = {None: "", torch.float32: "_F32", torch.float64: "_F64",
                   torch.int32: "_I32", torch.int64: "_I64"}[dt]
         assert kinds[code] == f"K_{op.upper()}{suffix}"
+    for dt, code in sr._FIX.items():  # the fold tile's fixed-point float SUM
+        assert kinds[code] == {torch.float32: "K_FIX_F32", torch.float64: "K_FIX_F64"}[dt]
+    for macro, value in (("FIX_TABLES", sr.FIX_TABLES), ("FOLD_MAX_OPS", sr.FOLD_MAX_OPS)):
+        assert re.search(rf"#define DFT_{macro} {value}\b", common), macro
     assert f"DENSE_MAX_SLOTS {sr.DENSE_MAX_SLOTS}" in k2
     k34 = (PKG / "csrc" / "partition.cu").read_text()
     assert '#include "reduce_common.cuh"' in k34

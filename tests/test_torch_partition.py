@@ -214,3 +214,29 @@ def test_wrappers_reject_what_the_kernels_cannot_take():
                         num_groups=4)
     with pytest.raises(ValueError, match="SENTINEL"):
         windowed_reduce(g, [None], [None], ops=("count",), num_groups=SENTINEL + 1)
+
+
+def test_k4_launches_fit_the_kernel_entry():
+    """K4's launch plan (`fold_launches` over `fold_widths`; K4 takes no replicas)
+    keeps every launch within what csrc/partition.cu's C entry takes: at
+    most FOLD_MAX_OPS ops and MAX_OPS shared windows, a float SUM taking
+    FIX_TABLES of them. Every op list up to MAX_OPS ops, from no float SUM
+    to all, in several orders."""
+    from datafusion_tpu_torch.ops.pallas import segreduce as sr
+
+    rng = np.random.default_rng(3)
+    f, i = torch.zeros(1, dtype=torch.float64), torch.zeros(1, dtype=torch.int64)
+    for n_ops in range(1, MAX_OPS + 1):
+        for n_fix in range(n_ops + 1):
+            for _ in range(3):
+                fix = set(rng.permutation(n_ops)[:n_fix].tolist())
+                ops = [("sum" if a in fix else ("count", "min", "sum")[a % 3]) for a in range(n_ops)]
+                vals = [f if a in fix else None if op == "count" else i for a, op in enumerate(ops)]
+                widths = sr.fold_widths(ops, vals)
+                launches = sr.fold_launches(widths, WINDOW)
+                stops = [hi for _, hi, _ in launches]
+                assert [lo for lo, _, _ in launches] == [0] + stops[:-1] and stops[-1] == n_ops
+                for lo, hi, reps in launches:
+                    assert hi - lo <= sr.FOLD_MAX_OPS and sum(widths[lo:hi]) <= MAX_OPS
+                if sum(widths) <= MAX_OPS:
+                    assert len(launches) == 1

@@ -288,7 +288,7 @@ def test_ragged_exchange_fold_14_ops_matches_jax():
     )
     port = _port_fold(gid_r, [None if op == "count" else v for op, v in zip(ops, vals)], msk_r, sizes, ops,
                       (1,) * len(ops), num_groups, split_cap)
-    assert len(rs.fold_launches(len(ops), 2048)) == 1
+    assert len(rs.fold_launches([1] * len(ops), 2048)) == 1
     for a, op in enumerate(ops):
         got = np.stack([port[i][a].numpy() for i in range(N_DEV)])
         if op == "sum":
@@ -327,16 +327,20 @@ def test_ragged_exchange_fold_edges_f64_oracle(n_dev, num_groups):
 
 def test_fold_pointer_table_layout():
     """K6's packed table: ids by sender, then each op's values by sender,
-    then each op's masks by sender, 0 for a COUNT's value or no mask."""
+    then each op's masks by sender, 0 for a COUNT's value or no mask; a
+    launch's table holds its own ops only."""
     n_dev = 3
     gids = [torch.zeros(4, dtype=torch.int32) for _ in range(n_dev)]
     vals = [[torch.zeros(4), None] for _ in range(n_dev)]
     masks = [[None, torch.zeros(4, dtype=torch.bool)] for _ in range(n_dev)]
-    table = rs.fold_pointer_table(gids, vals, masks)
+    table = rs.fold_pointer_table(gids, vals, masks, range(2))
     assert len(table) == n_dev * (1 + 2 * 2)
     assert table[:3] == [g.data_ptr() for g in gids]
     assert table[3:6] == [v[0].data_ptr() for v in vals] and table[6:9] == [0, 0, 0]
     assert table[9:12] == [0, 0, 0] and table[12:15] == [m[1].data_ptr() for m in masks]
+    table = rs.fold_pointer_table(gids, vals, masks, range(1, 2))
+    assert len(table) == n_dev * (1 + 2) and table[:3] == [g.data_ptr() for g in gids]
+    assert table[3:6] == [0, 0, 0] and table[6:9] == [m[1].data_ptr() for m in masks]
 
 
 def test_fold_contract_checks():

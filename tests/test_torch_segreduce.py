@@ -154,7 +154,7 @@ def test_dense_edge_cases(case, g, n_ops):
     ops = DENSE_EDGE_OPS[:n_ops]
     vs = tuple(None if op == "count" else (ivals if a % 3 == 2 else vals) for a, op in enumerate(ops))
     ms = tuple((m1, None, m2)[a % 3] for a in range(n_ops))
-    assert len(fold_launches(n_ops, g)) == (2 if case == "split" else 1)
+    assert len(fold_launches([1] * n_ops, g)) == (2 if case == "split" else 1)
     _check(ops, *_both(gid, vs, ms, ops, g, dense=True))
 
 
@@ -169,7 +169,7 @@ def test_dense_edge_cases(case, g, n_ops):
     (33, 1, [(0, 16, 32), (16, 33, 32)]),  # past the ops a launch's struct holds
 ])
 def test_fold_launches(n_ops, g, want):
-    got = fold_launches(n_ops, g)
+    got = fold_launches([1] * n_ops, g)
     assert got == want
     for lo, hi, reps in got:
         assert (hi - lo) * g * 8 <= FOLD_SMEM_BYTES and 1 <= reps <= MAX_REPLICAS and reps & (reps - 1) == 0
@@ -203,15 +203,30 @@ def test_sorted_op_list_past_one_launch():
 
 def test_fold_tables_layout():
     """The fold kernels' tables: one zeroed buffer, each op's table in its
-    result dtype on an 8-byte boundary, then one counter per launch."""
+    result dtype on an 8-byte boundary, then one counter per launch. In
+    sorted mode a float SUM is one f64 table, with its edge slots after
+    the counters; on the fold tile (`fixed`) it is four int64 tables (its
+    f64 result in the first) and its scale word."""
     f32, i64 = torch.zeros(3, dtype=torch.float32), torch.zeros(3, dtype=torch.int64)
     ops = ("min", "count", "sum", "max", "sum")
-    tables, counters = fold_tables(ops, (f32, None, f32, i64, i64), 5, "cpu", lead=(3,), counters=2)
+    ft = fold_tables(ops, (f32, None, f32, i64, i64), 5, "cpu", lead=(3,), counters=2)
+    tables, counters = ft.tables, ft.counters
     assert [t.dtype for t in tables] == [torch.float32, torch.int64, torch.float64, torch.int64, torch.int64]
     assert all(t.shape == (3, 5) and not t.any() for t in tables)
     base = tables[0].data_ptr()
     assert [t.data_ptr() - base for t in tables] == [0, 64, 184, 304, 424]  # 60 bytes of f32 round up to 64
     assert counters == [base + 544, base + 552]
+    assert ft.outs == [t.data_ptr() for t in tables] and ft.aux == [0] * 5
+
+    ft = fold_tables(ops, (f32, None, f32, i64, i64), 5, "cpu", lead=(3,), counters=2, edge_blocks=7)
+    base = ft.tables[0].data_ptr()
+    assert ft.counters == [base + 544, base + 552] and ft.aux == [0, 0, base + 560, 0, 0]  # 7 x 2 16-byte slots
+
+    ft = fold_tables(ops, (f32, None, f32, i64, i64), 5, "cpu", lead=(3,), counters=2, fixed=True)
+    base = ft.tables[0].data_ptr()
+    assert [t.data_ptr() - base for t in ft.tables] == [0, 64, 184, 672, 792]  # four 120-byte tables + 8
+    assert ft.tables[2].dtype == torch.float64 and ft.outs[2] == base + 184
+    assert ft.aux == [0, 0, base + 664, 0, 0] and ft.counters == [base + 912, base + 920]
 
 
 def test_nan_inf_and_wide_types():

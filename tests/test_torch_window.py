@@ -10,9 +10,9 @@ Window SUM / AVG columns may differ by the stated tolerance: the JAX
 package sums windows as differences of one f64 prefix stream, which
 loses the ulp of the global prefix at every row, so its error is bounded
 by n * (n * max|v|) * 2^-53 (n rows), with rel 1e-12 beside it; the port
-(whole partitions on K2, the rest on an exact split of each value) stays
-within n * max|v| * 2^-52 of the exact sum, with rel 1e-12 beside it,
-and is held to that against a long-double oracle, partition by
+(whole partitions on K2, the rest on exact fixed-point digit prefixes)
+stays within n * max|v| * 2^-52 of the exact sum, with rel 1e-12 beside
+it, and is held to that against a long-double oracle, partition by
 partition.
 
 Unit cases feed the same seeded numpy inputs to `window_spec` of both
