@@ -146,19 +146,41 @@ Phases, each printed on its own line:
      bit-equal in 5 runs; then q1-q5 and TPC-H's 22 shapes once under
      torch.use_deterministic_algorithms(True, warn_only=True), every
      nondeterminism warning logged (chiprun_out/determinism_warnings.txt)
-  12. two processes on the card as one mesh (run last, about 60 s):
-     `python3 chip_smoke.py --rank R PORT DIR` twice, joined by
-     torch.distributed (Gloo: NCCL refuses two processes on one card),
-     each with ExecutionContext(mesh=global_mesh(4)) and its own 2^23
-     rows of big (k, d, lat, lng, g, mode, o; register_table_shards) and
-     its blocks of orders on the card, and its own 2^21-row CSV file with
-     a Utf8 vocabulary the other's lacks (register_csv_shards); m1-m8,
+  14. one mesh over several cards of one process (run after phase 9):
+     `cards: N` and every card's name and power limit, then
+     make_mesh(8, devices=...) over 4 or 2 cards (`cards_used`; two
+     shards a card on four; with one card, (cuda:0, cuda:0): two logical cards, every
+     per-card launch, event and agreed scale on the one card) over big +
+     mode + o and orders, each shard's rows placed on its card at
+     registration; m1-m8, m10, m11 and m15, each result_str byte-equal to
+     the one-card 8-shard mesh and to the result phases 6-9 held to the
+     numpy oracle, with its EXPLAIN route, K5 / K6 launches where phase 6
+     had them, and warm walls beside the one-card mesh's (in turns with
+     several cards); then K5 at m6's and K6 at m3's shapes across the
+     cards, bit-equal to K5's plain version over the senders' arrays on
+     one card and to K6's one-card launch and plain fixed-point sums,
+     also with the first card's values 2^50 below the others'; with
+     several cards, each one's event, kernel-only and host time, bytes
+     over NVLink, bound (per card the larger of peer bytes over NVLink
+     and own bytes over HBM) and the yardstick of one peer `copy_` per
+     live region (`cross_card` in the kernels' line)
+  12. several processes as one mesh (run last, about 60 s): on one card
+     `python3 chip_smoke.py --rank R PORT DIR 2` twice, joined by
+     torch.distributed (Gloo: NCCL refuses two processes on one card);
+     with N >= 2 cards, 2 or 4 processes, one a card, over NCCL; each
+     with ExecutionContext(mesh=global_mesh(8 // world)) and its share
+     of big's 2^24 rows (k, d, lat, lng, g, mode, o;
+     register_table_shards) and its blocks of orders on its card, and its
+     own 2^21-row CSV file with a Utf8 vocabulary the others lack
+     (register_csv_shards); m1-m8,
      m10, m11, m15 and tests/multiproc_driver.py's five shard queries,
-     each equal on both ranks to the same query on one card over the
+     each equal on every rank to the same query on one card over the
      whole tables (floats at rtol 1e-9), with equal routes and EXPLAIN on
-     both ranks, K6 launched by m3 / m4 and K5 by m6, m7, m10, m11, m15 on
+     every rank, K6 launched by m3 / m4 and K5 by m6, m7, m10, m11, m15 on
      each rank, the backend, the bytes that crossed processes, and each
-     query's warm wall on both ranks (chiprun_out/phase12_rank*.txt hold
+     query's warm wall on every rank; then `exchange_fold` over the mesh
+     with the first process's receivers' values 2^50 below the others',
+     each rank's tables bit-equal to one launch over all 8 shards (chiprun_out/phase12_rank*.txt hold
      the processes' output); then q1's and d1's results materialized by
      `to_host` (pinned) against the old per-column pageable `.cpu()`,
      first and warm, in ms and GB/s, equal bit for bit
@@ -170,6 +192,9 @@ paths, the joins, the windows, the aggregates, the dates and TPC-H, and
 ingest) and, last,
 {"ok": true, "device": {...}}. Any failed check raises and exits non-zero.
 There is no CPU path: without CUDA the script exits with an error.
+`python3 chip_smoke.py --phase14` (or `--phase12`) runs the build and
+phase 14 (or 12) alone: a rehearsal that prints neither the kernels'
+line nor the last line.
 """
 
 import importlib
@@ -1583,6 +1608,7 @@ def phase_mesh(dev, big, arrays, kernel_stats):
     same(cols(results["m7"]), [lat[o7], g[o7]], "m7")
     o8 = np.argsort(-lat, kind="stable")[:10]
     same(cols(results["m8"]), [k[o8], lat[o8]], "m8")
+    ORACLE_HELD.update({name: results[name].result_str() for name, _, _ in queries})  # for phase 14
     # the single-card context, the same queries
     floats = {"m2": (1, 2), "m3": (1, 2), "m5": (1,)}
     for name, q, _ in queries:
@@ -1616,6 +1642,7 @@ def phase_mesh(dev, big, arrays, kernel_stats):
 
     # K5 and K6 timed on the inputs the main path gave them (m6, m3)
     (a5, kw5) = capture(sh, "ragged_exchange", lambda: ctx.sql(queries[5][1]))[-1]
+    check(kw5.pop("cards") is None, "one card's mesh passed cards to K5")  # the plain version takes none
     sends, sizes = a5
     n_dev, split_cap, chunk = kw5["n_dev"], kw5["split_cap"], kw5["chunk"]
     stacked = [torch.stack([s_[a] for s_ in sends]) for a in range(len(sends[0]))]
@@ -1638,6 +1665,7 @@ def phase_mesh(dev, big, arrays, kernel_stats):
         f"{s5['kernel_ms']:.3f} ms, library {s5['library_ms']:.3f} ms (library / event "
         f"{s5['library_ms'] / s5['ms']:.3f}); K5 {'loses' if s5['ms'] > s5['library_ms'] else 'does not lose'}")
     (a6, kw6) = capture(sh, "ragged_exchange_fold", lambda: ctx.sql(queries[2][1]))[-1]
+    check(kw6.pop("cards") is None and kw6.pop("agree") is None, "one card's mesh passed cards or agree to K6")
     gids, vals, masks, sizes6 = a6
     L_, S_ = kw6["num_groups"], kw6["split_cap"]
     ops6 = kw6["ops"]
@@ -1887,6 +1915,7 @@ def phase_joins(dev, big, arrays, kernel_stats):
         check(results[name].column_values(0) == list(PRIORITIES), f"{name} keys")
         same(by_key(results[name]), j2_want, name, (2,))
     same(by_key(results["m10"]), by_key(results["j2"]), "m10 vs one card", (2,))
+    ORACLE_HELD["m10"] = results["m10"].result_str()
     keep = ~np.isin(g, ja["s_suppkey"][ja["s_acctbal"] < 0])
     same(cols(results["j3"]), [np.array([keep.sum()]), np.array([lat[keep].sum()])], "j3", (1,))
 
@@ -2118,6 +2147,7 @@ def phase_windows(dev, big, arrays, tables, kernel_stats):
     for name, _, _, _ in queries:
         check_window_results(name, results[name], want["m12" if name == "m12" else {"m11": "w1", "m13": "u1",
                                                                                     "m14": "u2"}.get(name, name)])
+    ORACLE_HELD["m11"] = results["m11"].result_str()
     # w3's K2 sorted call against its plain version, on the same inputs
     box = capture(window_ops, "segmented_reduce", lambda: single.sql(WINDOW_QUERIES[2][1]))
     (args, kw), = box
@@ -2337,6 +2367,7 @@ def phase_aggregates(dev, big, arrays, kernel_stats):
     check(per_query["a6"]["segreduce_sorted"] >= 1, "a6 did not launch K2 sorted")
     for name, _, _, _ in queries:
         check_agg_results(name, results[name], want[{"m15": "a1", "m17": "m17", "m18": "a4"}.get(name, name)])
+    ORACLE_HELD["m15"] = results["m15"].result_str()
     # the new op lists' K2 calls against K2's plain version, on the same inputs
     for name, q, mode in (("a1", AGG_QUERIES[0][1], "dense"), ("a3", AGG_QUERIES[2][1], "sorted")):
         box = capture(agg_ops, "segmented_reduce", lambda q=q: single.sql(q))
@@ -3125,11 +3156,290 @@ def phase_ingest(dev, arrays, kernel_stats):
         tmp.cleanup()
 
 
+# --- phase 14: one mesh over several cards of one process ---------------------------
+
+MULTICARD_QUERIES = MESH_QUERIES + (MESH_JOIN_QUERIES[1], MESH_WINDOW_QUERIES[0], MESH_AGG_QUERIES[0])
+MULTICARD_K5 = ("m6", "m7", "m10", "m11", "m15")  # the queries that exchange over K5 on one card's mesh
+MULTICARD_K6 = ("m3", "m4")  # the fold
+ORACLE_HELD = {}  # name -> result_str of the one-card mesh's query that phases 6-9 held to its numpy oracle
+SPREAD = 2.0 ** -50  # phase 14's K6 case: the first card's receivers' values this far below the others'
+
+
+def cards_used(n_cards):
+    """How many cards phases 12 and 14 spread the 8 shards over: the most
+    of 4, 2 and 1 that this host has (a count that divides 8)."""
+    return next(c for c in (4, 2, 1) if c <= n_cards)
+
+
+def card_lines():
+    """nvidia-smi's name and power limit of every card, one per card."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()
+
+
+def cards_ms(fn, devices, reps=5):
+    """Median host-clock ms of `fn` between synchronizes of every card of
+    `devices`, after a warm-up: the time of work that spans cards."""
+    def sync():
+        for d in dict.fromkeys(devices):
+            torch.cuda.synchronize(d)
+
+    fn()
+    times = []
+    for _ in range(reps):
+        sync()
+        t = time.perf_counter()
+        fn()
+        sync()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def cross_bytes(sizes, cards, rows_of, width):
+    """Per logical card c of `cards` (the kernels' `cards` argument; the
+    senders and the receivers are the mesh's shards, shard j on card
+    j * len(cards) // n): (bytes its receivers read from senders on
+    another card, bytes its own HBM moves: its senders' rows read and its
+    receivers' rows written). `rows_of(count)` is the rows a pair moves
+    (K5: whole chunks), `width` the bytes of a row."""
+    sz = sizes.tolist()
+    card = [i * len(cards) // len(sz) for i in range(len(sz))]
+    peer, local = [0] * len(cards), [0] * len(cards)
+    for j, row in enumerate(sz):
+        for i, cnt in enumerate(row):
+            b = rows_of(cnt) * width
+            local[card[i]] += b  # written into the receiver's buffer
+            local[card[j]] += b  # read from the sender's HBM
+            if cards[card[j]] != cards[card[i]]:
+                peer[card[i]] += b  # read over NVLink
+    return peer, local
+
+
+def cross_bound_ms(peer, local, cards):
+    """The least time of an exchange across cards: over the cards, the
+    larger of its peer bytes over NVLink (each way) and its own HBM bytes
+    over HBM (utils/roofline.py)."""
+    from datafusion_tpu_torch.utils.roofline import chip_hbm_gbps, chip_nvlink_gbps
+
+    return max(max(p / (chip_nvlink_gbps(d) * 1e9), b / (chip_hbm_gbps(d) * 1e9)) * 1e3
+               for p, b, d in zip(peer, local, cards))
+
+
+def copies_yardstick(sends, sizes, split_cap, recvs):
+    """The library yardstick of an exchange across cards: the same live
+    regions moved by one `copy_` per live (sender, receiver, array), into
+    the receivers' buffers `recvs` (peer copies where the cards differ)."""
+    sz = sizes.tolist()
+
+    def run():
+        for j, row in enumerate(sz):
+            for i, cnt in enumerate(row):
+                if cnt:
+                    for a, t in enumerate(sends[j]):
+                        recvs[i][a][j * split_cap: j * split_cap + cnt].copy_(t[i * split_cap: i * split_cap + cnt],
+                                                                               non_blocking=True)
+    return run
+
+
+def on_card(ts, dev):
+    return [None if t is None else t.to(dev) for t in ts]
+
+
+def phase_multicard(dev, big, arrays, tables, kernel_stats):
+    """Phase 14: m1-m8, m10, m11 and m15 over make_mesh(8, devices=...) on
+    4 or 2 cards (`cards_used`; two shards a card on four), against the one-card
+    8-shard mesh and the oracle-held results of phases 6-9; then K5 and
+    K6 alone at m6's and m3's shapes across the cards, bit-equal to their
+    plain versions and the one-card launch, with a float SUM whose first
+    card's values lie 2^50 below the others'. With one card the mesh is
+    (cuda:0, cuda:0): every per-card launch, event and agreed scale runs,
+    and no NVLink is crossed."""
+    import datafusion_tpu_torch as port
+    from datafusion_tpu_torch.ops.pallas import ragged_shuffle as rs
+    from datafusion_tpu_torch.parallel import collectives as C
+    from datafusion_tpu_torch.parallel import shuffle as sh
+
+    t14 = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    log(f"phase 14 cards: {n_cards}; " + "; ".join(card_lines()))
+    cross = n_cards >= 2
+    cards = ([torch.device("cuda", i) for i in range(cards_used(n_cards))] if cross
+             else [torch.device("cuda", 0)] * 2)
+    P = port.DataType
+    mode = port.Column(P.Utf8, torch.from_numpy(arrays[5]).to(dev), None, SHIPMODES)
+    bigo = tables["big"]
+    table = port.Table(port.Schema(list(bigo.schema.fields) + [port.Field("mode", P.Utf8, False)]),
+                       bigo.columns + (mode,), bigo.num_rows)
+    mesh = port.make_mesh(8, devices=cards)
+    check(mesh.devices == tuple(cards) and mesh.device == cards[0], "make_mesh(devices=) did not take the cards")
+    multi, one = port.ExecutionContext(mesh=mesh), port.ExecutionContext(mesh=port.make_mesh(8))
+    t = time.perf_counter()
+    for name, tb in (("big", table), ("orders", tables["orders"])):
+        multi.register_table(name, tb)
+        one.register_table(name, tb)
+    for d in dict.fromkeys(cards):
+        torch.cuda.synchronize(d)
+    placed = time.perf_counter() - t
+    shards = multi.table("big").shards
+    check([s.device for s in shards] == [mesh.card_of(i) for i in range(8)], "a shard is not on its card")
+    log(f"phase 14 mesh: 8 shards over {len(cards)} card(s) {[str(c) for c in cards]}, big's {table.num_rows} rows "
+        f"({sum(c.data.nbytes for c in table.columns) / 1e9:.2f} GB) placed in {placed:.2f} s; shard rows "
+        f"{[s.num_rows for s in shards]}")
+    queries = [(n, q, (note,) if isinstance(note, str) else note) for n, q, note in MULTICARD_QUERIES]
+    routes = explain_routes([(n, multi, q, notes) for n, q, notes in queries])
+    bytes0 = C.to_card.bytes
+    results, walls, per_query, launches = run_counted([(n, multi, q) for n, q, _ in queries])
+    peer_bytes = C.to_card.bytes - bytes0
+    for name in MULTICARD_K5:
+        check(per_query[name]["ragged_exchange"] > 0, f"phase 14 {name} launched no K5")
+    for name in MULTICARD_K6:
+        check(per_query[name]["ragged_exchange_fold"] > 0, f"phase 14 {name} launched no K6")
+    held = []
+    for name, q, _ in queries:
+        got = results[name].result_str()
+        check(got == one.sql(q).result_str(), f"phase 14 {name} differs from the one-card mesh")
+        if name in ORACLE_HELD:
+            check(got == ORACLE_HELD[name], f"phase 14 {name} differs from the oracle-held one-card result")
+            held.append(name)
+    reps = 5 if cross else 3
+    warm = {}
+    for name, q, _ in queries:  # in turns: one card, the cards, (the cards, one card)
+        order = [("one", one), ("cards", multi)] + ([("cards", multi), ("one", one)] if cross else [])
+        ws = {}
+        for lab, c_ in order:
+            ws.setdefault(lab, []).append(warm_wall_ms(c_, q, reps))
+        warm[name] = {lab: min(v) for lab, v in ws.items()}
+    log(f"phase 14 queries: m1-m8, m10, m11, m15 over {len(cards)} card(s) equal the one-card 8-shard mesh byte for "
+        f"byte; {len(held)} of them ({held}) also the result phases 6-9 held to the numpy oracle; EXPLAIN routes "
+        + json.dumps(routes) + f"; launches per query {json.dumps({n: launched(c) for n, c in per_query.items()})}; "
+        f"bytes moved between cards by the collectives (to_card) {peer_bytes}; wall ms first "
+        + json.dumps({n: round(v, 3) for n, v in walls.items()}) + f" warm (median of {reps}; the better of the "
+        "turns) " + json.dumps({n: {k: round(x, 3) for k, x in v.items()} for n, v in warm.items()}))
+    for name, s_ in kernel_stats.items():
+        s_["multicard_launches"] = launches[name]
+
+    # K5 at m6's shape across the cards
+    (a5, kw5), = capture(sh, "ragged_exchange", lambda: multi.sql(MESH_QUERIES[5][1]))[-1:]
+    sends, sizes = a5
+    n_dev, split_cap, chunk = kw5["n_dev"], kw5["split_cap"], kw5["chunk"]
+    check(kw5["cards"] == mesh.devices, "m6's exchange did not take the mesh's cards")
+    dev0 = cards[0]
+    before = rs.ragged_exchange.launches
+    got = rs.ragged_exchange(sends, sizes, **kw5)
+    per_call5 = rs.ragged_exchange.launches - before
+    plain = rs.ragged_exchange_plain([on_card(s_, dev0) for s_ in sends], sizes.to(dev0), n_dev=n_dev,
+                                     split_cap=split_cap, chunk=chunk)
+    for d in dict.fromkeys(cards):
+        torch.cuda.synchronize(d)
+    sz = sizes.tolist()
+    for i in range(n_dev):
+        check(got[i][0].device == mesh.card_of(i), f"K5's receiver {i} is not on its card")
+        for a, b in zip(got[i], plain[i]):
+            bits = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+            for j in range(len(sends)):
+                span = slice(j * split_cap, j * split_cap + sz[j][i])
+                check(torch.equal(a[span].to(dev0).view(bits), b[span].view(bits)),
+                      "K5 across cards differs from its plain version")
+    del plain
+    width5 = sum(t.element_size() for t in sends[0])
+    peer5, local5 = cross_bytes(sizes, list(mesh.devices), lambda c: -(-c // chunk) * chunk, width5)
+    log(f"phase 14 K5 at m6's shape: {len(sends)} senders x {n_dev} receivers on {len(cards)} card(s), "
+        f"{len(sends[0])} arrays ({width5} bytes a row), {int(sizes.sum())} rows, {per_call5} launch(es) a call: "
+        "every receiver's valid prefixes bit-equal to the plain version over the senders' arrays on one card")
+
+    # K6 at m3's shape across the cards
+    (a6, kw6), = capture(sh, "ragged_exchange_fold", lambda: multi.sql(MESH_QUERIES[2][1]))[-1:]
+    gids, vals, masks, sizes6 = a6
+    check(kw6["cards"] == mesh.devices and kw6["agree"] is None, "m3's fold did not take the mesh's cards")
+    kw1 = {k: v for k, v in kw6.items() if k not in ("cards", "agree")}
+
+    def to0(args):
+        g, v, m, s_ = args
+        return ([x.to(dev0) for x in g], [on_card(x, dev0) for x in v], [on_card(x, dev0) for x in m], s_.to(dev0))
+
+    def k6_bits(args, tag):
+        """K6 across the cards against the one-card launch over the same
+        rows, every table bit for bit, and its float SUMs against the
+        plain fixed-point function."""
+        before = rs.ragged_exchange_fold.launches
+        k = rs.ragged_exchange_fold(*args, **kw6)
+        calls = rs.ragged_exchange_fold.launches - before
+        args0 = to0(args)
+        w = rs.ragged_exchange_fold(*args0, **kw1)
+        for i, (ki, wi) in enumerate(zip(k, w)):
+            check(ki[0].device == mesh.card_of(i), f"K6's receiver {i} is not on its card")
+            for op, x, y in zip(kw6["ops"], ki, wi):
+                check(same_bits(x.to(dev0), y), f"K6 across cards ({tag}) {op} differs from the one-card launch")
+        tables0 = [torch.stack([ki[a].to(dev0) for ki in k]) for a in range(len(kw6["ops"]))]
+        check_fixed(f"K6 across cards ({tag})", tables0, k6_fixed_sums(args0, kw1))
+        return calls
+
+    per_call6 = k6_bits(a6, "m3")
+    # the first card's receivers' values 2^50 below the others': the cards
+    # must still fold on the mesh's one scale
+    first = set(mesh.card_shards(0))
+    scaled = {}
+    for v in vals:
+        for x in v:
+            if x is not None and x.dtype.is_floating_point and id(x) not in scaled:
+                y = x.clone()
+                for i in first:
+                    y[i * kw6["split_cap"]: (i + 1) * kw6["split_cap"]] *= SPREAD
+                scaled[id(x)] = y
+    vals_s = [[None if x is None else scaled.get(id(x), x) for x in v] for v in vals]
+    k6_bits((gids, vals_s, masks, sizes6), "first card 2^50 below")
+    del scaled, vals_s
+    width6 = 4 + sum(t.element_size() for t in {id(t): t for t in vals[0] if t is not None}.values()) + len(masks[0])
+    peer6, local6 = cross_bytes(sizes6, list(mesh.devices), lambda c: c, width6)
+    log(f"phase 14 K6 at m3's shape: {int(sizes6.sum())} routed rows, {kw6['num_groups']} slots x {n_dev} receivers "
+        f"on {len(cards)} card(s), ops {kw6['ops']}, {per_call6} launch(es) a call: every table bit-equal to the "
+        "one-card launch and its float SUMs to the plain fixed-point function, also with the first card's values "
+        f"2^50 below the others' (the cards agree on the mesh's scale)")
+
+    if not cross:
+        log("phase 14: one card, so the mesh's two logical cards share its HBM: no NVLink was crossed, and no "
+            f"cross-card time is measured; phase 14 took {time.perf_counter() - t14:.1f} s")
+        return
+
+    # times across the cards: event (on the first card, which waits for
+    # every card), kernel only (torch.profiler, summed over the launches of
+    # every card), host, and the peer-copy yardstick, all on the same inputs
+    devs = list(mesh.devices)
+    call5 = lambda: rs.ragged_exchange(sends, sizes, **kw5)  # noqa: E731
+    lib5 = copies_yardstick(sends, sizes, split_cap, got)
+    s5 = dict(ms=time_ms(call5), wall_ms=cards_ms(call5, devs),
+              kernel_ms=kernel_only_ms(call5, "ragged_exchange_kernel", per_call5), host_ms=host_only_ms(call5),
+              nvlink_bytes=sum(peer5), bound_ms=cross_bound_ms(peer5, local5, devs),
+              library_ms=cards_ms(lib5, devs), launches=launches["ragged_exchange"],
+              library="one copy_ per live (sender, receiver, array)")
+    del got
+    call6 = lambda: rs.ragged_exchange_fold(gids, vals, masks, sizes6, **kw6)  # noqa: E731
+    arrays6 = [[g] + list({id(t): t for t in v if t is not None}.values()) + list(m) for g, v, m in zip(gids, vals, masks)]
+    recv6 = [[torch.empty(len(gids) * kw6["split_cap"], dtype=t.dtype, device=mesh.card_of(i)) for t in arrays6[0]]
+             for i in range(n_dev)]
+    lib6 = copies_yardstick(arrays6, sizes6, kw6["split_cap"], recv6)
+    s6 = dict(ms=time_ms(call6), wall_ms=cards_ms(call6, devs),
+              kernel_ms=kernel_only_ms(call6, "ragged_exchange_fold_kernel", per_call6), host_ms=host_only_ms(call6),
+              nvlink_bytes=sum(peer6), bound_ms=cross_bound_ms(peer6, local6, devs),
+              library_ms=cards_ms(lib6, devs), launches=launches["ragged_exchange_fold"],
+              library="one copy_ per live (sender, receiver, array), no fold")
+    del recv6, arrays6
+    kernel_stats["ragged_exchange"]["cross_card"] = s5
+    kernel_stats["ragged_exchange_fold"]["cross_card"] = s6
+    for name, st in (("K5 at m6's shape", s5), ("K6 at m3's shape", s6)):
+        log(f"phase 14 {name} across {len(devs)} cards: event {st['ms']:.3f} ms (host wall between synchronizes "
+            f"{st['wall_ms']:.3f}), kernel only {st['kernel_ms']:.3f} ms summed over the cards' launches, host "
+            f"{st['host_ms']:.3f} ms, {st['nvlink_bytes']} bytes over NVLink, bound {st['bound_ms']:.3f} ms "
+            f"(per card the larger of peer bytes / NVLink each way and own bytes / HBM), library {st['library_ms']:.3f}"
+            f" ms ({st['library']}); {st['launches']} launches in the counted run")
+    log(f"phase 14 took {time.perf_counter() - t14:.1f} s")
+
+
 # --- phase 12: two processes on the card as one mesh --------------------------------
 
 MULTI_ROWS = 1 << 24  # big's rows over both processes: 2^23 each
 MULTI_CSV_ROWS = 1 << 21  # rows of each process's CSV file
-MULTI_WORLD, MULTI_LOCAL = 2, 4
+MULTI_WORLD = 2  # processes on one card (with more cards, one process a card)
 MULTI_QUERIES = MESH_QUERIES + (MESH_JOIN_QUERIES[1], MESH_WINDOW_QUERIES[0], MESH_AGG_QUERIES[0])
 SHARD_QUERIES = (  # tests/multiproc_driver.py's queries over the per-process CSV files
     ("s1", "SELECT tag, COUNT(v) FROM s GROUP BY tag ORDER BY tag", ()),
@@ -3142,17 +3452,17 @@ MULTI_K5 = ("m6", "m7", "m10", "m11", "m15")  # the routes that exchange over K5
 MULTI_K6 = ("m3", "m4")  # the fold
 
 
-def multi_tables(port, dev, rank=None):
+def multi_tables(port, dev, rank=None, world=MULTI_WORLD):
     """Phase 12's tables from the seed: big (k, d, lat, lng, g, mode, o)
     at MULTI_ROWS rows and orders. With `rank`, big holds that process's
-    half of the rows; orders stays whole (each process keeps its blocks
-    when it registers it)."""
+    share of the rows, of `world`; orders stays whole (each process keeps
+    its blocks when it registers it)."""
     P = port.DataType
     k, d, lat, lng, g, mode = main_arrays(MULTI_ROWS)
     ja = join_arrays(MULTI_ROWS)
     cols = [k, d, lat, lng, g, (mode, SHIPMODES), ja["o"]]
     if rank is not None:
-        lo, hi = rank * MULTI_ROWS // MULTI_WORLD, (rank + 1) * MULTI_ROWS // MULTI_WORLD
+        lo, hi = rank * MULTI_ROWS // world, (rank + 1) * MULTI_ROWS // world
         cols = [(c[0][lo:hi], c[1]) if isinstance(c, tuple) else c[lo:hi] for c in cols]
     big = port.Table.from_arrays(port.Schema([port.Field(n, t, False) for n, t in (
         ("k", P.Int32), ("d", P.Int32), ("lat", P.Float64), ("lng", P.Float64), ("g", P.Int32), ("mode", P.Utf8),
@@ -3165,23 +3475,23 @@ def multi_tables(port, dev, rank=None):
     return big, orders
 
 
-def shard_arrays():
+def shard_arrays(world=MULTI_WORLD):
     """Each process's CSV rows (tag codes into that process's own
     vocabulary host<p>_0 .. host<p>_6, k, v), as tests/multiproc_driver.py
     makes them, at MULTI_CSV_ROWS rows a process."""
     rng = np.random.default_rng(SEED + 12)
     out = []
-    for p in range(MULTI_WORLD):
+    for p in range(world):
         vocab = tuple(f"host{p}_{i}" for i in range(7))
         out.append((vocab, rng.integers(0, 7, MULTI_CSV_ROWS).astype(np.int32),
                     rng.integers(0, 25, MULTI_CSV_ROWS).astype(np.int64), np.round(rng.normal(size=MULTI_CSV_ROWS), 6)))
     return out
 
 
-def write_shard_csvs(tmp):
+def write_shard_csvs(tmp, world=MULTI_WORLD):
     """The per-process CSV files s<p>.csv (tag, k, v) and d<p>.csv (tag, w)
     without header rows."""
-    for p, (vocab, tag, k, v) in enumerate(shard_arrays()):
+    for p, (vocab, tag, k, v) in enumerate(shard_arrays(world)):
         words = np.asarray(vocab, dtype=object)[tag]
         with open(os.path.join(tmp, f"s{p}.csv"), "w") as f:
             f.write("".join(f"{t},{a},{b!r}\n" for t, a, b in zip(words.tolist(), k.tolist(), v.tolist())))
@@ -3196,22 +3506,22 @@ def shard_schemas(port):
             port.Schema([port.Field("tag", P.Utf8, False), port.Field("w", P.Int64, False)]))
 
 
-def multi_worker(rank, port_no, tmp):
-    """One process of phase 12: join the group, hold its half of big and
-    its blocks of orders on the card, read its own CSV files, run every
-    query of MULTI_QUERIES and SHARD_QUERIES over the 8-shard mesh, and
-    write each result, route, EXPLAIN, launch count and warm wall to
-    `tmp`/rank<rank>.*."""
+def multi_worker(rank, port_no, tmp, world=MULTI_WORLD):
+    """One process of phase 12: join the group of `world` processes, hold
+    its share of big and its blocks of orders on its card, read its own
+    CSV files, run every query of MULTI_QUERIES and SHARD_QUERIES over the
+    8-shard mesh, and write each result, route, EXPLAIN, launch count and
+    warm wall to `tmp`/rank<rank>.*."""
     import torch.distributed as dist
 
     import datafusion_tpu_torch as port
     from datafusion_tpu_torch.parallel import collectives as C
 
-    backend = port.initialize_multihost(f"127.0.0.1:{port_no}", MULTI_WORLD, rank)
-    mesh = port.global_mesh(MULTI_LOCAL)
+    backend = port.initialize_multihost(f"127.0.0.1:{port_no}", world, rank)
+    mesh = port.global_mesh(8 // world)
     ctx = port.ExecutionContext(mesh=mesh)
     t0 = time.perf_counter()
-    big, orders = multi_tables(port, ctx.device, rank)
+    big, orders = multi_tables(port, ctx.device, rank, world)
     port.register_table_shards(ctx, "big", big)
     ctx.register_table("orders", orders)
     s_schema, d_schema = shard_schemas(port)
@@ -3226,6 +3536,7 @@ def multi_worker(rank, port_no, tmp):
     results, walls, per_query, _ = run_counted([(n, ctx, q) for n, q in queries])
     run_bytes, run_live = C.transport.bytes - bytes0, C.transport.live_bytes - live0
     warm = {n: warm_wall_ms(ctx, q) for n, q in queries}
+    fold_spread = fold_spread_equal(mesh, ctx.device)
     arrays, meta = {}, {}
     for n, res in results.items():
         for j, (d, v) in enumerate(res.cols):
@@ -3237,10 +3548,49 @@ def multi_worker(rank, port_no, tmp):
     np.savez(os.path.join(tmp, f"rank{rank}.npz"), **arrays)
     with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
         json.dump({"backend": backend, "transport": "pinned host staging" if backend == "gloo" else "device",
-                   "rows_on_card": big.num_rows, "setup_s": setup_s, "cross_bytes": run_bytes,
+                   "card": str(ctx.device), "rows_on_card": big.num_rows, "setup_s": setup_s, "cross_bytes": run_bytes,
                    "live_bytes": run_live,
-                   "calls": C.transport.calls, "queries": meta}, f)
+                   "calls": C.transport.calls, "queries": meta, "fold_spread_equal": fold_spread}, f)
     dist.destroy_process_group()
+
+
+FOLD_SPREAD_ROWS = 1 << 20  # rows of each shard in phase 12's fold with a 2^50 spread
+FOLD_SPREAD_OPS = ("sum", "count", "max", "sum")
+
+
+def fold_spread_shard(shard, n_dev, n_first, dev):
+    """Global shard `shard`'s fold inputs from its own seed: packed ids in
+    [0, 10020) (some past the 10001 groups), f64 values from 2^-20 to 2^30
+    with cancellation, a mask for the last SUM; a row bound for one of the
+    first process's receivers (id % n_dev below its `n_first` shards) has
+    its value 2^50 smaller."""
+    rng = np.random.default_rng(SEED + 1200 + shard)
+    n = FOLD_SPREAD_ROWS
+    gid = rng.integers(0, 10020, n)
+    x = 2.0 ** rng.uniform(-20, 30, n) * rng.choice([-1.0, 1.0], n)
+    x[1::3] = -x[0::3][: len(x[1::3])]
+    x[gid % n_dev < n_first] *= SPREAD
+    xt = torch.from_numpy(x).to(dev)
+    mask = torch.from_numpy(rng.random(n) < 0.8).to(dev)
+    return torch.from_numpy(gid.astype(np.int32)).to(dev), [xt, None, xt, xt], [None, None, None, mask]
+
+
+def fold_spread_equal(mesh, dev):
+    """`exchange_fold` over the spanning mesh, the first process's
+    receivers' values 2^50 below the others' (K6 with remote senders and
+    the processes' agreed float-SUM scale), against one launch over all
+    of the mesh's shards on this process's card: True when this
+    process's receivers' tables equal that launch's bit for bit."""
+    from datafusion_tpu_torch.parallel.shuffle import exchange_fold
+
+    def fold(shards, m):
+        ins = [fold_spread_shard(g, mesh.n_dev, mesh.n_local, dev) for g in shards]
+        return exchange_fold([g for g, _, _ in ins], [v for _, v, _ in ins], [k for _, _, k in ins],
+                             ops=FOLD_SPREAD_OPS, num_groups=10001, n_dev=mesh.n_dev, mesh=m)
+
+    got = fold(range(mesh.first, mesh.first + mesh.n_local), mesh)
+    want = fold(range(mesh.n_dev), None)[mesh.first: mesh.first + mesh.n_local]
+    return all(same_bits(x, y) for g, w in zip(got, want) for x, y in zip(g, w))
 
 
 def rank_result(res_like, arrays, meta, name):
@@ -3295,11 +3645,13 @@ def materialize_ms(cq, out, reps=5):
 
 def phase_multiprocess(dev, big, arrays):
     """Phase 12: m1-m8, m10, m11, m15 and the JAX driver's five CSV-shard
-    queries over ExecutionContext(mesh=global_mesh(4)) in two processes
-    on the one card (2 x 4 shards; Gloo, since NCCL refuses two processes
-    on one card), each equal to the same query on one card over the whole
-    tables; then q1's and d1's materialization through `to_host` against
-    the old per-column pageable `.cpu()`."""
+    queries over ExecutionContext(mesh=global_mesh(8 // world)), each
+    equal to the same query on one card over the whole tables. On one card
+    two processes share it (2 x 4 shards; Gloo, since NCCL refuses two
+    processes on one card); with N >= 2 cards, 2 or 4 processes
+    (`cards_used`) run one on each card, and initialize_multihost picks NCCL. Then q1's and d1's
+    materialization through `to_host` against the old per-column pageable
+    `.cpu()`."""
     import socket
     import tempfile
 
@@ -3308,15 +3660,17 @@ def phase_multiprocess(dev, big, arrays):
     from datafusion_tpu_torch.plan.optimizer import push_down_filters, push_down_projection
 
     t12 = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    world = MULTI_WORLD if n_cards == 1 else cards_used(n_cards)
     tmp = tempfile.TemporaryDirectory()
     try:
-        write_shard_csvs(tmp.name)
+        write_shard_csvs(tmp.name, world)
         one = port.ExecutionContext()
         mbig, orders = multi_tables(port, dev)
         one.register_table("big", mbig)
         one.register_table("orders", orders)
         s_schema, d_schema = shard_schemas(port)
-        sh = shard_arrays()
+        sh = shard_arrays(world)
         vocab = tuple(sorted(w for v, _, _, _ in sh for w in v))
         remap = [np.searchsorted(vocab, v).astype(np.int32) for v, _, _, _ in sh]
         one.register_table("s", port.Table.from_arrays(s_schema, [
@@ -3324,16 +3678,16 @@ def phase_multiprocess(dev, big, arrays):
             np.concatenate([k for _, _, k, _ in sh]), np.concatenate([v for _, _, _, v in sh])], device=dev))
         one.register_table("d", port.Table.from_arrays(d_schema, [
             (np.arange(len(vocab), dtype=np.int32), vocab),
-            np.array([p * 100 + i for p in range(MULTI_WORLD) for i in range(7)], np.int64)], device=dev))
+            np.array([p * 100 + i for p in range(world) for i in range(7)], np.int64)], device=dev))
         want = {n: one.sql(q) for n, q, _ in MULTI_QUERIES + SHARD_QUERIES}
         del mbig
         with socket.socket() as sock:
             sock.bind(("127.0.0.1", 0))
             port_no = sock.getsockname()[1]
-        logs = [open(os.path.join(ROOT, "chiprun_out", f"phase12_rank{r}.txt"), "w") for r in range(MULTI_WORLD)]
+        logs = [open(os.path.join(ROOT, "chiprun_out", f"phase12_rank{r}.txt"), "w") for r in range(world)]
         t_run = time.perf_counter()
-        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank", str(r), str(port_no), tmp.name],
-                                  stdout=logs[r], stderr=subprocess.STDOUT) for r in range(MULTI_WORLD)]
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank", str(r), str(port_no), tmp.name,
+                                   str(world)], stdout=logs[r], stderr=subprocess.STDOUT) for r in range(world)]
         try:
             for p in procs:
                 p.wait(timeout=240)
@@ -3351,18 +3705,23 @@ def phase_multiprocess(dev, big, arrays):
                     log(f.read()[-3000:])
             check(p.returncode == 0, f"phase 12 rank {r} exited with {p.returncode}")
         ranks = []
-        for r in range(MULTI_WORLD):
+        for r in range(world):
             with open(os.path.join(tmp.name, f"rank{r}.json")) as f:
                 info = json.load(f)
             ranks.append((info, dict(np.load(os.path.join(tmp.name, f"rank{r}.npz")))))
         info0 = ranks[0][0]
-        log(f"phase 12: {MULTI_WORLD} processes x {MULTI_LOCAL} shards on one card, backend {info0['backend']} "
-            f"(CUDA tensors cross processes by {info0['transport']}), {info0['rows_on_card']} of big's "
+        log(f"phase 12: {world} processes x {8 // world} shards on {[i['card'] for i, _ in ranks]}, backend "
+            f"{info0['backend']} (CUDA tensors cross processes by {info0['transport']}), {info0['rows_on_card']} of big's "
             f"{MULTI_ROWS} rows on the card in each; setup {[round(i['setup_s'], 2) for i, _ in ranks]} s, "
             f"processes ran {run_s:.1f} s; cross-process bytes sent in the counted run "
             f"{[i['cross_bytes'] for i, _ in ranks]} over {[i['calls'] for i, _ in ranks]} collectives, of which "
             f"{[i['live_bytes'] for i, _ in ranks]} carry rows (padding share "
             f"{[1 - i['live_bytes'] / max(i['cross_bytes'], 1) for i, _ in ranks]})")
+        check(all(i["fold_spread_equal"] for i, _ in ranks),
+              "phase 12: K6 over the processes, one process's receivers 2^50 below, differs from one launch")
+        log(f"phase 12 fold with the first process's receivers' values 2^50 below the others' "
+            f"({FOLD_SPREAD_ROWS} rows a shard, ops {FOLD_SPREAD_OPS}): every rank's tables bit-equal to one launch "
+            "over all 8 shards on one card (the processes agree on the float SUMs' scale)")
         for n, q, _ in MULTI_QUERIES + SHARD_QUERIES:
             metas = [info["queries"][n] for info, _ in ranks]
             ordered = "ORDER BY" in q  # else the mesh returns its groups shard by shard
@@ -3370,14 +3729,14 @@ def phase_multiprocess(dev, big, arrays):
                 got = rank_result(want[n], arrs, metas[r], n)
                 same_result(f"phase 12 {n} rank {r}", got if ordered else rows_by_keys(got),
                             want[n] if ordered else rows_by_keys(want[n]))
-            check(metas[0]["routes"] == metas[1]["routes"], f"phase 12 {n}: the ranks took different routes")
-            check(metas[0]["explain"] == metas[1]["explain"], f"phase 12 {n}: the ranks' EXPLAIN differs")
+            check(all(m["routes"] == metas[0]["routes"] for m in metas), f"phase 12 {n}: the ranks took different routes")
+            check(all(m["explain"] == metas[0]["explain"] for m in metas), f"phase 12 {n}: the ranks' EXPLAIN differs")
             for r, m in enumerate(metas):
                 if n in MULTI_K5:
                     check(m["launches"]["ragged_exchange"] > 0, f"phase 12 {n} rank {r} launched no K5")
                 if n in MULTI_K6:
                     check(m["launches"]["ragged_exchange_fold"] > 0, f"phase 12 {n} rank {r} launched no K6")
-            log(f"phase 12 {n}: {want[n].num_rows} rows == one card on both ranks; routes {metas[0]['routes']}; "
+            log(f"phase 12 {n}: {want[n].num_rows} rows == one card on every rank; routes {metas[0]['routes']}; "
                 f"launches {[launched(m['launches']) for m in metas]}; first wall "
                 f"{[round(m['first_ms'], 3) for m in metas]} ms, warm {[round(m['warm_ms'], 3) for m in metas]} ms "
                 f"(median of 5; one card {warm_wall_ms(one, q):.3f} ms)")
@@ -3401,6 +3760,22 @@ def phase_multiprocess(dev, big, arrays):
     log(f"phase 12 two processes and materialization: {time.perf_counter() - t12:.1f} s")
 
 
+def quick_multicard(dev):
+    """`python3 chip_smoke.py --phase14`: the build and phase 14 without
+    the other phases (their oracle-held results too: phase 14 then holds
+    the cards to the one-card mesh alone). It prints neither the kernels'
+    line nor the last line."""
+    import datafusion_tpu_torch as port
+
+    arrays = main_arrays()
+    big = main_table(port, arrays)
+    tables = join_tables(port, big, join_arrays(), dev)
+    stats = {"ragged_exchange": {}, "ragged_exchange_fold": {}}
+    stats.update({k: {} for k in kernel_counters()})
+    phase_multicard(dev, big, arrays, tables, stats)
+    log(json.dumps({k: v["cross_card"] for k, v in stats.items() if "cross_card" in v}))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -3408,12 +3783,19 @@ def main():
     import datafusion_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
 
     if sys.argv[1:2] == ["--rank"]:  # one process of phase 12, started by phase_multiprocess
-        multi_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        multi_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], int(sys.argv[5]))
         return
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
     smi = phase_build()
+    if sys.argv[1:2] == ["--phase14"]:  # a rehearsal of phase 14 alone
+        quick_multicard(dev)
+        return
+    if sys.argv[1:2] == ["--phase12"]:  # a rehearsal of phase 12 alone
+        arrays = main_arrays()
+        phase_multiprocess(dev, main_table(datafusion_tpu_torch, arrays), arrays)
+        return
     k1_err = phase_k1(dev)
     k2_err = phase_k2(dev)
     k2_err["sorted"] = max(k2_err["sorted"], phase_k2_sorted(dev))
@@ -3449,6 +3831,7 @@ def main():
     joins = phase_joins(dev, big, arrays, kernel_stats)
     phase_windows(dev, big, arrays, joins["tables"], kernel_stats)
     phase_aggregates(dev, big, arrays, kernel_stats)
+    phase_multicard(dev, big, arrays, joins["tables"], kernel_stats)
     phase_tpch(dev, kernel_stats, phase_dates(dev, big, arrays, kernel_stats))
     phase_determinism(dev, big)
     phase_multiprocess(dev, big, arrays)

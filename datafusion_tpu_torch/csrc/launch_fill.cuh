@@ -15,22 +15,22 @@
 #include <cuda_runtime.h>
 
 #include <mutex>
+#include <vector>
 
 template <typename K>
 static inline long long dft_fill_blocks(K kernel, int threads, int smem, cudaError_t* err) {
   struct Known { int dev; const void* kernel; int smem; long long blocks; };
-  static Known known[64];
-  static int n_known = 0;
+  static std::vector<Known> known;  // grows: every card times every kernel and size
   static std::mutex mu;
   int dev = 0;
   *err = cudaGetDevice(&dev);
   if (*err != cudaSuccess) return 0;
   std::lock_guard<std::mutex> lock(mu);
   int limit = -1;  // the limit set for this kernel on this device so far
-  for (int i = 0; i < n_known; ++i) {
-    if (known[i].dev != dev || known[i].kernel != (const void*)kernel) continue;
-    if (known[i].smem == smem) return known[i].blocks;
-    if (known[i].smem > limit) limit = known[i].smem;
+  for (const Known& k : known) {
+    if (k.dev != dev || k.kernel != (const void*)kernel) continue;
+    if (k.smem == smem) return k.blocks;
+    if (k.smem > limit) limit = k.smem;
   }
   if (smem > limit) *err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (*err != cudaSuccess) return 0;
@@ -40,6 +40,6 @@ static inline long long dft_fill_blocks(K kernel, int threads, int smem, cudaErr
   if (*err == cudaSuccess && per_sm < 1) *err = cudaErrorInvalidConfiguration;
   if (*err != cudaSuccess) return 0;
   const long long blocks = (long long)per_sm * sms;
-  if (n_known < 64) known[n_known++] = {dev, (const void*)kernel, smem, blocks};
+  known.push_back({dev, (const void*)kernel, smem, blocks});
   return blocks;
 }

@@ -1,6 +1,6 @@
 // K5 — ragged exchange, and K6 — ragged exchange fused with a dense fold,
 // for Hopper (sm_90a): the distributed engine's shuffle between the logical
-// shards of a mesh on one card.
+// shards of a mesh, on one card or across the cards of one process.
 //
 // Replaces: datafusion_tpu/ops/pallas/ragged_shuffle.py
 //   K5 `ragged_exchange` (:544), pallas_call at :566, body `_exchange_kernel`
@@ -9,22 +9,33 @@
 //      `_exchange_fold_kernel` (:242) and `_fold_sub` (:186)
 // The TPU kernels start one remote DMA per chunk, array and peer over ICI,
 // behind a semaphore barrier; K6 stages the arrived chunks through VMEM and
-// folds them with one-hot MXU products. On one card every shard's buffers
-// lie in the same HBM, so there is no peer, no barrier and no landing
-// buffer: K5 is plain copies, and K6 reads each routed row
-// straight from its sender's send buffer, so exchange and fold are one pass.
+// folds them with one-hot MXU products. Here a receiver's block reads its
+// senders' rows where they lie: in the same HBM for shards of one card, and
+// in a peer card's HBM, over NVLink, for a sender on another card of the
+// process (unified addressing: a peer's device pointer is read like a local
+// one once peer access is on, `dft_enable_peer_access` below). So there is
+// no landing buffer: K5 copies each live chunk once, straight into the
+// receiver's buffer (the receiving card pulls), and K6 folds each routed
+// row straight from its sender's send buffer, exchange and fold in one
+// pass. The TPU barrier semaphore becomes stream order and CUDA events,
+// set by the wrapper (ops/pallas/ragged_shuffle.py): each receiving card's
+// launch waits for every sender card's regions, and each sender card's
+// stream waits for every receiving card's launch before it may reuse a
+// send buffer.
 //
 // Layout (both kernels): n_send senders and n_recv receivers; every array
 // is a sender's [n_recv * split_cap] region layout, region i holding the
 // rows for receiver i, valid prefix sizes[j, i] (sizes is the [n_send,
-// n_recv] int32 count matrix, row j = sender j). On a mesh of one process
-// both are its n_dev shards. On a mesh that spans processes the receivers
-// are this process's shards and the senders every shard of the mesh: a
-// local sender's pointers point into its own send buffers (at this
-// process's first region), a remote sender's into the buffer that
+// n_recv] int32 count matrix, row j = sender j, on the launching card).
+// One launch serves the receivers of one card: on a mesh of one card they
+// are its n_dev shards; on a mesh of several cards, or of several
+// processes, they are the launching card's shards and the senders every
+// shard of the mesh. A sender's pointers then point into its own send
+// buffers at the launch's first region (on its own card, or on a peer
+// card), or, for a shard of another process, into the buffer that
 // torch.distributed filled (parallel/collectives.py exchange_regions), so
-// one launch places or folds the local and the remote rows alike. K5
-// takes its pointers in its launch parameters (ExchangeArgs, below), so
+// one launch places or folds the local, the peer and the remote rows alike.
+// K5 takes its pointers in its launch parameters (ExchangeArgs, below), so
 // its wrapper copies nothing to the device; K6 takes one packed table
 // (below).
 //
@@ -32,7 +43,10 @@
 // chunk once (a region's last chunk copies up to chunk - 1 rows of its
 // padding); K6 reads each routed row's window id, values and masks once and
 // writes each receiver's tables once. Neither computes more than a few
-// operations per byte.
+// operations per byte. Across cards, the rows a card reads from its peers
+// cross NVLink (450 GB/s each way on the H100 SXM), a seventh of HBM's
+// rate, so there the bound is the larger, over the cards, of their peer
+// bytes over NVLink and their local bytes over HBM.
 //
 // * K5: one block of 256 threads per (chunk k, sender j, receiver i); a
 //   block past ceil(sizes[j, i] / chunk) returns at once, so sizes is read
@@ -65,7 +79,11 @@
 //   Op traits are K2 dense mode's: a float SUM in fixed point (three
 //   shared tables, after a first pass over the launch's routed rows for its
 //   scale: reduce_common.cuh), i64 sums, i64 counts, MIN/MAX on the
-//   order-preserving image. Rows with a window id outside [0, num_groups)
+//   order-preserving image. A mesh's float SUM takes one scale: where its
+//   receivers take several launches (one per card or process), the C entry
+//   runs the first pass alone (`phases` 1) on each, the wrapper writes the
+//   largest scale word into every launch's, and the folds follow
+//   (`phases` 2), so every card rounds each value on the same grid. Rows with a window id outside [0, num_groups)
 //   are dropped; an op's mask pointer may be null (every routed row).
 
 #include "reduce_common.cuh"
@@ -248,6 +266,30 @@ extern "C" int dft_ragged_exchange(const ExchangeArgs* x, const int* sizes, int 
 
 extern "C" int dft_ragged_exchange_args_size() { return (int)sizeof(ExchangeArgs); }
 
+// Let card `dev` read and write card `peer`'s memory (K5 and K6 read the
+// senders' regions where they lie). Called once per ordered pair of cards;
+// access that is on already (torch may have turned it on for its own peer
+// copies) counts as success, and its error is cleared. A pair without a
+// peer path fails with cudaErrorPeerAccessUnsupported: the rows are never
+// staged through the host instead. The current device is kept.
+extern "C" int dft_enable_peer_access(int dev, int peer) {
+  if (dev == peer) return 0;
+  int prev = 0, can = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err == cudaSuccess) err = cudaDeviceCanAccessPeer(&can, dev, peer);
+  if (err != cudaSuccess) return (int)err;
+  if (!can) return (int)cudaErrorPeerAccessUnsupported;
+  err = cudaSetDevice(dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceEnablePeerAccess(peer, 0);
+  if (err == cudaErrorPeerAccessAlreadyEnabled) {
+    cudaGetLastError();  // clear the error it leaves for the next cudaGetLastError
+    err = cudaSuccess;
+  }
+  const cudaError_t back = cudaSetDevice(prev);
+  return (int)(err != cudaSuccess ? err : back);
+}
+
 // K6. n_ops ops (at most DFT_FOLD_MAX_OPS, whose tables fit shared
 // memory). ptrs: one packed device table of (1 + 2 * n_ops) * n_send pointers:
 // the senders' int32 window ids, then op a's values by sender (at
@@ -259,16 +301,20 @@ extern "C" int dft_ragged_exchange_args_size() { return (int)sizeof(ExchangeArgs
 // aux: host array of each float SUM's 8-byte scale word (null for other
 // ops); `done` a device counter; all zeroed (reduce_common.cuh, the fold
 // tile): op a's table ends as the op's output, as for K2 dense mode. Each
-// slot is held `reps` times in shared memory. sizes as for K5. With a
-// float SUM, the first pass for its scale runs before the fold, on the
-// same grid.
+// slot is held `reps` times in shared memory. sizes as for K5. `phases`:
+// bit 0 runs the first pass for the float SUMs' scale (where the launch
+// has a float SUM), bit 1 the fold, both on the same grid; 3 runs both,
+// one after the other. A mesh whose receivers take several launches (one
+// per card or process) runs 1 on each, agrees on the scale, then 2
+// (module doc).
 extern "C" int dft_ragged_exchange_fold(const long long* ptrs, const int* sizes, int n_send, int n_recv,
                                         long long split_cap, int num_groups, int reps, int n_ops, const int* kinds,
-                                        void* const* outs, void* const* aux, unsigned int* done, void* stream) {
+                                        void* const* outs, void* const* aux, unsigned int* done, int phases,
+                                        void* stream) {
   if (n_ops == 0 || split_cap == 0 || num_groups == 0) return 0;
   if (n_send < 1 || n_send > DFT_MAX_DEV || n_recv < 1 || n_recv > DFT_MAX_DEV || n_ops < 0 ||
       n_ops > DFT_FOLD_MAX_OPS || num_groups < 0 || num_groups > DFT_WINDOW || split_cap < 0 ||
-      !dft_valid_reps(reps))
+      !dft_valid_reps(reps) || phases < 1 || phases > 3)
     return (int)cudaErrorInvalidValue;
   FoldArgs o;
   const void* none[DFT_FOLD_MAX_OPS] = {};
@@ -287,11 +333,12 @@ extern "C" int dft_ragged_exchange_fold(const long long* ptrs, const int* sizes,
   const long long rows = (long long)n_send * split_cap;  // the most one receiver gets
   if (per < rows / DFT_BLOCK_MAX_ROWS + 1) per = rows / DFT_BLOCK_MAX_ROWS + 1;
   const dim3 grid((unsigned int)per, (unsigned int)n_recv);
-  if (fold_has_fix(o))
+  if ((phases & 1) && fold_has_fix(o))
     ragged_scale_kernel<<<grid, DFT_FOLD_TPB, 0, (cudaStream_t)stream>>>(ptrs, sizes, n_send, n_recv, split_cap,
                                                                          num_groups, o);
-  ragged_exchange_fold_kernel<<<grid, DFT_FOLD_TPB, smem, (cudaStream_t)stream>>>(ptrs, sizes, n_send, n_recv,
-                                                                                   split_cap, num_groups, reps, o,
-                                                                                   done);
+  if (phases & 2)
+    ragged_exchange_fold_kernel<<<grid, DFT_FOLD_TPB, smem, (cudaStream_t)stream>>>(ptrs, sizes, n_send, n_recv,
+                                                                                     split_cap, num_groups, reps, o,
+                                                                                     done);
   return (int)cudaGetLastError();
 }

@@ -73,22 +73,28 @@ class ShardedBatch:
 
     def merged(self, mesh=None) -> Batch:
         """The result as one Batch: the shards concatenated in shard order
-        (partitioned), or shard 0 (replicated). On a `mesh` that spans
-        processes the partitioned rows of every process meet, in rank
-        order (an all_gather), and every process gets the same Batch."""
+        (partitioned), or shard 0 (replicated). Shards on other cards than
+        shard 0's come there by one peer copy each (collectives.to_card),
+        as an all_gather brings them to the mesh's first card. On a `mesh`
+        that spans processes the partitioned rows of every process meet,
+        in rank order (an all_gather), and every process gets the same
+        Batch."""
+        from datafusion_tpu_torch.parallel.collectives import to_card
+
         if self.layout == "replicated":
             return self.shards[0]
+        dev = self.shards[0].sel.device
         caps = [b.capacity for b in self.shards]
         cols = []
         for j in range(len(self.shards[0].cols)):
             parts = [broadcast_col(b.cols[j], n) for b, n in zip(self.shards, caps)]
-            data = torch.cat([d for d, _ in parts])
+            data = torch.cat([to_card(d, dev) for d, _ in parts])
             if all(v is None for _, v in parts):
                 cols.append((data, None))
             else:
-                cols.append((data, torch.cat([torch.ones_like(d, dtype=torch.bool) if v is None else v
-                                              for d, v in parts])))
-        local = Batch(cols, torch.cat([b.sel for b in self.shards]))
+                cols.append((data, torch.cat([torch.ones(d.shape[0], dtype=torch.bool, device=dev) if v is None
+                                              else to_card(v, dev) for d, v in parts])))
+        local = Batch(cols, torch.cat([to_card(b.sel, dev) for b in self.shards]))
         return local if mesh is None or not mesh.spans else gather_batch(local, mesh)
 
 
@@ -215,7 +221,8 @@ class CompiledQuery:
         parallel/multihost.py `to_host`: one compaction and one
         synchronize for the whole result. A partitioned result on a mesh
         that spans processes gathers every process's rows, in rank order,
-        so every process materializes the same rows."""
+        so every process materializes the same rows; on a mesh of several
+        cards the shards first meet on the first card (`merged`)."""
         from datafusion_tpu_torch.parallel.multihost import to_host
 
         mesh = None

@@ -42,7 +42,7 @@ from datafusion_tpu_torch.exec.compiler import PlanCompiler, compile_plan, split
 from datafusion_tpu_torch.exec.result import ResultTable
 from datafusion_tpu_torch.ops.functions import AggregateUDF
 from datafusion_tpu_torch.parallel.dist import DistCompiler, compile_plan_distributed
-from datafusion_tpu_torch.parallel.mesh import Mesh, RankTable, local_blocks
+from datafusion_tpu_torch.parallel.mesh import Mesh, RankTable, ShardTable, local_blocks, place_shards
 from datafusion_tpu_torch.plan.logical import Column, LogicalPlan, Projection, TableScan, plan_from_json, plan_to_json
 from datafusion_tpu_torch.plan.optimizer import push_down_filters, push_down_projection
 from datafusion_tpu_torch.plan.planner import FunctionMeta, FunctionType, SqlToRel, convert_data_type
@@ -134,13 +134,13 @@ class ExecutionContext:
         DFTPU_BIGDENSE once, here: unset or "0" is off, any other value
         on. Every plan of this context, executed or EXPLAINed, uses it.
         `mesh`: run every query over the mesh's logical shards
-        (`make_mesh`, or `global_mesh` over several processes); its device
-        is the context's, and a `device` that names another raises. The
-        mesh does not route to bigdense."""
+        (`make_mesh`, or `global_mesh` over several processes); its first
+        card is the context's device, and a `device` that names none of
+        the mesh's cards raises. The mesh does not route to bigdense."""
         self.mesh = mesh
         if mesh is not None:
-            if device is not None and resolve_device(device) != mesh.device:
-                raise ExecutionError(f"device {device} differs from the mesh's device {mesh.device}")
+            if device is not None and resolve_device(device) not in mesh.devices:
+                raise ExecutionError(f"device {device} is none of the mesh's cards {[str(d) for d in mesh.devices]}")
             self.device = mesh.device
             if bigdense:
                 raise ExecutionError("a mesh context has no bigdense route")
@@ -183,9 +183,17 @@ class ExecutionContext:
         shard (`partition_table`). On a mesh that spans processes, where
         every process registers the same table, this process keeps only
         its shards' row blocks (`local_blocks`); a RankTable
-        (`register_table_shards`) is kept as it is."""
-        if self.mesh is not None and self.mesh.spans and not isinstance(table, RankTable):
-            table = local_blocks(table, self.mesh)
+        (`register_table_shards`) is kept as it is. On a mesh of several
+        cards each shard's row block is placed on its card now, once
+        (`place_shards`); a ShardTable is re-placed from its rows."""
+        mesh = self.mesh
+        if mesh is not None and mesh.n_cards > 1:
+            if isinstance(table, ShardTable):
+                table = table.whole(self.device)
+            self._tables[name] = place_shards(table, mesh)
+            return
+        if mesh is not None and mesh.spans and not isinstance(table, RankTable):
+            table = local_blocks(table, mesh)
         if table.columns and table.device != self.device:
             table = table.to(self.device)
         self._tables[name] = table
@@ -392,6 +400,8 @@ class ExecutionContext:
             raise PlanError(f"no table named {node.table} to insert into")
         if isinstance(target, RankTable):
             raise NotImplementedError_("INSERT into a table of a mesh that spans processes is not supported")
+        if isinstance(target, ShardTable):
+            target = target.whole(self.device)  # rebuilt from its rows, then placed again
         tschema = target.schema
         src_plan = SqlToRel(self._catalog).sql_to_rel(node.source)
         sschema = src_plan.schema

@@ -118,8 +118,10 @@ def load_library() -> ctypes.CDLL:
     lib.dft_ragged_exchange.restype = i32
     lib.dft_ragged_exchange_args_size.argtypes = []
     lib.dft_ragged_exchange_args_size.restype = i32
-    lib.dft_ragged_exchange_fold.argtypes = [vp, vp, i32, i32, i64, i32, i32, i32, vp, vp, vp, vp, vp]
+    lib.dft_ragged_exchange_fold.argtypes = [vp, vp, i32, i32, i64, i32, i32, i32, vp, vp, vp, vp, i32, vp]
     lib.dft_ragged_exchange_fold.restype = i32
+    lib.dft_enable_peer_access.argtypes = [i32, i32]
+    lib.dft_enable_peer_access.restype = i32
     for name, struct in (("dft_fused_stage_program_size", _CProgram), ("dft_ragged_exchange_args_size", ExchangeArgs)):
         if getattr(lib, name)() != ctypes.sizeof(struct):
             raise ExecutionError(f"{struct.__name__}'s layout differs between Python and CUDA")

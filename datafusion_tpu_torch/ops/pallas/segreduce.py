@@ -147,12 +147,20 @@ def fold_widths(ops, values) -> list[int]:
 class FoldTables(NamedTuple):
     """The fold kernels' zeroed buffer (`fold_tables`): per op its result
     table, its device table's address and its aux address (0 for none),
-    then the launch counters' addresses."""
+    then the launch counters' addresses; with `fixed`, the buffer and
+    each float SUM's scale word's byte offset in it (None for other ops).
+    """
 
     tables: list
     outs: list
     aux: list
     counters: list
+    buf: Optional[torch.Tensor] = None
+    scale_at: list = []
+
+    def scale(self, a: int) -> torch.Tensor:
+        """Op a's scale word, a one-element int64 view of the buffer."""
+        return self.buf[self.scale_at[a]: self.scale_at[a] + 8].view(torch.int64)
 
 
 def fold_tables(ops, values, num_groups, device, lead=(), counters=1, fixed=False, edge_blocks=0) -> FoldTables:
@@ -188,7 +196,8 @@ def fold_tables(ops, values, num_groups, device, lead=(), counters=1, fixed=Fals
         tables = [t.view(*lead, num_groups) for t in tables]
     outs = [base + o for o, _, _ in spans]
     aux = [base + o + w * rows * 8 if w > 1 else (0 if e is None else base + e) for (o, w, _), e in zip(spans, edges)]
-    return FoldTables(tables, outs, aux, [base + counter_at + 8 * c for c in range(counters)])
+    return FoldTables(tables, outs, aux, [base + counter_at + 8 * c for c in range(counters)], buf,
+                      [o + w * rows * 8 if w > 1 else None for o, w, _ in spans])
 
 
 def op_kind(op: str, v: Optional[torch.Tensor], fixed: bool) -> int:

@@ -4,7 +4,11 @@ The counterparts of the `lax` collectives the JAX package runs inside
 `shard_map` (datafusion_tpu/parallel/dist.py). Each takes this process's
 list of per-shard tensors, in local shard order, and returns the one
 tensor every shard holds afterwards. On a mesh of one process that is a
-function of the list. On a mesh that spans processes (parallel/mesh.py)
+function of the list, computed on the mesh's first card: on a mesh of
+several cards each shard's tensor first comes there by one peer copy
+(`to_card`, which counts the bytes it moves between cards in
+`to_card.bytes`), and a reduction runs in shard order, so an f64 `psum`
+over four cards equals one card's bit for bit. On a mesh that spans processes (parallel/mesh.py)
 the shards' tensors first meet in global shard order through
 `torch.distributed`: a reduction gathers every shard's operand and
 reduces in shard order, so an f64 `psum` over a spanning mesh equals the
@@ -191,10 +195,30 @@ def exchange_regions(mesh, sends: Sequence[Sequence[torch.Tensor]], sizes: torch
     return out
 
 
+def to_card(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """`t` on card `dev`: `t` itself where it lies there, else one copy
+    between cards (a peer copy over NVLink on the H100), whose bytes
+    `to_card.bytes` counts."""
+    if t.device == dev:
+        return t
+    to_card.bytes += t.numel() * t.element_size()
+    return t.to(dev)
+
+
+to_card.bytes = 0
+
+
+def _on_first_card(xs: Sequence[torch.Tensor], mesh) -> list[torch.Tensor]:
+    """The shards' tensors on the mesh's first card, in shard order."""
+    if mesh is None:
+        return list(xs)
+    return [to_card(x, mesh.device) for x in xs]
+
+
 def _every_shard(xs: Sequence[torch.Tensor], mesh) -> list[torch.Tensor]:
-    """Every shard's tensor in global shard order; the shards' tensors have
-    one shape."""
-    xs = list(xs)
+    """Every shard's tensor in global shard order, on the mesh's first
+    card; the shards' tensors have one shape."""
+    xs = _on_first_card(xs, mesh)
     if not _spans(mesh):
         return xs
     shape = xs[0].shape
@@ -203,8 +227,9 @@ def _every_shard(xs: Sequence[torch.Tensor], mesh) -> list[torch.Tensor]:
 
 
 def all_gather(xs: Sequence[torch.Tensor], mesh=None) -> torch.Tensor:
-    """`lax.all_gather(..., tiled=True)`: the shards concatenated in order."""
-    local = torch.cat(list(xs))
+    """`lax.all_gather(..., tiled=True)`: the shards concatenated in order,
+    on the mesh's first card."""
+    local = torch.cat(_on_first_card(xs, mesh))
     if not _spans(mesh):
         return local
     return torch.cat(gather_ranks(mesh, [local])[0])
@@ -236,10 +261,15 @@ def size_matrix(counts: Sequence[torch.Tensor], mesh=None) -> torch.Tensor:
     return torch.stack(_every_shard(counts, mesh)).to(torch.int32)
 
 
-def agreed_max(value: int, mesh: Optional[object]) -> int:
+def agreed_max(value, mesh: Optional[object]):
     """The largest of every process's `value`: a host decision that each
-    process takes from its own data, made the same on all of them."""
+    process takes from its own data, made the same on all of them. `value`
+    is an int, or an int64 tensor taken elementwise (K6's float-SUM scale
+    words, parallel/shuffle.py), returned on its own device."""
     if not _spans(mesh):
         return value
+    if isinstance(value, torch.Tensor):
+        (parts,) = gather_ranks(mesh, [value])
+        return torch.stack(parts).amax(0)
     (parts,) = gather_ranks(mesh, [torch.tensor([value], dtype=torch.int64)])
     return int(torch.cat(parts).max())

@@ -36,6 +36,18 @@ one Batch) stays local until a distributed stage needs its shards; a
 stage over a distributed child runs once per shard, and once in all for
 a replicated child.
 
+On a mesh of several cards (parallel/mesh.py `make_mesh(devices=...)`)
+each shard's stages run on its card. Every per-shard stage is lowered
+once per card (`_on_cards`): its compiled expressions, constants,
+lookup tables and K1 programs live on that card, as XLA places a
+`shard_map` body's constants on every chip, and shard d runs card
+`mesh.card_index(d)`'s lowering over its rows. What a stage makes from
+every shard (sample-sort splitters, the broadcast join's build side, the
+global row ranks, a FULL join's matched marks) is made on the mesh's
+first card, where the collectives meet, and copied to each card once
+(`_copies`, collectives.to_card). Replicated results stay on the first
+card.
+
 On a mesh that spans processes (parallel/multihost.py) each process runs
 every stage over its own shards, and a ShardedBatch holds those. The
 collectives take the mesh and meet in global shard order, the exchanges
@@ -64,6 +76,7 @@ from datafusion_tpu_torch.exec.compiler import (
     ShardedBatch,
     split_host_projection,
 )
+from datafusion_tpu_torch.errors import ExecutionError
 from datafusion_tpu_torch.ops import aggregate as agg_ops
 from datafusion_tpu_torch.ops import join as join_ops
 from datafusion_tpu_torch.ops import sort as sort_ops
@@ -71,7 +84,7 @@ from datafusion_tpu_torch.ops.expr_eval import broadcast_col
 from datafusion_tpu_torch.ops.pallas.partition import MAX_OPS, WINDOW
 from datafusion_tpu_torch.ops.pallas.segreduce import from_sortable_int, segmented_reduce, to_sortable_int
 from datafusion_tpu_torch.parallel import collectives as C
-from datafusion_tpu_torch.parallel.mesh import Mesh
+from datafusion_tpu_torch.parallel.mesh import Mesh, ShardTable
 from datafusion_tpu_torch.parallel.shuffle import exchange_fold, hash_keys_to_device, repartition, route, skew_salt
 from datafusion_tpu_torch.plan import logical as L
 from datafusion_tpu_torch.types import DataType, torch_dtype
@@ -115,11 +128,76 @@ class DistCompiler(PlanCompiler):
         self.mesh = mesh
         self.n_dev = mesh.n_dev  # shards of the mesh
         self.n_local = mesh.n_local  # shards of this process
+        self._card = 0  # the logical card being lowered for (`_on_cards`)
+        self._local_plans: dict = {}  # id(local Lowered) -> (plan, first scan slot, the Lowered)
+
+    # -- cards -------------------------------------------------------------
+    def lower(self, plan: L.LogicalPlan) -> Lowered:
+        mark = len(self.scan_tables)
+        low = super().lower(plan)
+        if low.layout is None and self.mesh.n_cards > 1 and self._card == 0:
+            self._local_plans[id(low)] = (plan, mark, low)  # `_as_dist` lowers it again for each card
+        return low
+
+    def _on_cards(self, build, first=None, scan_mark: Optional[int] = None) -> list:
+        """`build()` once per logical card of the mesh, with that card as
+        the compiler's device: entry c runs on card c's shards. Entry 0 is
+        `first` where given, else the first card's build, whose notes and
+        declines stay; the other cards' builds leave the notes and the
+        scan slots as they were (a local plan lowered again from
+        `scan_mark` takes the same slots)."""
+        if self._card != 0:
+            raise ExecutionError("a per-card lowering nested in another")
+        out = [build() if first is None else first]
+        for c in range(1, self.mesh.n_cards):
+            saved = (list(self.notes), list(self.sticky_notes), list(self.scan_tables), list(self.scan_used))
+            self.device, self._card = self.mesh.devices[c], c
+            if scan_mark is not None:
+                del self.scan_tables[scan_mark:]
+                del self.scan_used[scan_mark:]
+            try:
+                out.append(build())
+            finally:
+                self.device, self._card = self.mesh.device, 0
+                self.notes[:], self.sticky_notes[:], self.scan_tables[:], self.scan_used[:] = saved
+        return out
+
+    def _local_on_cards(self, low: Lowered) -> list:
+        """A local lowering (layout None) for each card: `low` on the first,
+        its plan lowered again on the others."""
+        if self.mesh.n_cards == 1:
+            return [low]
+        if id(low) not in self._local_plans:
+            raise ExecutionError("a local stage reached the mesh without its plan")
+        plan, mark, _ = self._local_plans[id(low)]
+        return self._on_cards(lambda: self.lower(plan), first=low, scan_mark=mark)
+
+    def _copies(self, ts) -> list:
+        """Tensors made on the mesh's first card, on each local shard's
+        card: entry d for shard d, one copy per card (collectives.to_card;
+        None stays None)."""
+        by: dict = {}
+        out = []
+        for d in range(self.n_local):
+            dev = self.mesh.card_of(d)
+            if dev not in by:
+                by[dev] = [None if t is None else C.to_card(t, dev) for t in ts]
+            out.append(by[dev])
+        return out
+
+    def _batch_copies(self, b: Batch) -> list:
+        """A Batch on the first card (a replicated side), on each local
+        shard's card."""
+        flat = [b.sel] + [x for d, v in b.cols for x in (d, v)]
+        return [Batch([(c[1 + 2 * j], c[2 + 2 * j]) for j in range(len(b.cols))], c[0]) for c in self._copies(flat)]
 
     def _column_range(self, tbl, ci: int) -> tuple[int, int]:
         """min and max of a scanned column over every process's rows (one
         all_gather of each process's pair; a process without rows sends
-        the identities)."""
+        the identities); on a mesh of several cards, over its shards'."""
+        if isinstance(tbl, ShardTable):
+            pairs = [super(DistCompiler, self)._column_range(t, ci) for t in tbl.shards if t.num_rows]
+            return min(a for a, _ in pairs), max(b for _, b in pairs)
         if not self.mesh.spans:
             return super()._column_range(tbl, ci)
         data = tbl.columns[ci].data
@@ -136,36 +214,41 @@ class DistCompiler(PlanCompiler):
 
     # -- helpers --------------------------------------------------------
     def _as_dist(self, low: Lowered) -> Lowered:
-        """A local lowering run once per shard, over its row block."""
+        """A local lowering run once per shard, over its row block, on its
+        card."""
         if low.layout is not None:
             return low
+        lows, card = self._local_on_cards(low), self.mesh.card_index
 
         def fn(envs) -> ShardedBatch:
-            return ShardedBatch([low.fn(env) for env in envs], "partitioned")
+            return ShardedBatch([lows[card(d)].fn(env) for d, env in enumerate(envs)], "partitioned")
 
         return Lowered(low.schema, low.dicts, fn, low.sources, "partitioned", low.capacity, low.bounds)
 
-    def _map(self, child: Lowered, local: Lowered) -> Lowered:
-        """`local` (lowered over a stand-in for `child`'s shards) run on
-        each shard of `child`; on a replicated child, once."""
-        layout = child.layout
+    def _map(self, child: Lowered, locals_: list) -> Lowered:
+        """`locals_[c]` (lowered for card c over a stand-in for `child`'s
+        shards) run on each shard of `child`; on a replicated child, once,
+        on the first card."""
+        layout, card, local = child.layout, self.mesh.card_index, locals_[0]
 
         def fn(envs) -> ShardedBatch:
             sb = child.fn(envs)
             if layout == "replicated":
                 return ShardedBatch([local.fn(sb.shards[0])] * len(sb.shards), layout)
-            return ShardedBatch([local.fn(b) for b in sb.shards], layout)
+            return ShardedBatch([locals_[card(d)].fn(b) for d, b in enumerate(sb.shards)], layout)
 
         return Lowered(local.schema, local.dicts, fn, local.sources, layout, local.capacity, local.bounds)
 
     def _per_shard(self, child: Lowered, build) -> Optional[Lowered]:
         """`build(c)` lowers a single-card stage over `c`: over a local
-        child it stays local, over a distributed one it runs per shard."""
+        child it stays local, over a distributed one it runs per shard,
+        lowered for each card (once, for the first card, over a replicated
+        child)."""
         if child.layout is None:
             return build(child)
-        local = build(Lowered(child.schema, child.dicts, lambda b: b, child.sources, None, child.capacity,
-                              child.bounds))
-        return None if local is None else self._map(child, local)
+        standin = Lowered(child.schema, child.dicts, lambda b: b, child.sources, None, child.capacity, child.bounds)
+        locals_ = [build(standin)] if child.layout == "replicated" else self._on_cards(lambda: build(standin))
+        return None if locals_[0] is None else self._map(child, locals_)
 
     def _gather_batch(self, child: Lowered) -> Lowered:
         """Partitioned -> replicated: every shard holds the concatenation
@@ -217,14 +300,15 @@ class DistCompiler(PlanCompiler):
                 "sort: distributed multi-key sample sort (tuple splitters, lexicographic range routing, "
                 "range exchange over K5)"
             )
-        keys = [(self.compile(se.expr, child), se.asc, se.nulls_first is True) for se in plan.exprs]
-        n_cols = len(child.schema)
+        keys = self._on_cards(lambda: [(self.compile(se.expr, child), se.asc, se.nulls_first is True)
+                                       for se in plan.exprs])
+        n_cols, card = len(child.schema), self.mesh.card_index
 
         def fn(envs) -> ShardedBatch:
             local = []
-            for b in child.fn(envs).shards:
+            for d, b in enumerate(child.fn(envs).shards):
                 ops = []
-                for kc, asc, nf in keys:
+                for kc, asc, nf in keys[card(d)]:
                     kd, kv = broadcast_col(kc.fn(b.cols), b.capacity)
                     ops.extend(_sort_operands(kd, kv, asc, nf))
                 cols = sort_ops.sort_batch([((o, None), True) for o in ops], list(b.cols) + [(o, None) for o in ops],
@@ -234,36 +318,36 @@ class DistCompiler(PlanCompiler):
             samples = [[] for _ in range(m)]
             for cols in local:
                 n_sel = cols[0][0].shape[0]
-                pos = (torch.arange(OVERSAMPLE, device=self.device) + 1) * max(n_sel, 1) // (OVERSAMPLE + 1)
+                pos = (torch.arange(OVERSAMPLE, device=cols[0][0].device) + 1) * max(n_sel, 1) // (OVERSAMPLE + 1)
                 for t in range(m):
                     o = cols[n_cols + t][0]
                     # an empty shard samples the largest tuple
                     samples[t].append(o[pos] if n_sel else torch.full((OVERSAMPLE,), torch.iinfo(o.dtype).max,
                                                                       dtype=o.dtype, device=o.device))
-            gathered = [C.all_gather(s, self.mesh) for s in samples]
+            gathered = [C.all_gather(s, self.mesh) for s in samples]  # on the first card
             order = sort_ops.lexsort(gathered)
-            ranks = (torch.arange(1, n, device=self.device) * (n * OVERSAMPLE)) // n
-            splitters = [g[order][ranks] for g in gathered]
+            ranks = (torch.arange(1, n, device=gathered[0].device) * (n * OVERSAMPLE)) // n
+            splitters = self._copies([g[order][ranks] for g in gathered])
             dsts = []
-            for cols in local:
+            for d, cols in enumerate(local):
                 ops = [c[0] for c in cols[n_cols:]]
-                dst = torch.zeros(ops[0].shape[0], dtype=torch.int64, device=self.device)
+                dst = torch.zeros(ops[0].shape[0], dtype=torch.int64, device=ops[0].device)
                 for j in range(n - 1):
                     # splitter tuple j <= the row's tuple (lexicographic):
                     # equal tuples go right, so equal keys share a shard
                     less = torch.zeros_like(dst, dtype=torch.bool)
                     eq = torch.ones_like(dst, dtype=torch.bool)
                     for t in range(m):
-                        less |= eq & (splitters[t][j] < ops[t])
-                        eq &= splitters[t][j] == ops[t]
+                        less |= eq & (splitters[d][t][j] < ops[t])
+                        eq &= splitters[d][t][j] == ops[t]
                     dst += less | eq
                 dsts.append(dst)
-            sels = [torch.ones(c[0][0].shape[0], dtype=torch.bool, device=self.device) for c in local]
+            sels = [torch.ones(c[0][0].shape[0], dtype=torch.bool, device=c[0][0].device) for c in local]
             recv, recv_sel = repartition(local, dsts, sels, n, mesh=self.mesh)
             out = []
             for cols, sel in zip(recv, recv_sel):
                 res = sort_ops.sort_batch([(cv, True) for cv in cols[n_cols:]], cols[:n_cols], sel)
-                out.append(Batch(res, torch.ones(res[0][0].shape[0], dtype=torch.bool, device=self.device)))
+                out.append(Batch(res, torch.ones(res[0][0].shape[0], dtype=torch.bool, device=sel.device)))
             return ShardedBatch(out, "partitioned")
 
         return Lowered(child.schema, child.dicts, fn, None, "partitioned", child.capacity)
@@ -308,10 +392,10 @@ class DistCompiler(PlanCompiler):
         def fn(envs) -> ShardedBatch:
             sb = child.fn(envs)
             counts = C.all_gather([b.sel.sum().reshape(1) for b in sb.shards], mesh)
-            bases = torch.cumsum(counts, 0) - counts
+            bases = self._copies([torch.cumsum(counts, 0) - counts])
             out = []
             for d, b in enumerate(sb.shards):
-                rank = bases[mesh.first + d] + torch.cumsum(b.sel.to(torch.int64), 0)
+                rank = bases[d][0][mesh.first + d] + torch.cumsum(b.sel.to(torch.int64), 0)
                 keep = b.sel
                 if k is not None:
                     keep = keep & (rank <= off + k)
@@ -341,19 +425,20 @@ class DistCompiler(PlanCompiler):
             self.notes.append("window: gather to replicated, local evaluation")
             return self._per_shard(self._gather_batch(child), lambda c: self._window_over(plan, c))
         child = self._as_dist(child)
-        n = self.n_dev
-        part_c = [self.compile(e, child) for e in pkeys]
+        n, card = self.n_dev, self.mesh.card_index
+        part_c = self._on_cards(lambda: [self.compile(e, child) for e in pkeys])
         self.notes.append(f"window: hash-repartition by PARTITION BY keys over K5 (ragged exchange, {n} shards), "
                           "then the windows per shard")
 
         def fn(envs) -> ShardedBatch:
             sb = child.fn(envs)
             dsts = []
-            for b in sb.shards:
+            for d, b in enumerate(sb.shards):
                 keys = []
-                for c in part_c:
-                    d, v = broadcast_col(c.fn(b.cols), b.capacity)
-                    keys.append(d if v is None else torch.where(v, d, torch.zeros((), dtype=d.dtype, device=d.device)))
+                for c in part_c[card(d)]:
+                    kd, kv = broadcast_col(c.fn(b.cols), b.capacity)
+                    keys.append(kd if kv is None else torch.where(kv, kd, torch.zeros((), dtype=kd.dtype,
+                                                                                      device=kd.device)))
                 dsts.append(hash_keys_to_device(keys, n))
             cols, sels = repartition([b.cols for b in sb.shards], dsts, [b.sel for b in sb.shards], n, mesh=self.mesh)
             return ShardedBatch([Batch(c, s) for c, s in zip(cols, sels)], "partitioned")
@@ -377,14 +462,15 @@ class DistCompiler(PlanCompiler):
             children = [self._gather_batch(c) for c in children]
         rep = all(c.layout == "replicated" for c in children)
         children = [c if rep else self._as_dist(c) for c in children]
-        dicts, concat = self._union_parts(plan, children)
-        n = self.n_local
+        parts = self._on_cards(lambda: self._union_parts(plan, children))  # per card: its remap tables
+        dicts = parts[0][0]
+        n, card = self.n_local, self.mesh.card_index
 
         def fn(envs) -> ShardedBatch:
             sbs = [c.fn(envs) for c in children]
             if rep:
-                return ShardedBatch([concat([sb.shards[0] for sb in sbs])] * n, "replicated")
-            return ShardedBatch([concat([sb.shards[d] for sb in sbs]) for d in range(n)], "partitioned")
+                return ShardedBatch([parts[0][1]([sb.shards[0] for sb in sbs])] * n, "replicated")
+            return ShardedBatch([parts[card(d)][1]([sb.shards[d] for sb in sbs]) for d in range(n)], "partitioned")
 
         return Lowered(plan.schema, dicts, fn, None, "replicated" if rep else "partitioned",
                        sum(c.capacity for c in children))
@@ -415,10 +501,12 @@ class DistCompiler(PlanCompiler):
         FULL join ORs the build rows' matched marks over the shards and
         appends the unmatched ones after the last shard's rows, where one
         card puts them (the JAX mesh spreads them over its chips)."""
-        n, dev, nl, mesh = self.n_local, self.device, len(left.schema), self.mesh
+        n, nl, mesh, card = self.n_local, len(left.schema), self.mesh, self.mesh.card_index
         right_g = self._gather_batch(right)
-        run, meta = self._join_runner(plan, left, right, swap_ok=False,
-                                      how="broadcast (build side all_gathered to every shard), local ")
+        runs = self._on_cards(lambda: self._join_runner(plan, left, right, swap_ok=False,
+                                                        how="broadcast (build side all_gathered to every shard), "
+                                                        "local "))
+        run, meta = runs[0]
         is_full = plan.join_type is L.JoinType.Full
         dicts = left.dicts + right.dicts
         if left.layout == "replicated":
@@ -429,11 +517,11 @@ class DistCompiler(PlanCompiler):
         left_d = self._as_dist(left)
 
         def fn(envs) -> ShardedBatch:
-            rb = right_g.fn(envs).shards[0]
+            rbs = self._batch_copies(right_g.fn(envs).shards[0])  # the build side on every card
             shards = left_d.fn(envs).shards
             if not is_full:
-                return ShardedBatch([run(b, rb) for b in shards], "partitioned")
-            heads = [run(b, rb, tail=False) for b in shards]
+                return ShardedBatch([runs[card(d)][0](b, rbs[d]) for d, b in enumerate(shards)], "partitioned")
+            heads = [runs[card(d)][0](b, rbs[d], tail=False) for d, b in enumerate(shards)]
             hit = C.por([bm for _, _, bm in heads], mesh)
             # the tail's probe columns are NULL; every other shard's get an
             # all-true validity too, so every shard (and every process)
@@ -442,9 +530,10 @@ class DistCompiler(PlanCompiler):
                          h.sel) for h, _, _ in heads]
             if mesh.rank == mesh.world - 1:  # the tail follows the mesh's last shard
                 last, matched, _ = heads[-1]
+                rb = rbs[-1]
                 pcols, bcols, rows = join_ops.full_merge_tail(last.cols[:nl], last.cols[nl:], matched, rb.cols,
-                                                              rb.sel & ~hit)
-                out[-1] = Batch(pcols + bcols, torch.ones(rows, dtype=torch.bool, device=dev))
+                                                              rb.sel & ~C.to_card(hit, rb.sel.device))
+                out[-1] = Batch(pcols + bcols, torch.ones(rows, dtype=torch.bool, device=rb.sel.device))
             return ShardedBatch(out, "partitioned")
 
         return Lowered(plan.schema, dicts, fn, layout="partitioned", **meta)
@@ -461,12 +550,13 @@ class DistCompiler(PlanCompiler):
         copies' marks meet by global row index (the JAX mesh reads only
         the first copy's, ROADMAP Queue 3). The rows come shard by shard,
         in an order the JAX mesh does not specify either."""
-        n, dev, nl, mesh = self.n_dev, self.device, len(left.schema), self.mesh
-        run, meta = self._join_runner(
+        n, nl, mesh, card = self.n_dev, len(left.schema), self.mesh, self.mesh.card_index
+        runs = self._on_cards(lambda: self._join_runner(
             plan, left, right, direct_ok=False,
             how="shuffle (both sides hash-repartitioned over K5, skew salt from the probe side's send counts), "
             "local ",
-        )
+        ))
+        meta = runs[0][1]
         is_full = plan.join_type is L.JoinType.Full
         meta["capacity"] = 2 * left.capacity + (2 * right.capacity if is_full else 0)  # the JAX mesh's
         left_d, right_d = self._as_dist(left), self._as_dist(right)
@@ -474,24 +564,25 @@ class DistCompiler(PlanCompiler):
 
         def fn(envs) -> ShardedBatch:
             lsb, rsb = left_d.fn(envs).shards, right_d.fn(envs).shards
-            lkeys = [[d for d, _ in run.keys(b, 0)] for b in lsb]
+            lkeys = [[d for d, _ in runs[card(i)][0].keys(b, 0)] for i, b in enumerate(lsb)]
             lsel = [b.sel for b in lsb]
             ldst = [hash_keys_to_device(k, n) for k in lkeys]
             lroutes = [route(d, s, n) for d, s in zip(ldst, lsel)]
             salt_r = skew_salt(C.size_matrix([c for _, c in lroutes], mesh), n)
             if salt_r > 1:
-                ldst = [hash_keys_to_device(k, n, salt_r=salt_r, salt=torch.arange(b.capacity, device=dev) % salt_r)
+                ldst = [hash_keys_to_device(k, n, salt_r=salt_r,
+                                            salt=torch.arange(b.capacity, device=b.sel.device) % salt_r)
                         for k, b in zip(lkeys, lsb)]
                 lroutes = None
             lrecv, lrsel = repartition([b.cols for b in lsb], ldst, lsel, n, lroutes, mesh=mesh)
             rcols, rsel, rdst = [], [], []
             base, total = 0, sum(b.capacity for b in rsb)
             if is_full and mesh.spans:  # global build row indices: earlier processes' rows come first
-                caps = C.all_gather([torch.tensor([total], device=dev)], mesh).tolist()
+                caps = C.all_gather([torch.tensor([total], device=mesh.device)], mesh).tolist()
                 base, total = sum(caps[:mesh.rank]), sum(caps)
-            for b in rsb:
-                m = b.capacity
-                keys = [d for d, _ in run.keys(b, 1)]
+            for i, b in enumerate(rsb):
+                m, dev = b.capacity, b.sel.device
+                keys = [d for d, _ in runs[card(i)][0].keys(b, 1)]
                 cols = [broadcast_col(c, m) for c in b.cols]
                 replica = torch.div(torch.arange(m * salt_r, device=dev), max(m, 1), rounding_mode="floor")
                 if salt_r > 1:
@@ -505,22 +596,24 @@ class DistCompiler(PlanCompiler):
                 base += m
             rrecv, rrsel = repartition(rcols, rdst, rsel, n, mesh=mesh)
             if not is_full:
-                out = [run(Batch(lc, ls), Batch(rc, rs)) for lc, ls, rc, rs in zip(lrecv, lrsel, rrecv, rrsel)]
+                out = [runs[card(i)][0](Batch(lc, ls), Batch(rc, rs))
+                       for i, (lc, ls, rc, rs) in enumerate(zip(lrecv, lrsel, rrecv, rrsel))]
             else:
                 # a build row's copies land on different shards: it is
                 # matched if any copy is, so the marks meet by global row
-                heads = [run(Batch(lc, ls), Batch(rc[:-2], rs), tail=False)
-                         for lc, ls, rc, rs in zip(lrecv, lrsel, rrecv, rrsel)]
-                hit = torch.zeros(max(total, 1), dtype=torch.bool, device=dev)
+                # index, on the first card
+                heads = [runs[card(i)][0](Batch(lc, ls), Batch(rc[:-2], rs), tail=False)
+                         for i, (lc, ls, rc, rs) in enumerate(zip(lrecv, lrsel, rrecv, rrsel))]
+                hit = torch.zeros(max(total, 1), dtype=torch.bool, device=mesh.device)
                 for (_, _, bm), rc in zip(heads, rrecv):
-                    hit[rc[-2][0][bm]] = True
-                hit = C.por([hit], mesh)
+                    hit[C.to_card(rc[-2][0][bm], mesh.device)] = True
+                hits = self._copies([C.por([hit], mesh)])
                 out = []
-                for (head, matched, _), rc, rs in zip(heads, rrecv, rrsel):
-                    un = rs & rc[-1][0] & ~hit[torch.where(rs, rc[-2][0], 0)]
+                for i, ((head, matched, _), rc, rs) in enumerate(zip(heads, rrecv, rrsel)):
+                    un = rs & rc[-1][0] & ~hits[i][0][torch.where(rs, rc[-2][0], 0)]
                     pcols, bcols, rows = join_ops.full_merge_tail(head.cols[:nl], head.cols[nl:], matched,
                                                                   rc[:-2], un)
-                    out.append(Batch(pcols + bcols, torch.ones(rows, dtype=torch.bool, device=dev)))
+                    out.append(Batch(pcols + bcols, torch.ones(rows, dtype=torch.bool, device=rs.device)))
             routes.append(f"join: shuffle, skew salt {salt_r}")
             return ShardedBatch(out, "partitioned")
 
@@ -537,14 +630,15 @@ class DistCompiler(PlanCompiler):
         and an all_gather merge; ungrouped, per-shard scalars merged."""
         if child.layout == "replicated":
             return self._per_shard(child, lambda c: PlanCompiler._aggregate_over(self, plan, c))
-        group_c, agg_meta, out_dicts = self._aggregate_meta(plan, child)
+        metas = self._on_cards(lambda: self._aggregate_meta(plan, child))  # per card: (group_c, agg_meta, dicts)
+        group_c, agg_meta, out_dicts = metas[0]
         holistic = [name.upper() for name, _, _, _ in agg_meta if name in agg_ops.HOLISTIC_FUNCS]
         if holistic and not group_c:
             self.notes.append(f"aggregate: gather to replicated, local evaluation ({holistic[0]} partials do not merge)")
             return self._per_shard(self._gather_batch(child), lambda c: PlanCompiler._aggregate_over(self, plan, c))
         child_d = self._as_dist(child)
         if not group_c:
-            return self._ungrouped_dist(plan, child_d, agg_meta, out_dicts)
+            return self._ungrouped_dist(plan, child_d, metas, out_dicts)
         probe = self._probe_key_domains(group_c, plan.group_exprs, child)
         doms, offs, notes = probe if probe is not None else ([], [], [])
         prod = 0
@@ -556,19 +650,18 @@ class DistCompiler(PlanCompiler):
             self.note_decline(f"aggregate: dense per shard and exchange-fold declined ({holistic[0]} needs each "
                               "group's rows on one shard)")
             packed = 1 <= prod <= agg_ops.PACKED_MAX_GROUPS
-            return self._aggregate_repartition(plan, child_d, group_c, agg_meta, out_dicts,
-                                               doms if packed else None, offs, notes)
-        n, n_local, mesh = self.n_dev, self.n_local, self.mesh
-        dev = self.device
+            return self._aggregate_repartition(plan, child_d, metas, out_dicts, doms if packed else None, offs, notes)
+        n, n_local, mesh, card = self.n_dev, self.n_local, self.mesh, self.mesh.card_index
 
         def shards_of(sb: ShardedBatch):
             return [
-                ([broadcast_col(c.fn(b.cols), b.capacity) for c in group_c], self._specs_of(agg_meta, b), b.sel)
-                for b in sb.shards
+                ([broadcast_col(c.fn(b.cols), b.capacity) for c in metas[card(d)][0]],
+                 self._specs_of(metas[card(d)][1], b), b.sel)
+                for d, b in enumerate(sb.shards)
             ]
 
-        def batch(keys, aggs, ng) -> Batch:
-            return Batch(list(keys) + list(aggs), torch.ones(ng, dtype=torch.bool, device=dev))
+        def batch(keys, aggs, ng) -> Batch:  # on the keys' card
+            return Batch(list(keys) + list(aggs), torch.ones(ng, dtype=torch.bool, device=keys[0][0].device))
 
         if 1 <= prod <= agg_ops.DENSE_MAX_GROUPS:
             self.notes.append(
@@ -595,8 +688,8 @@ class DistCompiler(PlanCompiler):
             def fold_reduce(gids, vals, masks, *, ops, num_groups):
                 return exchange_fold(gids, vals, masks, ops=ops, num_groups=num_groups, n_dev=n, mesh=mesh)
 
-            def slot_gid(d, size):  # local receiver d is the mesh's shard first + d
-                return torch.arange(size, device=dev) * n + mesh.first + d
+            def slot_gid(d, size):  # local receiver d is the mesh's shard first + d, on its card
+                return torch.arange(size, device=mesh.card_of(d)) * n + mesh.first + d
 
             def fn_fold(envs) -> ShardedBatch:
                 res = agg_ops._dense_window_aggregate(shards_of(child_d.fn(envs)), doms, offs, fold_reduce, slot_gid)
@@ -607,7 +700,7 @@ class DistCompiler(PlanCompiler):
         return self._merge_aggregate(plan, child_d, agg_meta, out_dicts, shards_of, batch,
                                      doms if 1 <= prod <= agg_ops.PACKED_MAX_GROUPS else None, offs, notes)
 
-    def _aggregate_repartition(self, plan, child, group_c, agg_meta, out_dicts, doms, offs, notes) -> Lowered:
+    def _aggregate_repartition(self, plan, child, metas, out_dicts, doms, offs, notes) -> Lowered:
         """The JAX mesh's repartition aggregate (its dist.py:916-1001):
         every row goes to the shard of its group keys' hash
         (`hash_keys_to_device`, the data under a NULL key zeroed so that
@@ -615,8 +708,9 @@ class DistCompiler(PlanCompiler):
         aggregates what it received (`grouped_aggregate`, on the packed id
         of the global probed domains where every key has one). A group
         lives on one shard, so every aggregate is local there. The result
-        is partitioned: groups come shard by shard."""
-        n, dev = self.n_dev, self.device
+        is partitioned: groups come shard by shard. `metas[c]` is card c's
+        (group keys, aggregates, dictionaries)."""
+        n, card = self.n_dev, self.mesh.card_index
         how = f"packed-gid co-sort ({' x '.join(notes)})" if doms is not None else "co-sort"
         self.notes.append(f"aggregate: hash-repartition by group keys over K5 (ragged exchange, {n} shards), then "
                           f"the local {how} + segmented reduce per shard{self._sorted_route_notes(plan)}")
@@ -624,20 +718,21 @@ class DistCompiler(PlanCompiler):
         def fn(envs) -> ShardedBatch:
             sb = child.fn(envs)
             dsts = []
-            for b in sb.shards:
+            for i, b in enumerate(sb.shards):
                 keys = []
-                for c in group_c:
+                for c in metas[card(i)][0]:
                     d, v = broadcast_col(c.fn(b.cols), b.capacity)
                     keys.append(d if v is None else torch.where(v, d, torch.zeros((), dtype=d.dtype, device=d.device)))
                 dsts.append(hash_keys_to_device(keys, n))
             cols, sels = repartition([b.cols for b in sb.shards], dsts, [b.sel for b in sb.shards], n, mesh=self.mesh)
             out = []
-            for c, sel in zip(cols, sels):
+            for i, (c, sel) in enumerate(zip(cols, sels)):
                 b = Batch(c, sel)
+                group_c, agg_meta, _ = metas[card(i)]
                 keys = [broadcast_col(gc.fn(b.cols), b.capacity) for gc in group_c]
                 okeys, oaggs, ng = agg_ops.grouped_aggregate(keys, self._specs_of(agg_meta, b), sel,
                                                              dense_domain=doms, dense_offset=offs)
-                out.append(Batch(list(okeys) + list(oaggs), torch.ones(ng, dtype=torch.bool, device=dev)))
+                out.append(Batch(list(okeys) + list(oaggs), torch.ones(ng, dtype=torch.bool, device=sel.device)))
             return ShardedBatch(out, "partitioned")
 
         groups = self.DEFAULT_GROUP_CAPACITY if doms is None else math.prod(d + 1 for d in doms) + 1
@@ -678,7 +773,7 @@ class DistCompiler(PlanCompiler):
             else:  # avg
                 layout.append((name, [("sum", _float_partial(rt)), ("count", DataType.Int64)]))
         n_keys = len(plan.group_exprs)
-        dev = self.device
+        dev = self.mesh.device  # the merge runs on the first card
 
         def fn(envs) -> ShardedBatch:
             partials = []
@@ -711,19 +806,20 @@ class DistCompiler(PlanCompiler):
         groups = self.DEFAULT_GROUP_CAPACITY if doms is None else math.prod(d + 1 for d in doms) + 1
         return Lowered(plan.schema, out_dicts, fn, None, "replicated", min(child.capacity, groups))
 
-    def _ungrouped_dist(self, plan, child, agg_meta, out_dicts) -> Lowered:
+    def _ungrouped_dist(self, plan, child, metas, out_dicts) -> Lowered:
         """Whole-table aggregates: per-shard scalars merged by psum / pmin /
-        pmax. A shard with no counted row joins a MIN / MAX as the
-        identity."""
-        dev, n, mesh = self.device, self.n_local, self.mesh
+        pmax on the first card. A shard with no counted row joins a MIN /
+        MAX as the identity. `metas[c]` is card c's aggregates."""
+        dev, n, mesh, card = self.mesh.device, self.n_local, self.mesh, self.mesh.card_index
 
         def fn(envs) -> ShardedBatch:
             sb = child.fn(envs)
             cols = []
-            for name, arg, rt, _ in agg_meta:
+            for k, (name, _arg, rt, _) in enumerate(metas[0][1]):
                 part_t = _float_partial(rt) if name == "avg" else rt
                 per = []
-                for b in sb.shards:
+                for d, b in enumerate(sb.shards):
+                    arg = metas[card(d)][1][k][1]
                     argv = broadcast_col(arg.fn(b.cols), b.capacity)
                     specs = [agg_ops.AggSpec("count", argv, DataType.Int64)]
                     if name != "count":

@@ -9,8 +9,17 @@ rows split into contiguous row blocks, one per shard; each stage runs
 once per local shard, and every collective takes this process's list of
 per-shard tensors and returns what every shard would hold afterwards, in
 global shard order (parallel/collectives.py). `make_mesh(n)` is the mesh
-of one process, all its shards on one device; `global_mesh`
-(parallel/multihost.py) spans the processes.
+of one process, all its shards on one device; `make_mesh(n, devices=...)`
+spreads them over several cards of the process, in contiguous blocks, as
+the JAX package's single-process `Mesh` spans every chip of its host;
+`global_mesh` (parallel/multihost.py) spans the processes.
+
+On a mesh of several cards every per-shard stage runs on its shard's
+card, each table's row blocks are placed there once, at registration
+(`ShardTable`), and the collectives meet on the first card (`device`).
+The entries of `devices` are logical cards: a list may repeat a device
+(the tests use `("cpu",) * 4`; one H100 runs `(cuda:0, cuda:0)`), and the
+shards still run and exchange card by card.
 """
 
 from __future__ import annotations
@@ -25,20 +34,49 @@ from datafusion_tpu_torch.schema import Schema
 @dataclass(frozen=True)
 class Mesh:
     """`n_dev` logical shards; this process holds `n_local` of them, from
-    shard `rank * n_local`, on `device`. A mesh of `world > 1` processes
-    runs its collectives over torch.distributed's default group."""
+    shard `rank * n_local`, on the cards `devices` (default: `device`
+    alone): local shard d lies on `devices[d * len(devices) // n_local]`.
+    `device` is the first card, where merges, host reads and replicated
+    results go. A mesh of `world > 1` processes runs its collectives over
+    torch.distributed's default group."""
 
     n_dev: int
     device: torch.device
     rank: int = 0
     world: int = 1
     n_local: int = 0  # 0: every shard (one process)
+    devices: tuple = ()  # (): (device,)
 
     def __post_init__(self):
         if self.n_local == 0:
             object.__setattr__(self, "n_local", self.n_dev)
+        if not self.devices:
+            object.__setattr__(self, "devices", (self.device,))
         if self.n_local * self.world != self.n_dev:
             raise ValueError(f"{self.world} process(es) of {self.n_local} shard(s) do not make {self.n_dev} shards")
+        if self.devices[0] != self.device:
+            raise ValueError(f"the mesh's device {self.device} is not its first card {self.devices[0]}")
+        if self.n_local % len(self.devices):
+            raise ValueError(f"{self.n_local} shards do not split evenly over {len(self.devices)} cards")
+        if self.spans and len(self.devices) > 1:
+            raise ValueError("a mesh that spans processes holds one card per process")
+
+    @property
+    def n_cards(self) -> int:
+        return len(self.devices)
+
+    def card_index(self, d: int) -> int:
+        """The logical card of local shard `d`."""
+        return d * len(self.devices) // self.n_local
+
+    def card_of(self, d: int) -> torch.device:
+        """The device of local shard `d`."""
+        return self.devices[self.card_index(d)]
+
+    def card_shards(self, c: int) -> range:
+        """The local shards on logical card `c`."""
+        per = self.n_local // len(self.devices)
+        return range(c * per, (c + 1) * per)
 
     @property
     def spans(self) -> bool:
@@ -51,12 +89,24 @@ class Mesh:
         return self.rank * self.n_local
 
 
-def make_mesh(n_dev: int = 8, device=None) -> Mesh:
+def make_mesh(n_dev: int = 8, device=None, devices=None) -> Mesh:
     """A mesh of `n_dev` logical shards in this process, on the card unless
-    the caller names another device (the tests pass "cpu")."""
+    the caller names another device (the tests pass "cpu"). `devices`
+    lists the cards the shards split over, in contiguous blocks (it must
+    divide `n_dev`, hold one device type, and start with `device` where
+    both are given); a device may repeat."""
     if n_dev < 1:
         raise ValueError("a mesh needs at least one shard")
-    return Mesh(n_dev, resolve_device(device))
+    if devices is None:
+        return Mesh(n_dev, resolve_device(device))
+    devs = tuple(resolve_device(d) for d in devices)
+    if not devs:
+        raise ValueError("devices lists no card")
+    if len({d.type for d in devs}) > 1:
+        raise ValueError(f"the mesh's cards mix device types: {[str(d) for d in devs]}")
+    if device is not None and resolve_device(device) != devs[0]:
+        raise ValueError(f"device {device} is not the first of devices {[str(d) for d in devs]}")
+    return Mesh(n_dev, devs[0], devices=devs)
 
 
 def shard_bounds(n: int, n_dev: int) -> list[tuple[int, int]]:
@@ -115,14 +165,67 @@ def local_blocks(table: Table, mesh: Mesh) -> RankTable:
     return RankTable(table.schema, cols, table.num_rows, tuple(b - a for a, b in bounds))
 
 
+@dataclass(frozen=True)
+class ShardTable:
+    """A table on a mesh of several cards: one Table per local shard, each
+    on its shard's card, placed once at registration (`place_shards`), as
+    `jax.device_put` with a `NamedSharding` places a global array's
+    blocks. `columns` are shard 0's (types, dictionaries, which columns
+    have a validity: every shard's are alike); `num_rows` counts every
+    shard's rows. The plan compiler reads `schema`, `columns` and
+    `num_rows` as it reads a Table's, and the distributed compiler probes
+    min / max over every shard (`DistCompiler._column_range`)."""
+
+    schema: Schema
+    shards: tuple[Table, ...]
+    num_rows: int
+
+    @property
+    def columns(self) -> tuple[Column, ...]:
+        return self.shards[0].columns
+
+    def whole(self, device) -> Table:
+        """The shards' rows as one Table on `device` (INSERT rebuilds a
+        table from it)."""
+        cols = []
+        for j, c in enumerate(self.columns):
+            parts = [s.columns[j] for s in self.shards]
+            data = torch.cat([p.data.to(device) for p in parts])
+            valid = None if c.validity is None else torch.cat([p.validity.to(device) for p in parts])
+            cols.append(Column(c.dtype, data, valid, c.dictionary))
+        return Table(self.schema, tuple(cols), self.num_rows)
+
+
+def place_shards(table: Table, mesh: Mesh) -> ShardTable:
+    """A whole table's row blocks (`shard_bounds`), each on its shard's
+    card. A block already on its card stays a view; the others are
+    copied there once."""
+    shards = []
+    for d, (lo, hi) in enumerate(shard_bounds(table.num_rows, mesh.n_dev)):
+        card = mesh.card_of(d)
+        cols = tuple(
+            Column(c.dtype, c.data[lo:hi].to(card), None if c.validity is None else c.validity[lo:hi].to(card),
+                   c.dictionary)
+            for c in table.columns
+        )
+        shards.append(Table(table.schema, cols, hi - lo))
+    return ShardTable(table.schema, tuple(shards), table.num_rows)
+
+
 def partition_table(table, mesh: Mesh) -> list[Table]:
     """This process's shards of a table, one Table per local shard: the
     row blocks of `shard_bounds` for a whole Table on one process, the
-    blocks a RankTable records on a spanning mesh. Both are views of the
+    blocks a RankTable records on a spanning mesh, a ShardTable's own
+    shards on a mesh of several cards. The first two are views of the
     table's tensors: nothing is copied. On a spanning mesh the table must
-    be a RankTable already (ExecutionContext.register_table makes it)."""
+    be a RankTable already, and on a mesh of several cards a ShardTable
+    (ExecutionContext.register_table makes both)."""
+    if isinstance(table, ShardTable):
+        return list(table.shards)
     if mesh.spans and not isinstance(table, RankTable):
         raise ValueError("a mesh that spans processes partitions a RankTable, not a whole table")
+    if mesh.n_cards > 1:
+        raise ValueError("a mesh of several cards partitions a ShardTable, not a whole table")
     if isinstance(table, RankTable):
         lo, spans = 0, []
         for r in table.shard_rows:

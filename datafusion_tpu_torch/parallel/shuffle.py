@@ -28,7 +28,15 @@ Then one K5 launch (or K6, for the fold) takes every shard of the mesh as
 a sender, the local ones from their own buffers and the remote ones from
 what arrived, and fills this process's receivers: region j of a receiver
 still holds global sender j's rows, so rows arrive in the single card's
-order.
+order. K6's float-SUM scale is agreed over the processes
+(collectives.agreed_max), so every process folds on the mesh's grid.
+
+On a mesh of several cards (parallel/mesh.py) each shard routes and lays
+out its rows on its own card, and K5 / K6 take one launch per card over
+its receivers, reading every sender's regions where they lie, over
+NVLink for a peer card's (ops/pallas/ragged_shuffle.py `cards`). The
+count matrix meets on the first card and is read on the host once, as on
+one card; each receiver's selection is made on its card.
 """
 
 from __future__ import annotations
@@ -40,7 +48,7 @@ import torch
 from datafusion_tpu_torch.errors import ExecutionError
 from datafusion_tpu_torch.ops.expr_eval import ColVal, broadcast_col
 from datafusion_tpu_torch.ops.pallas.ragged_shuffle import CHUNKS, pick_chunk, ragged_exchange, ragged_exchange_fold
-from datafusion_tpu_torch.parallel.collectives import exchange_regions, size_matrix
+from datafusion_tpu_torch.parallel.collectives import agreed_max, exchange_regions, size_matrix, to_card
 
 REGION_ALIGN = CHUNKS[0]  # split_cap is a multiple of the largest chunk, so K5 copies 1024-row chunks
 
@@ -135,6 +143,20 @@ def receive_selection(sizes: torch.Tensor, i: int, split_cap: int) -> torch.Tens
     return slot - dest * split_cap < sizes[:, i].to(torch.int64)[dest]
 
 
+def _cards(mesh):
+    """The receivers' cards for the kernels: the mesh's, where it has
+    several; None where every shard lies on one device."""
+    return None if mesh is None or mesh.n_cards == 1 else mesh.devices
+
+
+def _sizes_on(sizes: torch.Tensor, mesh) -> list[torch.Tensor]:
+    """The count matrix on each local shard's card (one copy per card)."""
+    if mesh is None:
+        return [sizes] * sizes.shape[0]
+    on = {c: to_card(sizes, c) for c in dict.fromkeys(mesh.devices)}
+    return [on[mesh.card_of(d)] for d in range(mesh.n_local)]
+
+
 def _local_exchange(regions, sizes: torch.Tensor, split_cap: int, mesh):
     """(senders' arrays, their count matrix, receivers) for the kernels on
     this process: every shard as on one process, or, on a spanning mesh,
@@ -179,7 +201,8 @@ def repartition(
     first = 0 if mesh is None else mesh.first
     if sends[0]:
         senders, local_sizes, n_recv = _local_exchange(sends, sizes, split_cap, mesh)
-        recvs = ragged_exchange(senders, local_sizes, n_dev=n_recv, split_cap=split_cap, chunk=chunk)
+        recvs = ragged_exchange(senders, local_sizes, n_dev=n_recv, split_cap=split_cap, chunk=chunk,
+                                cards=_cards(mesh))
     else:  # no arrays to move: only the selections
         n_recv = len(cols)
         recvs = [[] for _ in range(n_recv)]
@@ -191,7 +214,7 @@ def repartition(
             d = next(it)
             shard.append((d != 0 if is_bool else d, next(it) != 0 if has_valid else None))
         out_cols.append(shard)
-    return out_cols, [receive_selection(sizes, first + i, split_cap) for i in range(n_recv)]
+    return out_cols, [receive_selection(sz, first + i, split_cap) for i, sz in enumerate(_sizes_on(sizes, mesh))]
 
 
 def exchange_fold(gids, vals, masks, *, ops, num_groups, n_dev, mesh=None):
@@ -223,6 +246,8 @@ def exchange_fold(gids, vals, masks, *, ops, num_groups, n_dev, mesh=None):
     split_cap, _ = region_capacity(sizes)
     regions = [build_regions(arrs, rows, counts, n_dev, split_cap) for arrs, (rows, counts) in zip(arrays, routes)]
     senders, local_sizes, n_recv = _local_exchange(regions, sizes, split_cap, mesh)
+    agree = (lambda words: agreed_max(words, mesh)) if mesh is not None and mesh.spans else None
     return ragged_exchange_fold([r[0] for r in senders], [[None if k is None else r[k] for k in val_at] for r in senders],
                                 [[r[k] for k in mask_at] for r in senders], local_sizes, ops=ops, mask_map=mask_map,
-                                n_dev=n_recv, split_cap=split_cap, num_groups=-(-num_groups // n_dev))
+                                n_dev=n_recv, split_cap=split_cap, num_groups=-(-num_groups // n_dev),
+                                cards=_cards(mesh), agree=agree)

@@ -7,6 +7,9 @@ functions) is the JAX package's, term for term; the bandwidth table is
 NVIDIA's published HBM figures for the Hopper parts, keyed on the name
 `torch.cuda.get_device_name` reports. A card the table does not know,
 or no card at all, raises: there is no default bandwidth to fall back on.
+Beside it, the NVLink figure each way per card (`chip_nvlink_gbps`),
+the rate at which a card reads a peer card's memory (K5 / K6 across the
+cards of a mesh, parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -25,18 +28,38 @@ CHIP_HBM_GBPS = {
 }
 
 
-def chip_hbm_gbps(device=None) -> float:
-    """The HBM bandwidth of the card `device` (default: the current one),
-    in GB/s. Raises on the CPU and on a card the table does not name."""
+# NVLink bandwidth each way per card in GB/s (NVIDIA's data sheets: the
+# SXM part's 900 GB/s to the other cards of its host, all to all, is
+# 450 GB/s each way), by a substring of the card's name
+CHIP_NVLINK_GBPS = {
+    "H100 80GB HBM3": 450.0,  # the SXM part's name in torch.cuda.get_device_name
+    "H100 SXM": 450.0,
+}
+
+
+def _lookup(table: dict, what: str, device) -> float:
     if device is not None and torch.device(device).type != "cuda":
-        raise ValueError(f"no HBM bandwidth for device {device}: the roofline is the card's")
+        raise ValueError(f"no {what} bandwidth for device {device}: the roofline is the card's")
     if not torch.cuda.is_available():
         raise ValueError("no CUDA device: the roofline is the card's")
     name = torch.cuda.get_device_name(device)
-    for key, bw in CHIP_HBM_GBPS.items():
+    for key, bw in table.items():
         if key in name:
             return bw
-    raise ValueError(f"no published HBM bandwidth for {name!r} in CHIP_HBM_GBPS")
+    raise ValueError(f"no published {what} bandwidth for {name!r}")
+
+
+def chip_hbm_gbps(device=None) -> float:
+    """The HBM bandwidth of the card `device` (default: the current one),
+    in GB/s. Raises on the CPU and on a card the table does not name."""
+    return _lookup(CHIP_HBM_GBPS, "HBM", device)
+
+
+def chip_nvlink_gbps(device=None) -> float:
+    """The NVLink bandwidth each way of the card `device` (default: the
+    current one) to the other cards of its host, in GB/s. Raises on the
+    CPU and on a card the table does not name."""
+    return _lookup(CHIP_NVLINK_GBPS, "NVLink", device)
 
 
 @dataclass(frozen=True)

@@ -441,6 +441,28 @@ def test_mesh_queries_match_the_cpu(cuda, sql):
                 assert "SUM" in sql and abs(float(x) - float(y)) <= 1e-12 * abs(float(y)), (x, y)
 
 
+@pytest.fixture
+def cards():
+    """Up to four cards of this machine; skips below two."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices (a mesh over several cards)")
+    return tuple(torch.device("cuda", i) for i in range(min(torch.cuda.device_count(), 4)))
+
+
+@pytest.mark.parametrize("sql", MESH_SQL)
+def test_mesh_over_cards_matches_one_card(cards, sql):
+    """The 8 shards over several cards (K5 / K6 reading peers' memory,
+    every per-shard stage on its card) against the same 8 shards on one
+    card: the same result_str, byte for byte, float sums included (one
+    scale for the mesh's fold, merges in shard order)."""
+    multi = port.ExecutionContext(mesh=port.make_mesh(8, devices=cards))
+    one = port.ExecutionContext(mesh=port.make_mesh(8))
+    t = _table(20_000, 5, "cpu")
+    multi.register_table("t", t)
+    one.register_table("t", t)
+    assert multi.sql(sql).result_str() == one.sql(sql).result_str()
+
+
 @pytest.mark.parametrize("name", ["j1", "j2"])
 def test_join_queries_match_the_cpu(cuda, name):
     """chip_smoke.py's j1 (direct join, then K2 dense over the narrowed

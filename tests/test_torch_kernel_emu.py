@@ -59,7 +59,8 @@ EMU_RUNTIME = r"""
 #define __align__(n) __attribute__((aligned(n)))
 #define __grid_constant__
 typedef void* cudaStream_t;
-enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorInvalidConfiguration = 9 };
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorInvalidConfiguration = 9,
+                   cudaErrorPeerAccessUnsupported = 217, cudaErrorPeerAccessAlreadyEnabled = 704 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
 struct uint3_ { unsigned int x, y, z; };
@@ -75,6 +76,9 @@ template <typename K> cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int
   return v > 232448 ? cudaErrorInvalidValue : cudaSuccess;
 }
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
+inline cudaError_t cudaSetDevice(int) { return cudaSuccess; }
+inline cudaError_t cudaDeviceCanAccessPeer(int* can, int, int) { *can = 1; return cudaSuccess; }
+inline cudaError_t cudaDeviceEnablePeerAccess(int, unsigned) { return cudaSuccess; }
 inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) { *v = emu_env("EMU_SMS", 2); return cudaSuccess; }
 template <typename K> cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t) {
   *n = 1;
@@ -223,7 +227,7 @@ def emu(tmp_path_factory):
     lib.dft_windowed_reduce.argtypes = [vp, i64, i32, i32, vp, vp, vp, vp, vp, vp, vp]
     lib.dft_fused_stage.argtypes = [vp, i64, i32, i32, vp]
     lib.dft_ragged_exchange.argtypes = [vp, vp, i32, i32, i64, i32, vp]
-    lib.dft_ragged_exchange_fold.argtypes = [vp, vp, i32, i32, i64, i32, i32, i32, vp, vp, vp, vp, vp]
+    lib.dft_ragged_exchange_fold.argtypes = [vp, vp, i32, i32, i64, i32, i32, i32, vp, vp, vp, vp, i32, vp]
     for f in (lib.dft_segreduce, lib.dft_segreduce_dense, lib.dft_windowed_reduce, lib.dft_fused_stage,
               lib.dft_ragged_exchange, lib.dft_ragged_exchange_fold):
         f.restype = i32
@@ -269,7 +273,7 @@ def _launch_k6(lib, gids, vals, masks, sizes, ops, mask_map, n_recv, split_cap, 
         ptrs = torch.tensor(rs.fold_pointer_table(gids, vals, per_op, range(lo, hi)), dtype=torch.int64)
         assert lib.dft_ragged_exchange_fold(ptrs.data_ptr(), sizes.data_ptr(), len(gids), n_recv, split_cap,
                                             num_groups, reps, hi - lo,
-                                            *sr.c_entries(ops, vals[0], ft, lo, hi, fixed=True), done, None) == 0
+                                            *sr.c_entries(ops, vals[0], ft, lo, hi, fixed=True), done, 3, None) == 0
     return ft.tables, len(launches)
 
 
