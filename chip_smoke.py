@@ -164,26 +164,38 @@ Phases, each printed on its own line:
      over NVLink, bound (per card the larger of peer bytes over NVLink
      and own bytes over HBM) and the yardstick of one peer `copy_` per
      live region (`cross_card` in the kernels' line)
-  12. several processes as one mesh (run last, about 60 s): on one card
-     `python3 chip_smoke.py --rank R PORT DIR 2` twice, joined by
+  12. several processes as one mesh (run last): on one card
+     `python3 chip_smoke.py --rank R PORT DIR 2 1` twice, joined by
      torch.distributed (Gloo: NCCL refuses two processes on one card);
-     with N >= 2 cards, 2 or 4 processes, one a card, over NCCL; each
-     with ExecutionContext(mesh=global_mesh(8 // world)) and its share
-     of big's 2^24 rows (k, d, lat, lng, g, mode, o;
-     register_table_shards) and its blocks of orders on its card, and its
-     own 2^21-row CSV file with a Utf8 vocabulary the others lack
-     (register_csv_shards); m1-m8,
-     m10, m11, m15 and tests/multiproc_driver.py's five shard queries,
-     each equal on every rank to the same query on one card over the
-     whole tables (floats at rtol 1e-9), with equal routes and EXPLAIN on
-     every rank, K6 launched by m3 / m4 and K5 by m6, m7, m10, m11, m15 on
-     each rank, the backend, the bytes that crossed processes, and each
-     query's warm wall on every rank; then `exchange_fold` over the mesh
-     with the first process's receivers' values 2^50 below the others',
-     each rank's tables bit-equal to one launch over all 8 shards (chiprun_out/phase12_rank*.txt hold
-     the processes' output); then q1's and d1's results materialized by
-     `to_host` (pinned) against the old per-column pageable `.cpu()`,
-     first and warm, in ms and GB/s, equal bit for bit
+     on two cards two processes, one a card, over NCCL; on four, first
+     four processes of one card each, then two processes of two cards
+     each (`--rank R PORT DIR 2 2`, initialize_multihost's
+     cards_per_process), over NCCL (`multi_rounds`). Each process runs
+     everything over two meshes of 8 // world shards a process: "one",
+     global_mesh(8 // world) on its card, and "cards", global_mesh(...,
+     devices=...) over its two cards, or over two logical cards
+     (cuda:i, cuda:i) of its one; each mesh holds its share of big's 2^24
+     rows (k, d, lat, lng, g, mode, o; register_table_shards, placed on
+     the shards' cards) and its blocks of orders, and its own 2^21-row CSV
+     file with a Utf8 vocabulary the others lack (register_csv_shards);
+     m1-m8, m10, m11, m15 and tests/multiproc_driver.py's five shard
+     queries, each equal on every rank and mesh to the same query on one
+     card over the whole tables (floats at rtol 1e-9), with equal routes
+     and EXPLAIN on every rank, K6 launched by m3 / m4 and K5 by m6, m7,
+     m10, m11, m15 on every logical card of each rank (`card_launches`),
+     the backend, the bytes that crossed processes; `exchange_fold` over
+     the mesh with the first process's receivers' values 2^50 below the
+     others', each rank's tables bit-equal to one launch over all 8
+     shards; an INSERT into a rank table of 2^20 rows, then m1 and m3,
+     equal to one card after the same INSERT; each query's warm wall (the
+     two meshes in turns where a process has two cards, beside one
+     process over four cards before and after the groups), and, on a
+     process's own two cards, K5's and K6's event, kernel-only time by
+     card, host time, bytes over NVLink and bound by card
+     (chiprun_out/phase12_w<world>c<cards>_rank*.txt hold the processes'
+     output); then q1's and d1's results materialized by `to_host`
+     (pinned) against the old per-column pageable `.cpu()`, first and
+     warm, in ms and GB/s, equal bit for bit
 Every kernel's kernel-only time comes from torch.profiler (kernel_only_ms),
 its wrapper's host time from host_only_ms (`host_ms` in the kernels' line).
 The reduce kernels' `library_ms` is one PyTorch call per op of the
@@ -197,6 +209,7 @@ phase 14 (or 12) alone: a rehearsal that prints neither the kernels'
 line nor the last line.
 """
 
+import collections
 import importlib
 import importlib.util
 import json
@@ -1457,17 +1470,22 @@ def phase_main_path(dev, kernel_stats, arrays):
     return big
 
 
-def warm_wall_ms(ctx, q, reps=5):
-    """Median host-clock wall of `ctx.sql(q)` plus a synchronize over `reps`
-    runs after a warm-up run: the host's share of a wall varies from run to
-    run by more than a kernel's time."""
+def warm_wall_ms(ctx, q, reps=5, devices=None):
+    """Median host-clock wall of `ctx.sql(q)` plus a synchronize (of every
+    card of `devices`; default the current one) over `reps` runs after a
+    warm-up run: the host's share of a wall varies from run to run by more
+    than a kernel's time."""
+    def sync():
+        for d in dict.fromkeys(devices or [None]):
+            torch.cuda.synchronize(d)
+
     ctx.sql(q)
     walls = []
     for _ in range(reps):
-        torch.cuda.synchronize()
+        sync()
         t = time.perf_counter()
         ctx.sql(q)
-        torch.cuda.synchronize()
+        sync()
         walls.append((time.perf_counter() - t) * 1e3)
     return statistics.median(walls)
 
@@ -3195,22 +3213,24 @@ def cards_ms(fn, devices, reps=5):
     return statistics.median(times)
 
 
-def cross_bytes(sizes, cards, rows_of, width):
+def cross_bytes(sizes, cards, rows_of, width, send_cards=None):
     """Per logical card c of `cards` (the kernels' `cards` argument; the
-    senders and the receivers are the mesh's shards, shard j on card
-    j * len(cards) // n): (bytes its receivers read from senders on
+    `[n_send, n_recv]` count matrix `sizes`, receiver i on card
+    i * len(cards) // n_recv, sender j on card `send_cards[j]`, by default
+    j * len(cards) // n_send): (bytes its receivers read from senders on
     another card, bytes its own HBM moves: its senders' rows read and its
     receivers' rows written). `rows_of(count)` is the rows a pair moves
     (K5: whole chunks), `width` the bytes of a row."""
     sz = sizes.tolist()
-    card = [i * len(cards) // len(sz) for i in range(len(sz))]
+    card = [i * len(cards) // len(sz[0]) for i in range(len(sz[0]))]
+    send = send_cards or [j * len(cards) // len(sz) for j in range(len(sz))]
     peer, local = [0] * len(cards), [0] * len(cards)
     for j, row in enumerate(sz):
         for i, cnt in enumerate(row):
             b = rows_of(cnt) * width
             local[card[i]] += b  # written into the receiver's buffer
-            local[card[j]] += b  # read from the sender's HBM
-            if cards[card[j]] != cards[card[i]]:
+            local[send[j]] += b  # read from the sender's HBM
+            if cards[send[j]] != cards[card[i]]:
                 peer[card[i]] += b  # read over NVLink
     return peer, local
 
@@ -3435,11 +3455,11 @@ def phase_multicard(dev, big, arrays, tables, kernel_stats):
     log(f"phase 14 took {time.perf_counter() - t14:.1f} s")
 
 
-# --- phase 12: two processes on the card as one mesh --------------------------------
+# --- phase 12: several processes as one mesh ---------------------------------------
 
-MULTI_ROWS = 1 << 24  # big's rows over both processes: 2^23 each
+MULTI_ROWS = 1 << 24  # big's rows over every process: 2^23 each of two
 MULTI_CSV_ROWS = 1 << 21  # rows of each process's CSV file
-MULTI_WORLD = 2  # processes on one card (with more cards, one process a card)
+MULTI_WORLD = 2  # processes on one or two cards (on four, also four processes of one card)
 MULTI_QUERIES = MESH_QUERIES + (MESH_JOIN_QUERIES[1], MESH_WINDOW_QUERIES[0], MESH_AGG_QUERIES[0])
 SHARD_QUERIES = (  # tests/multiproc_driver.py's queries over the per-process CSV files
     ("s1", "SELECT tag, COUNT(v) FROM s GROUP BY tag ORDER BY tag", ()),
@@ -3450,19 +3470,31 @@ SHARD_QUERIES = (  # tests/multiproc_driver.py's queries over the per-process CS
 )
 MULTI_K5 = ("m6", "m7", "m10", "m11", "m15")  # the routes that exchange over K5
 MULTI_K6 = ("m3", "m4")  # the fold
+INSERT_ROWS = 1 << 20  # rows of the rank table phase 12's INSERT rebuilds, over every process
+INSERT_SQL = "INSERT INTO big SELECT k, d, lat, lng, g, mode, o FROM big WHERE d < 100"
+INSERT_QUERIES = (MESH_QUERIES[0], MESH_QUERIES[2])  # m1 and m3 over the table after the INSERT
+LAYOUTS = ("one", "cards")  # a process's shards on one card; over its cards (or two logical cards of one)
 
 
-def multi_tables(port, dev, rank=None, world=MULTI_WORLD):
+def multi_rounds(n_cards):
+    """Phase 12's process groups on a host of `n_cards` cards, as
+    (processes, cards a process): two processes share one card (Gloo) or
+    take one card each of two (NCCL); on four or more, four processes of
+    one card, then two of two cards each (NCCL)."""
+    return [(4, 1), (MULTI_WORLD, 2)] if n_cards >= 4 else [(MULTI_WORLD, 1)]
+
+
+def multi_tables(port, dev, rank=None, world=MULTI_WORLD, rows=MULTI_ROWS):
     """Phase 12's tables from the seed: big (k, d, lat, lng, g, mode, o)
-    at MULTI_ROWS rows and orders. With `rank`, big holds that process's
+    at `rows` rows and orders. With `rank`, big holds that process's
     share of the rows, of `world`; orders stays whole (each process keeps
     its blocks when it registers it)."""
     P = port.DataType
-    k, d, lat, lng, g, mode = main_arrays(MULTI_ROWS)
-    ja = join_arrays(MULTI_ROWS)
+    k, d, lat, lng, g, mode = main_arrays(rows)
+    ja = join_arrays(rows)
     cols = [k, d, lat, lng, g, (mode, SHIPMODES), ja["o"]]
     if rank is not None:
-        lo, hi = rank * MULTI_ROWS // world, (rank + 1) * MULTI_ROWS // world
+        lo, hi = rank * rows // world, (rank + 1) * rows // world
         cols = [(c[0][lo:hi], c[1]) if isinstance(c, tuple) else c[lo:hi] for c in cols]
     big = port.Table.from_arrays(port.Schema([port.Field(n, t, False) for n, t in (
         ("k", P.Int32), ("d", P.Int32), ("lat", P.Float64), ("lng", P.Float64), ("g", P.Int32), ("mode", P.Utf8),
@@ -3506,51 +3538,175 @@ def shard_schemas(port):
             port.Schema([port.Field("tag", P.Utf8, False), port.Field("w", P.Int64, False)]))
 
 
-def multi_worker(rank, port_no, tmp, world=MULTI_WORLD):
-    """One process of phase 12: join the group of `world` processes, hold
-    its share of big and its blocks of orders on its card, read its own
-    CSV files, run every query of MULTI_QUERIES and SHARD_QUERIES over the
-    8-shard mesh, and write each result, route, EXPLAIN, launch count and
-    warm wall to `tmp`/rank<rank>.*."""
+def worker_meshes(port, n_local, cards_per_process):
+    """A phase-12 process's two meshes: "one", its shards on its (first)
+    card, and "cards", its shards over its `cards_per_process` cards, or,
+    with one card a process, over two logical cards of that card."""
+    first = torch.cuda.current_device()
+    if cards_per_process > 1:
+        cards = [torch.device("cuda", first + i) for i in range(cards_per_process)]
+    else:
+        cards = [torch.device("cuda", first)] * 2
+    return {"one": port.global_mesh(n_local), "cards": port.global_mesh(n_local, devices=cards)}
+
+
+def card_launch_counts():
+    """K5's and K6's launch counts by logical card, copied."""
+    from datafusion_tpu_torch.ops.pallas import ragged_shuffle as rs
+
+    return {"ragged_exchange": collections.Counter(rs.ragged_exchange.card_launches),
+            "ragged_exchange_fold": collections.Counter(rs.ragged_exchange_fold.card_launches)}
+
+
+def kernel_ms_by_card(fn, names, devices, reps=5):
+    """Device ms of one call of `fn` on each card of `devices`: the kernels
+    whose name holds one of `names`, from torch.profiler's device events by
+    device index, summed and divided by `reps` calls after a warm-up. A
+    card the trace shows none of them on is missing from the result (the
+    tracer misses K5's launches on the H100)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def sync():
+        for d in dict.fromkeys(devices):
+            torch.cuda.synchronize(d)
+
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        sync()
+    by = collections.defaultdict(float)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and any(n in e.name for n in names):
+            by[e.device_index] += e.time_range.elapsed_us() / 1e3 / reps
+    return dict(sorted(by.items()))
+
+
+def card_exchange_times(ctx, mesh):
+    """K5 at m6's and K6 at m3's shapes over this process's cards, with
+    the other processes' regions on the first card (captured from the
+    queries, which every process runs): the call's event on the first card
+    (which waits for every card), its host wall between synchronizes of
+    every card, each card's kernel-only ms, the call's host ms, and each
+    card's bytes over NVLink, bytes of its own HBM and bound, as phase 14
+    counts them. K6 is timed without the processes' scale agreement, a
+    collective the processes would have to enter in step: the counted run
+    agreed it."""
+    from datafusion_tpu_torch.ops.pallas import ragged_shuffle as rs
+    from datafusion_tpu_torch.parallel import shuffle as sh
+    from datafusion_tpu_torch.utils.roofline import chip_hbm_gbps, chip_nvlink_gbps
+
+    (a5, kw5), = capture(sh, "ragged_exchange", lambda: ctx.sql(MESH_QUERIES[5][1]))[-1:]
+    (a6, kw6), = capture(sh, "ragged_exchange_fold", lambda: ctx.sql(MESH_QUERIES[2][1]))[-1:]
+    check(kw5["cards"] == mesh.devices and kw6["cards"] == mesh.devices and kw6["agree"] is not None,
+          "phase 12: the exchanges did not take the process's cards and the processes' scale")
+    devs = list(mesh.devices)
+    send_cards = [mesh.card_index(j - mesh.first) if 0 <= j - mesh.first < mesh.n_local else 0
+                  for j in range(mesh.n_dev)]
+    sends, sizes = a5
+    gids, vals, masks, sizes6 = a6
+    kw6 = dict(kw6, agree=None)
+    width6 = 4 + sum(t.element_size() for t in {id(t): t for t in vals[0] if t is not None}.values()) + len(masks[0])
+    out = {}
+    for name, call, kernels, sz, rows_of, width in (
+            ("K5", lambda: rs.ragged_exchange(sends, sizes, **kw5), ("ragged_exchange_kernel",), sizes,
+             lambda c: -(-c // kw5["chunk"]) * kw5["chunk"], sum(t.element_size() for t in sends[0])),
+            ("K6", lambda: rs.ragged_exchange_fold(gids, vals, masks, sizes6, **kw6),
+             ("ragged_exchange_fold_kernel", "ragged_scale_kernel"), sizes6, lambda c: c, width6)):
+        peer, own = cross_bytes(sz, devs, rows_of, width, send_cards)
+        bound = [max(p / (chip_nvlink_gbps(d) * 1e9), b / (chip_hbm_gbps(d) * 1e9)) * 1e3
+                 for p, b, d in zip(peer, own, devs)]
+        out[name] = dict(ms=time_ms(call), wall_ms=cards_ms(call, devs), kernel_ms=kernel_ms_by_card(call, kernels, devs),
+                         queued_ms=queued_ms(call), host_ms=host_only_ms(call), nvlink_bytes=peer, own_bytes=own,
+                         bound_ms=bound, rows=int(sz.sum()))
+    return out
+
+
+def multi_worker(rank, port_no, tmp, world=MULTI_WORLD, cards_per_process=1):
+    """One process of phase 12: join the group of `world` processes of
+    `cards_per_process` cards each and, over each of its two meshes
+    (`worker_meshes`), hold its share of big and its blocks of orders on
+    its cards, read its own CSV files, run every query of MULTI_QUERIES and
+    SHARD_QUERIES (launches counted by logical card), fold with the first
+    process's receivers 2^50 below the others', and INSERT into a rank
+    table of INSERT_ROWS rows and query it; then the meshes' warm walls in
+    turns and, with cards of its own, K5's and K6's times per card. Writes
+    each result, route, EXPLAIN, launch count and time to `tmp`/rank<rank>.*."""
     import torch.distributed as dist
 
     import datafusion_tpu_torch as port
     from datafusion_tpu_torch.parallel import collectives as C
 
-    backend = port.initialize_multihost(f"127.0.0.1:{port_no}", world, rank)
-    mesh = port.global_mesh(8 // world)
-    ctx = port.ExecutionContext(mesh=mesh)
+    backend = port.initialize_multihost(f"127.0.0.1:{port_no}", world, rank, cards_per_process=cards_per_process)
+    meshes = worker_meshes(port, 8 // world, cards_per_process)
+    dev = meshes["one"].device
+    log(f"rank {rank} of {world}: backend {backend}; cards {[str(d) for d in meshes['cards'].devices]}")
     t0 = time.perf_counter()
-    big, orders = multi_tables(port, ctx.device, rank, world)
-    port.register_table_shards(ctx, "big", big)
-    ctx.register_table("orders", orders)
+    big, orders = multi_tables(port, dev, rank, world)
+    ins_big, _ = multi_tables(port, dev, rank, world, rows=INSERT_ROWS)
     s_schema, d_schema = shard_schemas(port)
-    port.register_csv_shards(ctx, "s", os.path.join(tmp, f"s{rank}.csv"), s_schema, has_header=False)
-    port.register_csv_shards(ctx, "d", os.path.join(tmp, f"d{rank}.csv"), d_schema, has_header=False)
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
     queries = [(n, q) for n, q, _ in MULTI_QUERIES + SHARD_QUERIES]
-    explain = {n: [ln for ln in ctx.sql(f"EXPLAIN VERBOSE {q}").result_str().splitlines()
-                   if ln.startswith("physical: ")] for n, q in queries}
-    bytes0, live0 = C.transport.bytes, C.transport.live_bytes
-    results, walls, per_query, _ = run_counted([(n, ctx, q) for n, q in queries])
-    run_bytes, run_live = C.transport.bytes - bytes0, C.transport.live_bytes - live0
-    warm = {n: warm_wall_ms(ctx, q) for n, q in queries}
-    fold_spread = fold_spread_equal(mesh, ctx.device)
-    arrays, meta = {}, {}
-    for n, res in results.items():
-        for j, (d, v) in enumerate(res.cols):
-            arrays[f"{n}_d{j}"] = d
-            if v is not None:
-                arrays[f"{n}_v{j}"] = v
-        meta[n] = {"dicts": res.dicts, "routes": list(res.routes), "explain": explain[n],
-                   "launches": per_query[n], "first_ms": walls[n], "warm_ms": warm[n], "columns": len(res.cols)}
+    arrays, info, ctxs = {}, {"backend": backend, "card": str(dev), "rows_on_card": big.num_rows,
+                              "transport": "pinned host staging" if backend == "gloo" else "device", "layouts": {}}, {}
+    for lay, mesh in meshes.items():
+        ctx = port.ExecutionContext(mesh=mesh)
+        t = time.perf_counter()
+        port.register_table_shards(ctx, "big", big)
+        ctx.register_table("orders", orders)
+        port.register_csv_shards(ctx, "s", os.path.join(tmp, f"s{rank}.csv"), s_schema, has_header=False)
+        port.register_csv_shards(ctx, "d", os.path.join(tmp, f"d{rank}.csv"), d_schema, has_header=False)
+        for d in dict.fromkeys(mesh.devices):
+            torch.cuda.synchronize(d)
+        setup_s = time.perf_counter() - t
+        explain = {n: [ln for ln in ctx.sql(f"EXPLAIN VERBOSE {q}").result_str().splitlines()
+                       if ln.startswith("physical: ")] for n, q in queries}
+        bytes0, live0, calls0 = C.transport.bytes, C.transport.live_bytes, C.transport.calls
+        results, walls, per_query, per_card = {}, {}, {}, {}
+        for n, q in queries:
+            before = card_launch_counts()
+            res, w, counts, _ = run_counted([(n, ctx, q)])
+            results.update(res)
+            walls.update(w)
+            per_query.update(counts)
+            per_card[n] = {k: dict(v - before[k]) for k, v in card_launch_counts().items()}
+        run_bytes, run_live = C.transport.bytes - bytes0, C.transport.live_bytes - live0
+        run_calls = C.transport.calls - calls0
+        fold_spread = fold_spread_equal(mesh, dev)
+        ins = port.ExecutionContext(mesh=mesh)
+        port.register_table_shards(ins, "big", ins_big)
+        ins.sql(INSERT_SQL)
+        for n, q, _ in INSERT_QUERIES:
+            results[f"ins_{n}"] = ins.sql(q)
+        ins_kind = type(ins.table("big")).__name__
+        del ins
+        meta = {}
+        for n, res in results.items():
+            for j, (d, v) in enumerate(res.cols):
+                arrays[f"{lay}_{n}_d{j}"] = d
+                if v is not None:
+                    arrays[f"{lay}_{n}_v{j}"] = v
+            meta[n] = {"dicts": res.dicts, "routes": list(res.routes), "explain": explain.get(n),
+                       "launches": per_query.get(n), "card_launches": per_card.get(n), "first_ms": walls.get(n),
+                       "columns": len(res.cols)}
+        info["layouts"][lay] = {"cards": [str(d) for d in mesh.devices], "setup_s": setup_s, "cross_bytes": run_bytes,
+                                "live_bytes": run_live, "calls": run_calls, "queries": meta,
+                                "fold_spread_equal": fold_spread, "insert_table": ins_kind, "warm_ms": {}}
+        ctxs[lay] = ctx
+    own_cards = cards_per_process > 1
+    turns = ["one", "cards", "cards", "one"] if own_cards else ["one"]
+    for n, q in queries:  # warm walls, the layouts in turns where the process has cards of its own
+        ws = collections.defaultdict(list)
+        for lay in turns:
+            ws[lay].append(warm_wall_ms(ctxs[lay], q, 3 if own_cards else 5, meshes[lay].devices))
+        for lay, v in ws.items():
+            info["layouts"][lay]["warm_ms"][n] = min(v)
+    if own_cards:
+        info["exchange_times"] = card_exchange_times(ctxs["cards"], meshes["cards"])
+    info["setup_s"] = time.perf_counter() - t0
     np.savez(os.path.join(tmp, f"rank{rank}.npz"), **arrays)
     with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
-        json.dump({"backend": backend, "transport": "pinned host staging" if backend == "gloo" else "device",
-                   "card": str(ctx.device), "rows_on_card": big.num_rows, "setup_s": setup_s, "cross_bytes": run_bytes,
-                   "live_bytes": run_live,
-                   "calls": C.transport.calls, "queries": meta, "fold_spread_equal": fold_spread}, f)
+        json.dump(info, f)
     dist.destroy_process_group()
 
 
@@ -3559,11 +3715,11 @@ FOLD_SPREAD_OPS = ("sum", "count", "max", "sum")
 
 
 def fold_spread_shard(shard, n_dev, n_first, dev):
-    """Global shard `shard`'s fold inputs from its own seed: packed ids in
-    [0, 10020) (some past the 10001 groups), f64 values from 2^-20 to 2^30
-    with cancellation, a mask for the last SUM; a row bound for one of the
-    first process's receivers (id % n_dev below its `n_first` shards) has
-    its value 2^50 smaller."""
+    """Global shard `shard`'s fold inputs from its own seed, on `dev`:
+    packed ids in [0, 10020) (some past the 10001 groups), f64 values from
+    2^-20 to 2^30 with cancellation, a mask for the last SUM; a row bound
+    for one of the first process's receivers (id % n_dev below its
+    `n_first` shards) has its value 2^50 smaller."""
     rng = np.random.default_rng(SEED + 1200 + shard)
     n = FOLD_SPREAD_ROWS
     gid = rng.integers(0, 10020, n)
@@ -3576,21 +3732,23 @@ def fold_spread_shard(shard, n_dev, n_first, dev):
 
 
 def fold_spread_equal(mesh, dev):
-    """`exchange_fold` over the spanning mesh, the first process's
-    receivers' values 2^50 below the others' (K6 with remote senders and
-    the processes' agreed float-SUM scale), against one launch over all
-    of the mesh's shards on this process's card: True when this
-    process's receivers' tables equal that launch's bit for bit."""
+    """`exchange_fold` over the spanning mesh, each local shard's inputs
+    on its card, the first process's receivers' values 2^50 below the
+    others' (K6 with remote senders and the processes' agreed float-SUM
+    scale), against one launch over all of the mesh's shards on this
+    process's card `dev`: True when this process's receivers' tables
+    equal that launch's bit for bit."""
     from datafusion_tpu_torch.parallel.shuffle import exchange_fold
 
     def fold(shards, m):
-        ins = [fold_spread_shard(g, mesh.n_dev, mesh.n_local, dev) for g in shards]
+        ins = [fold_spread_shard(g, mesh.n_dev, mesh.n_local, dev if m is None else m.card_of(g - m.first))
+               for g in shards]
         return exchange_fold([g for g, _, _ in ins], [v for _, v, _ in ins], [k for _, _, k in ins],
                              ops=FOLD_SPREAD_OPS, num_groups=10001, n_dev=mesh.n_dev, mesh=m)
 
     got = fold(range(mesh.first, mesh.first + mesh.n_local), mesh)
     want = fold(range(mesh.n_dev), None)[mesh.first: mesh.first + mesh.n_local]
-    return all(same_bits(x, y) for g, w in zip(got, want) for x, y in zip(g, w))
+    return all(same_bits(x.to(dev), y) for g, w in zip(got, want) for x, y in zip(g, w))
 
 
 def rank_result(res_like, arrays, meta, name):
@@ -3643,32 +3801,20 @@ def materialize_ms(cq, out, reps=5):
     return {k: v[:3] for k, v in stats.items()}
 
 
-def phase_multiprocess(dev, big, arrays):
-    """Phase 12: m1-m8, m10, m11, m15 and the JAX driver's five CSV-shard
-    queries over ExecutionContext(mesh=global_mesh(8 // world)), each
-    equal to the same query on one card over the whole tables. On one card
-    two processes share it (2 x 4 shards; Gloo, since NCCL refuses two
-    processes on one card); with N >= 2 cards, 2 or 4 processes
-    (`cards_used`) run one on each card, and initialize_multihost picks NCCL. Then q1's and d1's
-    materialization through `to_host` against the old per-column pageable
-    `.cpu()`."""
+def multi_round(port, one, want, world, cards_per_process, dev):
+    """One group of phase 12's processes (`multi_rounds`): start `world`
+    processes of `cards_per_process` cards each (`--rank`), then hold
+    every rank's results on both of its meshes to one card (`want`, and
+    the CSV-shard queries over this group's files), its routes and
+    EXPLAIN to every other rank's, its K5 / K6 launches on every logical
+    card, and its 2^50-spread fold to one launch."""
     import socket
     import tempfile
 
-    import datafusion_tpu_torch as port
-    from datafusion_tpu_torch.exec.compiler import compile_plan
-    from datafusion_tpu_torch.plan.optimizer import push_down_filters, push_down_projection
-
-    t12 = time.perf_counter()
-    n_cards = torch.cuda.device_count()
-    world = MULTI_WORLD if n_cards == 1 else cards_used(n_cards)
+    tag = f"{world} processes x {cards_per_process} card(s)"
     tmp = tempfile.TemporaryDirectory()
     try:
         write_shard_csvs(tmp.name, world)
-        one = port.ExecutionContext()
-        mbig, orders = multi_tables(port, dev)
-        one.register_table("big", mbig)
-        one.register_table("orders", orders)
         s_schema, d_schema = shard_schemas(port)
         sh = shard_arrays(world)
         vocab = tuple(sorted(w for v, _, _, _ in sh for w in v))
@@ -3679,18 +3825,20 @@ def phase_multiprocess(dev, big, arrays):
         one.register_table("d", port.Table.from_arrays(d_schema, [
             (np.arange(len(vocab), dtype=np.int32), vocab),
             np.array([p * 100 + i for p in range(world) for i in range(7)], np.int64)], device=dev))
-        want = {n: one.sql(q) for n, q, _ in MULTI_QUERIES + SHARD_QUERIES}
-        del mbig
+        want = dict(want, **{n: one.sql(q) for n, q, _ in SHARD_QUERIES})
         with socket.socket() as sock:
             sock.bind(("127.0.0.1", 0))
             port_no = sock.getsockname()[1]
-        logs = [open(os.path.join(ROOT, "chiprun_out", f"phase12_rank{r}.txt"), "w") for r in range(world)]
+        paths = [os.path.join(ROOT, "chiprun_out", f"phase12_w{world}c{cards_per_process}_rank{r}.txt")
+                 for r in range(world)]
+        logs = [open(p, "w") for p in paths]
         t_run = time.perf_counter()
         procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank", str(r), str(port_no), tmp.name,
-                                   str(world)], stdout=logs[r], stderr=subprocess.STDOUT) for r in range(world)]
+                                   str(world), str(cards_per_process)], stdout=logs[r], stderr=subprocess.STDOUT)
+                 for r in range(world)]
         try:
             for p in procs:
-                p.wait(timeout=240)
+                p.wait(timeout=420)
         finally:
             for p in procs:
                 if p.poll() is None:
@@ -3701,48 +3849,127 @@ def phase_multiprocess(dev, big, arrays):
         run_s = time.perf_counter() - t_run
         for r, p in enumerate(procs):
             if p.returncode != 0:
-                with open(os.path.join(ROOT, "chiprun_out", f"phase12_rank{r}.txt")) as f:
+                with open(paths[r]) as f:
                     log(f.read()[-3000:])
-            check(p.returncode == 0, f"phase 12 rank {r} exited with {p.returncode}")
+            check(p.returncode == 0, f"phase 12 ({tag}) rank {r} exited with {p.returncode}")
         ranks = []
         for r in range(world):
             with open(os.path.join(tmp.name, f"rank{r}.json")) as f:
                 info = json.load(f)
             ranks.append((info, dict(np.load(os.path.join(tmp.name, f"rank{r}.npz")))))
-        info0 = ranks[0][0]
-        log(f"phase 12: {world} processes x {8 // world} shards on {[i['card'] for i, _ in ranks]}, backend "
-            f"{info0['backend']} (CUDA tensors cross processes by {info0['transport']}), {info0['rows_on_card']} of big's "
-            f"{MULTI_ROWS} rows on the card in each; setup {[round(i['setup_s'], 2) for i, _ in ranks]} s, "
-            f"processes ran {run_s:.1f} s; cross-process bytes sent in the counted run "
-            f"{[i['cross_bytes'] for i, _ in ranks]} over {[i['calls'] for i, _ in ranks]} collectives, of which "
-            f"{[i['live_bytes'] for i, _ in ranks]} carry rows (padding share "
-            f"{[1 - i['live_bytes'] / max(i['cross_bytes'], 1) for i, _ in ranks]})")
-        check(all(i["fold_spread_equal"] for i, _ in ranks),
-              "phase 12: K6 over the processes, one process's receivers 2^50 below, differs from one launch")
-        log(f"phase 12 fold with the first process's receivers' values 2^50 below the others' "
-            f"({FOLD_SPREAD_ROWS} rows a shard, ops {FOLD_SPREAD_OPS}): every rank's tables bit-equal to one launch "
-            "over all 8 shards on one card (the processes agree on the float SUMs' scale)")
-        for n, q, _ in MULTI_QUERIES + SHARD_QUERIES:
-            metas = [info["queries"][n] for info, _ in ranks]
-            ordered = "ORDER BY" in q  # else the mesh returns its groups shard by shard
-            for r, (info, arrs) in enumerate(ranks):
-                got = rank_result(want[n], arrs, metas[r], n)
-                same_result(f"phase 12 {n} rank {r}", got if ordered else rows_by_keys(got),
-                            want[n] if ordered else rows_by_keys(want[n]))
-            check(all(m["routes"] == metas[0]["routes"] for m in metas), f"phase 12 {n}: the ranks took different routes")
-            check(all(m["explain"] == metas[0]["explain"] for m in metas), f"phase 12 {n}: the ranks' EXPLAIN differs")
-            for r, m in enumerate(metas):
-                if n in MULTI_K5:
-                    check(m["launches"]["ragged_exchange"] > 0, f"phase 12 {n} rank {r} launched no K5")
-                if n in MULTI_K6:
-                    check(m["launches"]["ragged_exchange_fold"] > 0, f"phase 12 {n} rank {r} launched no K6")
-            log(f"phase 12 {n}: {want[n].num_rows} rows == one card on every rank; routes {metas[0]['routes']}; "
-                f"launches {[launched(m['launches']) for m in metas]}; first wall "
-                f"{[round(m['first_ms'], 3) for m in metas]} ms, warm {[round(m['warm_ms'], 3) for m in metas]} ms "
-                f"(median of 5; one card {warm_wall_ms(one, q):.3f} ms)")
-        del one, want
     finally:
         tmp.cleanup()
+    info0 = ranks[0][0]
+    log(f"phase 12 ({tag}): backend {info0['backend']} (CUDA tensors cross processes by {info0['transport']}), "
+        f"{info0['rows_on_card']} of big's {MULTI_ROWS} rows in each process; each process's meshes' cards "
+        + json.dumps([{lay: i["layouts"][lay]["cards"] for lay in LAYOUTS} for i, _ in ranks])
+        + f"; processes ran {run_s:.1f} s (set-up and both meshes {[round(i['setup_s'], 1) for i, _ in ranks]} s)")
+    for lay in LAYOUTS:
+        lays = [i["layouts"][lay] for i, _ in ranks]
+        n_logical = len(lays[0]["cards"])
+        log(f"phase 12 ({tag}) mesh '{lay}' ({n_logical} logical card(s) a process): registered in "
+            f"{[round(x['setup_s'], 2) for x in lays]} s; cross-process bytes sent in the counted run "
+            f"{[x['cross_bytes'] for x in lays]} over {[x['calls'] for x in lays]} collectives, of which "
+            f"{[x['live_bytes'] for x in lays]} carry rows (padding share "
+            f"{[round(1 - x['live_bytes'] / max(x['cross_bytes'], 1), 4) for x in lays]}); the INSERT rebuilt a "
+            f"{lays[0]['insert_table']}")
+        check(all(x["fold_spread_equal"] for x in lays),
+              f"phase 12 ({tag}, {lay}): K6 over the processes, one process's receivers 2^50 below, differs from one "
+              "launch")
+        names = [(n, q) for n, q, _ in MULTI_QUERIES + SHARD_QUERIES] + [(f"ins_{n}", q) for n, q, _ in INSERT_QUERIES]
+        for n, q in names:
+            metas = [x["queries"][n] for x in lays]
+            ordered = "ORDER BY" in q  # else the mesh returns its groups shard by shard
+            for r, (_, arrs) in enumerate(ranks):
+                got = rank_result(want[n], arrs, metas[r], f"{lay}_{n}")
+                same_result(f"phase 12 ({tag}, {lay}) {n} rank {r}", got if ordered else rows_by_keys(got),
+                            want[n] if ordered else rows_by_keys(want[n]))
+            check(all(m["routes"] == metas[0]["routes"] for m in metas),
+                  f"phase 12 ({tag}, {lay}) {n}: the ranks took different routes")
+            if n.startswith("ins_"):
+                continue
+            check(all(m["explain"] == metas[0]["explain"] for m in metas),
+                  f"phase 12 ({tag}, {lay}) {n}: the ranks' EXPLAIN differs")
+            for r, m in enumerate(metas):
+                for kern, qs in (("ragged_exchange", MULTI_K5), ("ragged_exchange_fold", MULTI_K6)):
+                    if n in qs:
+                        by_card = m["card_launches"][kern]
+                        check(m["launches"][kern] > 0 and sorted(int(c) for c in by_card) == list(range(n_logical)),
+                              f"phase 12 ({tag}, {lay}) {n} rank {r} launched {kern} on logical cards {by_card}, "
+                              f"not on each of {n_logical}")
+            log(f"phase 12 ({tag}, {lay}) {n}: {want[n].num_rows} rows == one card on every rank; routes "
+                f"{metas[0]['routes']}; launches {[launched(m['launches']) for m in metas]}, K5 / K6 by logical card "
+                f"{[m['card_launches'] for m in metas]}; first wall {[round(m['first_ms'], 3) for m in metas]} ms, "
+                f"warm {[lays[r]['warm_ms'].get(n) for r in range(world)]} ms")
+        log(f"phase 12 ({tag}, {lay}): INSERT into a rank table of {INSERT_ROWS} rows, then m1 and m3, equal one card "
+            "after the same INSERT on every rank")
+    for r, (info, _) in enumerate(ranks):
+        for name, st in info.get("exchange_times", {}).items():
+            log(f"phase 12 ({tag}) rank {r} {name} over its cards {info['layouts']['cards']['cards']} with the other "
+                f"processes' regions on its first card: {st['rows']} rows; event {st['ms']:.3f} ms (host wall between "
+                f"synchronizes {st['wall_ms']:.3f}), queued device {st['queued_ms']:.3f} ms, kernel only by card "
+                f"{json.dumps({k: round(v, 3) for k, v in st['kernel_ms'].items()})} ms (a card the trace missed is "
+                f"absent), host {st['host_ms']:.3f} ms; bytes over NVLink by card {st['nvlink_bytes']}, own HBM bytes "
+                f"{st['own_bytes']}, bound by card {[round(b, 3) for b in st['bound_ms']]} ms")
+    return ranks
+
+
+def phase_multiprocess(dev, big, arrays):
+    """Phase 12: m1-m8, m10, m11, m15 and the JAX package's five CSV-shard
+    queries over several processes as one mesh, each process over two
+    meshes (its shards on one card, and over its cards or two logical
+    cards of one), every result equal to the same query on one card over
+    the whole tables; an INSERT into a rank table, then m1 and m3, equal
+    to one card after the same INSERT (`multi_round`, `multi_rounds`). On
+    four or more cards the warm walls of one process over four cards
+    (phase 14's mesh) come before and after the groups. Then q1's and
+    d1's materialization through `to_host` against the old per-column
+    pageable `.cpu()`."""
+    import datafusion_tpu_torch as port
+    from datafusion_tpu_torch.exec.compiler import compile_plan
+    from datafusion_tpu_torch.plan.optimizer import push_down_filters, push_down_projection
+
+    t12 = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    one = port.ExecutionContext()
+    mbig, orders = multi_tables(port, dev)
+    one.register_table("big", mbig)
+    one.register_table("orders", orders)
+    want = {n: one.sql(q) for n, q, _ in MULTI_QUERIES}
+    ins_one = port.ExecutionContext()
+    ins_one.register_table("big", multi_tables(port, dev, rows=INSERT_ROWS)[0])
+    ins_one.sql(INSERT_SQL)
+    want.update({f"ins_{n}": ins_one.sql(q) for n, q, _ in INSERT_QUERIES})
+    del ins_one
+    one_ms = {n: warm_wall_ms(one, q) for n, q, _ in MULTI_QUERIES}
+    four, four_ms = None, collections.defaultdict(list)
+    if n_cards >= 4:  # phase 14's layout: one process over four cards
+        four = port.ExecutionContext(mesh=port.make_mesh(8, devices=[torch.device("cuda", i) for i in range(4)]))
+        four.register_table("big", mbig)
+        four.register_table("orders", orders)
+    del mbig
+
+    def four_walls():
+        for n, q, _ in MULTI_QUERIES:
+            four_ms[n].append(warm_wall_ms(four, q, 3, four.mesh.devices))
+
+    if four is not None:
+        four_walls()
+    groups = {(w, c): multi_round(port, one, want, w, c, dev) for w, c in multi_rounds(n_cards)}
+    if four is not None:
+        four_walls()
+        log("phase 12 warm walls (ms) by query: one card (8 shards), one process over four cards (phase 14's mesh; "
+            "before and after the process groups), and each group's meshes, rank 0: "
+            + json.dumps({n: {"one card": round(one_ms[n], 3), "one process x 4 cards": [round(x, 3) for x in four_ms[n]],
+                              **{f"{w}x{c} {lay}": round(r[0][0]["layouts"][lay]["warm_ms"][n], 3)
+                                 for (w, c), r in groups.items() for lay in LAYOUTS
+                                 if n in r[0][0]["layouts"][lay]["warm_ms"]}}
+                          for n, _, _ in MULTI_QUERIES}))
+    else:
+        log("phase 12 warm walls (ms) by query, one card (8 shards) and the processes' one-card mesh, rank 0: "
+            + json.dumps({n: [round(one_ms[n], 3)] + [round(r[0][0]["layouts"]["one"]["warm_ms"][n], 3)
+                                                      for r in groups.values()] for n, _, _ in MULTI_QUERIES}))
+    del one, want, four
 
     dt, ts, ts_valid = date_arrays()
     tables = {"big": big, "bigd": dates_table(port, big, dt, ts, ts_valid)}
@@ -3757,7 +3984,7 @@ def phase_multiprocess(dev, big, arrays):
             f"to_host first {st['to_host'][0]:.3f} ms, warm {st['to_host'][1]:.3f} ms "
             f"({nbytes / st['to_host'][1] / 1e6:.2f} GB/s); pageable .cpu() per column first "
             f"{st['pageable'][0]:.3f} ms, warm {st['pageable'][1]:.3f} ms ({nbytes / st['pageable'][1] / 1e6:.2f} GB/s)")
-    log(f"phase 12 two processes and materialization: {time.perf_counter() - t12:.1f} s")
+    log(f"phase 12 processes and materialization: {time.perf_counter() - t12:.1f} s")
 
 
 def quick_multicard(dev):
@@ -3783,7 +4010,7 @@ def main():
     import datafusion_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
 
     if sys.argv[1:2] == ["--rank"]:  # one process of phase 12, started by phase_multiprocess
-        multi_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], int(sys.argv[5]))
+        multi_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], int(sys.argv[5]), int(sys.argv[6]))
         return
 
     dev = torch.device("cuda")

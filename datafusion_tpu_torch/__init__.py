@@ -29,6 +29,10 @@ processes, each calls `initialize_multihost(address, world, rank)` and
 runs the same statements in `ExecutionContext(mesh=global_mesh())`: each
 process holds its block of the shards on its own device, and
 `register_csv_shards` reads one CSV file per process into one table.
+`make_mesh(8, devices=...)` spreads one process's shards over several
+cards, and `initialize_multihost(..., cards_per_process=2)` with
+`global_mesh(4, devices=...)` gives each process several cards of one
+mesh, as a TPU host holds several chips of the JAX package's global mesh.
 """
 
 from datafusion_tpu_torch.columnar.csv import CsvDataSource, read_csv

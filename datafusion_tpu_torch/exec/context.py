@@ -16,9 +16,10 @@ parse, plan and execute seconds of the last query. The context runs on
 the card unless the caller asks for the CPU. With a mesh
 (parallel/mesh.py) every query runs over the tables' row blocks, one per
 logical shard, through the distributed compiler (parallel/dist.py). A
-mesh may span processes (parallel/multihost.py `global_mesh`): each
-process then keeps its own shards' rows of every table, and every process
-runs the same statements in the same order.
+mesh may span processes (parallel/multihost.py `global_mesh`), with one
+card or several in each: each process then keeps its own shards' rows of
+every table, on their cards, and every process runs the same statements
+in the same order.
 """
 
 from __future__ import annotations
@@ -184,12 +185,11 @@ class ExecutionContext:
         every process registers the same table, this process keeps only
         its shards' row blocks (`local_blocks`); a RankTable
         (`register_table_shards`) is kept as it is. On a mesh of several
-        cards each shard's row block is placed on its card now, once
-        (`place_shards`); a ShardTable is re-placed from its rows."""
+        cards each of this process's shards is placed on its card now,
+        once (`place_shards`: of a whole table, a RankTable, or a
+        ShardTable again)."""
         mesh = self.mesh
         if mesh is not None and mesh.n_cards > 1:
-            if isinstance(table, ShardTable):
-                table = table.whole(self.device)
             self._tables[name] = place_shards(table, mesh)
             return
         if mesh is not None and mesh.spans and not isinstance(table, RankTable):
@@ -394,14 +394,17 @@ class ExecutionContext:
     def _execute_insert(self, node: A.SQLInsert) -> None:
         """INSERT INTO: run the source query, cast each column to the
         target's type (a column list reorders and must name every column),
-        and rebuild the table as its rows followed by the new ones."""
+        and rebuild the table as its rows followed by the new ones. A
+        table on a mesh's shards (a RankTable or a ShardTable) is read
+        whole by a scan first, as every process reads the new rows whole,
+        and the rebuilt table is registered as any whole table is."""
         target = self._tables.get(node.table)
         if target is None:
             raise PlanError(f"no table named {node.table} to insert into")
-        if isinstance(target, RankTable):
-            raise NotImplementedError_("INSERT into a table of a mesh that spans processes is not supported")
-        if isinstance(target, ShardTable):
-            target = target.whole(self.device)  # rebuilt from its rows, then placed again
+        if isinstance(target, (RankTable, ShardTable)):
+            # its rows, every shard's in shard order (every process's on a
+            # spanning mesh), read as the JAX package reads them: by a scan
+            target = self.execute(TableScan("default", node.table, target.schema, None)).to_table(self.device)
         tschema = target.schema
         src_plan = SqlToRel(self._catalog).sql_to_rel(node.source)
         sschema = src_plan.schema

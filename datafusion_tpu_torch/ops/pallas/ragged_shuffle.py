@@ -56,7 +56,14 @@ runs alone, the largest scale word (and, through `agree`, every
 process's) is written into each card's, and then every card folds, so
 the sums do not depend on how the receivers split over cards or
 processes. The entries of `cards` are logical: a device may repeat, and
-each entry still takes its own launch and events.
+each entry still takes its own launch and events. On a mesh that spans
+processes with several cards in each, both hold at once: the local
+senders' arrays lie on their own cards and the remote senders' on the
+first card, where the transport delivered them (parallel/collectives.py
+`exchange_regions`); the first card is then a sender card like the
+others, so its event orders the received regions before every card's
+launch. `card_launches` counts each wrapper's launches by logical card
+(the index into `cards`; 0 without), beside `launches`.
 
 CPU tensors take the plain versions (per card as on the card); CUDA
 tensors launch csrc/ragged_shuffle.cu (or raise).
@@ -64,6 +71,7 @@ tensors launch csrc/ragged_shuffle.cu (or raise).
 
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import Optional, Sequence
 
@@ -334,7 +342,7 @@ def ragged_exchange(
 
     lib = load_library()
     order = None if cards is None else _CardOrder(sender_devs)
-    for card, lo, hi in groups:
+    for g, (card, lo, hi) in enumerate(groups):
         nr = hi - lo
         bufs = [torch.empty(nr * n_send * split_cap, dtype=t.dtype, device=card) for t in sends[0]]
         if bufs and split_cap:
@@ -346,6 +354,7 @@ def ragged_exchange(
                                                   stream),
                           "ragged_exchange kernel")
                     ragged_exchange.launches += 1
+                    ragged_exchange.card_launches[g] += 1
                 if order is not None:
                     order.after(card)
         out += receivers(bufs, nr, n_send, split_cap)
@@ -506,7 +515,7 @@ def ragged_exchange_fold(
         calls.append((card, hi - lo, _sizes_block(sizes, lo, hi, card), ptrs, [len(t) for t in tables]))
 
     def run(phases):
-        for ft, (card, nr, block, ptrs, lens) in zip(fts, calls):
+        for g, (ft, (card, nr, block, ptrs, lens)) in enumerate(zip(fts, calls)):
             with torch.cuda.device(card):
                 stream = torch.cuda.current_stream(card).cuda_stream if order is None else order.before(card)
                 at = ptrs.data_ptr()
@@ -517,6 +526,7 @@ def ragged_exchange_fold(
                     check(rc, "ragged_exchange_fold kernel")
                     if phases & 2:
                         ragged_exchange_fold.launches += 1
+                        ragged_exchange_fold.card_launches[g] += 1
                     at += 8 * n_ptrs
                 if order is not None:
                     order.after(card)
@@ -539,6 +549,9 @@ def ragged_exchange_fold(
     return [r for ft in fts for r in zip(*[t.unbind(0) for t in ft.tables])]
 
 
-# CUDA kernel launches (K5: one per `exchange_args` entry, K6: one per `fold_launches` entry)
+# CUDA kernel launches (K5: one per `exchange_args` entry, K6: one per `fold_launches` entry), in all and by
+# logical card
 ragged_exchange.launches = 0
 ragged_exchange_fold.launches = 0
+ragged_exchange.card_launches = collections.Counter()
+ragged_exchange_fold.card_launches = collections.Counter()

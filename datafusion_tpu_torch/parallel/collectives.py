@@ -62,11 +62,13 @@ def _padded(n: int) -> int:
     return -(-n // ALIGN) * ALIGN
 
 
-def _sync_staging(mesh, dev: torch.device) -> None:
+def _sync_staging(mesh, devs) -> None:
     """Wait for the device-to-host copies into a staging buffer before
-    Gloo reads it."""
-    if _wire(mesh, dev)[1]:
-        torch.cuda.current_stream(dev).synchronize()
+    Gloo reads it: each copy runs on the stream of the card its tensor
+    lies on, so every card of `devs` is waited for."""
+    for dev in dict.fromkeys(devs):
+        if _wire(mesh, dev)[1]:
+            torch.cuda.current_stream(dev).synchronize()
 
 
 def backend() -> str:
@@ -113,7 +115,7 @@ def gather_ranks(mesh, ts: Sequence[torch.Tensor], *, to_device: bool = True) ->
         b = _as_bytes(t)
         buf[off:off + b.numel()].copy_(b, non_blocking=True)
         off += nb
-    _sync_staging(mesh, dev)
+    _sync_staging(mesh, [t.device for t in ts])
     bufs = [torch.empty_like(buf) for _ in range(mesh.world)]
     transport("all_gather", bufs, buf, sent=width * (mesh.world - 1),
               live=sum(t.numel() * t.element_size() for t in ts) * (mesh.world - 1))
@@ -152,13 +154,16 @@ def exchange_regions(mesh, sends: Sequence[Sequence[torch.Tensor]], sizes: torch
                      split_cap: int) -> list[list[torch.Tensor]]:
     """The cross-process half of a ragged exchange (parallel/shuffle.py).
     `sends[j]` are local sender j's region-layout arrays, `[n_dev *
-    split_cap]` each, region i for global receiver i, of which the first
-    `sizes[first + j, i]` rows are live. Returns, for every
-    global sender in order, its arrays' regions for this process's
-    receivers, `[n_local * split_cap]` each: a view of the local
-    sender's own arrays, or what a remote sender sent. One
-    `all_to_all_single` of bytes moves every remote pair's padded regions;
-    the receiving kernel (K5 or K6) reads only their valid prefixes."""
+    split_cap]` each, on its card, region i for global receiver i, of
+    which the first `sizes[first + j, i]` rows are live. Returns, for
+    every global sender in order, its arrays' regions for this process's
+    receivers, `[n_local * split_cap]` each: a view of the local sender's
+    own arrays, on its card, or what a remote sender sent, on the first
+    card (local shard 0's). One `all_to_all_single` of bytes moves every
+    remote pair's padded regions, packed from every card (a peer copy
+    into NCCL's buffer on the first card, or a copy into Gloo's pinned
+    staging buffer from each card's stream); the receiving kernel (K5 or
+    K6) reads only their valid prefixes."""
     nl, span = mesh.n_local, mesh.n_local * split_cap
     dev = sends[0][0].device
     widths = [span * t.element_size() for t in sends[0]]
@@ -171,7 +176,7 @@ def exchange_regions(mesh, sends: Sequence[Sequence[torch.Tensor]], sizes: torch
             for arrs in sends:
                 buf[off:off + widths[a]].copy_(_as_bytes(arrs[a][q * span:(q + 1) * span]), non_blocking=True)
                 off += widths[a]
-    _sync_staging(mesh, dev)
+    _sync_staging(mesh, [arrs[0].device for arrs in sends])
     recv = torch.empty_like(buf)
     splits = [0 if q == mesh.rank else chunk for q in range(mesh.world)]
     mine = sizes[mesh.first:mesh.first + nl].to(torch.int64)

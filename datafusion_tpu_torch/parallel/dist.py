@@ -52,13 +52,15 @@ On a mesh that spans processes (parallel/multihost.py) each process runs
 every stage over its own shards, and a ShardedBatch holds those. The
 collectives take the mesh and meet in global shard order, the exchanges
 cross the processes (parallel/shuffle.py), and a replicated batch holds
-the same rows on every process. Every host read that chooses a route
-reads a value all processes agree on: the domain probes take min / max
-over every process's rows (`_column_range`), the join ladder's count of
-repeated build keys is the largest any process saw (`_agreed`), and the
-shuffle's skew salt and region capacity come from the mesh's whole count
-matrix. So every process takes the same route and enters the same
-collectives.
+the same rows on every process. A process may hold several cards of such
+a mesh: its shards then run on their cards as above, and what a stage
+builds from every shard of every process is made on its first card.
+Every host read that chooses a route reads a value all processes agree
+on: the domain probes take min / max over every process's rows
+(`_column_range`), the join ladder's count of repeated build keys is the
+largest any process saw (`_agreed`), and the shuffle's skew salt and
+region capacity come from the mesh's whole count matrix. So every
+process takes the same route and enters the same collectives.
 """
 
 from __future__ import annotations
@@ -192,20 +194,20 @@ class DistCompiler(PlanCompiler):
         return [Batch([(c[1 + 2 * j], c[2 + 2 * j]) for j in range(len(b.cols))], c[0]) for c in self._copies(flat)]
 
     def _column_range(self, tbl, ci: int) -> tuple[int, int]:
-        """min and max of a scanned column over every process's rows (one
-        all_gather of each process's pair; a process without rows sends
-        the identities); on a mesh of several cards, over its shards'."""
-        if isinstance(tbl, ShardTable):
-            pairs = [super(DistCompiler, self)._column_range(t, ci) for t in tbl.shards if t.num_rows]
-            return min(a for a, _ in pairs), max(b for _, b in pairs)
+        """min and max of a scanned column over its shards' rows (a
+        ShardTable's on their cards) and, on a mesh that spans processes,
+        over every process's: one all_gather of each process's pair, in
+        which a process without rows sends the identities."""
+        datas = [t.columns[ci].data for t in tbl.shards] if isinstance(tbl, ShardTable) else [tbl.columns[ci].data]
+        datas = [d for d in datas if d.numel()]
         if not self.mesh.spans:
-            return super()._column_range(tbl, ci)
-        data = tbl.columns[ci].data
+            pairs = [(int(d.min()), int(d.max())) for d in datas]
+            return min(a for a, _ in pairs), max(b for _, b in pairs)
         i64 = torch.iinfo(torch.int64)
-        if data.numel():
-            pair = torch.stack([data.min().to(torch.int64), data.max().to(torch.int64)])
-        else:
-            pair = torch.tensor([i64.max, i64.min], dtype=torch.int64, device=data.device)
+        pair = torch.tensor([i64.max, i64.min], dtype=torch.int64, device=self.mesh.device)
+        for d in datas:
+            lo, hi = C.to_card(torch.stack([d.min().to(torch.int64), d.max().to(torch.int64)]), self.mesh.device)
+            pair = torch.stack([torch.minimum(pair[0], lo), torch.maximum(pair[1], hi)])
         every = C.all_gather([pair], self.mesh).reshape(-1, 2)
         return int(every[:, 0].min()), int(every[:, 1].max())
 

@@ -19,7 +19,10 @@ card, each table's row blocks are placed there once, at registration
 (`ShardTable`), and the collectives meet on the first card (`device`).
 The entries of `devices` are logical cards: a list may repeat a device
 (the tests use `("cpu",) * 4`; one H100 runs `(cuda:0, cuda:0)`), and the
-shards still run and exchange card by card.
+shards still run and exchange card by card. A mesh that spans processes
+may hold several cards in each, as the JAX package's global mesh spans
+every chip of every host: each process's shards then split over its own
+cards, and the global shard numbering stays `rank * n_local + d`.
 """
 
 from __future__ import annotations
@@ -58,8 +61,6 @@ class Mesh:
             raise ValueError(f"the mesh's device {self.device} is not its first card {self.devices[0]}")
         if self.n_local % len(self.devices):
             raise ValueError(f"{self.n_local} shards do not split evenly over {len(self.devices)} cards")
-        if self.spans and len(self.devices) > 1:
-            raise ValueError("a mesh that spans processes holds one card per process")
 
     @property
     def n_cards(self) -> int:
@@ -89,16 +90,14 @@ class Mesh:
         return self.rank * self.n_local
 
 
-def make_mesh(n_dev: int = 8, device=None, devices=None) -> Mesh:
-    """A mesh of `n_dev` logical shards in this process, on the card unless
-    the caller names another device (the tests pass "cpu"). `devices`
-    lists the cards the shards split over, in contiguous blocks (it must
-    divide `n_dev`, hold one device type, and start with `device` where
-    both are given); a device may repeat."""
-    if n_dev < 1:
-        raise ValueError("a mesh needs at least one shard")
+def mesh_cards(device=None, devices=None) -> tuple:
+    """(first card, cards) of a mesh: `device` (the card unless the caller
+    names another) alone, or the cards `devices` lists, which must hold
+    one device type and start with `device` where both are given; a
+    device may repeat."""
     if devices is None:
-        return Mesh(n_dev, resolve_device(device))
+        dev = resolve_device(device)
+        return dev, (dev,)
     devs = tuple(resolve_device(d) for d in devices)
     if not devs:
         raise ValueError("devices lists no card")
@@ -106,7 +105,18 @@ def make_mesh(n_dev: int = 8, device=None, devices=None) -> Mesh:
         raise ValueError(f"the mesh's cards mix device types: {[str(d) for d in devs]}")
     if device is not None and resolve_device(device) != devs[0]:
         raise ValueError(f"device {device} is not the first of devices {[str(d) for d in devs]}")
-    return Mesh(n_dev, devs[0], devices=devs)
+    return devs[0], devs
+
+
+def make_mesh(n_dev: int = 8, device=None, devices=None) -> Mesh:
+    """A mesh of `n_dev` logical shards in this process, on the card unless
+    the caller names another device (the tests pass "cpu"). `devices`
+    lists the cards the shards split over, in contiguous blocks (it must
+    divide `n_dev`; `mesh_cards`)."""
+    if n_dev < 1:
+        raise ValueError("a mesh needs at least one shard")
+    dev, devs = mesh_cards(device, devices)
+    return Mesh(n_dev, dev, devices=devs)
 
 
 def shard_bounds(n: int, n_dev: int) -> list[tuple[int, int]]:
@@ -171,10 +181,11 @@ class ShardTable:
     on its shard's card, placed once at registration (`place_shards`), as
     `jax.device_put` with a `NamedSharding` places a global array's
     blocks. `columns` are shard 0's (types, dictionaries, which columns
-    have a validity: every shard's are alike); `num_rows` counts every
-    shard's rows. The plan compiler reads `schema`, `columns` and
-    `num_rows` as it reads a Table's, and the distributed compiler probes
-    min / max over every shard (`DistCompiler._column_range`)."""
+    have a validity: every shard's are alike); `num_rows` counts the rows
+    of every shard, on a mesh that spans processes every process's too.
+    The plan compiler reads `schema`, `columns` and `num_rows` as it reads
+    a Table's, and the distributed compiler probes min / max over every
+    shard (`DistCompiler._column_range`)."""
 
     schema: Schema
     shards: tuple[Table, ...]
@@ -184,55 +195,25 @@ class ShardTable:
     def columns(self) -> tuple[Column, ...]:
         return self.shards[0].columns
 
-    def whole(self, device) -> Table:
-        """The shards' rows as one Table on `device` (INSERT rebuilds a
-        table from it)."""
-        cols = []
-        for j, c in enumerate(self.columns):
-            parts = [s.columns[j] for s in self.shards]
-            data = torch.cat([p.data.to(device) for p in parts])
-            valid = None if c.validity is None else torch.cat([p.validity.to(device) for p in parts])
-            cols.append(Column(c.dtype, data, valid, c.dictionary))
-        return Table(self.schema, tuple(cols), self.num_rows)
 
-
-def place_shards(table: Table, mesh: Mesh) -> ShardTable:
-    """A whole table's row blocks (`shard_bounds`), each on its shard's
-    card. A block already on its card stays a view; the others are
-    copied there once."""
-    shards = []
-    for d, (lo, hi) in enumerate(shard_bounds(table.num_rows, mesh.n_dev)):
-        card = mesh.card_of(d)
-        cols = tuple(
-            Column(c.dtype, c.data[lo:hi].to(card), None if c.validity is None else c.validity[lo:hi].to(card),
-                   c.dictionary)
-            for c in table.columns
-        )
-        shards.append(Table(table.schema, cols, hi - lo))
-    return ShardTable(table.schema, tuple(shards), table.num_rows)
-
-
-def partition_table(table, mesh: Mesh) -> list[Table]:
-    """This process's shards of a table, one Table per local shard: the
-    row blocks of `shard_bounds` for a whole Table on one process, the
-    blocks a RankTable records on a spanning mesh, a ShardTable's own
-    shards on a mesh of several cards. The first two are views of the
-    table's tensors: nothing is copied. On a spanning mesh the table must
-    be a RankTable already, and on a mesh of several cards a ShardTable
-    (ExecutionContext.register_table makes both)."""
+def _local_shards(table, mesh: Mesh, *, whole: bool = False) -> list[Table]:
+    """This process's shards of `table`, one Table per local shard: a
+    ShardTable's own shards, the blocks a RankTable records, or a whole
+    Table's row blocks `[first, first + n_local)` of `shard_bounds`
+    (`whole`: also on a mesh that spans processes, where every process
+    holds the whole table). The blocks are views of the table's tensors:
+    nothing is copied."""
     if isinstance(table, ShardTable):
         return list(table.shards)
-    if mesh.spans and not isinstance(table, RankTable):
-        raise ValueError("a mesh that spans processes partitions a RankTable, not a whole table")
-    if mesh.n_cards > 1:
-        raise ValueError("a mesh of several cards partitions a ShardTable, not a whole table")
     if isinstance(table, RankTable):
         lo, spans = 0, []
         for r in table.shard_rows:
             spans.append((lo, lo + r))
             lo += r
+    elif mesh.spans and not whole:
+        raise ValueError("a mesh that spans processes partitions a RankTable, not a whole table")
     else:
-        spans = shard_bounds(table.num_rows, mesh.n_dev)
+        spans = shard_bounds(table.num_rows, mesh.n_dev)[mesh.first:mesh.first + mesh.n_local]
     shards = []
     for lo, hi in spans:
         cols = tuple(
@@ -241,3 +222,34 @@ def partition_table(table, mesh: Mesh) -> list[Table]:
         )
         shards.append(Table(table.schema, cols, hi - lo))
     return shards
+
+
+def place_shards(table, mesh: Mesh) -> ShardTable:
+    """This process's shards of `table` (`_local_shards`: of a whole table,
+    of a RankTable, or a ShardTable's again), each on its shard's card.
+    On a mesh of one process a block already on its card stays a view and
+    the others are copied there once; on a mesh that spans processes every
+    block is copied, so neither the whole table nor this process's
+    RankTable stays alive through a view."""
+    shards = _local_shards(table, mesh, whole=True)
+    if len(shards) != mesh.n_local:
+        raise ValueError(f"{len(shards)} shards do not fill the mesh's {mesh.n_local} local shards")
+    copy = mesh.spans
+
+    def placed(t: Table, card: torch.device) -> Table:
+        return Table(t.schema, tuple(
+            Column(c.dtype, c.data.to(card, copy=copy),
+                   None if c.validity is None else c.validity.to(card, copy=copy), c.dictionary)
+            for c in t.columns), t.num_rows)
+
+    return ShardTable(table.schema, tuple(placed(t, mesh.card_of(d)) for d, t in enumerate(shards)), table.num_rows)
+
+
+def partition_table(table, mesh: Mesh) -> list[Table]:
+    """This process's shards of a table, one Table per local shard
+    (`_local_shards`). On a spanning mesh the table must be a RankTable
+    or a ShardTable already, and on a mesh of several cards a ShardTable
+    (ExecutionContext.register_table makes them)."""
+    if mesh.n_cards > 1 and not isinstance(table, ShardTable):
+        raise ValueError("a mesh of several cards partitions a ShardTable, not a whole table")
+    return _local_shards(table, mesh)

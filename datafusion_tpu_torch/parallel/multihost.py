@@ -10,9 +10,13 @@ its collectives and exchanges cross the processes (parallel/collectives.py,
 parallel/shuffle.py). Every process runs the same statements in the same
 order (SPMD), as under JAX's multi-controller runtime.
 
-The backend is NCCL when every process of the host has a card of its
+The backend is NCCL when every process of the host has cards of its
 own, else Gloo: NCCL refuses two processes on one card, so processes
-that share a card exchange through host memory.
+that share a card exchange through host memory. A process may hold
+several cards (`cards_per_process`, `global_mesh(devices=...)`), as a
+TPU host holds four chips of the JAX package's global mesh: its shards
+split over them, K5 and K6 read its cards' regions over NVLink and the
+remote senders' from its first card, where the transport delivers them.
 
 `to_host` reads every result from the device: one compaction, pinned
 host buffers, one synchronize; on a spanning mesh the partitioned rows of
@@ -42,46 +46,64 @@ def initialize_multihost(
     process_id: Optional[int] = None,
     *,
     backend: Optional[str] = None,
+    cards_per_process: int = 1,
 ) -> str:
     """Join this process to the group (call once per process, before
     `global_mesh`). `coordinator_address` is the "host:port" of process
     0's rendezvous; None reads the torchrun variables (MASTER_ADDR,
-    MASTER_PORT, WORLD_SIZE, RANK). `backend` None picks NCCL when every
-    process on this host has a card of its own (LOCAL_WORLD_SIZE, default
-    `num_processes`, at most `torch.cuda.device_count()`; this process
-    then runs on card LOCAL_RANK), else Gloo. Every collective of the
-    group fails after TIMEOUT_S seconds. Returns the backend."""
+    MASTER_PORT, WORLD_SIZE, RANK). Each process of this host
+    (LOCAL_WORLD_SIZE of them, default `num_processes`; this one
+    LOCAL_RANK, default its rank) owns `cards_per_process` cards, from
+    card `LOCAL_RANK * cards_per_process`; pass them to `global_mesh` as
+    `devices`. `backend` None picks NCCL when those cards exist on this
+    host, and makes the process's first card the current one; with one
+    card a process and more processes than cards (processes share a
+    card, which NCCL refuses) it picks Gloo. Several cards a process that
+    the host lacks, or without NCCL, raise: nothing falls back to Gloo or
+    to fewer cards. Every collective of the group fails after TIMEOUT_S
+    seconds. Returns the backend."""
     import torch.distributed as dist
 
     world = num_processes if num_processes is not None else _env_int("WORLD_SIZE", 1)
     rank = process_id if process_id is not None else _env_int("RANK", 0)
     local_rank = _env_int("LOCAL_RANK", rank)
     local_world = _env_int("LOCAL_WORLD_SIZE", world)
+    if cards_per_process < 1:
+        raise ValueError("a process needs at least one card")
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    own_cards = local_world * cards_per_process <= have
+    if cards_per_process > 1 and not own_cards:
+        raise ValueError(f"{local_world} process(es) of {cards_per_process} cards need "
+                         f"{local_world * cards_per_process} cards; this host has {have}")
     if backend is None:
-        own_card = torch.cuda.is_available() and dist.is_nccl_available() and local_world <= torch.cuda.device_count()
-        backend = "nccl" if own_card else "gloo"
+        if cards_per_process > 1 and not dist.is_nccl_available():
+            raise ValueError("several cards a process need NCCL, and this torch has none")
+        backend = "nccl" if own_cards and dist.is_nccl_available() else "gloo"
     if backend == "nccl":
-        torch.cuda.set_device(local_rank)
+        torch.cuda.set_device(local_rank * cards_per_process)
     init = f"tcp://{coordinator_address}" if coordinator_address is not None else "env://"
     dist.init_process_group(backend, init_method=init, world_size=world, rank=rank,
                             timeout=datetime.timedelta(seconds=TIMEOUT_S))
     return backend
 
 
-def global_mesh(n_local: int = 4, device=None):
+def global_mesh(n_local: int = 4, device=None, devices=None):
     """The mesh of `world * n_local` shards over every process of the
     group; this process holds shards `[rank * n_local, (rank + 1) *
     n_local)` on `device` (default: the card; under NCCL, this process's
-    own). Without a group it is `make_mesh(n_local, device)`."""
+    first), or split in contiguous blocks over the cards `devices` lists
+    (parallel/mesh.py `mesh_cards`: one device type, first `device` where
+    both are given; a device may repeat, each entry a logical card of its
+    own). Without a group it is `make_mesh(n_local, device, devices)`."""
     import torch.distributed as dist
 
-    from datafusion_tpu_torch.columnar.table import resolve_device
-    from datafusion_tpu_torch.parallel.mesh import Mesh
+    from datafusion_tpu_torch.parallel.mesh import Mesh, make_mesh, mesh_cards
 
     if not (dist.is_available() and dist.is_initialized()):
-        return Mesh(n_local, resolve_device(device))
+        return make_mesh(n_local, device, devices)
     world, rank = dist.get_world_size(), dist.get_rank()
-    return Mesh(world * n_local, resolve_device(device), rank=rank, world=world, n_local=n_local)
+    dev, devs = mesh_cards(device, devices)
+    return Mesh(world * n_local, dev, rank=rank, world=world, n_local=n_local, devices=devs)
 
 
 def to_host(x, sel: Optional[torch.Tensor] = None, *, mesh=None):
@@ -90,7 +112,10 @@ def to_host(x, sel: Optional[torch.Tensor] = None, *, mesh=None):
     entries pass through); with a bool `sel` of that length only the
     selected rows are read. One `nonzero` of `sel`, one `index_select` per
     tensor, each copied with `non_blocking=True` into a pinned host tensor
-    from torch's caching host allocator, and one synchronize: the first
+    from torch's caching host allocator, and one synchronize, of the card
+    the tensors lie on (a result of several cards meets there first, in
+    `ShardedBatch.merged`, by peer copies that torch orders on both cards'
+    streams, so nothing read is still being copied): the first
     call of a size pays `cudaHostAlloc`, later calls reuse the block. The
     numpy arrays share the pinned tensors' memory and keep them alive. On
     the CPU the arrays are the compacted tensors' own. The copy is bitwise.
@@ -152,7 +177,8 @@ def register_table_shards(ctx, name: str, local) -> None:
     process keeps its rows on its device, split into its `n_local` shards
     (parallel/mesh.py RankTable). Every process learns the global row
     count, and a column has a validity on every process if it has one on
-    any. With one process it is `ctx.register_table`."""
+    any. On a mesh of several cards a process's shards are then placed on
+    their cards (ShardTable). With one process it is `ctx.register_table`."""
     import torch.distributed as dist
 
     from datafusion_tpu_torch.columnar.table import Column

@@ -36,7 +36,12 @@ out its rows on its own card, and K5 / K6 take one launch per card over
 its receivers, reading every sender's regions where they lie, over
 NVLink for a peer card's (ops/pallas/ragged_shuffle.py `cards`). The
 count matrix meets on the first card and is read on the host once, as on
-one card; each receiver's selection is made on its card.
+one card; each receiver's selection is made on its card. A mesh that
+spans processes with several cards in each takes both at once: the
+senders are this process's shards, on their own cards, and the remote
+senders' regions, on the first card, where `exchange_regions` leaves
+them; each card's launch reads both, and the count matrix and each
+receiver's selection keep the global shard numbering.
 """
 
 from __future__ import annotations

@@ -177,8 +177,17 @@ def test_make_mesh_refusals():
         port.make_mesh(0, devices=("cpu",))
     from datafusion_tpu_torch.parallel.mesh import Mesh
 
-    with pytest.raises(ValueError, match="one card per process"):
-        Mesh(8, torch.device("cpu"), rank=0, world=2, n_local=4, devices=(torch.device("cpu"),) * 2)
+    cpu = torch.device("cpu")
+    spanning = Mesh(16, cpu, rank=1, world=2, n_local=8, devices=(cpu,) * 4)  # several cards a process
+    assert spanning.first == 8 and spanning.n_cards == 4 and spanning.spans
+    assert [spanning.card_index(d) for d in range(8)] == [0, 0, 1, 1, 2, 2, 3, 3]
+    assert spanning.card_of(7) == cpu and list(spanning.card_shards(3)) == [6, 7]
+    with pytest.raises(ValueError, match="6 shards do not split evenly over 4 cards"):
+        Mesh(12, cpu, rank=0, world=2, n_local=6, devices=(cpu,) * 4)
+    with pytest.raises(ValueError, match="cards; this host has"):  # before any rendezvous: no group is made
+        port.initialize_multihost("127.0.0.1:1", 2, 0, cards_per_process=2 + torch.cuda.device_count())
+    with pytest.raises(ValueError, match="split evenly over 3 cards"):
+        Mesh(16, cpu, rank=0, world=2, n_local=8, devices=(cpu,) * 3)
     mesh = port.make_mesh(8, devices=("cpu",) * 4)
     assert mesh.device == torch.device("cpu") and mesh.n_cards == 4
     assert [mesh.card_index(d) for d in range(8)] == [0, 0, 1, 1, 2, 2, 3, 3]

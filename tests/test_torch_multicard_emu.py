@@ -23,8 +23,14 @@ packs them (`exchange_args`, `fold_pointer_table`, `fold_tables`,
     CPU tensors (`_emulated_card`): each process's tables bit-equal to one
     process's launch when its receivers' values lie 2^50 below the other
     process's, and different when the processes do not agree on the
-    scale. The file is that test's worker: `python
-    tests/test_torch_multicard_emu.py LIB PORT RANK WORLD OUT AGREE`.
+    scale;
+  * both exchanges over two processes of two logical cards each: K5's
+    received rows and K6's tables (with the same 2^50 spread) bit-equal
+    to one process's single launch over all 8 shards, each card's launch
+    taking the remote senders' regions from the first card.
+
+The file is the two-process tests' worker: `python
+tests/test_torch_multicard_emu.py LIB PORT RANK WORLD OUT AGREE CARDS`.
 """
 
 import contextlib
@@ -239,52 +245,92 @@ def test_peer_access_entry(emu):
 
 FOLD_OPS = ("sum", "count", "max", "sum")
 N_LOCAL, WORLD, FOLD_GROUPS = 3, 2, 240  # 3 shards a process; packed ids below 240, so 40 windows a receiver
+CARD_LOCAL = 4  # the cards case: 4 shards a process, two on each of its two logical cards
+
+
+class _Event:
+    """A CUDA event's stand-in: the emulated kernels run on the host, in
+    order, so there is nothing to wait for."""
+
+    def record(self, stream=None):
+        pass
 
 
 def _emulated_card(patch, lib):
-    """Let K6's wrapper take its card path on CPU tensors with the
-    emulated library: the device check reports "cuda", streams and device
-    guards are stand-ins, pinning is a no-op. `patch(obj, name, value)`
-    sets an attribute (monkeypatch.setattr, or setattr in a worker)."""
+    """Let K5's and K6's wrappers take their card path on CPU tensors with
+    the emulated library: the device check reports "cuda", streams,
+    events and device guards are stand-ins, pinning is a no-op.
+    `patch(obj, name, value)` sets an attribute (monkeypatch.setattr, or
+    setattr in a worker)."""
     from datafusion_tpu_torch.ops.pallas import cuda_lib
 
     check_devices = rs._check_devices
+    stream = types.SimpleNamespace(cuda_stream=None, wait_event=lambda e: None)
     patch(rs, "_check_devices", lambda *a: "cuda" if check_devices(*a) == "cpu" else "?")
     patch(cuda_lib, "load_library", lambda: lib)
     patch(torch.cuda, "device", lambda card: contextlib.nullcontext())
-    patch(torch.cuda, "current_stream", lambda card=None: types.SimpleNamespace(cuda_stream=None))
+    patch(torch.cuda, "current_stream", lambda card=None: stream)
+    patch(torch.cuda, "Event", _Event)
     patch(torch.Tensor, "pin_memory", lambda self: self)
 
 
-def _fold_shard(shard: int):
+def _fold_shard(shard: int, n_local: int = N_LOCAL):
     """Global shard `shard`'s fold inputs, from its own seed: packed ids
     (some past FOLD_GROUPS), f64 values from 2^-20 to 2^30 with
-    cancellation, and a mask. A row bound for receiver id % 6 < 3 (the
-    first process's receivers) has its value 2^50 smaller."""
+    cancellation, and a mask. A row bound for one of the first process's
+    receivers (id % (n_local * WORLD) < n_local) has its value 2^50
+    smaller."""
     rng = np.random.default_rng(900 + shard)
     n = 700 + 31 * shard
     gid = rng.integers(0, FOLD_GROUPS + 20, n)
     x = 2.0 ** rng.uniform(-20, 30, n) * rng.choice([-1.0, 1.0], n)
     x[1::3] = -x[0::3][: len(x[1::3])]
-    x[gid % (N_LOCAL * WORLD) < N_LOCAL] *= 2.0 ** -50
+    x[gid % (n_local * WORLD) < n_local] *= 2.0 ** -50
     xt = torch.from_numpy(x)
     mask = torch.from_numpy(rng.random(n) < 0.8)
     return torch.from_numpy(gid.astype(np.int32)), [xt, None, xt, xt], [None, None, None, mask]
 
 
-def _fold_over(shards, mesh):
+def _fold_over(shards, mesh, n_local: int = N_LOCAL):
     from datafusion_tpu_torch.parallel.shuffle import exchange_fold
 
-    ins = [_fold_shard(g) for g in shards]
+    ins = [_fold_shard(g, n_local) for g in shards]
     return exchange_fold([g for g, _, _ in ins], [v for _, v, _ in ins], [m for _, _, m in ins], ops=FOLD_OPS,
-                         num_groups=FOLD_GROUPS, n_dev=N_LOCAL * WORLD, mesh=mesh)
+                         num_groups=FOLD_GROUPS, n_dev=n_local * WORLD, mesh=mesh)
 
 
-def _fold_worker(lib_path, port, rank, world, out, agree):
-    """One process of the two-process fold: join the Gloo group, fold its
-    shards over the spanning mesh on the emulated card, save its
+def _shuffle_shard(shard: int):
+    """Global shard `shard`'s rows for a repartition over 8 shards, from
+    its own seed: destinations, a selection, and int64, f64 (with a
+    validity), bool and int32 columns."""
+    rng = np.random.default_rng(700 + shard)
+    n = 500 + 37 * shard
+    cols = [(torch.from_numpy(rng.integers(-2**40, 2**40, n)), None),
+            (torch.from_numpy(rng.normal(size=n)), torch.from_numpy(rng.random(n) < 0.9)),
+            (torch.from_numpy(rng.random(n) < 0.5), None),
+            (torch.from_numpy(rng.integers(0, 100, n).astype(np.int32)), None)]
+    return cols, torch.from_numpy(rng.integers(0, CARD_LOCAL * WORLD, n)), torch.from_numpy(rng.random(n) < 0.8)
+
+
+def _shuffle_over(shards, mesh):
+    """Each of `shards`' receivers' selected rows after a repartition (K5)
+    over `mesh` (None: one process, one launch): per receiver, each
+    column's data and validity at its selected slots."""
+    from datafusion_tpu_torch.parallel.shuffle import repartition
+
+    ins = [_shuffle_shard(g) for g in shards]
+    recv, sels = repartition([c for c, _, _ in ins], [d for _, d, _ in ins], [s for _, _, s in ins],
+                             CARD_LOCAL * WORLD, mesh=mesh)
+    return [[x[sel] for d, v in cols for x in (d, v) if x is not None] for cols, sel in zip(recv, sels)]
+
+
+def _fold_worker(lib_path, port, rank, world, out, agree, cards):
+    """One process of the two-process exchanges: join the Gloo group, fold
+    its shards over the spanning mesh on the emulated card, save its
     receivers' tables. `agree` "0" replaces the processes' agreement on
-    the scale by each process's own."""
+    the scale by each process's own. `cards` "2": the process's 4 shards
+    lie on two logical cards, and it also saves its receivers' rows of a
+    repartition (K5) over that mesh."""
     import datafusion_tpu_torch as dft
     from datafusion_tpu_torch.parallel import shuffle
 
@@ -293,24 +339,32 @@ def _fold_worker(lib_path, port, rank, world, out, agree):
     if agree == "0":
         shuffle.agreed_max = lambda words, mesh: words
     assert dft.initialize_multihost(f"127.0.0.1:{port}", world, rank, backend="gloo") == "gloo"
-    mesh = dft.global_mesh(N_LOCAL, device="cpu")
-    tables = _fold_over(range(mesh.first, mesh.first + N_LOCAL), mesh)
-    torch.save([[x.clone() for x in t] for t in tables], out)  # each its own storage
+    if cards == "2":
+        mesh = dft.global_mesh(CARD_LOCAL, device="cpu", devices=("cpu", "cpu"))
+        shards = range(mesh.first, mesh.first + CARD_LOCAL)
+        saved = {"fold": _fold_over(shards, mesh, CARD_LOCAL), "shuffle": _shuffle_over(shards, mesh),
+                 "card_launches": [dict(rs.ragged_exchange.card_launches),
+                                   dict(rs.ragged_exchange_fold.card_launches)]}
+    else:
+        mesh = dft.global_mesh(N_LOCAL, device="cpu")
+        saved = {"fold": _fold_over(range(mesh.first, mesh.first + N_LOCAL), mesh)}
+    saved["fold"] = [[x.clone() for x in t] for t in saved["fold"]]  # each its own storage
+    torch.save(saved, out)
     import torch.distributed as dist
 
     dist.destroy_process_group()
 
 
-def _two_processes(tmp_path, lib_path, agree):
-    """Both processes' receivers' tables, in rank order."""
+def _two_processes(tmp_path, lib_path, agree, cards="0"):
+    """Both processes' saved results, in rank order."""
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
     root = pathlib.Path(__file__).resolve().parent.parent
     env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join([str(root), os.environ.get("PYTHONPATH", "")]))
-    outs = [tmp_path / f"fold_{agree}_rank{r}.pt" for r in range(WORLD)]
+    outs = [tmp_path / f"fold_{agree}_{cards}_rank{r}.pt" for r in range(WORLD)]
     procs = [subprocess.Popen([sys.executable, __file__, str(lib_path), str(port), str(r), str(WORLD), str(outs[r]),
-                               agree], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                               agree, cards], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for r in range(WORLD)]
     logs = []
     try:
@@ -323,7 +377,7 @@ def _two_processes(tmp_path, lib_path, agree):
                 p.communicate()
     for r, (p, log) in enumerate(zip(procs, logs)):
         assert p.returncode == 0, f"rank {r} failed:\n{log[-4000:]}"
-    return [t for o in outs for t in torch.load(o)]
+    return [torch.load(o) for o in outs]
 
 
 def test_exchange_fold_across_processes_takes_the_mesh_scale(emu, monkeypatch, tmp_path):
@@ -336,8 +390,8 @@ def test_exchange_fold_across_processes_takes_the_mesh_scale(emu, monkeypatch, t
     monkeypatch.setenv("EMU_SMS", "3")
     _emulated_card(monkeypatch.setattr, emu)
     one = _fold_over(range(N_LOCAL * WORLD), None)
-    agreed = _two_processes(tmp_path, emu._name, "1")
-    own = _two_processes(tmp_path, emu._name, "0")
+    agreed = [t for r in _two_processes(tmp_path, emu._name, "1") for t in r["fold"]]
+    own = [t for r in _two_processes(tmp_path, emu._name, "0") for t in r["fold"]]
     assert len(one) == len(agreed) == len(own) == N_LOCAL * WORLD
     sums = [a for a, op in enumerate(FOLD_OPS) if op == "sum"]
     for i, (w, a, o) in enumerate(zip(one, agreed, own)):
@@ -349,5 +403,34 @@ def test_exchange_fold_across_processes_takes_the_mesh_scale(emu, monkeypatch, t
         "each process's own scale gave the mesh's bits"
 
 
+def test_exchanges_across_processes_and_cards_equal_one_launch(emu, monkeypatch, tmp_path):
+    """K5 and K6 over a mesh of two processes of two logical cards each
+    (4 shards a process): each card's launch takes its process's senders
+    from their own cards and the remote senders' regions from the first
+    card, where the transport left them. Every receiver's rows of a
+    repartition and its fold tables, float SUMs with the first process's
+    receivers' values 2^50 below the other's included, equal one
+    process's single launch over all 8 shards bit for bit; each process
+    launched K5 and K6 on both of its cards."""
+    monkeypatch.setenv("EMU_SMS", "3")
+    _emulated_card(monkeypatch.setattr, emu)
+    n = CARD_LOCAL * WORLD
+    one_fold = _fold_over(range(n), None, CARD_LOCAL)
+    one_shuffle = _shuffle_over(range(n), None)
+    ranks = _two_processes(tmp_path, emu._name, "1", "2")
+    fold = [t for r in ranks for t in r["fold"]]
+    shuffled = [x for r in ranks for x in r["shuffle"]]
+    assert len(fold) == len(shuffled) == n
+    for i in range(n):
+        for k in range(len(FOLD_OPS)):
+            assert _bits_equal(fold[i][k], one_fold[i][k]), (i, k)
+        assert len(shuffled[i]) == len(one_shuffle[i]) == 5
+        for a, (x, y) in enumerate(zip(shuffled[i], one_shuffle[i])):
+            assert _bits_equal(x, y), (i, a)
+    for r, got in enumerate(ranks):
+        k5, k6 = got["card_launches"]
+        assert sorted(k5) == sorted(k6) == [0, 1] and all(k5.values()) and all(k6.values()), (r, k5, k6)
+
+
 if __name__ == "__main__":
-    _fold_worker(sys.argv[1], sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5], sys.argv[6])
+    _fold_worker(*sys.argv[1:3], int(sys.argv[3]), int(sys.argv[4]), *sys.argv[5:8])

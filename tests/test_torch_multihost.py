@@ -117,18 +117,9 @@ def repartition_counts(mesh, shards) -> list[list[int]]:
     return [s.reshape(mesh.n_dev, -1).sum(1).tolist() for s in sels]
 
 
-def _worker(port: str, rank: int, world: int, outdir: str) -> None:
-    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
-    import datafusion_tpu_torch as dft
-
-    backend = dft.initialize_multihost(f"127.0.0.1:{port}", world, rank)
-    assert backend == "gloo"
-    mesh = dft.global_mesh(N_LOCAL, device="cpu")
-    assert (mesh.n_dev, mesh.rank, mesh.world) == (N_LOCAL * world, rank, world)
-    ctx = dft.ExecutionContext(mesh=mesh)
-    for name, cols in tables().items():
-        ctx.register_table(name, dft.Table.from_pydict(dict(cols), device="cpu"))
-        assert ctx.table(name).local_rows < len(next(iter(cols.values())))  # only this rank's blocks
+def register_shard_csvs(dft, ctx, outdir: str, rank: int) -> None:
+    """Write this rank's CSV files (`shard_rows`) into `outdir` and
+    register them as the tables `s` and `d` (register_csv_shards)."""
     shards, dims = shard_rows()
     paths = [os.path.join(outdir, f"s{rank}.csv"), os.path.join(outdir, f"d{rank}.csv")]
     for path, rows in zip(paths, (zip(*shards[rank]), zip(*dims[rank]))):
@@ -141,6 +132,21 @@ def _worker(port: str, rank: int, world: int, outdir: str) -> None:
                                                             dft.Field("v", D.Float64, False)]), has_header=False)
     dft.register_csv_shards(ctx, "d", paths[1], dft.Schema([dft.Field("tag", D.Utf8, False),
                                                             dft.Field("w", D.Int64, False)]), has_header=False)
+
+
+def _worker(port: str, rank: int, world: int, outdir: str) -> None:
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
+    import datafusion_tpu_torch as dft
+
+    backend = dft.initialize_multihost(f"127.0.0.1:{port}", world, rank)
+    assert backend == "gloo"
+    mesh = dft.global_mesh(N_LOCAL, device="cpu")
+    assert (mesh.n_dev, mesh.rank, mesh.world) == (N_LOCAL * world, rank, world)
+    ctx = dft.ExecutionContext(mesh=mesh)
+    for name, cols in tables().items():
+        ctx.register_table(name, dft.Table.from_pydict(dict(cols), device="cpu"))
+        assert ctx.table(name).local_rows < len(next(iter(cols.values())))  # only this rank's blocks
+    register_shard_csvs(dft, ctx, outdir, rank)
     from datafusion_tpu_torch.parallel import collectives as C
     from datafusion_tpu_torch.parallel.mesh import partition_table
 
