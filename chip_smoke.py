@@ -461,15 +461,11 @@ def library_ms(rows, ops, num_groups, dev):
     return time_ms(run)
 
 
-def kernel_only_ms(fn, name, per_call=1, reps=5):
-    """Device time of one call of `fn`, which launches `per_call` kernels
-    named `name`: their mean time in torch.profiler over `reps` calls after
-    a warm-up, times `per_call` (the mean stands even if the trace misses
-    a launch). On the H100 the tracer has missed every launch of K5's
-    kernel and some of K1's (both take a struct of pointers by value), and
-    some traces recorded no device activity at all: a trace without the
-    kernel is taken once more, and if that misses it too the time is
-    `queued_ms`'s, said so in the log."""
+def traced_kernels(fn, names, reps=5):
+    """For each of `names`, (launches, device ms) a call of `fn` of the
+    kernels whose name holds it, from one torch.profiler trace of `reps`
+    calls after a warm-up. A trace that misses names[0] is taken once more;
+    None if that misses it too."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -479,10 +475,29 @@ def kernel_only_ms(fn, name, per_call=1, reps=5):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        events = [e for e in prof.key_averages() if name in e.key and e.device_type == torch.autograd.DeviceType.CUDA]
-        launches = sum(e.count for e in events)
-        if launches:
-            return sum(e.self_device_time_total for e in events) / launches * per_call / 1e3
+        events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        got = {}
+        for name in names:
+            ev = [e for e in events if name in e.key]
+            got[name] = (sum(e.count for e in ev) / reps, sum(e.self_device_time_total for e in ev) / reps / 1e3)
+        if got[names[0]][0]:
+            return got
+    return None
+
+
+def kernel_only_ms(fn, name, per_call=1, reps=5):
+    """Device time of one call of `fn`, which launches `per_call` kernels
+    named `name`: their mean time in torch.profiler over `reps` calls after
+    a warm-up, times `per_call` (the mean stands even if the trace misses
+    a launch). On the H100 the tracer has missed every launch of K5's
+    kernel and some of K1's (both take a struct of pointers by value), and
+    some traces recorded no device activity at all: a trace without the
+    kernel is taken once more, and if that misses it too the time is
+    `queued_ms`'s, said so in the log."""
+    got = traced_kernels(fn, [name], reps)
+    if got:
+        launched, ms = got[name]
+        return ms / launched * per_call
     ms = queued_ms(fn)
     log(f"torch.profiler recorded no {name} launch in two traces; its device time is from queued events: {ms:.3f} ms")
     return ms
@@ -565,17 +580,21 @@ def slab_bytes(n, slab_rows, cols):
     return (n + slab_rows) * width
 
 
-def compare_k4(gid, vals, masks, ops, num_groups, want_launches):
+def compare_k4(gid, vals, masks, ops, num_groups, want_launches, slab=None):
     """K4 against its plain version in `want_launches` launches (a float
     SUM takes three of a block's 14 windows): counts and MIN/MAX exact,
     f64 sums within rtol 1e-9 of the row-order sums and bit-equal to the
-    plain fixed-point function. Returns the sums' max_abs_err."""
+    plain fixed-point function. With `slab` (a SlabFold), K4 reads K3's
+    packed gid and scale words, as the main path launches it. Returns the
+    sums' max_abs_err and K4's outputs."""
     from datafusion_tpu_torch.ops.pallas import partition as pt
 
     before = pt.windowed_reduce.launches
-    k = pt.windowed_reduce(gid, vals, masks, ops=ops, num_groups=num_groups)
+    k = pt.windowed_reduce(gid, vals, masks, ops=ops, num_groups=num_groups, slab=slab)
     launches = pt.windowed_reduce.launches - before
     check(launches == want_launches, f"K4 made {launches} launch(es), not {want_launches}")
+    if slab is not None:
+        gid, masks = slab.unpacked(gid)
     p = pt.windowed_reduce_plain(gid, vals, masks, ops=ops, num_groups=num_groups)
     torch.cuda.synchronize()
     err = 0.0
@@ -593,42 +612,52 @@ def compare_k4(gid, vals, masks, ops, num_groups, want_launches):
 
 
 def compare_k3k4(gid, cols, id_mod, n_buckets, num_groups, mask_bits, ops, value_of, want_launches):
-    """K3 against its plain version (every slab equal, bit for bit), then
-    K4 over the kernel's slab against its plain version, and over the
-    slab's rows in a random order too: the same bits, float SUMs included
-    (any row order gives the same result). `value_of[a]` is the payload index of op a
-    (None for COUNT); op a's mask is gid bit `mask_bits[a]` (None: no
-    mask); K4 makes `want_launches` launches. Returns (K3's max_abs_err over every slab, with NaN against NaN
-    as 0; K4's sum max_abs_err; K4's kernel-only ms over the slab)."""
+    """K3 against its plain version: every slab equal bit for bit, and
+    K3's info (each float SUM's scale word, each bucket's chunk count).
+    Then K4 over the slab as K3 left it, as the main path launches it
+    (`SlabFold`: the gid packed, the masks its bits, K3's scale words, the
+    blocks split by K3's chunk counts), against its plain version and
+    bit-equal to K4 over the unpacked slab with its own first pass; and
+    that over the slab's rows in a random order: the same bits, float
+    SUMs included (any row order gives the same result). `value_of[a]` is
+    the payload index of op a (None for COUNT); op a's mask is gid bit
+    `mask_bits[a]` (None: no mask); K4 makes `want_launches` launches.
+    Returns (K3's max_abs_err over every slab, with NaN against NaN as 0;
+    K4's sum max_abs_err; K4's kernel-only ms over the slab as K3 left it)."""
     from datafusion_tpu_torch.ops.pallas import partition as pt
     from datafusion_tpu_torch.ops.pallas import segreduce as sr
 
-    ks = pt.slab_partition(gid, cols, n_buckets=n_buckets, id_mod=id_mod)
-    ps = pt.slab_partition_plain(gid, cols, n_buckets=n_buckets, id_mod=id_mod)
+    scales, scale_at = pt.scale_pairs(ops, [None if i is None else cols[i] for i in value_of], value_of, mask_bits)
+    kw = dict(n_buckets=n_buckets, id_mod=id_mod, scales=scales, num_groups=num_groups)
+    ks = pt.slab_partition(gid, cols, **kw)
+    ps = pt.slab_partition_plain(gid, cols, **kw)
     torch.cuda.synchronize()
     k3_err = 0.0
     for a, b in zip(ks, ps):
         bits = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
-        check(a.shape == b.shape and torch.equal(a.view(bits), b.view(bits)), "K3 slab differs from the plain version")
+        check(a.shape == b.shape and torch.equal(a.view(bits), b.view(bits)),
+              "K3 slab or info differs from the plain version")
         ad, bd = a.double(), b.double()
         same = (ad == bd) | (ad.isnan() & bd.isnan())
         k3_err = max(k3_err, float(torch.where(same, 0.0, (ad - bd).abs()).max()))
         del ad, bd, same
     del ps
-    pg = ks[0]
-    gid_k = torch.where(pg >= pt.SENTINEL, pg, pg & (id_mod - 1))
+    pg, info = ks[0], ks[-1]
+    fold = pt.SlabFold(id_mod, tuple(mask_bits), info, len(scales), scale_at)
     vals = [None if i is None else ks[1 + i] for i in value_of]
-    masks = [None if b is None else ((pg >> b) & 1).bool() for b in mask_bits]
-    err, k = compare_k4(gid_k, vals, masks, ops, num_groups, want_launches)
-    ms, _ = fold_kernel_ms(lambda: pt.windowed_reduce(gid_k, vals, masks, ops=ops, num_groups=num_groups),
-                           "windowed_reduce_kernel", sr.fold_launches(sr.fold_widths(ops, vals), pt.WINDOW),
-                           "fold_scale_kernel", ops, vals)
+    none = [None] * len(ops)
+    err, k = compare_k4(pg, vals, none, ops, num_groups, want_launches, slab=fold)
+    gid_k, masks = fold.unpacked(pg)
+    e1, own = compare_k4(gid_k, vals, masks, ops, num_groups, want_launches)
+    check_same_bits("K4 given K3's scale words against its own first pass", k, own)
+    ms = kernel_only_ms(lambda: pt.windowed_reduce(pg, vals, none, ops=ops, num_groups=num_groups, slab=fold),
+                        "windowed_reduce_kernel", len(sr.fold_launches(sr.fold_widths(ops, vals), pt.WINDOW)))
     # the same bits for the slab's rows in a random order
     perm = torch.randperm(pg.numel(), device=pg.device)
     e2, again = compare_k4(gid_k[perm].contiguous(), permuted(perm, vals), permuted(perm, masks), ops, num_groups,
                            want_launches)
     check_same_bits("K4, rows permuted", k, again)
-    return k3_err, max(err, e2), ms
+    return k3_err, max(err, e1, e2), ms
 
 
 def shard_regions(arrays, dst, sel, n_dev=8):
@@ -1015,8 +1044,11 @@ def phase_k2(dev):
     rng = np.random.default_rng(SEED + 1)
     out = {"sorted": 0.0, "dense": 0.0}
     # (mode, slots, ops, share of rows on one slot)
+    # the hot slots (every row, and nine rows in ten, on one slot) cross
+    # the fold tile's checks: their shared words move in mid-range
     cases = (("sorted", 65536, None, 0.0), ("dense", 1000, None, 0.0), ("dense", 8, None, 0.8),
-             ("dense", 2048, None, 0.0), ("dense", 2048, EDGE_OPS, 0.0))
+             ("dense", 2048, None, 0.0), ("dense", 2048, EDGE_OPS, 0.0), ("dense", 1000, None, 1.0),
+             ("dense", 1000, None, 0.9))
     for mode, g, edge_ops, skew in cases:
         ids = rng.integers(0, g, N)
         if skew:
@@ -1105,18 +1137,21 @@ K4_OPS14 = tuple(x + y for x, y in zip(K4_OPS8, (("sum", "max", "min", "count", 
 def phase_k3k4(dev):
     rng = np.random.default_rng(SEED + 3)
     k3_err, k4_err = 0.0, 0.0
-    # (rows, slots, 80% of the rows on one gid, op list, launches): 2,048-slot
-    # windows of 5 buckets; the widest op list (one block's shared memory
-    # before float SUMs took three windows; its three float SUMs make 20
-    # windows, two launches) over 16,383 slots with a ragged last block;
-    # one bucket taking most rows
-    for n, nslots, skew, (ops, value_of, mask_off), want in ((N, 10_001, False, K4_OPS8, 1),
-                                                             (N - 1000, 16_383, True, K4_OPS14, 2),
-                                                             (N, 16_001, True, K4_OPS8, 1)):
+    # (rows, slots, share of the rows on one gid, op list, launches):
+    # 2,048-slot windows of 5 buckets; the widest op list (one block's
+    # shared memory before float SUMs took three windows; its three float
+    # SUMs make 20 windows, two launches) over 16,383 slots with a ragged
+    # last block; one bucket taking most rows; every row, and nine in ten,
+    # on one gid (hot slots whose shared words move at the checks)
+    for n, nslots, skew, (ops, value_of, mask_off), want in ((N, 10_001, 0.0, K4_OPS8, 1),
+                                                             (N - 1000, 16_383, 0.8, K4_OPS14, 2),
+                                                             (N, 16_001, 0.8, K4_OPS8, 1),
+                                                             (N, 10_001, 1.0, K4_OPS8, 1),
+                                                             (N, 10_001, 0.9, K4_OPS8, 1)):
         # ids in [0, nslots]; nslots is the unselected rows' slot
         ids = rng.integers(0, nslots + 1, n)
         if skew:
-            ids[rng.random(n) < 0.8] = 12_345
+            ids[rng.random(n) < skew] = 12_345 if nslots > 12_345 else 4_321
         id_mod = 1 << nslots.bit_length()
         b0 = nslots.bit_length()
         m1 = torch.from_numpy(rng.random(n) < 0.9).to(dev)
@@ -1134,10 +1169,10 @@ def phase_k3k4(dev):
         nb = -(-(nslots + 1) // 2048)
         e3, e4, ms = compare_k3k4(gid, [f, i, f32, flag], id_mod, nb, nslots, mask_bits, ops, value_of, want)
         k3_err, k4_err = max(k3_err, e3), max(k4_err, e4)
-        log(f"phase 3b K3/K4: {n} rows, {nslots} slots ({nb} buckets{', 80% on one gid' if skew else ''}), "
-            f"{len(ops)} ops: K3 slab == plain (max_abs_err {e3}), K4 == plain, {want} launch(es) (sum max_abs_err "
-            f"{e4}), float SUMs == fixed_sum_plain bit for bit and bit-equal over the slab's rows permuted; "
-            f"K4 kernel only {ms:.3f} ms")
+        log(f"phase 3b K3/K4: {n} rows, {nslots} slots ({nb} buckets{f', {skew:.0%} on one gid' if skew else ''}), "
+            f"{len(ops)} ops: K3 slab and scale words == plain (max_abs_err {e3}), K4 over K3's slab == plain, "
+            f"{want} launch(es) (sum max_abs_err {e4}), float SUMs == fixed_sum_plain bit for bit, bit-equal to K4 "
+            f"with its own first pass and over the slab's rows permuted; K4 kernel only {ms:.3f} ms")
     return k3_err, k4_err
 
 
@@ -1427,46 +1462,61 @@ def phase_main_path(dev, kernel_stats, arrays):
             library_ms=library_ms(fold_rows(gid, vals, masks, g), ops, g, dev),
             library=LIBRARY,
         )
-    # K3 and K4 at q4's shape: the packed gid of g (slots 0..9999), lng and lat
-    nslots = 10_000
-    gid4 = (big.columns[4].data - 1).contiguous()
-    id_mod, nb = 1 << nslots.bit_length(), -(-(nslots + 1) // pt.WINDOW)
-    cols = [lng_t, lat_t]
-    slab = pt.slab_partition(gid4, cols, n_buckets=nb, id_mod=id_mod)
-    rows = slab[0].numel()
+    # K3 and K4 at q4's shape, as q4 launches them (ops/aggregate.py
+    # slab_reduce): K3 over the gid of g (slots 0..9999, 10000 unselected)
+    # with lng and lat, leaving the two float SUMs' scale words and the
+    # buckets' chunk counts; K4 over the slab as K3 left it, no first pass
+    from datafusion_tpu_torch.ops import aggregate as agg
+
+    (a3, kw3), = capture(agg, "slab_partition", lambda: ctx.sql(q4))
+    (a4, kw4), = capture(agg, "windowed_reduce", lambda: ctx.sql(q4))
+    gid4, cols = a3
+    k3 = lambda: pt.slab_partition(gid4, cols, **kw3)  # noqa: E731
+    k4 = lambda: pt.windowed_reduce(*a4, **kw4)  # noqa: E731
+    pg, vals4 = a4[0], a4[1]
+    rows = pg.numel()
     kernel_stats["slab_partition"].update(
         launches=launches["slab_partition"],
-        ms=time_ms(lambda: pt.slab_partition(gid4, cols, n_buckets=nb, id_mod=id_mod)),
-        kernel_ms=kernel_only_ms(lambda: pt.slab_partition(gid4, cols, n_buckets=nb, id_mod=id_mod),
-                                 "slab_partition_kernel"),
-        host_ms=host_only_ms(lambda: pt.slab_partition(gid4, cols, n_buckets=nb, id_mod=id_mod)),
-        plain_ms=time_ms(lambda: pt.slab_partition_plain(gid4, cols, n_buckets=nb, id_mod=id_mod), reps=3),
+        ms=time_ms(k3),
+        kernel_ms=kernel_only_ms(k3, "slab_partition_kernel"),
+        host_ms=host_only_ms(k3),
+        plain_ms=time_ms(lambda: pt.slab_partition_plain(gid4, cols, **kw3), reps=3),
         bound_ms=slab_bytes(N, rows, cols) / hbm_bytes_per_s() * 1e3,
-        # per row: the bucket (and, shift), the histogram add, the rank add
-        ops_bound_ms=4 * N / F32_OPS_PER_S * 1e3,
+        # per row: the bucket (and, shift), the histogram add, the rank add,
+        # and each scale word's max
+        ops_bound_ms=(4 + len(kw3["scales"])) * N / F32_OPS_PER_S * 1e3,
         library_ms=None,  # no one PyTorch call makes a gap-aligned per-block partition
     )
-    pg = slab[0]
-    gid_k = torch.where(pg >= pt.SENTINEL, pg, pg & (id_mod - 1))
-    ops4, vals4, masks4 = ("count", "sum", "sum"), [None, slab[1], slab[2]], [None] * 3
+    ops4, masks4, fold, nslots = kw4["ops"], [None] * len(kw4["ops"]), kw4["slab"], kw4["num_groups"]
+    gid_k, _ = fold.unpacked(pg)
     # K4 must read every slab row's gid, but a payload only where the row
     # is live: a SENTINEL gap is never reduced
     live = int((pg < pt.SENTINEL).sum())
-    kms4, first4 = fold_kernel_ms(lambda: pt.windowed_reduce(gid_k, vals4, masks4, ops=ops4, num_groups=nslots),
-                                  "windowed_reduce_kernel", sr.fold_launches(sr.fold_widths(ops4, vals4), pt.WINDOW),
-                                  "fold_scale_kernel", ops4, vals4)
+    # K4's fold and its first pass (fold_scale_kernel) from one trace: over
+    # K3's slab the first pass must not launch, as K3 left the scale words
+    got = traced_kernels(k4, ["windowed_reduce_kernel", "fold_scale_kernel"])
+    check(got is not None, "phase 4: torch.profiler recorded no windowed_reduce_kernel launch in two traces, "
+          "so K4's first pass cannot be read")
+    (n_fold, fold_ms), (n_first, first4) = got["windowed_reduce_kernel"], got["fold_scale_kernel"]
+    check(n_first == 0, f"phase 4: K4 over K3's slab launched fold_scale_kernel {n_first} times a call")
+    kms4 = fold_ms / n_fold * len(sr.fold_launches(sr.fold_widths(ops4, vals4), pt.WINDOW)) + first4
+    k34 = kernel_stats["slab_partition"]["kernel_ms"] + kms4
     kernel_stats["windowed_reduce"].update(
         launches=launches["windowed_reduce"],
-        ms=time_ms(lambda: pt.windowed_reduce(gid_k, vals4, masks4, ops=ops4, num_groups=nslots)),
+        ms=time_ms(k4),
         kernel_ms=kms4,
         first_pass_ms=first4,
-        host_ms=host_only_ms(lambda: pt.windowed_reduce(gid_k, vals4, masks4, ops=ops4, num_groups=nslots)),
+        k3_plus_k4_ms=k34,
+        host_ms=host_only_ms(k4),
         plain_ms=time_ms(lambda: pt.windowed_reduce_plain(gid_k, vals4, masks4, ops=ops4, num_groups=nslots), reps=3),
         bound_ms=(rows * 4 + live * (8 + 8) + nslots * 8 * len(ops4)) / hbm_bytes_per_s() * 1e3,
         ops_bound_ms=len(ops4) * live / F32_OPS_PER_S * 1e3,
-        library_ms=library_ms(fold_rows(gid4, [None, lng_t, lat_t], masks4, nslots), ops4, nslots, dev),
+        library_ms=library_ms(fold_rows(gid_k, vals4, masks4, nslots), ops4, nslots, dev),
         library=LIBRARY,
     )
+    log(f"phase 4 K3 + K4 at q4's shape: K3 {kernel_stats['slab_partition']['kernel_ms']:.3f} ms (with "
+        f"{len(kw3['scales'])} scale words) + K4 {kms4:.3f} ms = {k34:.3f} ms, kernel only; K4's first pass "
+        f"launched {n_first} times a call ({first4:.3f} ms)")
     return big
 
 

@@ -76,9 +76,9 @@
 //   and each block inits its tables once and flushes each touched slot
 //   into the receiver's row of the device tables by one global atomic at
 //   the end; the last block decodes MIN/MAX and the float SUMs in place.
-//   Op traits are K2 dense mode's: a float SUM in fixed point (three
-//   shared tables, after a first pass over the launch's routed rows for its
-//   scale: reduce_common.cuh), i64 sums, i64 counts, MIN/MAX on the
+//   Op traits are K2 dense mode's: a float SUM in fixed point (six 32-bit
+//   shared words a slot, after a first pass over the launch's routed rows
+//   for its scale: reduce_common.cuh), i64 sums, i64 counts, MIN/MAX on the
 //   order-preserving image. A mesh's float SUM takes one scale: where its
 //   receivers take several launches (one per card or process), the C entry
 //   runs the first pass alone (`phases` 1) on each, the wrapper writes the
@@ -175,7 +175,7 @@ __device__ __forceinline__ const uint8_t* sender_mask(const long long* ptrs, int
   return (const uint8_t*)ptrs[(long long)(1 + k + a) * n_send + j];
 }
 
-__global__ void __launch_bounds__(DFT_FOLD_TPB)
+__global__ void __launch_bounds__(DFT_FOLD_TPB, 2)
 ragged_exchange_fold_kernel(const long long* __restrict__ ptrs, const int* __restrict__ sizes, int n_send,
                             int n_recv, long long split_cap, int num_groups, int reps, FoldArgs ops, unsigned int* done) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -183,10 +183,10 @@ ragged_exchange_fold_kernel(const long long* __restrict__ ptrs, const int* __res
   const int i = blockIdx.y;  // the receiver
   const int k = ops.n;
   load_fold_shared(s, ops, false);
-  const int tbl_bytes = num_groups * reps * 8;
-  fold_init(smem, ops.ntbl * tbl_bytes);
+  fold_init(smem, ops.smem);
   const long long B = gridDim.x, b = blockIdx.x;
   long long toff = 0;  // tiles of the senders before j
+  int steps = 0;
   for (int j = 0; j < n_send; ++j) {
     const long long cnt = sizes[(long long)j * n_recv + i];
     if (cnt == 0) continue;  // block-uniform
@@ -197,13 +197,12 @@ ragged_exchange_fold_kernel(const long long* __restrict__ ptrs, const int* __res
     }
     __syncthreads();
     const long long first = ((b - toff) % B + B) % B;  // this block's first tile of sender j
-    fold_range(smem, tbl_bytes, k, s, sender_gid(ptrs, j), (long long)i * split_cap, cnt, first, B, num_groups,
-               reps, (long long)i * num_groups);
+    fold_range(smem, k, ops.nfix, s, sender_gid(ptrs, j), (long long)i * split_cap, cnt, first, B, num_groups,
+               reps, (long long)i * num_groups, steps);
     toff += (cnt + DFT_TILE_ROWS - 1) / DFT_TILE_ROWS;
   }
   __syncthreads();
-  fold_flush(smem, tbl_bytes, k, s, (long long)i * num_groups, num_groups, reps, (long long)n_recv * num_groups,
-             done);
+  fold_finish(smem, k, s, (long long)i * num_groups, num_groups, reps, (long long)n_recv * num_groups, done);
 }
 
 // K6's first pass: each fixed-point float SUM's largest finite |value|
@@ -232,8 +231,8 @@ ragged_scale_kernel(const long long* __restrict__ ptrs, const int* __restrict__ 
     const long long tiles = (cnt + DFT_TILE_ROWS - 1) / DFT_TILE_ROWS;
     for (long long t = ((b - toff) % B + B) % B; t < tiles; t += B) {
       long long r;
-      int c, w[DFT_TILE];
-      if (tile_slots(sender_gid(ptrs, j), (long long)i * split_cap, cnt, t, num_groups, r, c, w))
+      int c, g[DFT_TILE], w[DFT_TILE];
+      if (tile_slots(sender_gid(ptrs, j), (long long)i * split_cap, cnt, t, num_groups, r, c, g, w))
         tile_scales(s, ops.nfix, r, c, w, best);
     }
     toff += tiles;
@@ -320,9 +319,10 @@ extern "C" int dft_ragged_exchange_fold(const long long* ptrs, const int* sizes,
   const void* none[DFT_FOLD_MAX_OPS] = {};
   if (!fold_args(&o, n_ops, kinds, none, (const uint8_t* const*)none, outs, aux, (long long)n_recv * num_groups,
                  true) ||
-      (fold_has_fix(o) && (long long)n_send * split_cap > DFT_FIX_MAX_ROWS))  // a receiver's rows
+      (fold_has_fix(o) && (long long)n_send * split_cap > DFT_FIX_MAX_ROWS) ||  // a receiver's rows
+      !fold_layout(&o, (long long)num_groups * reps))
     return (int)cudaErrorInvalidValue;
-  const int smem = o.ntbl * num_groups * reps * 8;
+  const int smem = o.smem;
   cudaError_t err;
   const long long fill = fold_blocks(ragged_exchange_fold_kernel, smem, &err);
   if (err != cudaSuccess) return (int)err;

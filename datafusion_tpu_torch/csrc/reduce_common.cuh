@@ -16,10 +16,12 @@
 //   point by integer atomics, which associate (fix_tile_fold below): E is the
 //   exponent of the largest finite |value| among the launch's kept rows
 //   (a first pass, fold_scale_*, leaves it in device memory, so the
-//   launch reads nothing back to the host); each value splits into three
-//   signed 32-bit digits on the grid 2^(E-95), rounded to nearest even in
-//   the last, each digit summed in its own int64 table, and a fourth table
-//   ORs the NaN / +inf / -inf flags. The last block turns the exact digit
+//   launch reads nothing back to the host; K4 takes it from K3 where K3
+//   made its slab); each value splits into three signed 32-bit digits on
+//   the grid 2^(E-95), rounded to nearest even in the last, each digit
+//   summed exactly (in a block's shared memory as two 32-bit words, in
+//   device memory in its own int64 table), and a fourth table ORs the
+//   NaN / +inf / -inf flags. The last block turns the exact digit
 //   totals into the f64 result, rounded once to nearest (fix_decode).
 //   A value's error is at most half a grid step, so a slot of n rows is
 //   within n * 2^(E-96) of the exact sum, plus the result's own rounding
@@ -60,6 +62,14 @@ enum {
   K_FIX_F32, K_FIX_F64, K_KINDS
 };
 #define DFT_FIX_TABLES 3
+
+// Ablations, for scripts/fold_variants.py only (the engine's library
+// never sets them): DFT_ABLATE 1 computes every float SUM's digits in the
+// fold tile but adds none to the shared tables (a branch never taken keeps
+// them alive), 2 skips the flush of the shared tables to the device tables.
+#ifndef DFT_ABLATE
+#define DFT_ABLATE 0
+#endif
 
 __device__ __forceinline__ int img32(float x) {
   int b = __float_as_int(x);
@@ -305,23 +315,27 @@ static inline bool dft_valid_kind(int kind, bool fold) {
   return fold ? !dft_float_sum(kind) : !dft_fix_kind(kind);
 }
 
-// A window is DFT_WINDOW slots of 8 bytes per shared table (K4's bucket,
-// K6's receiver table): DFT_MAX_OPS of them fit the 227 KB a Hopper block
-// may hold. An op takes one, a fixed-point float SUM DFT_FIX_TABLES.
+// A window is DFT_WINDOW slots (K4's bucket, K6's receiver table). The
+// host counts a launch's shared tables in 8-byte-slot units (`ntbl`: one
+// an op, DFT_FIX_TABLES a float SUM), and DFT_MAX_OPS units of a window fit
+// the 227 KB a Hopper block may hold; a table whose slot is narrower
+// (dft_slot_bytes) takes fewer bytes than its units.
 #define DFT_WINDOW 2048
 #define DFT_MAX_OPS 14
 
 // --- the fold tile (K2 dense mode, K4, K6; K2 sorted mode shares its loads and tables)
-// A block folds rows into one shared-memory table per op (three for a
-// fixed-point float SUM), `slots` live slots of 8 bytes, each slot held
-// `reps` times (a power of two up
-// to 32): lane l of a warp updates replica l % reps, so the lanes of a
-// warp on one slot do not contend; the flush combines the replicas. A
-// thread takes DFT_TILE consecutive rows: their ids, then each op's
-// values and mask bytes, load as one or two 16-byte vectors (4 bytes for
-// masks) where the stream is aligned, and the kind's switch is taken once
-// per tile, not per row. Equal neighbouring ids combine in registers
-// before the shared atomic, and a zero contribution makes none.
+// A block folds rows into one shared-memory table per op, `slots` live
+// slots, each slot held `reps` times (a power of two up to 32): lane l of
+// a warp updates replica l % reps, so the lanes of a warp on one slot do
+// not contend; the flush combines the replicas. A thread takes DFT_TILE
+// consecutive rows: their ids, then each op's values and mask bytes (one
+// or two 16-byte vectors, 4 bytes for masks, where the stream is
+// aligned), and the kind's switch is taken once per tile, not per row.
+// Equal neighbouring ids combine in registers before the shared atomic,
+// and a zero contribution makes none. COUNT and 32-bit MIN/MAX take
+// 4-byte slots and a float SUM six 4-byte words (below), each added by a
+// native atomic whose result is not read; integer SUM (two 32-bit words
+// and a carry) and 64-bit MIN/MAX (a CAS loop) keep 8-byte slots.
 //
 // Every table, in shared and in device memory, holds each op's identity
 // as 0 bits (Zero<Op>), so one memset clears them all: SUM, COUNT and the
@@ -341,14 +355,57 @@ static inline bool dft_valid_kind(int kind, bool fold) {
 #define DFT_FIX_MAX_ROWS 0x7fffffffLL    // rows one launch may fold with a float SUM: the digit totals' headroom
 #define DFT_MAX_FIX (DFT_FOLD_MAX_OPS / DFT_FIX_TABLES)  // fixed-point float SUMs a launch holds
 
+// A float SUM's shared slot: each of its three digits d (an exact int64
+// partial) as two 32-bit words, hi = d >> 16 and lo = d & 0xffff, so d =
+// hi * 2^16 + lo; each word is added by one native atomic whose result is
+// not read. A row adds less than 2^16 + 1 to a word's magnitude (a digit
+// is at most 2^32), so a word stays exact while a block folds
+// DFT_FIX_CHECK_ROWS rows from a magnitude of at most DFT_FIX_CHECK_LIMIT:
+// at every such check (fix_check) the block moves each word past the limit
+// into its device table and zeroes it. A table of rows spread over many
+// slots moves nothing until its flush; a hot slot moves its words. Both
+// are macros so that the CPU emulation can make the checks move words.
+#define DFT_FIX_WORDS 6
+#ifndef DFT_FIX_CHECK_ROWS
+#define DFT_FIX_CHECK_ROWS 16384
+#endif
+#ifndef DFT_FIX_CHECK_LIMIT
+#define DFT_FIX_CHECK_LIMIT (1 << 29)
+#endif
+static_assert(DFT_FIX_CHECK_ROWS % DFT_TILE_ROWS == 0, "checks fall between a block's steps of DFT_TILE_ROWS rows");
+static_assert((long long)DFT_FIX_CHECK_LIMIT + (long long)DFT_FIX_CHECK_ROWS * 65537 <= 0x7fffffffLL,
+              "a float SUM's shared word stays within int32 between two checks");
+
+// Bytes of one slot (one replica) of a fold-tile op's shared table, and
+// of one row of its value stream (0: COUNT reads none)
+static inline int dft_slot_bytes(int kind) {
+  switch (kind) {
+    case K_COUNT: case K_MIN_F32: case K_MAX_F32: case K_MIN_I32: case K_MAX_I32: return 4;
+    case K_FIX_F32: case K_FIX_F64: return 4 * DFT_FIX_WORDS;
+    default: return 8;
+  }
+}
+__device__ __forceinline__ int dft_value_bytes(int kind) {
+  switch (kind) {
+    case K_COUNT: return 0;
+    case K_SUM_F32: case K_SUM_I32: case K_MIN_F32: case K_MAX_F32: case K_MIN_I32: case K_MAX_I32:
+    case K_FIX_F32: return 4;
+    default: return 8;
+  }
+}
+
 // the ops of a fold, in shared memory (indexed per op without a stack
 // frame); aux is a float SUM's scale word (the fold tile) or its edge
-// slots (K2 sorted), sc the fold tile's scale from it, tbl the op's first
-// shared table, stride the slots of each device table (a fixed-point float
-// SUM's four lie one stride apart)
+// slots (K2 sorted), sc the fold tile's scale from it, soff the byte
+// offset of the op's shared table, mbit the bit of a packed id that
+// holds the op's mask (-1: its mask stream, or none), stride the slots of
+// each device table (a fixed-point float SUM's four lie one stride
+// apart), sr the slots times replicas of a shared table, and id_mod the
+// power of two the ids are packed below (0: the ids as given)
 struct FoldShared {
   int kind[DFT_FOLD_MAX_OPS];
-  int tbl[DFT_FOLD_MAX_OPS];
+  int soff[DFT_FOLD_MAX_OPS];
+  int mbit[DFT_FOLD_MAX_OPS];
   const void* val[DFT_FOLD_MAX_OPS];
   const uint8_t* mask[DFT_FOLD_MAX_OPS];
   void* out[DFT_FOLD_MAX_OPS];
@@ -356,15 +413,18 @@ struct FoldShared {
   FixScale sc[DFT_FOLD_MAX_OPS];
   int fix[DFT_MAX_FIX];
   long long stride;
+  int sr, id_mod;
 };
 
 // the same, passed by value to a kernel, with what the host counts: the
-// shared tables (ntbl; tbl per op) and the fixed-point float SUMs (nfix; fix)
+// shared tables in 8-byte-slot units (ntbl), their layout (smem bytes,
+// soff per op: fold_layout), the fixed-point float SUMs (nfix; fix)
 struct FoldArgs {
-  int n, ntbl, nfix;
+  int n, ntbl, nfix, smem, sr, id_mod;
   long long stride;
   int kinds[DFT_FOLD_MAX_OPS];
-  int tbl[DFT_FOLD_MAX_OPS];
+  int soff[DFT_FOLD_MAX_OPS];
+  int mbit[DFT_FOLD_MAX_OPS];
   int fix[DFT_MAX_FIX];
   const void* vals[DFT_FOLD_MAX_OPS];
   const uint8_t* masks[DFT_FOLD_MAX_OPS];
@@ -382,21 +442,36 @@ static inline bool fold_args(FoldArgs* o, int n_ops, const int* kinds, const voi
   if (n_ops < 0 || n_ops > DFT_FOLD_MAX_OPS) return false;
   o->n = n_ops;
   o->stride = stride;
-  o->ntbl = o->nfix = 0;
+  o->ntbl = o->nfix = o->smem = o->sr = o->id_mod = 0;
   for (int a = 0; a < n_ops; ++a) {
     if (!dft_valid_kind(kinds[a], fold)) return false;
     o->kinds[a] = kinds[a];
     o->vals[a] = vals[a];
     o->masks[a] = masks[a];
+    o->mbit[a] = -1;
     o->outs[a] = outs[a];
     o->aux[a] = aux[a];
+    o->soff[a] = 0;
     const bool fix = dft_fix_kind(kinds[a]);
     if ((fix || dft_float_sum(kinds[a])) && aux[a] == nullptr) return false;
-    o->tbl[a] = o->ntbl;
     o->ntbl += fix ? DFT_FIX_TABLES : 1;
     if (fix) o->fix[o->nfix++] = a;
   }
   return o->ntbl <= DFT_FOLD_MAX_OPS;
+}
+
+// The shared tables of `sr` slots times replicas each, one after another
+// on 16-byte boundaries: each op's offset, and the block's bytes (false
+// past what a block may hold).
+static inline bool fold_layout(FoldArgs* o, long long sr) {
+  long long off = 0;
+  for (int a = 0; a < o->n; ++a) {
+    o->soff[a] = (int)off;
+    off += ((long long)dft_slot_bytes(o->kinds[a]) * sr + 15) / 16 * 16;
+  }
+  o->sr = (int)sr;
+  o->smem = (int)off;
+  return sr <= 0x7fffffffLL && off <= 232448;
 }
 
 // a block's copy of the kernel's FoldArgs; read after the next
@@ -408,7 +483,8 @@ __device__ __forceinline__ void load_fold_shared(FoldShared& s, const FoldArgs& 
   const int a = threadIdx.x;
   if (a < o.n) {
     s.kind[a] = o.kinds[a];
-    s.tbl[a] = o.tbl[a];
+    s.soff[a] = o.soff[a];
+    s.mbit[a] = o.mbit[a];
     if (rows) {
       s.val[a] = o.vals[a];
       s.mask[a] = o.masks[a];
@@ -418,15 +494,18 @@ __device__ __forceinline__ void load_fold_shared(FoldShared& s, const FoldArgs& 
     if (scale && dft_fix_kind(o.kinds[a])) s.sc[a] = fix_scale(*(const unsigned long long*)o.aux[a]);
   }
   if (a < o.nfix) s.fix[a] = o.fix[a];
-  if (a == 0) s.stride = o.stride;
+  if (a == 0) {
+    s.stride = o.stride;
+    s.sr = o.sr;
+    s.id_mod = o.id_mod;
+  }
 }
 
 static inline bool dft_valid_reps(int reps) { return reps >= 1 && reps <= DFT_MAX_REPS && (reps & (reps - 1)) == 0; }
 
 // Shared is what a block's shared table holds, Acc the device table;
 // a shared value goes to the device table through widen(). `of(x)` is
-// value x's contribution. A fixed-point digit adds as an i64 SUM does
-// (FixDigit).
+// value x's contribution.
 template <class Op, int MM = Op::MM>
 struct Zero {  // SUM: the op itself, whose identity is 0
   typedef typename Op::In In;
@@ -454,10 +533,9 @@ struct Zero<CountOp, 0> {
   static __device__ __forceinline__ Acc widen(Shared v) { return (Acc)v; }
 };
 
-// A fixed-point digit's table: int64 totals, added with wrap-around
-// (exact below 2^31 rows a launch), in shared memory by dft_shared_add64.
+// A fixed-point digit's device table: int64 totals, added with
+// wrap-around (exact below 2^31 rows a launch).
 typedef SumIntOp<long long> FixDigitOp;
-typedef Zero<FixDigitOp> FixDigit;
 
 template <class Op, int MM>
 struct ZeroMinMax {  // MIN (MM 1) and MAX (MM 2)
@@ -517,100 +595,138 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ p, long long r, 
   }
 }
 
-// A tile's keep flags: w[k] >= 0 and the mask byte set
-__device__ __forceinline__ void tile_keep(const uint8_t* mask, long long r, int cnt, const int (&w)[DFT_TILE],
-                                          bool (&keep)[DFT_TILE]) {
-  if (mask != nullptr) {
-    uint8_t m[DFT_TILE];
-    load_tile(mask, r, cnt, m);
+// One op's rows of a thread's tile: the values as bits (a 4-byte type in
+// the low half), and each row's mask (true without one).
+struct OpTile {
+  unsigned long long x[DFT_TILE];
+  bool on[DFT_TILE];
+};
+
+template <typename In>
+__device__ __forceinline__ In tile_value(const OpTile& t, int k) {
+  In v;
+  memcpy(&v, &t.x[k], sizeof(In));
+  return v;
+}
+
+// op a's rows r .. r + c - 1 into t; g holds the rows' ids as read (a
+// packed id carries the op's mask bit, s.mbit)
+__device__ __forceinline__ void op_load(const FoldShared& s, int a, long long r, int c, const int (&g)[DFT_TILE],
+                                        OpTile& t) {
+  const int vb = dft_value_bytes(s.kind[a]);
+  if (vb == 8) {
+    load_tile((const unsigned long long*)s.val[a], r, c, t.x);
+  } else if (vb == 4) {
+    unsigned int u[DFT_TILE];
+    load_tile((const unsigned int*)s.val[a], r, c, u);
 #pragma unroll
-    for (int k = 0; k < DFT_TILE; ++k) keep[k] = w[k] >= 0 && m[k];
+    for (int k = 0; k < DFT_TILE; ++k) t.x[k] = u[k];
   } else {
 #pragma unroll
-    for (int k = 0; k < DFT_TILE; ++k) keep[k] = w[k] >= 0;
+    for (int k = 0; k < DFT_TILE; ++k) t.x[k] = 0;
+  }
+  const int bit = s.mbit[a];
+  const uint8_t* mask = s.mask[a];
+  if (bit >= 0) {
+#pragma unroll
+    for (int k = 0; k < DFT_TILE; ++k) t.on[k] = (g[k] >> bit) & 1;
+  } else if (mask != nullptr) {
+    uint8_t m[DFT_TILE];
+    load_tile(mask, r, c, m);
+#pragma unroll
+    for (int k = 0; k < DFT_TILE; ++k) t.on[k] = m[k];
+  } else {
+#pragma unroll
+    for (int k = 0; k < DFT_TILE; ++k) t.on[k] = true;
   }
 }
 
-// one op (not a float SUM) over one thread's tile: w[k] is row r + k's
-// slot, or -1 (dropped)
+// one op (not a float SUM) over one thread's tile into its shared table
+// `tbl`: w[k] is row k's slot, or -1 (dropped)
 template <class Op>
-__device__ __forceinline__ void tile_fold(unsigned char* tbl, int reps, int rep, const void* vals,
-                                          const uint8_t* mask, long long r, int cnt, const int (&w)[DFT_TILE]) {
+__device__ __forceinline__ void tile_fold(unsigned char* tbl, int reps, int rep, const OpTile& t,
+                                          const int (&w)[DFT_TILE]) {
   typedef Zero<Op> Z;
   typedef typename Op::In In;
   typedef typename Z::Shared Acc;
-  bool any = false;
-#pragma unroll
-  for (int k = 0; k < DFT_TILE; ++k) any |= w[k] >= 0;
-  if (!any) return;  // no row kept: read no values (K3's gaps)
-  In x[DFT_TILE] = {};
-  if constexpr (!std::is_same<Op, CountOp>::value) load_tile((const In*)vals, r, cnt, x);
-  bool keep[DFT_TILE];
-  tile_keep(mask, r, cnt, w, keep);
-  Acc* t = (Acc*)tbl + rep;
+  Acc* p = (Acc*)tbl + rep;
   int cur = -1;
   Acc acc = 0;
 #pragma unroll
   for (int k = 0; k < DFT_TILE; ++k) {
-    if (!keep[k]) continue;
-    const Acc c = Z::of(x[k]);
+    if (w[k] < 0 || !t.on[k]) continue;
+    const Acc c = Z::of(tile_value<In>(t, k));
     if (w[k] == cur) {
       acc = Z::combine(acc, c);
     } else {
-      if (cur >= 0 && acc != (Acc)0) Z::satomic(t + cur * reps, acc);
+      if (cur >= 0 && acc != (Acc)0) Z::satomic(p + cur * reps, acc);
       cur = w[k];
       acc = c;
     }
   }
-  if (cur >= 0 && acc != (Acc)0) Z::satomic(t + cur * reps, acc);
+  if (cur >= 0 && acc != (Acc)0) Z::satomic(p + cur * reps, acc);
+}
+
+// the same op's rows whose slot lies outside the block's table (far[k] >=
+// 0: the device table's slot), each by a global atomic
+template <class Op>
+__device__ __forceinline__ void tile_far(void* out, const OpTile& t, const int (&far)[DFT_TILE]) {
+  typedef Zero<Op> Z;
+  typedef typename Op::In In;
+#pragma unroll
+  for (int k = 0; k < DFT_TILE; ++k)
+    if (far[k] >= 0 && t.on[k]) Z::atomic((typename Z::Acc*)out + far[k], Z::widen(Z::of(tile_value<In>(t, k))));
+}
+
+__device__ __forceinline__ void word_add(int* p, int v) {
+  if (v) atomicAdd(p, v);
+}
+
+// A float SUM's exact digit partials d0, d1, d2 into its six words of one
+// slot replica (p: word 0; word j lies j * sr ints further)
+__device__ __forceinline__ void fix_add(int* p, int sr, long long d0, long long d1, long long d2) {
+  word_add(p, (int)(d0 >> 16));
+  word_add(p + sr, (int)(d0 & 0xffff));
+  word_add(p + 2 * sr, (int)(d1 >> 16));
+  word_add(p + 3 * sr, (int)(d1 & 0xffff));
+  word_add(p + 4 * sr, (int)(d2 >> 16));
+  word_add(p + 5 * sr, (int)(d2 & 0xffff));
 }
 
 // A float SUM (op a, values of type In) over one thread's tile: each
 // row's three digits and flags computed once, equal neighbouring slots
-// combined in registers, the digits into op a's three shared tables and
-// the flags (a non-finite value is rare: no shared table) into its flag
-// table from slot `gbase`; zeros make no atomic.
+// combined in registers, the digits into op a's shared words and the
+// flags (a non-finite value is rare: no shared table) into its flag table
+// from slot `gbase`.
 template <typename In>
-__device__ __forceinline__ void fix_tile_fold(unsigned char* smem, int tbl_bytes, const FoldShared& s, int a,
-                                              long long gbase, int reps, int rep, long long r, int cnt,
-                                              const int (&w)[DFT_TILE]) {
-  typedef FixDigit Z;
-  bool any = false;
-#pragma unroll
-  for (int k = 0; k < DFT_TILE; ++k) any |= w[k] >= 0;
-  if (!any) return;
-  In x[DFT_TILE];
-  load_tile((const In*)s.val[a], r, cnt, x);
-  bool keep[DFT_TILE];
-  tile_keep(s.mask[a], r, cnt, w, keep);
+__device__ __forceinline__ void fix_tile_fold(unsigned char* smem, const FoldShared& s, int a, long long gbase,
+                                              int reps, int rep, const OpTile& t, const int (&w)[DFT_TILE]) {
   const FixScale sc = s.sc[a];
-  long long* t0 = (long long*)(smem + s.tbl[a] * tbl_bytes) + rep;
-  long long* t1 = (long long*)(smem + (s.tbl[a] + 1) * tbl_bytes) + rep;
-  long long* t2 = (long long*)(smem + (s.tbl[a] + 2) * tbl_bytes) + rep;
+  int* p = (int*)(smem + s.soff[a]) + rep;
+  const int sr = s.sr;
   unsigned long long* gf = (unsigned long long*)s.out[a] + 3 * s.stride + gbase;
   int cur = -1;
   long long a0 = 0, a1 = 0, a2 = 0;
   unsigned long long af = 0;
 #pragma unroll
   for (int k = 0; k <= DFT_TILE; ++k) {
-    if (k < DFT_TILE && !keep[k]) continue;
+    if (k < DFT_TILE && (w[k] < 0 || !t.on[k])) continue;
     long long d0 = 0, d1 = 0, d2 = 0;
     unsigned long long f = 0;
     if (k < DFT_TILE) {
-      fix_digits((double)x[k], sc, d0, d1, d2);
-      f = fix_flags((double)x[k]);
+      const double x = (double)tile_value<In>(t, k);
+      fix_digits(x, sc, d0, d1, d2);
+      f = fix_flags(x);
       if (w[k] == cur) {
-        a0 = Z::combine(a0, d0);
-        a1 = Z::combine(a1, d1);
-        a2 = Z::combine(a2, d2);
+        a0 += d0;
+        a1 += d1;
+        a2 += d2;
         af |= f;
         continue;
       }
     }
-    if (cur >= 0) {  // the run of `cur` ends
-      if (a0) Z::satomic(t0 + cur * reps, a0);
-      if (a1) Z::satomic(t1 + cur * reps, a1);
-      if (a2) Z::satomic(t2 + cur * reps, a2);
+    if (cur >= 0 && (DFT_ABLATE != 1 || (a0 ^ a1 ^ a2) == 0x5a5a5a5a5a5a5a5aLL)) {  // the run of `cur` ends
+      fix_add(p + cur * reps, sr, a0, a1, a2);
       if (af) dft_red_or(gf + cur, af);
     }
     if (k < DFT_TILE) {
@@ -626,124 +742,135 @@ __device__ __forceinline__ void fix_tile_fold(unsigned char* smem, int tbl_bytes
 // A float SUM's far rows (far[k] >= 0): each row's digits and flags by
 // global atomics into op a's four device tables.
 template <typename In>
-__device__ __forceinline__ void fix_tile_far(const FoldShared& s, int a, long long r, int cnt,
+__device__ __forceinline__ void fix_tile_far(const FoldShared& s, int a, const OpTile& t,
                                              const int (&far)[DFT_TILE]) {
-  In x[DFT_TILE];
-  load_tile((const In*)s.val[a], r, cnt, x);
-  const uint8_t* mask = s.mask[a];
 #pragma unroll
   for (int k = 0; k < DFT_TILE; ++k)
-    if (far[k] >= 0 && (mask == nullptr || mask[r + k])) {
+    if (far[k] >= 0 && t.on[k]) {
+      const double x = (double)tile_value<In>(t, k);
       long long d[3];
-      fix_digits((double)x[k], s.sc[a], d[0], d[1], d[2]);
+      fix_digits(x, s.sc[a], d[0], d[1], d[2]);
       unsigned long long* out = (unsigned long long*)s.out[a] + far[k];
       for (int i = 0; i < 3; ++i)
         if (d[i]) dft_red_add(out + i * s.stride, (unsigned long long)d[i]);
-      const unsigned long long f = fix_flags((double)x[k]);
+      const unsigned long long f = fix_flags(x);
       if (f) dft_red_or(out + 3 * s.stride, f);
     }
 }
 
-// `bytes` (a multiple of 8) of shared tables to 0: every op's identity
-__device__ __forceinline__ void fold_init(unsigned char* smem, int bytes) {
-  for (int i = threadIdx.x; i < bytes / 8; i += blockDim.x) ((unsigned long long*)smem)[i] = 0;
+// op a's loaded tile t: rows with a slot w[k] >= 0 into its shared table,
+// rows with far[k] >= 0 into its device table (`any_far`: some row has one)
+__device__ __forceinline__ void op_fold(unsigned char* smem, const FoldShared& s, int a, long long gbase, int reps,
+                                        int rep, const OpTile& t, const int (&w)[DFT_TILE],
+                                        const int (&far)[DFT_TILE], bool any_far) {
+  const int kind = s.kind[a];
+  if (kind == K_FIX_F32) {
+    fix_tile_fold<float>(smem, s, a, gbase, reps, rep, t, w);
+    if (any_far) fix_tile_far<float>(s, a, t, far);
+  } else if (kind == K_FIX_F64) {
+    fix_tile_fold<double>(smem, s, a, gbase, reps, rep, t, w);
+    if (any_far) fix_tile_far<double>(s, a, t, far);
+  } else {
+    DFT_DISPATCH_EXACT(kind, tile_fold, smem + s.soff[a], reps, rep, t, w)
+    if (any_far) {
+      DFT_DISPATCH_EXACT(kind, tile_far, s.out[a], t, far)
+    }
+  }
 }
 
-// A thread's tile of `cnt` rows from `base`: its slots w (-1 for a row
-// past cnt or an id outside [0, slots)); false when the tile starts past cnt.
+// Every op over one thread's tile, rows r .. r + c - 1 with ids g as read:
+// w[k] the row's slot in the block's tables or -1, far[k] its slot in the
+// device tables or -1 (a float SUM's flags go to its device table from
+// slot `gbase`). No value is read where no row has a slot.
+__device__ __forceinline__ void fold_tile(unsigned char* smem, int n_ops, const FoldShared& s, long long gbase,
+                                          int reps, int rep, long long r, int c, const int (&g)[DFT_TILE],
+                                          const int (&w)[DFT_TILE], const int (&far)[DFT_TILE]) {
+  bool any = false, any_far = false;
+#pragma unroll
+  for (int k = 0; k < DFT_TILE; ++k) {
+    any |= w[k] >= 0 || far[k] >= 0;
+    any_far |= far[k] >= 0;
+  }
+  if (!any) return;  // no row kept: read no values (K3's gaps)
+  for (int a = 0; a < n_ops; ++a) {
+    OpTile t;
+    op_load(s, a, r, c, g, t);
+    op_fold(smem, s, a, gbase, reps, rep, t, w, far, any_far);
+  }
+}
+
+// `bytes` (a multiple of 16) of shared tables to 0: every op's identity
+__device__ __forceinline__ void fold_init(unsigned char* smem, int bytes) {
+  const uint4 zero = {0u, 0u, 0u, 0u};
+  for (int i = threadIdx.x; i < bytes / 16; i += blockDim.x) ((uint4*)smem)[i] = zero;
+}
+
+// A thread's tile of `cnt` rows from `base`: its ids g as read and slots w
+// (-1 for a row past cnt or an id outside [0, slots)); false when the tile
+// starts past cnt.
 __device__ __forceinline__ bool tile_slots(const int* __restrict__ gid, long long base, long long cnt, long long t,
-                                           int slots, long long& r, int& c, int (&w)[DFT_TILE]) {
+                                           int slots, long long& r, int& c, int (&g)[DFT_TILE],
+                                           int (&w)[DFT_TILE]) {
   const long long rel = t * DFT_TILE_ROWS + (long long)threadIdx.x * DFT_TILE;
   if (rel >= cnt) return false;
   c = cnt - rel < DFT_TILE ? (int)(cnt - rel) : DFT_TILE;
   r = base + rel;
-  load_tile(gid, r, c, w);
+  load_tile(gid, r, c, g);
 #pragma unroll
-  for (int k = 0; k < DFT_TILE; ++k)
-    if (k >= c || w[k] < 0 || w[k] >= slots) w[k] = -1;
+  for (int k = 0; k < DFT_TILE; ++k) w[k] = k >= c || g[k] < 0 || g[k] >= slots ? -1 : g[k];
   return true;
 }
 
-// Every op over one thread's tile w (slots in the block's tables); a
-// float SUM's flags go to its device table from slot `gbase`.
-__device__ __forceinline__ void fold_tile(unsigned char* smem, int tbl_bytes, int n_ops, const FoldShared& s,
-                                          long long gbase, int reps, int rep, long long r, int c,
-                                          const int (&w)[DFT_TILE]) {
-  for (int a = 0; a < n_ops; ++a) {
-    const int kind = s.kind[a];
-    if (kind == K_FIX_F32) {
-      fix_tile_fold<float>(smem, tbl_bytes, s, a, gbase, reps, rep, r, c, w);
-    } else if (kind == K_FIX_F64) {
-      fix_tile_fold<double>(smem, tbl_bytes, s, a, gbase, reps, rep, r, c, w);
-    } else {
-      DFT_DISPATCH_EXACT(kind, tile_fold, smem + s.tbl[a] * tbl_bytes, reps, rep, s.val[a], s.mask[a], r, c, w)
+// Every float SUM's shared words whose magnitude passed DFT_FIX_CHECK_LIMIT
+// into its device digit tables from slot `base`, and to 0; the block's
+// threads between two barriers (no atomic is in flight).
+__device__ __forceinline__ void fix_check(unsigned char* smem, int nfix, const FoldShared& s, long long base,
+                                          int reps) {
+  const int sr = s.sr;
+  for (int j = 0; j < nfix; ++j) {
+    const int a = s.fix[j];
+    int* words = (int*)(smem + s.soff[a]);
+    long long* out = (long long*)s.out[a];
+    for (int i = threadIdx.x; i < DFT_FIX_WORDS * sr; i += blockDim.x) {
+      const int v = words[i];
+      if (v > DFT_FIX_CHECK_LIMIT || v < -DFT_FIX_CHECK_LIMIT) {
+        const int word = i / sr, slot = (i % sr) / reps;
+        dft_red_add((unsigned long long*)out + (word >> 1) * s.stride + base + slot,
+                    (unsigned long long)((word & 1) ? (long long)v : (long long)v * 65536));
+        words[i] = 0;
+      }
     }
   }
+}
+
+// A block's step of DFT_TILE_ROWS rows is done: every DFT_FIX_CHECK_ROWS
+// rows (`steps` counts them; block-uniform) the float SUMs' words pass
+// fix_check. Every thread of the block calls it.
+__device__ __forceinline__ void fold_step(unsigned char* smem, const FoldShared& s, int nfix, long long base,
+                                          int reps, int& steps) {
+  if (nfix == 0 || ++steps < DFT_FIX_CHECK_ROWS / DFT_TILE_ROWS) return;
+  steps = 0;
+  __syncthreads();
+  fix_check(smem, nfix, s, base, reps);
+  __syncthreads();
 }
 
 // Tiles t_first, t_first + t_step, ... of the `cnt` rows from row `base`
-// (DFT_TILE_ROWS rows a tile) into the block's tables (op a's first at smem +
-// s.tbl[a] * tbl_bytes; a float SUM's flags into its device table from
-// slot `gbase`); ids outside [0, slots) are dropped.
-__device__ __forceinline__ void fold_range(unsigned char* smem, int tbl_bytes, int n_ops, const FoldShared& s,
+// (DFT_TILE_ROWS rows a tile) into the block's tables (a float SUM's flags
+// and checked words into its device tables from slot `gbase`); ids outside
+// [0, slots) are dropped. `steps` carries fold_step's count from call to call.
+__device__ __forceinline__ void fold_range(unsigned char* smem, int n_ops, int nfix, const FoldShared& s,
                                            const int* __restrict__ gid, long long base, long long cnt,
                                            long long t_first, long long t_step, int slots, int reps,
-                                           long long gbase) {
+                                           long long gbase, int& steps) {
   const int rep = threadIdx.x & (reps - 1);  // the lane's replica: reps divides the warp
   const long long tiles = (cnt + DFT_TILE_ROWS - 1) / DFT_TILE_ROWS;
+  const int none[DFT_TILE] = {-1, -1, -1, -1};
   for (long long t = t_first; t < tiles; t += t_step) {
     long long r;
-    int c, w[DFT_TILE];
-    if (tile_slots(gid, base, cnt, t, slots, r, c, w)) fold_tile(smem, tbl_bytes, n_ops, s, gbase, reps, rep, r, c, w);
-  }
-}
-
-// one op's (not a float SUM's) rows of a tile whose slot lies outside the
-// block's window (far[k] >= 0): each by a global atomic into the device
-// table
-template <class Op>
-__device__ __forceinline__ void tile_far(void* out, const void* vals, const uint8_t* mask, long long r, int cnt,
-                                         const int (&far)[DFT_TILE]) {
-  typedef Zero<Op> Z;
-  typedef typename Op::In In;
-  In x[DFT_TILE] = {};
-  if constexpr (!std::is_same<Op, CountOp>::value) load_tile((const In*)vals, r, cnt, x);
-#pragma unroll
-  for (int k = 0; k < DFT_TILE; ++k)
-    if (far[k] >= 0 && (mask == nullptr || mask[r + k])) Z::atomic((typename Z::Acc*)out + far[k], Z::widen(Z::of(x[k])));
-}
-
-// One thread's tile, rows r .. r + c - 1, into the block's tables of the
-// window [base, base + DFT_WINDOW) (one replica): a row whose id lies in
-// [0, num_groups) but outside the window goes to the device table by a
-// global atomic (a float SUM's flags do always), and any other row is
-// dropped.
-__device__ __forceinline__ void fold_window_tile(unsigned char* smem, int tbl_bytes, int n_ops, const FoldShared& s,
-                                                 const int* __restrict__ gid, long long r, int c, int base,
-                                                 int num_groups) {
-  int w[DFT_TILE], far[DFT_TILE];
-  load_tile(gid, r, c, w);
-  bool any_far = false;
-#pragma unroll
-  for (int k = 0; k < DFT_TILE; ++k) {
-    const int g = w[k];
-    const bool keep = k < c && g >= 0 && g < num_groups;
-    const bool in = keep && g >= base && g - base < DFT_WINDOW;
-    far[k] = keep && !in ? g : -1;
-    any_far |= far[k] >= 0;
-    w[k] = in ? g - base : -1;
-  }
-  fold_tile(smem, tbl_bytes, n_ops, s, base, 1, 0, r, c, w);
-  if (!any_far) return;
-  for (int a = 0; a < n_ops; ++a) {
-    const int kind = s.kind[a];
-    if (kind == K_FIX_F32) {
-      fix_tile_far<float>(s, a, r, c, far);
-    } else if (kind == K_FIX_F64) {
-      fix_tile_far<double>(s, a, r, c, far);
-    } else {
-      DFT_DISPATCH_EXACT(kind, tile_far, s.out[a], s.val[a], s.mask[a], r, c, far)
-    }
+    int c, g[DFT_TILE], w[DFT_TILE];
+    if (tile_slots(gid, base, cnt, t, slots, r, c, g, w)) fold_tile(smem, n_ops, s, gbase, reps, rep, r, c, g, w, none);
+    fold_step(smem, s, nfix, gbase, reps, steps);
   }
 }
 
@@ -757,6 +884,21 @@ __device__ __forceinline__ void tile_flush(unsigned char* tbl, void* out, long l
     Shared v = t[s * reps];
     for (int r = 1; r < reps; ++r) v = Z::combine(v, t[s * reps + r]);
     if (v != (Shared)0) Z::atomic((typename Z::Acc*)out + base + s, Z::widen(v));
+  }
+}
+
+// A float SUM's six words of each touched slot, replicas combined, as its
+// three digits into its device tables from slot `base`
+__device__ __forceinline__ void fix_flush(const int* words, long long* out, long long stride, long long base,
+                                          int slots, int reps, int sr) {
+  for (int s = threadIdx.x; s < slots; s += blockDim.x) {
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      long long v = 0;
+      for (int r = 0; r < reps; ++r)
+        v += (long long)words[2 * d * sr + s * reps + r] * 65536 + words[(2 * d + 1) * sr + s * reps + r];
+      if (v) dft_red_add((unsigned long long*)out + d * stride + base + s, (unsigned long long)v);
+    }
   }
 }
 
@@ -809,26 +951,35 @@ __device__ __forceinline__ void fold_decode(int n_ops, const FoldShared& s, long
   }
 }
 
-// Every op's shared tables into its device tables from slot `base`; then
-// the last block decodes.
-__device__ __forceinline__ void fold_flush(unsigned char* smem, int tbl_bytes, int n_ops, const FoldShared& s,
-                                           long long base, int slots, int reps, long long n_out,
-                                           unsigned int* done) {
-  for (int a = 0; a < n_ops; ++a) {
-    unsigned char* tbl = smem + s.tbl[a] * tbl_bytes;
+// Every op's shared tables (`slots` slots of `reps` replicas) into its
+// device tables from slot `base`.
+__device__ __forceinline__ void fold_flush(unsigned char* smem, int n_ops, const FoldShared& s, long long base,
+                                           int slots, int reps) {
+  for (int a = 0; a < n_ops && DFT_ABLATE != 2; ++a) {
+    unsigned char* tbl = smem + s.soff[a];
     if (dft_fix_kind(s.kind[a])) {  // block-uniform
-      for (int d = 0; d < DFT_FIX_TABLES; ++d)
-        tile_flush<FixDigitOp>(tbl + d * tbl_bytes, (long long*)s.out[a] + d * s.stride, base, slots, reps);
+      fix_flush((const int*)tbl, (long long*)s.out[a], s.stride, base, slots, reps, s.sr);
     } else {
       DFT_DISPATCH_EXACT(s.kind[a], tile_flush, tbl, s.out[a], base, slots, reps)
     }
   }
+}
+
+// fold_flush, then the last block decodes the `n_out`-slot device tables.
+__device__ __forceinline__ void fold_finish(unsigned char* smem, int n_ops, const FoldShared& s, long long base,
+                                            int slots, int reps, long long n_out, unsigned int* done) {
+  fold_flush(smem, n_ops, s, base, slots, reps);
   if (fold_last(done)) fold_decode(n_ops, s, n_out);
 }
 
 // --- the first pass of a launch with a fixed-point float SUM ----------------
 // The largest finite |x| among a float SUM's kept rows of a tile, as its
 // bits (which order non-negative doubles); 0 for none.
+__device__ __forceinline__ unsigned long long finite_abs_bits(double x) {
+  const unsigned long long b = (unsigned long long)__double_as_longlong(x) & 0x7fffffffffffffffULL;
+  return b < 0x7ff0000000000000ULL ? b : 0ULL;
+}
+
 template <typename In>
 __device__ __forceinline__ void tile_scale(const void* vals, const uint8_t* mask, long long r, int cnt,
                                            const int (&w)[DFT_TILE], unsigned long long& best) {
@@ -847,8 +998,8 @@ __device__ __forceinline__ void tile_scale(const void* vals, const uint8_t* mask
   }
 #pragma unroll
   for (int k = 0; k < DFT_TILE; ++k) {
-    const unsigned long long b = (unsigned long long)__double_as_longlong((double)x[k]) & 0x7fffffffffffffffULL;
-    if (w[k] >= 0 && m[k] && b < 0x7ff0000000000000ULL && b > best) best = b;
+    const unsigned long long b = finite_abs_bits((double)x[k]);
+    if (w[k] >= 0 && m[k] && b > best) best = b;
   }
 }
 
@@ -864,9 +1015,10 @@ __device__ __forceinline__ void tile_scales(const FoldShared& s, int nfix, long 
   }
 }
 
-// the block's largest `best` into *out by one atomic (every thread calls it)
+// the block's largest `best` into *out by one atomic (every thread calls
+// it; a block of at most 1024 threads)
 __device__ __forceinline__ void block_max_to(unsigned long long best, unsigned long long* out) {
-  __shared__ unsigned long long s_best[DFT_FOLD_TPB / 32];
+  __shared__ unsigned long long s_best[32];
   for (int d = 16; d > 0; d >>= 1) {
     const unsigned long long o = __shfl_down_sync(0xffffffffu, best, d);
     if (o > best) best = o;
@@ -890,10 +1042,11 @@ __device__ __forceinline__ void scale_flush(const FoldShared& s, int nfix, unsig
   }
 }
 
-// The first pass over the rows [0, n) (K2 dense, K4): each fixed-point
-// float SUM's largest finite |value| among its kept rows (ids in [0,
-// num_groups), mask set) into its scale word by atomic max; the grid
-// strides over DFT_TILE_ROWS-row tiles and reads the ids once.
+// The first pass over the rows [0, n) (K2 dense, K4 without K3's scale
+// words): each fixed-point float SUM's largest finite |value| among its
+// kept rows (ids in [0, num_groups), mask set) into its scale word by
+// atomic max; the grid strides over DFT_TILE_ROWS-row tiles and reads the
+// ids once.
 static __global__ void __launch_bounds__(DFT_FOLD_TPB)
 fold_scale_kernel(const int* __restrict__ gid, long long n, int num_groups, FoldArgs ops) {
   __shared__ FoldShared s;
@@ -903,8 +1056,8 @@ fold_scale_kernel(const int* __restrict__ gid, long long n, int num_groups, Fold
   unsigned long long best[DFT_MAX_FIX] = {};
   for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
     long long r;
-    int c, w[DFT_TILE];
-    if (tile_slots(gid, 0, n, t, num_groups, r, c, w)) tile_scales(s, ops.nfix, r, c, w, best);
+    int c, g[DFT_TILE], w[DFT_TILE];
+    if (tile_slots(gid, 0, n, t, num_groups, r, c, g, w)) tile_scales(s, ops.nfix, r, c, w, best);
   }
   scale_flush(s, ops.nfix, best);
 }

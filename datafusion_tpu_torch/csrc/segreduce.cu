@@ -54,8 +54,9 @@
 //   DFT_TILE_ROWS-row tiles into per-op shared tables with the fold tile,
 //   each slot held `reps` times so the lanes of a warp on a small table do
 //   not contend, then flushes each touched slot into the device table by
-//   one global atomic. A float SUM is three shared tables in fixed point
-//   (reduce_common.cuh), after a first pass over its rows for the scale.
+//   one global atomic. A float SUM is six 32-bit words a slot in fixed
+//   point (reduce_common.cuh), after a first pass over its rows for the
+//   scale.
 //   The caller (ops/pallas/segreduce.py `fold_launches`) picks `reps` and
 //   splits an op list whose tables do not fit one block's shared memory
 //   into the fewest launches that fit.
@@ -326,18 +327,18 @@ seg_sorted_kernel(const int* __restrict__ gid, long long n, int num_groups, long
 }
 
 // --- dense mode ----------------------------------------------------------
-__global__ void __launch_bounds__(DFT_FOLD_TPB)
+__global__ void __launch_bounds__(DFT_FOLD_TPB, 2)
 seg_dense_kernel(const int* __restrict__ gid, long long n, int num_groups, int reps, FoldArgs ops,
                  unsigned int* done) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ FoldShared s;
   load_fold_shared(s, ops);
-  const int tbl_bytes = num_groups * reps * 8;
-  fold_init(smem, ops.ntbl * tbl_bytes);
+  fold_init(smem, ops.smem);
   __syncthreads();
-  fold_range(smem, tbl_bytes, ops.n, s, gid, 0, n, blockIdx.x, gridDim.x, num_groups, reps, 0);
+  int steps = 0;
+  fold_range(smem, ops.n, ops.nfix, s, gid, 0, n, blockIdx.x, gridDim.x, num_groups, reps, 0, steps);
   __syncthreads();
-  fold_flush(smem, tbl_bytes, ops.n, s, 0, num_groups, reps, num_groups, done);
+  fold_finish(smem, ops.n, s, 0, num_groups, reps, num_groups, done);
 }
 
 // --- C entries ---------------------------------------------------------------
@@ -387,12 +388,10 @@ extern "C" int dft_segreduce_dense(const int* gid, long long n, int num_groups, 
   FoldArgs o;
   if (num_groups > DENSE_MAX_SLOTS || !dft_valid_reps(reps) ||
       !fold_args(&o, n_ops, kinds, vals, masks, outs, aux, num_groups, true) ||
-      (fold_has_fix(o) && n > DFT_FIX_MAX_ROWS))
+      (fold_has_fix(o) && n > DFT_FIX_MAX_ROWS) || !fold_layout(&o, (long long)num_groups * reps))
     return (int)cudaErrorInvalidValue;
-  const long long smem = (long long)o.ntbl * num_groups * reps * 8;
-  if (smem > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   cudaError_t err;
-  long long blocks = fold_blocks(seg_dense_kernel, (int)smem, &err);
+  long long blocks = fold_blocks(seg_dense_kernel, o.smem, &err);
   if (err != cudaSuccess) return (int)err;
   const long long tiles = (n + DFT_TILE_ROWS - 1) / DFT_TILE_ROWS;
   if (fold_has_fix(o)) {
@@ -403,7 +402,7 @@ extern "C" int dft_segreduce_dense(const int* gid, long long n, int num_groups, 
   }
   if (blocks > tiles) blocks = tiles;
   if (blocks < n / DFT_BLOCK_MAX_ROWS + 1) blocks = n / DFT_BLOCK_MAX_ROWS + 1;
-  seg_dense_kernel<<<(unsigned int)blocks, DFT_FOLD_TPB, (size_t)smem, (cudaStream_t)stream>>>(
+  seg_dense_kernel<<<(unsigned int)blocks, DFT_FOLD_TPB, (size_t)o.smem, (cudaStream_t)stream>>>(
       gid, n, num_groups, reps, o, done);
   return (int)cudaGetLastError();
 }

@@ -60,7 +60,14 @@ import torch
 
 from datafusion_tpu_torch.errors import ExecutionError, NotImplementedError_
 from datafusion_tpu_torch.ops.expr_eval import ColVal, full
-from datafusion_tpu_torch.ops.pallas.partition import SENTINEL, WINDOW, slab_partition, windowed_reduce
+from datafusion_tpu_torch.ops.pallas.partition import (
+    SENTINEL,
+    WINDOW,
+    SlabFold,
+    scale_pairs,
+    slab_partition,
+    windowed_reduce,
+)
 from datafusion_tpu_torch.ops.pallas.segreduce import (
     from_sortable_int,
     segmented_reduce,
@@ -468,8 +475,10 @@ def slab_reduce(gid, vals, masks, *, ops, num_groups):
     """K2's reduce contract on K3 + K4: the rows' ids lie in
     [0, num_groups] (num_groups = unselected rows, dropped). Each distinct
     mask packs as one bit of the gid above `id_mod` (the next power of two
-    past num_groups), each distinct value is one K3 payload; the slab's
-    gid and mask bits unpack, and K4 reduces the slab."""
+    past num_groups), each distinct value is one K3 payload. K3 also
+    leaves each float SUM's scale word (one per distinct value and mask)
+    and its buckets' chunk counts, and K4 reduces the slab as K3 left it:
+    the gid still packed, the masks its bits (`SlabFold`)."""
     gcap = num_groups + 1
     id_mod = 1 << num_groups.bit_length()
     packed = gid
@@ -482,18 +491,19 @@ def slab_reduce(gid, vals, masks, *, ops, num_groups):
         # the compiler's gate bounds the masks; reaching this is a bug
         raise ExecutionError(f"bigdense: {len(bits)} mask bits above {id_mod} reach SENTINEL")
     payloads = list({id(v): v for v in vals if v is not None}.values())
-    slab = slab_partition(packed.contiguous(), payloads, n_buckets=-(-gcap // WINDOW), id_mod=id_mod)
-    pg = slab[0]
+    col = {id(v): c for c, v in enumerate(payloads)}
+    mask_bits = tuple(None if m is None else bits[id(m)] for m in masks)
+    scales, scale_at = scale_pairs(ops, vals, [None if v is None else col[id(v)] for v in vals], mask_bits)
+    *slab, info = slab_partition(packed.contiguous(), payloads, n_buckets=-(-gcap // WINDOW), id_mod=id_mod,
+                                 scales=scales, num_groups=num_groups)
     moved = {id(v): s for v, s in zip(payloads, slab[1:])}
-    # gaps keep SENTINEL (dropped by K4); its bits below 23 are all 0
-    gid_k = torch.where(pg >= SENTINEL, pg, pg & (id_mod - 1))
-    unpacked = {b: ((pg >> b) & 1).bool() for b in bits.values()}
     return windowed_reduce(
-        gid_k,
+        slab[0],
         [None if v is None else moved[id(v)] for v in vals],
-        [None if m is None else unpacked[bits[id(m)]] for m in masks],
+        [None] * len(masks),
         ops=ops,
         num_groups=num_groups,
+        slab=SlabFold(id_mod, mask_bits, info, len(scales), scale_at),
     )
 
 

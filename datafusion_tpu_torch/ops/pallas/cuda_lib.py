@@ -46,24 +46,26 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def library_path(defines: tuple = ()) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(defines)).encode())
     for name in SOURCES + HEADERS:
         h.update((SRC_DIR / name).read_bytes())
     return BUILD_DIR / f"libdftorch_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build_library(verbose: bool = False) -> tuple[Path, float, str]:
+def build_library(verbose: bool = False, defines: tuple = ()) -> tuple[Path, float, str]:
     """Compile the kernels if the library for these sources is missing.
     Returns (library path, build seconds, compiler log). `verbose` adds
-    `-Xptxas -v` (registers, shared memory and spills per kernel)."""
-    lib = library_path()
+    `-Xptxas -v` (registers, shared memory and spills per kernel);
+    `defines` (`-DNAME=VALUE` flags) build a library of their own, as
+    scripts/fold_variants.py's ablations do."""
+    lib = library_path(defines)
     if lib.exists() and not verbose:
         return lib, 0.0, ""
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    flags = list(NVCC_FLAGS) + (["-Xptxas", "-v"] if verbose else [])
+    flags = list(NVCC_FLAGS) + list(defines) + (["-Xptxas", "-v"] if verbose else [])
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         procs = []
         for name in SOURCES:
@@ -94,13 +96,17 @@ def build_library(verbose: bool = False) -> tuple[Path, float, str]:
 
 @functools.cache
 def load_library() -> ctypes.CDLL:
-    """The kernels' shared library, built on first use. The structs passed
+    """The kernels' shared library, built on first use."""
+    return bind(ctypes.CDLL(str(build_library()[0])))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """The C entries' signatures on a loaded library. The structs passed
     by value (K1's Program, K5's ExchangeArgs) are checked against their
     ctypes mirrors once, here."""
     from datafusion_tpu_torch.ops.pallas.fused_stage import _CProgram
     from datafusion_tpu_torch.ops.pallas.ragged_shuffle import ExchangeArgs
 
-    lib = ctypes.CDLL(str(build_library()[0]))
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.dft_fused_stage.argtypes = [vp, i64, i32, i32, vp]
     lib.dft_fused_stage.restype = i32
@@ -110,10 +116,12 @@ def load_library() -> ctypes.CDLL:
     lib.dft_segreduce.restype = i32
     lib.dft_segreduce_dense.argtypes = [vp, i64, i32, i32, i32, vp, vp, vp, vp, vp, vp, vp]
     lib.dft_segreduce_dense.restype = i32
-    lib.dft_slab_partition.argtypes = [vp, vp, i64, i32, i32, i32, i32, i32, vp, vp, vp, vp]
+    lib.dft_slab_partition.argtypes = [vp, vp, i64, i32, i32, i32, i32, i32, vp, vp, vp, vp, i32, i32, vp, vp, vp]
     lib.dft_slab_partition.restype = i32
     lib.dft_windowed_reduce.argtypes = [vp, i64, i32, i32, vp, vp, vp, vp, vp, vp, vp]
     lib.dft_windowed_reduce.restype = i32
+    lib.dft_windowed_reduce_slab.argtypes = [vp, i64, i32, i32, i32, vp, vp, vp, vp, vp, vp, vp, vp]
+    lib.dft_windowed_reduce_slab.restype = i32
     lib.dft_ragged_exchange.argtypes = [vp, vp, i32, i32, i64, i32, vp]
     lib.dft_ragged_exchange.restype = i32
     lib.dft_ragged_exchange_args_size.argtypes = []

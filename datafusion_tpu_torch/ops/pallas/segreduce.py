@@ -29,9 +29,11 @@ A float SUM on the card gives the same bits in every run
   * on the fold tile (dense mode, K4, K6) for any order of the launch's
     rows and any schedule of its blocks: it is added in fixed point by
     integer atomics. E is the exponent of the largest finite |value|
-    among the launch's kept rows, found by a first pass on the card; each
+    among the launch's kept rows, found by a first pass on the card (for
+    K4 on the main path, by K3: ops/pallas/partition.py `SlabFold`); each
     value is three signed 32-bit digits on the grid 2^(E-95), rounded to
-    nearest in the last, summed exactly in int64, with a fourth table for
+    nearest in the last, summed exactly (in shared memory as 32-bit words
+    of 16 bits each, in device memory in int64), with a fourth table for
     the NaN / +inf / -inf flags; the exact total is rounded once to f64.
     A slot of n rows is within n * 2^(E-96) of the exact sum plus half an
     ulp of the result, so a value more than 95 bits below the launch's
@@ -60,15 +62,17 @@ import torch
 
 DENSE_MAX_SLOTS = 2048
 OPS = ("sum", "count", "min", "max")
-# the fold tile's shared tables (csrc/reduce_common.cuh): one table of
-# 8-byte slots per op, FIX_TABLES for a float SUM
+# the fold tile's shared tables (csrc/reduce_common.cuh), counted in units
+# of one table of 8-byte slots: one unit an op, FIX_TABLES a float SUM (its
+# six 4-byte words a slot); COUNT and 32-bit MIN/MAX take half a unit's
+# bytes on the card, so a launch fits what these units say
 FOLD_SMEM_BYTES = 230400  # dynamic shared memory of one launch: Hopper's 232,448 a block, less the static arrays
 FOLD_MAX_OPS = 32  # DFT_FOLD_MAX_OPS: ops, and shared tables, of one launch
 MAX_REPLICAS = 32  # DFT_MAX_REPS: one replica per lane of a warp
 REPLICA_BUDGET = 57344  # replicas grow while a block's tables stay within this: four 512-thread blocks an SM
 VALUE_DTYPES = (torch.float32, torch.float64, torch.int32, torch.int64)
 FIX_DEVICE_TABLES = 4  # a fixed-point float SUM's device tables: its digits 0-2 and its flags
-FIX_TABLES = 3  # DFT_FIX_TABLES, its shared tables: the digits (the flags go straight to the device table)
+FIX_TABLES = 3  # DFT_FIX_TABLES, its shared units: the digits (the flags go straight to the device table)
 FIX_MAX_ROWS = 2**31 - 1  # DFT_FIX_MAX_ROWS: rows a launch with a float SUM folds (the int64 totals' headroom)
 SORTED_BLOCK_ROWS = 16 * 32 * 4  # a sorted-mode block's 16 warps' first tiles
 SORTED_MAX_BLOCKS = 1024  # csrc/segreduce.cu SORTED_MAX_BLOCKS

@@ -127,6 +127,14 @@ inline unsigned emu_vote(unsigned long long mine, bool equal) {
   return r;
 }
 inline unsigned __ballot_sync(unsigned, int p) { return emu_vote(p != 0, false); }
+inline unsigned __reduce_max_sync(unsigned, unsigned v) {
+  emu_blk->slot[emu_warp()][emu_lane()] = v;
+  emu_blk->warp[emu_warp()]->arrive_and_wait();
+  unsigned r = 0;
+  for (int l = 0; l < 32; ++l) r = std::max(r, (unsigned)emu_blk->slot[emu_warp()][l]);
+  emu_blk->warp[emu_warp()]->arrive_and_wait();
+  return r;
+}
 inline unsigned __match_any_sync(unsigned, int v) { return emu_vote((unsigned)v, true); }
 inline int __clz(unsigned x) { return x ? __builtin_clz(x) : 32; }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
