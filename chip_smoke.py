@@ -1556,8 +1556,10 @@ def profile_queries(runs, phase="phase 4", out="profile.txt"):
             wall = (time.perf_counter() - t) * 1e3
         events = prof.key_averages()
         # device-side entries only (kernels, memcpys): an aten op's own
-        # entry repeats the device time of the kernels it launched
-        dev_events = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+        # entry repeats the device time of the kernels it launched, and the
+        # profiler's device-side copies of the port's spans (dft.*) are not work
+        dev_events = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                      and not e.key.startswith("dft.")]
         busy = sum(e.self_device_time_total for e in dev_events) / 1e3
         top = sorted(dev_events, key=lambda e: e.self_device_time_total, reverse=True)[:5]
         log(f"{phase} profile {name}: wall {wall:.3f} ms, device busy {busy:.3f} ms "
@@ -1879,7 +1881,8 @@ def profile_joins(runs):
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t) * 1e3
         events = prof.key_averages()
-        dev_events = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+        dev_events = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                      and not e.key.startswith("dft.")]  # the port's spans' device-side copies are not work
         busy = sum(e.self_device_time_total for e in dev_events) / 1e3
         top = sorted(dev_events, key=lambda e: e.self_device_time_total, reverse=True)[:5]
         ops = {}

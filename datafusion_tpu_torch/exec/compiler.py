@@ -23,7 +23,7 @@ of repeated build keys; CompiledQuery.run reports it in `routes`.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Callable, Optional
 
 import numpy as np
@@ -47,6 +47,7 @@ from datafusion_tpu_torch.ops.pallas import partition as part
 from datafusion_tpu_torch.plan import logical as L
 from datafusion_tpu_torch.schema import Schema
 from datafusion_tpu_torch.types import DataType, torch_dtype
+from datafusion_tpu_torch.utils.trace import span, spanned
 
 
 @dataclass
@@ -79,10 +80,14 @@ class ShardedBatch:
         that spans processes the partitioned rows of every process meet,
         in rank order (an all_gather), and every process gets the same
         Batch."""
-        from datafusion_tpu_torch.parallel.collectives import to_card
-
         if self.layout == "replicated":
             return self.shards[0]
+        with span("dft.merge"):
+            return self._concatenated(mesh)
+
+    def _concatenated(self, mesh) -> Batch:
+        from datafusion_tpu_torch.parallel.collectives import to_card
+
         dev = self.shards[0].sel.device
         caps = [b.capacity for b in self.shards]
         cols = []
@@ -122,7 +127,9 @@ class Lowered:
     the JAX package's static row capacity of the node (see
     `ref_capacity`), which gates the direct join as it does there.
     `bounds[j]` is a (lo, hi) bound on column j's selected, valid values
-    that a join proved (`_lower_join`); None where none is known."""
+    that a join proved (`_lower_join`); None where none is known. `span`
+    is the node's span name (`PlanCompiler._named`); `route` is the route
+    its lowering picked, which the name ends with."""
 
     schema: Schema
     dicts: list[Optional[tuple[str, ...]]]
@@ -131,6 +138,8 @@ class Lowered:
     layout: Optional[str] = None
     capacity: int = 0
     bounds: Optional[list[Optional[tuple[int, int]]]] = None
+    span: str = ""
+    route: str = ""
 
     def src(self) -> list[Optional[tuple[int, int]]]:
         return self.sources if self.sources is not None else [None] * len(self.schema)
@@ -243,10 +252,14 @@ class CompiledQuery:
     def _run(self):
         from datafusion_tpu_torch.exec.result import ResultTable
 
-        inner = ResultTable(self.schema, self.host_columns(self.device_result()), self.dicts)
-        if self._host_post is None:
-            return inner
-        return apply_host_post(inner, self._host_post)
+        out = self.device_result()
+        with span("dft.materialize"):
+            cols = self.host_columns(out)
+        with span("dft.result"):
+            inner = ResultTable(self.schema, cols, self.dicts)
+            if self._host_post is None:
+                return inner
+            return apply_host_post(inner, self._host_post)
 
 
 # ---------------------------------------------------------------------------
@@ -501,6 +514,19 @@ class PlanCompiler:
 
     # ------------------------------------------------------------------
     def lower(self, plan: L.LogicalPlan) -> Lowered:
+        """`plan` lowered, its stage function run inside its span."""
+        low = self._named(plan)
+        return replace(low, fn=spanned(low.span)(low.fn))
+
+    def _named(self, plan: L.LogicalPlan) -> Lowered:
+        """`plan` lowered, with its span's name in `Lowered.span`:
+        `dft.node.<Kind>`, and `.<route>` after it where the lowering
+        picked a route (`Lowered.route`)."""
+        low = self._lower_node(plan)
+        kind = f"dft.node.{type(plan).__name__}"
+        return replace(low, span=f"{kind}.{low.route}" if low.route else kind, route="")
+
+    def _lower_node(self, plan: L.LogicalPlan) -> Lowered:
         if isinstance(plan, L.TableScan):
             return self._lower_scan(plan)
         if isinstance(plan, L.Selection):
@@ -794,7 +820,8 @@ class PlanCompiler:
                 okeys, oaggs, ng = slots_fn(keys, specs_of(b), b.sel, doms, offs)
                 return Batch(list(okeys) + list(oaggs), torch.ones(ng, dtype=torch.bool, device=dev))
 
-            return Lowered(plan.schema, out_dicts, fn_slots, capacity=min(child.capacity, prod + 1))
+            return Lowered(plan.schema, out_dicts, fn_slots, capacity=min(child.capacity, prod + 1),
+                           route="dense" if dense else "bigdense")
 
         packed = 1 <= prod <= agg_ops.PACKED_MAX_GROUPS
         family = self._sorted_route_notes(plan)
@@ -817,7 +844,7 @@ class PlanCompiler:
             return Batch(list(okeys) + list(oaggs), torch.ones(ng, dtype=torch.bool, device=dev))
 
         cap = min(child.capacity, prod + 1 if packed else self.DEFAULT_GROUP_CAPACITY)
-        return Lowered(plan.schema, out_dicts, fn, capacity=cap)
+        return Lowered(plan.schema, out_dicts, fn, capacity=cap, route="packed" if packed else "cosort")
 
     def _bigdense_ok(self, plan: L.Aggregate, prod: int, agg_meta) -> bool:
         """The opt-in bigdense gate (`self.bigdense`, fixed when the
@@ -969,7 +996,7 @@ class PlanCompiler:
                     f"sort+limit: top-k selection (k={plan.limit + off}, "
                     f"{nk} key{'s' if nk > 1 else ''}, no full sort)"
                 )
-                return self._skip_rows(lowered, off)
+                return replace(self._skip_rows(lowered, off), route="topk")
         return self._limit_over(self.lower(plan.input), plan.limit, off)
 
     @staticmethod

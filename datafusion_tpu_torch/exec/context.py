@@ -51,6 +51,7 @@ from datafusion_tpu_torch.schema import Field, Schema
 from datafusion_tpu_torch.sql import ast as A
 from datafusion_tpu_torch.sql.parser import parse_sql
 from datafusion_tpu_torch.types import DataType
+from datafusion_tpu_torch.utils.trace import span
 
 _DDL_NODES = (
     A.SQLCreateExternalTable,
@@ -273,9 +274,14 @@ class ExecutionContext:
         sets `last_stats`: its parse, plan and execute seconds and its
         row count. On a CUDA device the execute time ends with a
         `torch.cuda.synchronize()`, so it holds the device's work too."""
-        t0 = time.perf_counter()
-        node = parse_sql(sql)
-        t_parse = time.perf_counter()
+        with span("dft.sql"):
+            return self._sql(sql)
+
+    def _sql(self, sql: str) -> ResultTable:
+        with span("dft.parse"):  # stamped inside the span: `last_stats` leaves out its cost
+            t0 = time.perf_counter()
+            node = parse_sql(sql)
+            t_parse = time.perf_counter()
         if isinstance(node, A.SQLExplain):
             inner = node.stmt
             if isinstance(inner, _DDL_NODES):
@@ -296,12 +302,15 @@ class ExecutionContext:
             return ResultTable(Schema.empty(), [], [], raw_text=text)
         if isinstance(node, _DDL_NODES):
             return self._execute_statement(node)
-        plan = SqlToRel(self._catalog).sql_to_rel(node)
-        t_plan = time.perf_counter()
+        with span("dft.plan"):
+            t_plan0 = time.perf_counter()
+            plan = SqlToRel(self._catalog).sql_to_rel(node)
+            t_plan = time.perf_counter()
         result = self.execute(plan)
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.last_stats = {"parse_s": t_parse - t0, "plan_s": t_plan - t_parse,
+            with span("dft.synchronize"):
+                torch.cuda.synchronize(self.device)
+        self.last_stats = {"parse_s": t_parse - t0, "plan_s": t_plan - t_plan0,
                            "execute_s": time.perf_counter() - t_plan, "rows": result.num_rows}
         return result
 
@@ -350,14 +359,16 @@ class ExecutionContext:
         """Compile (with caching) and run a logical plan. The filter and
         projection push-down optimizers run here (the reference disabled
         its optimizer at this exact point, context.rs:89)."""
-        plan = push_down_projection(push_down_filters(plan))
-        key = (repr(plan), tuple(sorted((n, id(t)) for n, t in self._tables.items())))
-        compiled = self._compile_cache.get(key)
+        with span("dft.optimize"):
+            plan = push_down_projection(push_down_filters(plan))
+            key = (repr(plan), tuple(sorted((n, id(t)) for n, t in self._tables.items())))
+            compiled = self._compile_cache.get(key)
         if compiled is None:
-            if self.mesh is not None:
-                compiled = compile_plan_distributed(plan, self._tables, self.mesh, self._fn_registry())
-            else:
-                compiled = compile_plan(plan, self._tables, self._fn_registry(), self.device, self.bigdense)
+            with span("dft.lower"):
+                if self.mesh is not None:
+                    compiled = compile_plan_distributed(plan, self._tables, self.mesh, self._fn_registry())
+                else:
+                    compiled = compile_plan(plan, self._tables, self._fn_registry(), self.device, self.bigdense)
             self._compile_cache[key] = compiled
         return compiled.run()
 

@@ -97,7 +97,10 @@ def build_library(verbose: bool = False, defines: tuple = ()) -> tuple[Path, flo
 @functools.cache
 def load_library() -> ctypes.CDLL:
     """The kernels' shared library, built on first use."""
-    return bind(ctypes.CDLL(str(build_library()[0])))
+    from datafusion_tpu_torch.utils.trace import span
+
+    with span("dft.build"):
+        return bind(ctypes.CDLL(str(build_library()[0])))
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:

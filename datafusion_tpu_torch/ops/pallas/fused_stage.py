@@ -61,6 +61,7 @@ from datafusion_tpu_torch.plan.logical import (
 )
 from datafusion_tpu_torch.types import DataType, torch_dtype
 from datafusion_tpu_torch.utils import dates
+from datafusion_tpu_torch.utils.trace import spanned
 
 # capacities of the kernel's Program struct (csrc/fused_stage.cu)
 MAX_INSTR, MAX_REGS, MAX_IN, MAX_OUT, MAX_CONST = 64, 32, 12, 12, 32
@@ -722,6 +723,7 @@ def _check_inputs(program, in_data, in_valid, n, device):
             raise ValueError("validity must be a contiguous bool tensor like its column")
 
 
+@spanned("dft.kernel.K1")
 def run_fused(
     program: Program,
     in_data: Sequence[torch.Tensor],

@@ -59,6 +59,7 @@ from datafusion_tpu_torch.ops.pallas.segreduce import (
     fold_widths,
     segmented_reduce_plain,
 )
+from datafusion_tpu_torch.utils.trace import spanned
 
 WINDOW = 2048  # slots per bucket = the reduce window width
 PBLOCK = 8192  # input rows per partition block
@@ -190,6 +191,7 @@ def slab_partition_plain(
     return tuple(outs)
 
 
+@spanned("dft.kernel.K3")
 def slab_partition(
     gid: torch.Tensor,
     cols: Sequence[torch.Tensor],
@@ -267,6 +269,7 @@ def _check_windowed(gid, values, masks, ops, num_groups, slab):
 windowed_reduce_plain = segmented_reduce_plain
 
 
+@spanned("dft.kernel.K4")
 def windowed_reduce(
     gid: torch.Tensor,
     values: Sequence[Optional[torch.Tensor]],

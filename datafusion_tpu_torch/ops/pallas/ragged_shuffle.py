@@ -89,6 +89,7 @@ from datafusion_tpu_torch.ops.pallas.segreduce import (
     fold_widths,
     segmented_reduce_plain,
 )
+from datafusion_tpu_torch.utils.trace import spanned
 
 CHUNKS = (1024, 512, 256, 128)  # K5 chunk sizes, in rows
 MAX_DEV = 255  # csrc/ragged_shuffle.cu DFT_MAX_DEV
@@ -308,6 +309,7 @@ def ragged_exchange_plain(
     return recvs
 
 
+@spanned("dft.kernel.K5")
 def ragged_exchange(
     sends: Sequence[Sequence[torch.Tensor]],
     sizes: torch.Tensor,
@@ -447,6 +449,7 @@ def ragged_exchange_fold_plain(
     return out
 
 
+@spanned("dft.kernel.K6")
 def ragged_exchange_fold(
     gids: Sequence[torch.Tensor],
     vals: Sequence[Sequence[Optional[torch.Tensor]]],

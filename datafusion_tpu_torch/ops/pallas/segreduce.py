@@ -60,6 +60,8 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 
+from datafusion_tpu_torch.utils.trace import spanned
+
 DENSE_MAX_SLOTS = 2048
 OPS = ("sum", "count", "min", "max")
 # the fold tile's shared tables (csrc/reduce_common.cuh), counted in units
@@ -445,6 +447,7 @@ def fixed_sum_plain(gid: torch.Tensor, value: torch.Tensor, mask: Optional[torch
     return fixed_decode(*(total(d) for d in digits), flags, e)
 
 
+@spanned("dft.kernel.K2")
 def segmented_reduce(
     gid: torch.Tensor,
     values: Sequence[Optional[torch.Tensor]],

@@ -32,6 +32,8 @@ from typing import Optional, Sequence
 
 import torch
 
+from datafusion_tpu_torch.utils.trace import span, spanned
+
 ALIGN = 16  # byte alignment of each tensor in a packed buffer (K5's vector width)
 
 
@@ -95,6 +97,7 @@ transport.bytes = 0
 transport.live_bytes = 0
 
 
+@spanned("dft.collective.gather_ranks")
 def gather_ranks(mesh, ts: Sequence[torch.Tensor], *, to_device: bool = True) -> list[list[torch.Tensor]]:
     """Every process's `ts`, in rank order: result[k][q] is process q's
     tensor k, flattened. Lengths may differ between processes; dtypes are
@@ -150,6 +153,7 @@ def gather_rows(mesh, xs: Sequence[Optional[torch.Tensor]], *, to_device: bool =
     return out
 
 
+@spanned("dft.collective.exchange_regions")
 def exchange_regions(mesh, sends: Sequence[Sequence[torch.Tensor]], sizes: torch.Tensor,
                      split_cap: int) -> list[list[torch.Tensor]]:
     """The cross-process half of a ragged exchange (parallel/shuffle.py).
@@ -206,8 +210,9 @@ def to_card(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
     `to_card.bytes` counts."""
     if t.device == dev:
         return t
-    to_card.bytes += t.numel() * t.element_size()
-    return t.to(dev)
+    with span("dft.to_card"):
+        to_card.bytes += t.numel() * t.element_size()
+        return t.to(dev)
 
 
 to_card.bytes = 0
@@ -231,6 +236,7 @@ def _every_shard(xs: Sequence[torch.Tensor], mesh) -> list[torch.Tensor]:
     return list(torch.cat(parts).reshape(-1, *shape).unbind(0))
 
 
+@spanned("dft.collective.all_gather")
 def all_gather(xs: Sequence[torch.Tensor], mesh=None) -> torch.Tensor:
     """`lax.all_gather(..., tiled=True)`: the shards concatenated in order,
     on the mesh's first card."""
@@ -240,26 +246,31 @@ def all_gather(xs: Sequence[torch.Tensor], mesh=None) -> torch.Tensor:
     return torch.cat(gather_ranks(mesh, [local])[0])
 
 
+@spanned("dft.collective.psum")
 def psum(xs: Sequence[torch.Tensor], mesh=None) -> torch.Tensor:
     """`lax.psum`, summed in shard order."""
     return functools.reduce(torch.add, _every_shard(xs, mesh))
 
 
+@spanned("dft.collective.pmin")
 def pmin(xs: Sequence[torch.Tensor], mesh=None) -> torch.Tensor:
     """`lax.pmin` (NaN propagates, as XLA's min does)."""
     return functools.reduce(torch.minimum, _every_shard(xs, mesh))
 
 
+@spanned("dft.collective.pmax")
 def pmax(xs: Sequence[torch.Tensor], mesh=None) -> torch.Tensor:
     """`lax.pmax` (NaN propagates, as XLA's max does)."""
     return functools.reduce(torch.maximum, _every_shard(xs, mesh))
 
 
+@spanned("dft.collective.por")
 def por(xs: Sequence[torch.Tensor], mesh=None) -> torch.Tensor:
     """Elementwise OR of the shards' bool tensors."""
     return functools.reduce(torch.logical_or, _every_shard(xs, mesh))
 
 
+@spanned("dft.collective.size_matrix")
 def size_matrix(counts: Sequence[torch.Tensor], mesh=None) -> torch.Tensor:
     """The `[n_dev, n_dev]` int32 matrix of `all_gather`ed per-sender
     counts: row j is what shard j sends to each shard."""

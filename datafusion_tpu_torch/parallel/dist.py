@@ -66,6 +66,7 @@ process takes the same route and enters the same collectives.
 from __future__ import annotations
 
 import math
+from dataclasses import replace
 from typing import Optional
 
 import torch
@@ -90,6 +91,7 @@ from datafusion_tpu_torch.parallel.mesh import Mesh, ShardTable
 from datafusion_tpu_torch.parallel.shuffle import exchange_fold, hash_keys_to_device, repartition, route, skew_salt
 from datafusion_tpu_torch.plan import logical as L
 from datafusion_tpu_torch.types import DataType, torch_dtype
+from datafusion_tpu_torch.utils.trace import spanned
 
 OVERSAMPLE = 16  # sample-sort samples per shard
 TOPK_MAX = 4096  # ORDER BY one key LIMIT k: per-shard top-k up to this k
@@ -135,9 +137,14 @@ class DistCompiler(PlanCompiler):
 
     # -- cards -------------------------------------------------------------
     def lower(self, plan: L.LogicalPlan) -> Lowered:
+        """`plan` lowered for the mesh. A distributed stage runs inside its
+        span; a local one runs once per shard, so its span is recorded
+        where the shards run it, once over all of them (`_as_dist`)."""
         mark = len(self.scan_tables)
-        low = super().lower(plan)
-        if low.layout is None and self.mesh.n_cards > 1 and self._card == 0:
+        low = self._named(plan)
+        if low.layout is not None:
+            return replace(low, fn=spanned(low.span)(low.fn))
+        if self.mesh.n_cards > 1 and self._card == 0:
             self._local_plans[id(low)] = (plan, mark, low)  # `_as_dist` lowers it again for each card
         return low
 
@@ -217,7 +224,7 @@ class DistCompiler(PlanCompiler):
     # -- helpers --------------------------------------------------------
     def _as_dist(self, low: Lowered) -> Lowered:
         """A local lowering run once per shard, over its row block, on its
-        card."""
+        card, inside the local node's span (one for every shard)."""
         if low.layout is not None:
             return low
         lows, card = self._local_on_cards(low), self.mesh.card_index
@@ -225,6 +232,8 @@ class DistCompiler(PlanCompiler):
         def fn(envs) -> ShardedBatch:
             return ShardedBatch([lows[card(d)].fn(env) for d, env in enumerate(envs)], "partitioned")
 
+        if low.span:  # a node's local stage; one made inside a lowering runs inside its node's span
+            fn = spanned(low.span)(fn)
         return Lowered(low.schema, low.dicts, fn, low.sources, "partitioned", low.capacity, low.bounds)
 
     def _map(self, child: Lowered, locals_: list) -> Lowered:
@@ -239,7 +248,8 @@ class DistCompiler(PlanCompiler):
                 return ShardedBatch([local.fn(sb.shards[0])] * len(sb.shards), layout)
             return ShardedBatch([locals_[card(d)].fn(b) for d, b in enumerate(sb.shards)], layout)
 
-        return Lowered(local.schema, local.dicts, fn, local.sources, layout, local.capacity, local.bounds)
+        return Lowered(local.schema, local.dicts, fn, local.sources, layout, local.capacity, local.bounds,
+                       route=local.route)
 
     def _per_shard(self, child: Lowered, build) -> Optional[Lowered]:
         """`build(c)` lowers a single-card stage over `c`: over a local
@@ -352,7 +362,7 @@ class DistCompiler(PlanCompiler):
                 out.append(Batch(res, torch.ones(res[0][0].shape[0], dtype=torch.bool, device=sel.device)))
             return ShardedBatch(out, "partitioned")
 
-        return Lowered(child.schema, child.dicts, fn, None, "partitioned", child.capacity)
+        return Lowered(child.schema, child.dicts, fn, None, "partitioned", child.capacity, route="sample")
 
     # -- limit ---------------------------------------------------------------
     def _lower_limit(self, plan: L.Limit) -> Lowered:
@@ -367,7 +377,7 @@ class DistCompiler(PlanCompiler):
             low = self._speculative(lambda: self._topk_dist(plan.input, plan.limit + off))
             if low is not None:
                 self.notes.append(f"sort+limit: per-shard top-k + candidate all_gather (k={plan.limit + off})")
-                return self._per_shard(low, lambda c: self._skip_rows(c, off))
+                return replace(self._per_shard(low, lambda c: self._skip_rows(c, off)), route="topk")
         child = self.lower(plan.input)
         if child.layout == "replicated":
             return self._per_shard(child, lambda c: self._limit_over(c, plan.limit, off))
@@ -425,7 +435,8 @@ class DistCompiler(PlanCompiler):
         same_spec = bool(pkeys) and all(wf.partition_by == pkeys for wf in plan.window_exprs)
         if child.layout == "replicated" or not same_spec:
             self.notes.append("window: gather to replicated, local evaluation")
-            return self._per_shard(self._gather_batch(child), lambda c: self._window_over(plan, c))
+            return replace(self._per_shard(self._gather_batch(child), lambda c: self._window_over(plan, c)),
+                           route="gather")
         child = self._as_dist(child)
         n, card = self.n_dev, self.mesh.card_index
         part_c = self._on_cards(lambda: [self.compile(e, child) for e in pkeys])
@@ -446,7 +457,7 @@ class DistCompiler(PlanCompiler):
             return ShardedBatch([Batch(c, s) for c, s in zip(cols, sels)], "partitioned")
 
         reparted = Lowered(child.schema, child.dicts, fn, child.sources, "partitioned", child.capacity, child.bounds)
-        return self._per_shard(reparted, lambda c: self._window_over(plan, c))
+        return replace(self._per_shard(reparted, lambda c: self._window_over(plan, c)), route="repartition")
 
     # -- union -----------------------------------------------------------------
     def _lower_union(self, plan: L.Union) -> Lowered:
@@ -485,15 +496,16 @@ class DistCompiler(PlanCompiler):
         join. RIGHT joins run as the swapped LEFT join."""
         swapped = self._right_as_left(plan)
         if swapped is not None:
-            return self._per_shard(self._lower_join(swapped), lambda c: self._swap_back(plan, c))
+            low = self._lower_join(swapped)
+            return replace(self._per_shard(low, lambda c: self._swap_back(plan, c)), route=low.route)
         left, right = self.lower(plan.left), self.lower(plan.right)
         if (
             plan.on
             and "replicated" not in (left.layout, right.layout)
             and right.capacity * 4 > left.capacity
         ):
-            return self._join_shuffle(plan, left, right)
-        return self._join_broadcast(plan, left, right)
+            return replace(self._join_shuffle(plan, left, right), route="shuffle")
+        return replace(self._join_broadcast(plan, left, right), route="broadcast")
 
     def _join_broadcast(self, plan: L.Join, left: Lowered, right: Lowered) -> Lowered:
         """The build (right) side all_gathered to every shard, and each
@@ -637,7 +649,8 @@ class DistCompiler(PlanCompiler):
         holistic = [name.upper() for name, _, _, _ in agg_meta if name in agg_ops.HOLISTIC_FUNCS]
         if holistic and not group_c:
             self.notes.append(f"aggregate: gather to replicated, local evaluation ({holistic[0]} partials do not merge)")
-            return self._per_shard(self._gather_batch(child), lambda c: PlanCompiler._aggregate_over(self, plan, c))
+            low = self._per_shard(self._gather_batch(child), lambda c: PlanCompiler._aggregate_over(self, plan, c))
+            return replace(low, route="gather")
         child_d = self._as_dist(child)
         if not group_c:
             return self._ungrouped_dist(plan, child_d, metas, out_dicts)
@@ -679,7 +692,8 @@ class DistCompiler(PlanCompiler):
                 (res,) = agg_ops._dense_window_aggregate(shards_of(child_d.fn(envs)), doms, offs, dense_reduce)
                 return ShardedBatch([batch(*res)] * n_local, "replicated")
 
-            return Lowered(plan.schema, out_dicts, fn_dense, None, "replicated", min(child.capacity, prod + 1))
+            return Lowered(plan.schema, out_dicts, fn_dense, None, "replicated", min(child.capacity, prod + 1),
+                           route="dense")
 
         if self._fold_ok(plan, prod):
             self.notes.append(
@@ -697,7 +711,8 @@ class DistCompiler(PlanCompiler):
                 res = agg_ops._dense_window_aggregate(shards_of(child_d.fn(envs)), doms, offs, fold_reduce, slot_gid)
                 return ShardedBatch([batch(*r) for r in res], "partitioned")
 
-            return Lowered(plan.schema, out_dicts, fn_fold, None, "partitioned", min(child.capacity, prod + 1))
+            return Lowered(plan.schema, out_dicts, fn_fold, None, "partitioned", min(child.capacity, prod + 1),
+                           route="fold")
 
         return self._merge_aggregate(plan, child_d, agg_meta, out_dicts, shards_of, batch,
                                      doms if 1 <= prod <= agg_ops.PACKED_MAX_GROUPS else None, offs, notes)
@@ -738,7 +753,8 @@ class DistCompiler(PlanCompiler):
             return ShardedBatch(out, "partitioned")
 
         groups = self.DEFAULT_GROUP_CAPACITY if doms is None else math.prod(d + 1 for d in doms) + 1
-        return Lowered(plan.schema, out_dicts, fn, None, "partitioned", min(child.capacity, groups))
+        return Lowered(plan.schema, out_dicts, fn, None, "partitioned", min(child.capacity, groups),
+                       route="repartition")
 
     def _fold_ok(self, plan: L.Aggregate, prod: int) -> bool:
         """The fold's gate: every key probed (`prod` > 0), at most WINDOW
@@ -806,7 +822,7 @@ class DistCompiler(PlanCompiler):
                                 "replicated")
 
         groups = self.DEFAULT_GROUP_CAPACITY if doms is None else math.prod(d + 1 for d in doms) + 1
-        return Lowered(plan.schema, out_dicts, fn, None, "replicated", min(child.capacity, groups))
+        return Lowered(plan.schema, out_dicts, fn, None, "replicated", min(child.capacity, groups), route="merge")
 
     def _ungrouped_dist(self, plan, child, metas, out_dicts) -> Lowered:
         """Whole-table aggregates: per-shard scalars merged by psum / pmin /

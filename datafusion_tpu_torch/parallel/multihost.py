@@ -32,6 +32,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from datafusion_tpu_torch.utils.trace import spanned
+
 TIMEOUT_S = 300  # a collective that the processes reach out of step fails after this, instead of hanging
 
 
@@ -106,6 +108,7 @@ def global_mesh(n_local: int = 4, device=None, devices=None):
     return Mesh(world * n_local, dev, rank=rank, world=world, n_local=n_local, devices=devs)
 
 
+@spanned("dft.to_host")
 def to_host(x, sel: Optional[torch.Tensor] = None, *, mesh=None):
     """Device tensors as host numpy arrays: the port's one device-to-host
     path. `x` is a tensor or a sequence of tensors of one length (None

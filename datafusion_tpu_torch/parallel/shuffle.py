@@ -54,6 +54,7 @@ from datafusion_tpu_torch.errors import ExecutionError
 from datafusion_tpu_torch.ops.expr_eval import ColVal, broadcast_col
 from datafusion_tpu_torch.ops.pallas.ragged_shuffle import CHUNKS, pick_chunk, ragged_exchange, ragged_exchange_fold
 from datafusion_tpu_torch.parallel.collectives import agreed_max, exchange_regions, size_matrix, to_card
+from datafusion_tpu_torch.utils.trace import span
 
 REGION_ALIGN = CHUNKS[0]  # split_cap is a multiple of the largest chunk, so K5 copies 1024-row chunks
 
@@ -188,21 +189,22 @@ def repartition(
     slots. Rows arrive sender by sender, in each sender's order. `routes`:
     the senders' `route` results, where the caller has them already.
     `mesh`: the mesh, where it spans processes."""
-    if routes is None:
-        routes = [route(d, s, n_dev) for d, s in zip(dsts, sels)]
-    sizes = size_matrix([c for _, c in routes], mesh)
-    split_cap, chunk = region_capacity(sizes)
-    sends, spec = [], None
-    for shard_cols, sel, (rows, counts) in zip(cols, sels, routes):
-        flat, spec = [], []
-        for cv in shard_cols:
-            d, v = broadcast_col(cv, sel.shape[0])
-            # bool rides as bytes, and comes back through `!= 0`
-            spec.append((d.dtype == torch.bool, v is not None))
-            flat.append(d.view(torch.uint8) if d.dtype == torch.bool else d)
-            if v is not None:
-                flat.append(v.view(torch.uint8))
-        sends.append(build_regions(flat, rows, counts, n_dev, split_cap))
+    with span("dft.shuffle.send"):
+        if routes is None:
+            routes = [route(d, s, n_dev) for d, s in zip(dsts, sels)]
+        sizes = size_matrix([c for _, c in routes], mesh)
+        split_cap, chunk = region_capacity(sizes)
+        sends, spec = [], None
+        for shard_cols, sel, (rows, counts) in zip(cols, sels, routes):
+            flat, spec = [], []
+            for cv in shard_cols:
+                d, v = broadcast_col(cv, sel.shape[0])
+                # bool rides as bytes, and comes back through `!= 0`
+                spec.append((d.dtype == torch.bool, v is not None))
+                flat.append(d.view(torch.uint8) if d.dtype == torch.bool else d)
+                if v is not None:
+                    flat.append(v.view(torch.uint8))
+            sends.append(build_regions(flat, rows, counts, n_dev, split_cap))
     first = 0 if mesh is None else mesh.first
     if sends[0]:
         senders, local_sizes, n_recv = _local_exchange(sends, sizes, split_cap, mesh)
@@ -233,23 +235,24 @@ def exchange_fold(gids, vals, masks, *, ops, num_groups, n_dev, mesh=None):
     process's receivers' per-op tables; on a spanning mesh the remote
     senders' regions arrive first (`exchange_regions`) and the same K6
     launch folds them."""
-    routes, arrays, layouts = [], [], []
-    for gid, v, m in zip(gids, vals, masks):
-        g = gid.to(torch.int64)
-        routes.append(route(g % n_dev, gid < num_groups, n_dev))
-        distinct = list({id(t): t for t in list(v) + list(m) if t is not None}.values())
-        arrays.append([(g // n_dev).to(torch.int32)] + distinct)
-        at = {id(t): k for k, t in enumerate(distinct, 1)}
-        uniq = list(dict.fromkeys(id(t) for t in m if t is not None))
-        layouts.append(([None if t is None else at[id(t)] for t in v],
-                        [at[u] for u in uniq],
-                        [0 if t is None else 1 + uniq.index(id(t)) for t in m]))
-    if any(lay != layouts[0] for lay in layouts):
-        raise ExecutionError("the shards built different fold operands")
-    val_at, mask_at, mask_map = layouts[0]
-    sizes = size_matrix([c for _, c in routes], mesh)
-    split_cap, _ = region_capacity(sizes)
-    regions = [build_regions(arrs, rows, counts, n_dev, split_cap) for arrs, (rows, counts) in zip(arrays, routes)]
+    with span("dft.shuffle.send"):
+        routes, arrays, layouts = [], [], []
+        for gid, v, m in zip(gids, vals, masks):
+            g = gid.to(torch.int64)
+            routes.append(route(g % n_dev, gid < num_groups, n_dev))
+            distinct = list({id(t): t for t in list(v) + list(m) if t is not None}.values())
+            arrays.append([(g // n_dev).to(torch.int32)] + distinct)
+            at = {id(t): k for k, t in enumerate(distinct, 1)}
+            uniq = list(dict.fromkeys(id(t) for t in m if t is not None))
+            layouts.append(([None if t is None else at[id(t)] for t in v],
+                            [at[u] for u in uniq],
+                            [0 if t is None else 1 + uniq.index(id(t)) for t in m]))
+        if any(lay != layouts[0] for lay in layouts):
+            raise ExecutionError("the shards built different fold operands")
+        val_at, mask_at, mask_map = layouts[0]
+        sizes = size_matrix([c for _, c in routes], mesh)
+        split_cap, _ = region_capacity(sizes)
+        regions = [build_regions(arrs, rows, counts, n_dev, split_cap) for arrs, (rows, counts) in zip(arrays, routes)]
     senders, local_sizes, n_recv = _local_exchange(regions, sizes, split_cap, mesh)
     agree = (lambda words: agreed_max(words, mesh)) if mesh is not None and mesh.spans else None
     return ragged_exchange_fold([r[0] for r in senders], [[None if k is None else r[k] for k in val_at] for r in senders],

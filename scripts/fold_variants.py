@@ -158,7 +158,8 @@ def device_ms_by_kernel(fn, torch, reps):
         torch.cuda.synchronize()
     out = {}
     for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
+        if (e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+                and not e.key.startswith("dft.")):  # the port's spans' device-side copies are not kernels
             name = e.key.split("<")[0].split("(")[0].replace("void ", "")
             if "kernel" in name:
                 out[name] = out.get(name, 0.0) + e.self_device_time_total / reps / 1e3
