@@ -68,7 +68,8 @@ Phases, each printed on its own line:
      `mode` of TPC-H l_shipmode's seven values; m1 filter/project (K1 per
      shard), m2 dense GROUP BY + merge (K2 dense), m3 / m4 the fold GROUP
      BY (K6), m5 partials + all_gather merge (K2 sorted), m6 / m7 the
-     multi- and single-key sample sorts (K5) with the global-rank LIMIT,
+     multi- and single-key sample sorts (K5) with the global-rank LIMIT
+     (NULLS FIRST, which the per-shard top-k does not take),
      m8 the per-shard top-k; each against a numpy oracle and the same
      query in a single-card context, with its EXPLAIN route, the K5 / K6
      launches it made (m5: 9 K2 sorted launches, one per shard and the
@@ -1284,8 +1285,10 @@ MESH_QUERIES = (
      "fused ragged-exchange fold"),
     ("m4", "SELECT g, MIN(lat), COUNT(lat) FROM big WHERE lat > 51.0 GROUP BY g", "fused ragged-exchange fold"),
     ("m5", "SELECT k, SUM(lng), COUNT(*) FROM big GROUP BY k", "all_gather merge"),
-    ("m6", "SELECT k, d, lat FROM big ORDER BY k, d, lat LIMIT 10000", "multi-key sample sort"),
-    ("m7", "SELECT lat, g FROM big ORDER BY lat LIMIT 5000", "distributed sample sort"),
+    # NULLS FIRST (lat has no NULLs, so the same rows) keeps m6 and m7 on the sample sort and K5: without
+    # it their k fits a shard and they take the per-shard top-k
+    ("m6", "SELECT k, d, lat FROM big ORDER BY k, d, lat NULLS FIRST LIMIT 10000", "multi-key sample sort"),
+    ("m7", "SELECT lat, g FROM big ORDER BY lat NULLS FIRST LIMIT 5000", "distributed sample sort"),
     ("m8", "SELECT k, lat FROM big ORDER BY lat DESC LIMIT 10", "per-shard top-k"),
 )
 

@@ -453,6 +453,21 @@ def apply_host_post(inner, host_post):
 # ---------------------------------------------------------------------------
 
 
+TOPK_FLOOR = 4096  # ORDER BY ... LIMIT k takes the top-k up to this k over any input
+TOPK_SHARE = 8  # above it, while k is at most a shard's row capacity over this
+
+
+def topk_fits(k: int, capacity: int) -> bool:
+    """Whether ORDER BY ... LIMIT k (k counting the OFFSET's rows) takes
+    the top-k selection over an input of `capacity` rows a shard: up to
+    TOPK_FLOOR whatever the input, above it while k is at most a
+    TOPK_SHARE-th of the capacity. On an H100 the selection beats the
+    sort up to a whole shard, so the share bounds memory: on a mesh the
+    candidates of every shard, k each, meet on the first card, at most
+    a TOPK_SHARE-th of the table's rows."""
+    return 0 < k <= max(TOPK_FLOOR, capacity // TOPK_SHARE)
+
+
 def topk_rank(kd: torch.Tensor, kv, sel: torch.Tensor, asc: bool) -> torch.Tensor:
     """int64 rank where the top-k LARGEST ranks are the LIMIT result.
     Tiers (ties break by lowest index = original row order): real keys
@@ -979,21 +994,23 @@ class PlanCompiler:
         return Lowered(child.schema, child.dicts, fn, capacity=child.capacity)
 
     def _lower_limit(self, plan: L.Limit) -> Lowered:
-        # ORDER BY ... LIMIT k fuses into a top-k selection: a k-row gather
-        # instead of the full sort; ties break by lowest index, the order
-        # the full sort's stability gives
+        """LIMIT / OFFSET. Over ORDER BY (NULLS LAST on every key) whose
+        k + offset fits the input (`topk_fits`), a top-k selection of the
+        first k + offset rows of the sort's order (`_topk_over`) in place
+        of the full sort, then the offset's rows masked; else the rows'
+        first k after the offset, in their order."""
         off = plan.offset
         if (
             isinstance(plan.input, L.Sort)
             and all(se.nulls_first is not True for se in plan.input.exprs)
             and plan.limit is not None
-            and 0 < plan.limit + off <= 4096
         ):
             lowered = self._speculative(lambda: self._lower_topk(plan.input, plan.limit + off))
             if lowered is not None:
                 nk = len(plan.input.exprs)
+                how = "first-key threshold, " if lowered.route == "threshold" else ""
                 self.notes.append(
-                    f"sort+limit: top-k selection (k={plan.limit + off}, "
+                    f"sort+limit: top-k selection ({how}k={plan.limit + off}, "
                     f"{nk} key{'s' if nk > 1 else ''}, no full sort)"
                 )
                 return replace(self._skip_rows(lowered, off), route="topk")
@@ -1021,9 +1038,27 @@ class PlanCompiler:
         return Lowered(lowered.schema, lowered.dicts, fn, capacity=lowered.capacity)
 
     def _lower_topk(self, plan: L.Sort, k: int) -> Optional[Lowered]:
-        return self._topk_over(plan, self.lower(plan.input), k)
+        child = self.lower(plan.input)
+        return self._topk_over(plan, child, k) if topk_fits(k, child.capacity) else None
 
-    def _topk_over(self, plan: L.Sort, child: Lowered, k: int) -> Optional[Lowered]:
+    def _topk_over(self, plan: L.Sort, child: Lowered, k: int) -> Lowered:
+        """The first k rows of `plan`'s order over `child`'s selected rows,
+        compacted: exactly the rows of the full sort (`_sort_over`), in
+        its order, ties by the lowest row index.
+
+        One key, or several that pack into one rank (`_packed_rank`): one
+        top-k of the rank (`sort_ops.topk_indices`). Otherwise the first
+        key's threshold: the k-th smallest of its sort image
+        (`sort_ops.sort_operands`, NULLs and unselected rows after every
+        value) by one `torch.topk`; the candidates are the selected rows
+        whose image is at or before it, every tie of the threshold among
+        them, or all selected rows where the threshold is not a value;
+        the full sort's own order of the candidates (`sorted_rows`) gives
+        the first k. A row left out has an image after the threshold, so
+        at least k rows precede it in the full sort; the image ties
+        whatever the sort ties (-0.0 and 0.0, every NaN), so no group of
+        equal first keys is split. The route is marked "threshold"."""
+        dev = self.device
         if len(plan.exprs) == 1:
             se = plan.exprs[0]
             keyc = self.compile(se.expr, child)
@@ -1033,21 +1068,42 @@ class PlanCompiler:
                 return topk_rank(kd, kv, b.sel, se.asc)
         else:
             rank_fn = self._packed_rank(plan, child)
-            if rank_fn is None:
-                return None
-        dev = self.device
+        counter = PlanCompiler._topk_over
+        if rank_fn is not None:
+            def fn(env) -> Batch:
+                b = child.fn(env)
+                kk = min(k, int(b.sel.sum()))
+                idx = sort_ops.topk_indices(rank_fn(b), kk)
+                counter.calls += 1
+                counter.candidates += kk
+                return Batch(sort_ops.gather_rows(b.cols, idx, b.capacity),
+                             torch.ones(kk, dtype=torch.bool, device=dev))
+
+            return Lowered(child.schema, child.dicts, fn, capacity=min(k, child.capacity))
+
+        keys = [(self.compile(se.expr, child), se.asc) for se in plan.exprs]
+        first, first_asc = keys[0]
+        top = torch.iinfo(torch.int64).max
 
         def fn(env) -> Batch:
             b = child.fn(env)
-            kk = min(k, int(b.sel.sum()))
-            idx = sort_ops.topk_indices(rank_fn(b), kk)
-            cols = [
-                (d[idx], None if v is None else v[idx])
-                for d, v in (broadcast_col(c, b.capacity) for c in b.cols)
-            ]
-            return Batch(cols, torch.ones(kk, dtype=torch.bool, device=dev))
+            n = b.capacity
+            cand = b.sel
+            if n:
+                kd, kv = broadcast_col(first.fn(b.cols), n)
+                img = sort_ops.sort_operands(kd, None, first_asc)[0].to(torch.int64)
+                live = b.sel if kv is None else torch.logical_and(b.sel, kv)
+                img = torch.where(live, img, top)
+                thr = torch.topk(img, min(k, n), largest=False, sorted=False).values.max()
+                cand = torch.logical_and(b.sel, img <= thr)
+            rows = sort_ops.sorted_rows([(c.fn(b.cols), asc) for c, asc in keys], cand)
+            counter.calls += 1
+            counter.candidates += rows.shape[0]
+            rows = rows[:k]
+            return Batch(sort_ops.gather_rows(b.cols, rows, n),
+                         torch.ones(rows.shape[0], dtype=torch.bool, device=dev))
 
-        return Lowered(child.schema, child.dicts, fn, capacity=min(k, child.capacity))
+        return Lowered(child.schema, child.dicts, fn, capacity=min(k, child.capacity), route="threshold")
 
     def _packed_rank(self, plan: L.Sort, child: Lowered):
         """Multi-key ORDER BY ... LIMIT k via one packed lexicographic
@@ -1424,6 +1480,13 @@ class PlanCompiler:
                     bounds[li] = bounds[nl + ri] = cand
         cap = left.capacity + right.capacity if is_full else max(left.capacity, right.capacity)
         return run, dict(bounds=bounds, capacity=cap)
+
+
+# ORDER BY ... LIMIT's top-k selections run (on a mesh, one a shard and one
+# over the gathered candidates) and the candidate rows they kept, counted
+# on the host from shapes it already holds
+PlanCompiler._topk_over.calls = 0
+PlanCompiler._topk_over.candidates = 0
 
 
 def compile_plan(

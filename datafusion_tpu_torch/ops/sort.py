@@ -15,6 +15,7 @@ from typing import Optional, Sequence
 import torch
 
 from datafusion_tpu_torch.ops.expr_eval import ColVal, full
+from datafusion_tpu_torch.ops.pallas.segreduce import to_sortable_int
 
 
 def _directed_key(
@@ -37,6 +38,20 @@ def _directed_key(
     else:
         keys.append(data if asc else torch.bitwise_not(data))
     return keys
+
+
+def sort_operands(data: torch.Tensor, valid: Optional[torch.Tensor], asc: bool, nulls_first: bool = False
+                  ) -> list[torch.Tensor]:
+    """One sort key as ascending integer operands (`_directed_key`).
+    Floats compare on their order-preserving image, with every NaN made
+    the canonical one after +inf, where torch.sort puts NaNs; -0.0 and
+    0.0 share one image. Rows the sort ties tie here too."""
+    out = []
+    for o in _directed_key(data, valid, asc, nulls_first):
+        if o.dtype.is_floating_point:
+            o = to_sortable_int(torch.where(o.isnan(), torch.full((), float("nan"), dtype=o.dtype, device=o.device), o))
+        out.append(o)
+    return out
 
 
 def lexsort(keys: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -111,14 +126,10 @@ def packed_order(fields) -> tuple[torch.Tensor, torch.Tensor, int]:
     return perm, top, shift
 
 
-def sort_batch(
-    keys: Sequence[tuple],
-    cols: Sequence[ColVal],
-    sel: torch.Tensor,
-) -> list[ColVal]:
-    """Sort the selected rows by `keys` — `((data, valid), asc[,
-    nulls_first])` entries — and gather every column in that order.
-    Returns the selected rows only, compacted."""
+def sorted_rows(keys: Sequence[tuple], sel: torch.Tensor) -> torch.Tensor:
+    """The indices of the selected rows in the order of `keys` —
+    `((data, valid), asc[, nulls_first])` entries — ties in row order.
+    Returns as many indices as rows are selected (one host read)."""
     n = sel.shape[0]
     rows = torch.nonzero(sel).squeeze(1)
     operands: list[torch.Tensor] = []
@@ -128,11 +139,22 @@ def sort_batch(
         data = full(data, n)[rows]
         valid = None if valid is None else full(valid, n)[rows]
         operands.extend(_directed_key(data, valid, asc, nf))
-    perm = rows[lexsort(operands)] if operands else rows
-    return [
-        (full(d, n)[perm], None if v is None else full(v, n)[perm])
-        for d, v in cols
-    ]
+    return rows[lexsort(operands)] if operands else rows
+
+
+def gather_rows(cols: Sequence[ColVal], idx: torch.Tensor, n: int) -> list[ColVal]:
+    """Every column of an `n`-row batch at the row indices `idx`."""
+    return [(full(d, n)[idx], None if v is None else full(v, n)[idx]) for d, v in cols]
+
+
+def sort_batch(
+    keys: Sequence[tuple],
+    cols: Sequence[ColVal],
+    sel: torch.Tensor,
+) -> list[ColVal]:
+    """Sort the selected rows by `keys` (`sorted_rows`) and gather every
+    column in that order. Returns the selected rows only, compacted."""
+    return gather_rows(cols, sorted_rows(keys, sel), sel.shape[0])
 
 
 def topk_indices(rank: torch.Tensor, k: int) -> torch.Tensor:

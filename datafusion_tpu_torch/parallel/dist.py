@@ -16,8 +16,8 @@ ShardedBatch (exec/compiler.py):
     rows by the group keys through K5 and aggregate per shard, or, without
     GROUP BY, gather the rows and aggregate once
   * ORDER BY: a sample sort whose range exchange is K5
-    (parallel/shuffle.py); ORDER BY one key LIMIT k <= 4096: per-shard
-    top-k and a top-k of the gathered candidates
+    (parallel/shuffle.py); ORDER BY ... LIMIT k where k fits a shard
+    (`topk_fits`): per-shard top-k and a top-k of the gathered candidates
   * LIMIT: global row ranks from the per-shard counts
   * joins: the build side broadcast (all_gather) to every shard, or both
     sides hash-repartitioned by key through K5 (`_lower_join`)
@@ -78,6 +78,7 @@ from datafusion_tpu_torch.exec.compiler import (
     PlanCompiler,
     ShardedBatch,
     split_host_projection,
+    topk_fits,
 )
 from datafusion_tpu_torch.errors import ExecutionError
 from datafusion_tpu_torch.ops import aggregate as agg_ops
@@ -94,20 +95,6 @@ from datafusion_tpu_torch.types import DataType, torch_dtype
 from datafusion_tpu_torch.utils.trace import spanned
 
 OVERSAMPLE = 16  # sample-sort samples per shard
-TOPK_MAX = 4096  # ORDER BY one key LIMIT k: per-shard top-k up to this k
-
-
-def _sort_operands(kd: torch.Tensor, kv, asc: bool, nf: bool) -> list[torch.Tensor]:
-    """One ORDER BY key as ascending integer operands (ops/sort.py
-    `_directed_key`). Floats compare on their order-preserving image,
-    with every NaN made the canonical one after +inf, where torch.sort
-    puts NaNs; -0.0 and 0.0 share one image."""
-    out = []
-    for o in sort_ops._directed_key(kd, kv, asc, nf):
-        if o.dtype.is_floating_point:
-            o = to_sortable_int(torch.where(o.isnan(), torch.full((), float("nan"), dtype=o.dtype, device=o.device), o))
-        out.append(o)
-    return out
 
 
 def _merge_dense(op: str, tables: list[torch.Tensor], mesh: Mesh) -> torch.Tensor:
@@ -322,7 +309,7 @@ class DistCompiler(PlanCompiler):
                 ops = []
                 for kc, asc, nf in keys[card(d)]:
                     kd, kv = broadcast_col(kc.fn(b.cols), b.capacity)
-                    ops.extend(_sort_operands(kd, kv, asc, nf))
+                    ops.extend(sort_ops.sort_operands(kd, kv, asc, nf))
                 cols = sort_ops.sort_batch([((o, None), True) for o in ops], list(b.cols) + [(o, None) for o in ops],
                                            b.sel)
                 local.append(cols)
@@ -366,17 +353,25 @@ class DistCompiler(PlanCompiler):
 
     # -- limit ---------------------------------------------------------------
     def _lower_limit(self, plan: L.Limit) -> Lowered:
+        """LIMIT / OFFSET over the mesh. Over ORDER BY (NULLS LAST on every
+        key, any number and type of keys) whose k + offset fits a shard
+        (`topk_fits` over the child's capacity a shard), the per-shard
+        top-k (`_topk_dist`) and the offset's rows masked; else the sort's
+        stage and the global row ranks (`_limit_global`)."""
         off = plan.offset
         if (
             isinstance(plan.input, L.Sort)
-            and len(plan.input.exprs) == 1
-            and plan.input.exprs[0].nulls_first is not True
+            and all(se.nulls_first is not True for se in plan.input.exprs)
             and plan.limit is not None
-            and 0 < plan.limit + off <= TOPK_MAX
         ):
-            low = self._speculative(lambda: self._topk_dist(plan.input, plan.limit + off))
+            k = plan.limit + off
+            low = self._speculative(lambda: self._topk_dist(plan.input, k))
             if low is not None:
-                self.notes.append(f"sort+limit: per-shard top-k + candidate all_gather (k={plan.limit + off})")
+                if low.route == "threshold":
+                    self.notes.append(f"sort+limit: per-shard top-k (first-key threshold, {len(plan.input.exprs)} "
+                                      f"keys, k={k}) + candidate all_gather")
+                else:
+                    self.notes.append(f"sort+limit: per-shard top-k + candidate all_gather (k={k})")
                 return replace(self._per_shard(low, lambda c: self._skip_rows(c, off)), route="topk")
         child = self.lower(plan.input)
         if child.layout == "replicated":
@@ -384,12 +379,17 @@ class DistCompiler(PlanCompiler):
         return self._limit_global(self._as_dist(child), plan.limit, off)
 
     def _topk_dist(self, plan: L.Sort, k: int) -> Optional[Lowered]:
-        """ORDER BY key LIMIT k: a top-k per shard, the candidates'
-        all_gather (k per shard, in shard order), and one top-k over them.
-        Ties keep the global row order: lowest candidate index first."""
+        """ORDER BY ... LIMIT k: the single card's top-k selection on each
+        shard (`_topk_over`), the candidates' all_gather to the first card
+        (at most k a shard, in shard order), and one selection over them.
+        None where k does not fit a shard or the child is replicated.
+        Each shard's candidates are its first k rows of the full sort's
+        order, ties by lowest index, so the concatenation in shard order
+        holds the global first k with ties in global row order, and the
+        last selection, stable over it, keeps that order."""
         child = self.lower(plan.input)
-        if child.layout == "replicated":
-            return None  # the single-card top-k runs on the replicated rows
+        if child.layout == "replicated" or not topk_fits(k, -(-child.capacity // self.n_dev)):
+            return None  # the sort's own stage and the LIMIT serve it
         child = self._as_dist(child)
         cands = self._per_shard(child, lambda c: self._topk_over(plan, c, k))
         return self._per_shard(self._gather_batch(cands), lambda c: self._topk_over(plan, c, k))

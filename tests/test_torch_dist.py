@@ -151,7 +151,7 @@ CASES = [
     ("fold", "SELECT k, SUM(v) FROM t WHERE v > 5 GROUP BY k", "rows", "fused ragged-exchange fold"),
     ("random", "SELECT v FROM t ORDER BY v", "ordered", "distributed sample sort"),
     ("random", "SELECT v, k FROM t WHERE k < 20 ORDER BY v DESC", "1", "distributed sample sort"),
-    ("random", "SELECT k, v FROM t ORDER BY v DESC, k LIMIT 17", "ordered", "multi-key sample sort"),
+    ("random", "SELECT k, v FROM t ORDER BY v DESC, k LIMIT 17", "ordered", "per-shard top-k (first-key threshold"),
     ("random", "SELECT k, s, w FROM t ORDER BY k, s DESC, w", "3", "multi-key sample sort"),
     ("nulls_skew", "SELECT g, v, u FROM t ORDER BY g, v NULLS FIRST, u", "ordered", "multi-key sample sort"),
     ("nulls_skew", "SELECT g, v, u FROM t ORDER BY g DESC, v DESC, u", "ordered", "multi-key sample sort"),

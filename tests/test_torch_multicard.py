@@ -8,7 +8,9 @@ one launch per card over that card's receivers with every shard as a
 sender (here their plain versions, card by card). The queries are the
 card's phase-14 set (chip_smoke.py): m1-m8 of the mesh's main path, m10
 (the shuffle join), m11 (the repartitioned window) and m15 (the
-repartition aggregate), over a few thousand rows. Each result_str is
+repartition aggregate), with m6 both as the per-shard top-k and, under
+NULLS FIRST as chip_smoke.py runs it, as the multi-key sample sort, over
+a few thousand rows. Each result_str is
 held byte for byte to the port's one-device 8-shard mesh and to the JAX
 package's mesh on its 8 virtual CPU devices. The floats are multiples of
 1/256 below 2^6 (lat's all distinct, so no sort has ties), so every sum
@@ -100,7 +102,8 @@ QUERIES = {  # chip_smoke.py's phase-14 set: (SQL, ordered, the route EXPLAIN VE
            "fused ragged-exchange fold"),
     "m4": ("SELECT g, MIN(lat), COUNT(lat) FROM big WHERE lat > 51.0 GROUP BY g", False, "fused ragged-exchange fold"),
     "m5": ("SELECT k, SUM(lng), COUNT(*) FROM big GROUP BY k", False, "all_gather merge"),
-    "m6": ("SELECT k, d, lat FROM big ORDER BY k, d, lat LIMIT 1000", True, "multi-key sample sort"),
+    "m6": ("SELECT k, d, lat FROM big ORDER BY k, d, lat LIMIT 1000", True, "per-shard top-k (first-key threshold"),
+    "m6n": ("SELECT k, d, lat FROM big ORDER BY k, d, lat NULLS FIRST LIMIT 1000", True, "multi-key sample sort"),
     "m7": ("SELECT lat, g FROM big ORDER BY lat LIMIT 5000", True, "distributed sample sort"),
     "m8": ("SELECT k, lat FROM big ORDER BY lat DESC LIMIT 10", True, "per-shard top-k"),
     "m10": ("SELECT o_orderpriority, COUNT(big.lat), SUM(big.lat) FROM orders LEFT JOIN big "
